@@ -1,0 +1,15 @@
+from .batching import MolBatch, MolFeatures, bucket_size, collate
+from .binning import BinningError, bin_pack_batch
+from .preprocessing import PreprocessingConfig, PreprocessingPipeline, StandardScaler
+
+__all__ = [
+    "MolBatch",
+    "MolFeatures",
+    "bucket_size",
+    "collate",
+    "BinningError",
+    "bin_pack_batch",
+    "PreprocessingConfig",
+    "PreprocessingPipeline",
+    "StandardScaler",
+]

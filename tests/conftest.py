@@ -28,3 +28,9 @@ SAMPLE_DATA = "/root/reference/sample-data/qm9/sample-splits"
 
 def has_sample_data() -> bool:
     return os.path.exists(os.path.join(SAMPLE_DATA, "val.csv"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (runs on the card, skips elsewhere)"
+    )
