@@ -1,8 +1,9 @@
 """aimnet_x2d_tpu_torch — the PyTorch/CUDA port of ``aimnet_x2d_tpu``.
 
-The port serves trained models on an NVIDIA Hopper card: SMILES are
+The port trains and serves the model on an NVIDIA Hopper card: SMILES are
 featurized on the host, packed into 256-atom bins, and run through the
-shell-convolution GNN, whose message-passing stack and weighted pools are
+shell-convolution GNN, whose message-passing stack (forward and backward),
+attention pooling (forward and backward) and weighted pools are
 hand-written CUDA kernels (``csrc/``).  The JAX package next to it is the
 reference each module is checked against; the port imports nothing from it.
 

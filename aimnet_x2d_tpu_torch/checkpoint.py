@@ -6,8 +6,9 @@ An artifact is one ``.npz`` file: the flattened flax parameters under
 JSON blob under ``__artifact_meta__`` holding the model config, the
 preprocessing statistics and extras.  Both packages read and write the same
 files.  :func:`params_from_flax` turns the flat flax parameters into the
-port's state dict; :func:`init_params` makes a fresh flat parameter dict,
-with numpy only, with exactly the names and shapes of the JAX ``GNN.init``.
+port's state dict and :func:`params_to_flax` turns it back, bit for bit;
+:func:`init_params` makes a fresh flat parameter dict, with numpy only,
+with exactly the names and shapes of the JAX ``GNN.init``.
 """
 
 from __future__ import annotations
@@ -131,8 +132,21 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     for key, value in flat.items():
         name, transpose = torch_name(key)
         arr = np.asarray(value, np.float32)
-        sd[name] = torch.from_numpy(np.ascontiguousarray(arr.T if transpose else arr))
+        # np.array keeps 0-d arrays 0-d (ascontiguousarray would make them 1-d)
+        sd[name] = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
     return sd
+
+
+def params_to_flax(state_dict: Dict[str, torch.Tensor], cfg: GNNConfig) -> Dict[str, np.ndarray]:
+    """The port's state dict -> flat flax parameters (float32 numpy, kernels
+    back in flax's (in, out) orientation), under the names of the JAX
+    ``GNN.init`` for ``cfg``: the inverse of :func:`params_from_flax`."""
+    out = {}
+    for key in init_params(cfg, 0):
+        name, transpose = torch_name(key)
+        arr = state_dict[name].detach().cpu().float().numpy()
+        out[key] = np.array(arr.T if transpose else arr, order="C")
+    return out
 
 
 def init_params(cfg: GNNConfig, seed: int = 0) -> Dict[str, np.ndarray]:

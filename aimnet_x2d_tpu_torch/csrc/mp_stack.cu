@@ -1,8 +1,11 @@
 // Fused message-passing stack, forward, for the bin-packed layout.
 //
 // Replaces the TPU kernel aimnet_x2d_tpu/ops/bin_mp.py::_make_stack_op
-// (fwd_kernel, pallas_call of ``forward``) with residual=True, proj=False,
-// dropout=0.  For every 256-atom bin and every layer it computes, in the
+// (fwd_kernel, pallas_call of ``forward``, residual=True): serving form
+// (mp_stack_fwd) and training form (mp_stack_fwd_train: in-block dropout,
+// the proj=True x_other projection fold, each layer's input saved for the
+// backward in csrc/mp_stack_bwd.cu).  For every 256-atom bin and every
+// layer it computes, in the
 // feature-major layout (features on rows, the bin's atoms on columns):
 //
 //     agg = x adj^T                      per bin, int8 multiplicities
@@ -46,147 +49,20 @@
 // (later work): wgmma/TMA, weight tiles in shared memory, and more than
 // one bin in flight per SM (one 218 KB block per SM, so 160 bins take two
 // waves on 132 SMs).
+//
+// Training form.  Dropout follows the activation of each block's first
+// product (v = rnd(act(u)); kept -> rnd(v * scale), else 0), with the mask
+// drawn from the hash of (real feature row, global atom column, layer and
+// block tag, seed), bit-equal to the JAX mask; padded rows have v = 0, so
+// their mask bits never matter.  With the fold, a prologue computes
+// x0 = act(rnd(kb^T emb) + bb) per 64-atom tile straight into the bin's x.
+// Before each layer l runs, its input is copied to the saved-inputs array
+// (its real D rows), which the backward reads instead of recomputing the
+// chain.  The serving instantiation compiles none of this.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "common.cuh"
 
 namespace {
-
-// 10 warps: one 16-row strip each at the flagship width (Dp = 160), so no
-// warp waits on another's second strip.  The fp32 products use 256 of them.
-constexpr int kThreads = 320;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;           // atoms per post-aggregation column tile
-constexpr int kLdT = kTile + 8;     // padded row stride of the tile buffers
-constexpr int kAhead = 4;           // weight fragments a warp keeps in flight
-constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round to the compute dtype (identity in fp32).
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-// Activation codes: utils/activation.py ACTIVATION_CODES.
-__device__ __forceinline__ float act_fn(int act, float u) {
-  switch (act) {
-    case 0: return u / (1.0f + expf(-u));
-    case 1: return fmaxf(u, 0.0f);
-    case 2: return u >= 0.0f ? u : 0.01f * u;
-    case 3: return u > 0.0f ? u : expm1f(u);
-    default: return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-  }
-}
-
-// C (M x kTile) = A (M x K) * B (K x kTile), where rows k < ksplit of B
-// come from B0 and the rest from B1 (row stride ldb).  A is row-major with
-// row stride lda, or, when a_tiled, tile-major: its 16 x 16 tiles stored
-// one after another (row of tiles by row of tiles), each 512 contiguous
-// bytes, as the wrapper lays out the bf16 weights so that a warp's fragment
-// load reads whole sectors.  M, K and ksplit are multiples of 16.  Calls
-// epi(row, col, acc) once per element of C.  bf16: tensor cores; each warp
-// owns 16-row strips.
-template <class Epi>
-__device__ void gemm_tile(const __nv_bfloat16* A, int lda, bool a_tiled, int M, int K,
-                          const __nv_bfloat16* B0, const __nv_bfloat16* B1, int ldb,
-                          int ksplit, float* stage, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = stage + warp * 256;
-  for (int m0 = warp * 16; m0 < M; m0 += kWarps * 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kTile / 16];
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    // A may be a weight matrix in global memory (L2): keep the fragments of
-    // the next kAhead k-steps in flight, to overlap their latency
-    const __nv_bfloat16* arow = A + (size_t)m0 * (a_tiled ? K : lda);
-    const int a_step = a_tiled ? 256 : 16, a_ld = a_tiled ? 16 : lda;
-    const int nk = K / 16;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[kAhead];
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s)
-      if (s < nk) wmma::load_matrix_sync(a[s], arow + a_step * s, a_ld);
-    for (int k0 = 0; k0 < nk; k0 += kAhead) {
-#pragma unroll
-      for (int s = 0; s < kAhead; ++s) {
-        const int k = k0 + s;
-        if (k < nk) {
-          const __nv_bfloat16* brow =
-              16 * k < ksplit ? B0 + (size_t)16 * k * ldb : B1 + (size_t)(16 * k - ksplit) * ldb;
-#pragma unroll
-          for (int j = 0; j < kTile / 16; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, brow + j * 16, ldb);
-            wmma::mma_sync(acc[j], a[s], b, acc[j]);
-          }
-          if (k + kAhead < nk) wmma::load_matrix_sync(a[s], arow + a_step * (k + kAhead), a_ld);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = lane + 32 * i;
-        epi(m0 + e / 16, j * 16 + e % 16, st[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// fp32: full-precision FMA on the CUDA cores, A row-major (fp32 weights are
-// not tiled).  256 threads as 16 x 16 (the rest idle); each thread owns a
-// 4 x 4 block of C per 64-row pass.
-template <class Epi>
-__device__ void gemm_tile(const float* A, int lda, bool /*a_tiled*/, int M, int K, const float* B0,
-                          const float* B1, int ldb, int ksplit, float* /*stage*/, Epi epi) {
-  if (threadIdx.x >= 256) return;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int m0 = 0; m0 < M; m0 += 64) {
-    float acc[4][4];
-    int rows[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      rows[i] = min(m0 + ty * 4 + i, M - 1);  // clamped reads; writes guarded below
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    }
-    // unrolled so that the loads of several k-steps are in flight together
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float* brow = k < ksplit ? B0 + (size_t)k * ldb : B1 + (size_t)(k - ksplit) * ldb;
-      const float4 b = *reinterpret_cast<const float4*>(brow + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = A[(size_t)rows[i] * lda + k];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + ty * 4 + i;
-      if (r < M) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) epi(r, tx * 4 + j, acc[i][j]);
-      }
-    }
-  }
-}
 
 template <typename T>
 size_t smem_bytes(int Dp, int ab, int n_blocks, int global_mode) {
@@ -202,11 +78,16 @@ size_t smem_bytes(int Dp, int ab, int n_blocks, int global_mode) {
 // columns.  global_mode: out is (Dp, A) and also holds the bin's x while
 // the block works; agg_g is a (Dp, A) scratch.  Otherwise x and agg live
 // in shared memory and out is (D, A).
-template <typename T>
+// Training arguments (read only when kTrain): pw = [kb^T (Dp x E), bb (Dp)]
+// of the fold (E > 0) with x_in then the embeddings (E, A); xs the saved
+// inputs, slot l - xs_first for layer l >= xs_first; dropout with mask
+// threshold and the scale rounded to the compute dtype.
+template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __restrict__ adj,
                 const T* __restrict__ w, int D, int Dp, int A, int ab, int n_layers,
-                int n_blocks, int act, int global_mode) {
+                int n_blocks, int act, int global_mode, const T* __restrict__ pw, T* xs, int E,
+                int xs_first, int dropout, unsigned seed, unsigned thresh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bin = blockIdx.x;
   const size_t col0 = (size_t)bin * ab;
@@ -236,16 +117,29 @@ mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __re
 
   // 16-byte loads and stores (ab, A and the row strides are multiples of 8)
   constexpr int V = 16 / sizeof(T);
-  for (int e = threadIdx.x; e < Dp * ab / V; e += kThreads) {
-    const int r = e / (ab / V), c = e % (ab / V) * V;
-    int4 v = make_int4(0, 0, 0, 0);  // padded rows: +0.0
-    if (r < D) v = *reinterpret_cast<const int4*>(x_in + (size_t)r * A + col0 + c);
-    *reinterpret_cast<int4*>(xb + (size_t)r * ld + c) = v;
+  const bool tiled = sizeof(T) == 2;  // bf16 weight matrices are tile-major
+  if (kTrain && E > 0) {
+    // fold: x0 = act(rnd(kb^T emb) + bb), tile by tile, into the bin's x
+    for (int e = threadIdx.x; e < Dp; e += kThreads) bias[e] = pw[(size_t)Dp * E + e];
+    __syncthreads();
+    for (int c0 = 0; c0 < ab; c0 += kTile) {
+      const T* be = x_in + col0 + c0;
+      gemm_tile(pw, E, tiled, Dp, E, be, be, A, E, stage, [&](int r, int c, float v) {
+        xb[(size_t)r * ld + c0 + c] = from_f<T>(act_fn(act, rnd<T>(rnd<T>(v) + to_f(bias[r]))));
+      });
+    }
+    __syncthreads();
+  } else {
+    for (int e = threadIdx.x; e < Dp * ab / V; e += kThreads) {
+      const int r = e / (ab / V), c = e % (ab / V) * V;
+      int4 v = make_int4(0, 0, 0, 0);  // padded rows: +0.0
+      if (r < D) v = *reinterpret_cast<const int4*>(x_in + (size_t)r * A + col0 + c);
+      *reinterpret_cast<int4*>(xb + (size_t)r * ld + c) = v;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int K2 = 2 * Dp;
-  const bool tiled = sizeof(T) == 2;  // bf16 weight matrices are tile-major
   const size_t mat2 = (size_t)Dp * K2, mat1 = (size_t)Dp * Dp;
   const size_t block_sz = 2 * mat1 + 2 * (size_t)Dp;
   const size_t layer_sz = 2 * mat2 + 2 * (size_t)Dp + (size_t)n_blocks * block_sz;
@@ -257,6 +151,15 @@ mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __re
     const T* w_in = w + (size_t)l * layer_sz;
     const T* w_s = w_in + mat2 + Dp;
     const T* blocks = w_s + mat2 + Dp;
+
+    if (kTrain && l >= xs_first) {  // this layer's input, for the backward
+      T* dst = xs + (size_t)(l - xs_first) * D * A + col0;
+      for (int e = threadIdx.x; e < D * ab / V; e += kThreads) {
+        const int r = e / (ab / V), c = e % (ab / V) * V;
+        *reinterpret_cast<int4*>(dst + (size_t)r * A + c) =
+            *reinterpret_cast<const int4*>(xb + (size_t)r * ld + c);
+      }
+    }
 
     // biases to shared memory (the aggregation's first barrier publishes them)
     for (int e = threadIdx.x; e < (2 + 2 * n_blocks) * Dp; e += kThreads) {
@@ -296,9 +199,13 @@ mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __re
         const T* w2 = w1 + mat1 + Dp;
         const T* b1 = bias + (2 + 2 * i) * Dp;
         const T* b2 = b1 + Dp;
+        const unsigned mix = seed + (unsigned)(l * n_blocks + i) * 0x9E3779B9u;
         gemm_tile(w1, Dp, tiled, Dp, Dp, hbuf, hbuf, kLdT, Dp, stage, [&](int r, int c, float v) {
           const float u = rnd<T>(rnd<T>(v) + to_f(b1[r]));
-          vbuf[r * kLdT + c] = from_f<T>(act_fn(act, u));
+          float a = act_fn(act, u);
+          if (kTrain && dropout)
+            a = drop_keep(r, (unsigned)(col0 + c0 + c), mix, thresh) ? rnd<T>(a) * scale : 0.0f;
+          vbuf[r * kLdT + c] = from_f<T>(a);
         });
         __syncthreads();
         gemm_tile(w2, Dp, tiled, Dp, Dp, vbuf, vbuf, kLdT, Dp, stage, [&](int r, int c, float v) {
@@ -331,19 +238,22 @@ mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __re
   }
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 int launch(const void* x, void* out, void* agg, const void* adj, const void* w, int D, int Dp,
            int A, int nb, int ab, int n_layers, int n_blocks, int act, int global_mode,
-           cudaStream_t stream) {
+           cudaStream_t stream, const void* pw = nullptr, void* xs = nullptr, int E = 0,
+           int xs_first = 1, int dropout = 0, unsigned seed = 0, unsigned thresh = 0,
+           float scale = 1.0f) {
   const size_t bytes = smem_bytes<T>(Dp, ab, n_blocks, global_mode);
   if (bytes > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mp_stack_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(mp_stack_kernel<T, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  mp_stack_kernel<T><<<nb, kThreads, bytes, stream>>>(
+  mp_stack_kernel<T, kTrain><<<nb, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(agg),
       static_cast<const int8_t*>(adj), static_cast<const T*>(w), D, Dp, A, ab, n_layers,
-      n_blocks, act, global_mode);
+      n_blocks, act, global_mode, static_cast<const T*>(pw), static_cast<T*>(xs), E, xs_first,
+      dropout, seed, thresh, scale);
   return (int)cudaGetLastError();
 }
 
@@ -365,10 +275,25 @@ int mp_stack_fwd(const void* x, void* out, void* agg, const void* adj, const voi
                  int D, int Dp, int A, int nb, int ab, int n_layers, int n_blocks, int act,
                  int global_mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers, n_blocks,
-                                      act, global_mode, s)
-              : launch<float>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers, n_blocks, act,
-                              global_mode, s);
+  return bf16 ? launch<__nv_bfloat16, false>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers,
+                                             n_blocks, act, global_mode, s)
+              : launch<float, false>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers, n_blocks,
+                                     act, global_mode, s);
+}
+
+// Training form: pw = [kb^T, bb] of the fold (E > 0) or null; xs receives
+// the inputs of layers xs_first.. (D rows each).  Returns cudaGetLastError().
+int mp_stack_fwd_train(const void* x, void* out, void* agg, const void* adj, const void* w,
+                       const void* pw, void* xs, int bf16, int D, int Dp, int E, int A, int nb,
+                       int ab, int n_layers, int n_blocks, int act, int global_mode, int xs_first,
+                       int dropout, unsigned seed, unsigned thresh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, true>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers,
+                                            n_blocks, act, global_mode, s, pw, xs, E, xs_first,
+                                            dropout, seed, thresh, scale)
+              : launch<float, true>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers, n_blocks,
+                                    act, global_mode, s, pw, xs, E, xs_first, dropout, seed,
+                                    thresh, scale);
 }
 
 const char* mp_stack_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -9,8 +9,10 @@ order of molecules is preserved, so a masked selection of graph-level
 outputs yields input order.
 
 The functions here are copies of the JAX package's host code, so both
-packages lay out identical batches.  Only in-order packing is ported; the
-size-sorted packing of the training loaders comes with training.
+packages lay out identical batches: in-order packing for serving and
+evaluation (outputs stay aligned with input rows), and size-descending
+packing (``size_sort``) for training loaders, whose batch is a set of
+molecules and packs tighter in that order.
 """
 
 from __future__ import annotations
@@ -132,19 +134,38 @@ def plan_bin_counts(mol_sizes: np.ndarray, ab: int, mb: int):
     return nb, mx
 
 
+def plan_bins_sorted(mol_sizes: np.ndarray, ab: int, mb: int):
+    """:func:`plan_bins` on the size-descending order, the results mapped
+    back to input molecule positions (training loaders only)."""
+    sizes = np.asarray(mol_sizes)
+    perm = np.argsort(-sizes, kind="stable")
+    b_s, l_s, s_s, nbins = plan_bins(sizes[perm], ab, mb)
+    bin_of = np.empty_like(b_s)
+    local = np.empty_like(l_s)
+    start = np.empty_like(s_s)
+    bin_of[perm] = b_s
+    local[perm] = l_s
+    start[perm] = s_s
+    return bin_of, local, start, nbins
+
+
 def bin_pack_batch(
     batch: MolBatch,
     *,
     ab: int = DEFAULT_AB,
     mb: int = DEFAULT_MB,
     pins: dict | None = None,
+    size_sort: bool = False,
 ) -> MolBatch:
     """Re-lay a collated batch into the binned layout and attach the dense
     per-bin aggregation/pooling matrices.
 
     ``pins`` (mutated) carries {"bins": n} so loaders keep one static shape;
-    the bin count is bucket-laddered.  Raises :class:`BinningError` when a
-    molecule exceeds ``ab`` atoms.
+    the bin count is bucket-laddered.  ``size_sort`` packs molecules in
+    size-descending order (:func:`plan_bins_sorted`, training only) and
+    regroups the edge and stereo rows into packed-molecule order, as the JAX
+    package does.  Raises :class:`BinningError` when a molecule exceeds
+    ``ab`` atoms.
     """
     amask = np.asarray(batch.atom_mask)
     amol = np.asarray(batch.atom_mol)
@@ -153,7 +174,13 @@ def bin_pack_batch(
     mol_sizes = np.bincount(amol[amask], minlength=B_real)
 
     mb = adaptive_mb_cap(mol_sizes, ab, mb)
-    bin_of, local, start, nbins = plan_bins(mol_sizes, ab, mb)
+    if size_sort:
+        bin_of, local, start, nbins = plan_bins_sorted(mol_sizes, ab, mb)
+        mol_rank = np.empty(B_real, np.int64)
+        mol_rank[np.argsort(-mol_sizes, kind="stable")] = np.arange(B_real)
+    else:
+        bin_of, local, start, nbins = plan_bins(mol_sizes, ab, mb)
+        mol_rank = None
 
     nbins_padded = bucket_size(nbins, align=8)
     # molecule-slot axis sized to the OBSERVED max molecules per bin (not
@@ -196,6 +223,22 @@ def bin_pack_batch(
     dst2 = np.where(emask, old2new[np.asarray(batch.edge_dst)], A2).astype(np.int32)
     edge_hop2 = np.asarray(batch.edge_hop)
     emask2 = emask
+    if mol_rank is not None:
+        # real edges regrouped into packed-molecule order (stable within a
+        # molecule), padding after them
+        real = np.nonzero(emask)[0]
+        emol = amol[np.asarray(batch.edge_dst)[real]]
+        order = real[np.argsort(mol_rank[emol], kind="stable")]
+        E_slots = src2.shape[0]
+        ns = np.zeros(E_slots, np.int32)
+        nd = np.full(E_slots, A2, np.int32)
+        nh = np.zeros(E_slots, edge_hop2.dtype)
+        nm = np.zeros(E_slots, bool)
+        ns[: order.size] = src2[order]
+        nd[: order.size] = dst2[order]
+        nh[: order.size] = edge_hop2[order]
+        nm[: order.size] = True
+        src2, dst2, edge_hop2, emask2 = ns, nd, nh, nm
 
     # --- dense per-bin adjacency (multiplicity counts hop-duplicate edges,
     # preserving the union-over-hops Q1 semantics exactly) ---
@@ -225,18 +268,44 @@ def bin_pack_batch(
         ix = np.asarray(ix)
         return old2new[np.clip(ix, 0, A0)].astype(np.int32)
 
-    tet_nbrs2 = np.where(
-        np.asarray(batch.tet_mask)[:, None], _remap_idx(batch.tet_nbrs), A2
-    ).astype(np.int32)
-    tet_mask2 = np.asarray(batch.tet_mask)
-    cis2 = np.where(
-        np.asarray(batch.cis_mask)[:, None], _remap_idx(batch.cis_pairs), A2
-    ).astype(np.int32)
-    cis_mask2 = np.asarray(batch.cis_mask)
-    trans2 = np.where(
-        np.asarray(batch.trans_mask)[:, None], _remap_idx(batch.trans_pairs), A2
-    ).astype(np.int32)
-    trans_mask2 = np.asarray(batch.trans_mask)
+    def _sorted_rows(rows, mask, width, blocks=1):
+        """Remapped stereo rows regrouped into packed-molecule order (cis and
+        trans keep their [originals | reversed] two-block structure)."""
+        rows = np.asarray(rows)
+        mask = np.asarray(mask)
+        out = np.full((rows.shape[0], width), A2, np.int32)
+        msk = np.zeros(rows.shape[0], bool)
+        real = np.nonzero(mask)[0]
+        if real.size == 0:
+            return out, msk
+        per = real.size // blocks
+        pos = 0
+        for b in range(blocks):
+            blk = real[b * per : (b + 1) * per]
+            rmol = amol[np.clip(rows[blk, 0], 0, A0 - 1)]
+            order = blk[np.argsort(mol_rank[rmol], kind="stable")]
+            out[pos : pos + order.size] = old2new[np.clip(rows[order], 0, A0)].astype(np.int32)
+            msk[pos : pos + order.size] = True
+            pos += order.size
+        return out, msk
+
+    if mol_rank is not None:
+        tet_nbrs2, tet_mask2 = _sorted_rows(batch.tet_nbrs, batch.tet_mask, 4)
+        cis2, cis_mask2 = _sorted_rows(batch.cis_pairs, batch.cis_mask, 2, blocks=2)
+        trans2, trans_mask2 = _sorted_rows(batch.trans_pairs, batch.trans_mask, 2, blocks=2)
+    else:
+        tet_nbrs2 = np.where(
+            np.asarray(batch.tet_mask)[:, None], _remap_idx(batch.tet_nbrs), A2
+        ).astype(np.int32)
+        tet_mask2 = np.asarray(batch.tet_mask)
+        cis2 = np.where(
+            np.asarray(batch.cis_mask)[:, None], _remap_idx(batch.cis_pairs), A2
+        ).astype(np.int32)
+        cis_mask2 = np.asarray(batch.cis_mask)
+        trans2 = np.where(
+            np.asarray(batch.trans_mask)[:, None], _remap_idx(batch.trans_pairs), A2
+        ).astype(np.int32)
+        trans_mask2 = np.asarray(batch.trans_mask)
 
     tet_bin = tet_bin_tables(tet_nbrs2, tet_mask2, nbins_padded, ab, pins=pins)
 
@@ -264,7 +333,7 @@ def bin_pack_batch(
         bin_adj=adj,
         pool_mat=pool,
         tet_bin=tet_bin,
-        # in-order packing remaps real atoms monotonically, so dst-major
-        # edge order survives
+        # both plans keep dst-major edge order: in-order packing remaps real
+        # atoms monotonically, and the sorted plan regroups whole molecules
         edges_dst_sorted=batch.edges_dst_sorted,
     )

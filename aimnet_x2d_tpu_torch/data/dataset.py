@@ -1,11 +1,13 @@
 """Featurized datasets and the binned batch loader (counterpart of
 aimnet_x2d_tpu/data/dataset.py).
 
-The port serves on the binned, fixed-shape, single-device layout only:
-every batch is collated, then packed whole-molecule into ``bin_ab``-atom bins
-(data/binning.py).  A molecule larger than a bin raises
-:class:`~.binning.BinningError`; the flat layout that would take it is not
-ported yet.
+The port trains and serves on the binned, fixed-shape, single-device layout
+only: every batch is collated, then packed whole-molecule into
+``bin_ab``-atom bins (data/binning.py).  A training loader shuffles with
+``np.random.default_rng(seed + epoch)`` and packs size-descending, as the
+JAX loader does; evaluation and serving loaders keep input order.  A
+molecule larger than a bin raises :class:`~.binning.BinningError`; the flat
+layout that would take it is not ported yet.
 """
 
 from __future__ import annotations
@@ -58,6 +60,21 @@ class MoleculeDataset:
     def __len__(self) -> int:
         return len(self.features)
 
+    @property
+    def num_tasks(self) -> int:
+        return int(self.targets.shape[1])
+
+    def atomic_numbers(self) -> List[np.ndarray]:
+        return [f.atomic_numbers for f in self.features]
+
+    def with_targets(self, targets: np.ndarray) -> "MoleculeDataset":
+        t = np.asarray(targets, np.float32)
+        if t.ndim == 1:
+            t = t[:, None]
+        if len(t) != len(self.features):
+            raise ValueError(f"{len(t)} target rows for {len(self.features)} molecules")
+        return dataclasses.replace(self, targets=t)
+
     @classmethod
     def from_smiles(
         cls, smiles: Sequence[str], targets: np.ndarray, max_hops: int
@@ -67,10 +84,13 @@ class MoleculeDataset:
 
 
 class BatchLoader:
-    """Yields binned, fixed-shape :class:`MolBatch` objects in input order.
+    """Yields binned, fixed-shape :class:`MolBatch` objects.
 
-    Graph-level outputs of a batch are in input order after masking with
-    ``graph_mask``.  ``warm_bin_pins`` and ``pin_slots`` keep one batch
+    Without ``shuffle``, batches come in input order, and graph-level
+    outputs of a batch are in input order after masking with ``graph_mask``.
+    With it, the order of epoch ``e`` (``set_epoch``) is a permutation from
+    ``np.random.default_rng(seed + e)`` and each batch is packed
+    size-descending.  ``warm_bin_pins`` and ``pin_slots`` keep one batch
     shape across batches and loaders, so the device sees few distinct
     shapes (fewer allocator sizes; the same contract as the JAX loader,
     whose compiled step needs it).
@@ -82,9 +102,15 @@ class BatchLoader:
         batch_size: int,
         bin_ab: int = DEFAULT_AB,
         bin_mb: int = DEFAULT_MB,
+        shuffle: bool = False,
+        seed: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.size_sort = shuffle
+        self.seed = seed
+        self._epoch = 0
         self.bin_ab = bin_ab
         self.bin_mb = bin_mb
         self._bin_pins: dict = {}
@@ -136,6 +162,8 @@ class BatchLoader:
         for idx in self._batch_indices():
             sizes = sizes_all[idx]
             cap = adaptive_mb_cap(sizes, self.bin_ab, self.bin_mb)
+            if self.size_sort:  # the packer plans size-descending
+                sizes = -np.sort(-sizes)
             nb, mbeff = plan_bin_counts(sizes, self.bin_ab, cap)
             bins = max(bins, bucket_size(nb, align=8))
             mb = max(mb, bucket_size(mbeff, align=8))
@@ -148,9 +176,14 @@ class BatchLoader:
     def __len__(self) -> int:
         return math.ceil(len(self.dataset) / self.batch_size)
 
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
         order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
         return [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
 
     def _collate(self, idx: np.ndarray) -> MolBatch:
@@ -164,7 +197,8 @@ class BatchLoader:
             tet_slots=self.tet_slots,
             pair_slots=self.pair_slots,
         )
-        return bin_pack_batch(batch, ab=self.bin_ab, mb=self.bin_mb, pins=self._bin_pins)
+        return bin_pack_batch(batch, ab=self.bin_ab, mb=self.bin_mb, pins=self._bin_pins,
+                              size_sort=self.size_sort)
 
     def __iter__(self) -> Iterator[MolBatch]:
         for idx in self._batch_indices():

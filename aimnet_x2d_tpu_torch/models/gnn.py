@@ -1,4 +1,4 @@
-"""The GNN model, serving forward (counterpart of aimnet_x2d_tpu/models/gnn.py).
+"""The GNN model (counterpart of aimnet_x2d_tpu/models/gnn.py).
 
 Forward on the binned, feature-major fast path (the JAX ``use_stack`` path):
 
@@ -10,9 +10,17 @@ Forward on the binned, feature-major fast path (the JAX ``use_stack`` path):
    (attention, mean or sum; ops/bin_wpool.py kernel)
 5. post_pooling_projection -> FFN -> [h, skip_transform(h)] -> output_layer
 
-Charges, stereochemistry, 1-layer stacks, max pooling, the flat layout,
-dropout and training are later slices of the port; the model raises
-NotImplementedError for them rather than running anything else.
+``forward(batch, train=True)`` is the training forward of the JAX train
+step (``train_mode=True``, dropout on), differentiable end to end: the
+stack takes the embeddings and folds the x_other projection in (kernels 1,
+1b, 1c), attention pooling takes the embeddings and folds the x_self
+projection in (kernel 3), so neither projection is computed outside the
+kernels; the stack's dropout seed is one int32 per step, and the FFN's
+dropout masks come from a ``torch.Generator``.
+
+Charges, stereochemistry, 1-layer stacks, max pooling and the flat layout
+are later slices of the port, as is training with mean or sum pooling; the
+model raises NotImplementedError for them rather than running anything else.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 from torch import nn
 
 from ..data.batching import MolBatch
-from ..ops.bin_mp import StackWeights, binned_mp_stack_t, stack_weights
+from ..ops.bin_mp import StackWeights, binned_mp_stack_t, binned_mp_stack_train_t, stack_weights
 from ..ops.embed import embed_concat_onehot_t
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
@@ -159,7 +167,7 @@ class GNN(nn.Module):
         self.post_pooling_projection = Linear(H, cfg.ffn_dim, cdt)
         self.ffn = MultiLayerPerceptron(
             cfg.ffn_dim, cfg.ffn_dim, cfg.ffn_dim, cfg.ffn_num_layers, cfg.activation_type,
-            use_skip=True, dtype=cdt,
+            use_skip=True, dtype=cdt, dropout=cfg.ffn_dropout,
         )
         self.skip_transform = Linear(cfg.ffn_dim, cfg.ffn_dim, cdt)
         self.output_layer = Linear(2 * cfg.ffn_dim, cfg.final_output_dim)
@@ -180,13 +188,26 @@ class GNN(nn.Module):
             self._stack_cache = (key, sw)
         return self._stack_cache[1]
 
-    def forward(self, batch: MolBatch, atom_embeddings: bool = False) -> GNNOutput:
+    def forward(
+        self,
+        batch: MolBatch,
+        atom_embeddings: bool = False,
+        train: bool = False,
+        drop_seed: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> GNNOutput:
         """``batch``: a binned MolBatch of torch tensors (``MolBatch.to``).
         ``atom_embeddings``: also return the (A, hidden) atom embeddings,
-        which cost an A x hidden x hidden product and are skipped otherwise."""
+        which cost an A x hidden x hidden product and are skipped otherwise.
+        ``train``: the training forward (see the module docstring), with the
+        stack's dropout seed ``drop_seed`` (drawn from ``generator`` when not
+        given) and the FFN's dropout masks from ``generator`` (no FFN
+        dropout without one)."""
         cfg = self.config
         if batch.bin_adj is None or batch.pool_mat is None:
             raise NotImplementedError("the flat (non-binned) layout is not ported yet")
+        if train:
+            return self._forward_train(batch, drop_seed, generator)
         act = get_activation_function(cfg.activation_type)
         dt = self.compute_dtype
         cdt = dt if dt == torch.bfloat16 else None
@@ -226,14 +247,45 @@ class GNN(nn.Module):
             pooled = [binned_sum_pool_t(p, pm) for p in (x_self, x_other)]
             mol = pool_then_project(pooled, pm.sum(dim=2).reshape(-1), k_cs, b_cs, dt)
 
-        # 5. head
-        h = self.ffn(self.post_pooling_projection(mol))
+        return self._head(mol, attention_weights, atom_emb, None)
+
+    def _head(self, mol, attention_weights, atom_emb, generator) -> GNNOutput:
+        h = self.ffn(self.post_pooling_projection(mol), generator)
         final = torch.cat([h, self.skip_transform(h)], dim=-1).float()
-        predictions = self.output_layer(final)
         return GNNOutput(
-            predictions=predictions,
+            predictions=self.output_layer(final),
             attention_weights=attention_weights,
             partial_charges=None,
             atom_embeddings=atom_emb,
             mol_embeddings=mol,
         )
+
+    def _forward_train(self, batch: MolBatch, drop_seed: Optional[int],
+                       generator: Optional[torch.Generator]) -> GNNOutput:
+        cfg = self.config
+        if cfg.pooling_type != "attention":
+            raise NotImplementedError(
+                f"training with {cfg.pooling_type} pooling is not ported yet (it needs the "
+                "weighted pool's backward kernel)")
+        dt = self.compute_dtype
+        tables = [getattr(self, f"{n}_embedding").weight for n in _EMBEDDINGS]
+        embT = embed_concat_onehot_t(tables, [getattr(batch, n) for n in _EMBEDDINGS], dtype=dt)
+        W, b = self.embedding_projection.weight, self.embedding_projection.bias
+        xs = cfg.x_self_dim
+        rate = cfg.shell_conv_dropout
+        if rate > 0.0 and drop_seed is None:
+            if generator is None:
+                raise ValueError("training with dropout needs drop_seed or a generator")
+            drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
+                                          device=generator.device))
+        x_other = binned_mp_stack_train_t(
+            embT, batch.bin_adj, [layer.stack_weights() for layer in self.message_passing_layers],
+            dt, act=cfg.activation_type, dropout=rate, seed=drop_seed or 0,
+            proj_weights=(W[xs:].T, b[xs:]),
+        )
+        k_cs = self.concat_self_other.weight.T
+        mol, attn = self.pooling.forward_train(
+            embT, W[:xs].T, b[:xs], cfg.activation_type, x_other, batch.pool_mat,
+            (k_cs, self.concat_self_other.bias),
+        )
+        return self._head(mol, attn, None, generator)

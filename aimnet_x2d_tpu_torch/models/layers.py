@@ -43,20 +43,34 @@ class Linear(nn.Module):
         return y + self.bias.to(y.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    1 - rate, scale kept values by 1/(1 - rate) in x's dtype.  The mask is
+    drawn from ``generator`` (its device must be x's); without one, or at
+    rate 0, x is returned unchanged.  Flax's threefry stream cannot be
+    reproduced, so masks agree with the JAX package in distribution only."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class LinearBlock(nn.Module):
-    """Linear -> act -> (dropout) -> Linear, with an identity skip when the
-    widths match.  Serving runs without dropout."""
+    """Linear -> act -> dropout -> Linear, with an identity skip when the
+    widths match.  Dropout runs only when ``forward`` gets a generator."""
 
     def __init__(self, in_features: int, features: int, activation_type: str = "silu",
-                 use_skip: bool = True, dtype: Optional[torch.dtype] = None):
+                 use_skip: bool = True, dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.linear1 = Linear(in_features, features, dtype)
         self.linear2 = Linear(features, features, dtype)
         self.act = get_activation_function(activation_type)
         self.use_skip = use_skip and in_features == features
+        self.rate = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.linear2(self.act(self.linear1(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.linear2(dropout(self.act(self.linear1(x)), self.rate, generator))
         if self.use_skip:
             out = out + x.to(out.dtype)
         return out
@@ -67,22 +81,23 @@ class MultiLayerPerceptron(nn.Module):
 
     def __init__(self, in_features: int, hidden_dim: int, output_dim: int, num_layers: int = 2,
                  activation_type: str = "silu", use_skip: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
+        act, d = activation_type, dropout
         if num_layers == 1:
-            blocks = [LinearBlock(in_features, output_dim, activation_type, False, dtype)]
+            blocks = [LinearBlock(in_features, output_dim, act, False, dtype, d)]
         else:
-            blocks = [LinearBlock(in_features, hidden_dim, activation_type, False, dtype)]
+            blocks = [LinearBlock(in_features, hidden_dim, act, False, dtype, d)]
             blocks += [
-                LinearBlock(hidden_dim, hidden_dim, activation_type, use_skip, dtype)
+                LinearBlock(hidden_dim, hidden_dim, act, use_skip, dtype, d)
                 for _ in range(num_layers - 2)
             ]
-            blocks.append(LinearBlock(hidden_dim, output_dim, activation_type, False, dtype))
+            blocks.append(LinearBlock(hidden_dim, output_dim, act, False, dtype, d))
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         return x
 
 

@@ -14,6 +14,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.bin_attnpool import binned_attnpool_proj_t
 from ..ops.bin_wpool import binned_wpool_t
 from .layers import Linear, mm32
 
@@ -98,6 +99,37 @@ class MultiHeadAttentionPooling(nn.Module):
         self.temperature = nn.Parameter(torch.ones(()))
         self.attention_weights = nn.ModuleList(Linear(in_features, 1) for _ in range(num_heads))
 
+    def _score_fold(self, k_cs: torch.Tensor, b_cs: torch.Tensor):
+        """The heads' scores folded through concat_self_other: (in, H), (H,)."""
+        kernel = torch.cat([h.weight.T for h in self.attention_weights], dim=1)  # (D, H)
+        bias = torch.cat([h.bias for h in self.attention_weights])  # (H,)
+        return k_cs @ kernel, b_cs @ kernel + bias
+
+    def forward_train(
+        self,
+        embT: torch.Tensor,
+        k_self: torch.Tensor,
+        b_self: torch.Tensor,
+        act: str,
+        x_other: torch.Tensor,
+        pool_mat: torch.Tensor,
+        pre_proj: Tuple[torch.Tensor, torch.Tensor],
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training path (the JAX fused branch): the fused op recomputes
+        x_self = act(k_self^T emb + b_self) in its kernels, with the score
+        kernel folded through concat_self_other and divided by the
+        temperature outside it, in plain autograd.  Returns (mol (B, hidden)
+        fp32, attention weights (H, A))."""
+        k_cs, b_cs = pre_proj
+        score_k, score_b = self._score_fold(k_cs, b_cs)
+        xs = k_self.shape[1]
+        T = self.temperature
+        ps, po, cov, attn = binned_attnpool_proj_t(
+            embT, k_self, b_self, act, x_other, pool_mat,
+            score_k[:xs] / T, score_k[xs:] / T, score_b / T,
+        )
+        return pool_then_project([ps, po], cov, k_cs, b_cs, embT.dtype), attn
+
     def forward(
         self,
         parts: List[torch.Tensor],
@@ -107,12 +139,9 @@ class MultiHeadAttentionPooling(nn.Module):
         """parts: feature-major [x_self (d_s, A), x_other (d_o, A)];
         pre_proj: (k_cs (in, out), b_cs).  Returns (mol (B, hidden) fp32,
         attention weights (H, A))."""
-        kernel = torch.cat([h.weight.T for h in self.attention_weights], dim=1)  # (D, H)
-        bias = torch.cat([h.bias for h in self.attention_weights])  # (H,)
         k_cs, b_cs = pre_proj
-        score_k = k_cs @ kernel  # (in, H) fp32
-        score_b = b_cs @ kernel + bias
         dt = parts[0].dtype
+        score_k, score_b = self._score_fold(k_cs, b_cs)
         scores32 = score_b[:, None]
         row = 0
         for p in parts:

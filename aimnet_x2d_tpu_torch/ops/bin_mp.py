@@ -1,5 +1,5 @@
-"""Fused message-passing stack over the bin-packed layout, forward
-(counterpart of aimnet_x2d_tpu/ops/bin_mp.py::binned_mp_stack_t).
+"""Fused message-passing stack over the bin-packed layout, forward and
+backward (counterpart of aimnet_x2d_tpu/ops/bin_mp.py::binned_mp_stack_t).
 
 Per bin and per layer (reference semantics under quirk Q1, union of hops):
 
@@ -18,17 +18,25 @@ prepped once per model load (:func:`stack_weights`).
 Cast points (as the JAX kernel): fp32 accumulation -> cast to the compute
 dtype -> bias add in the compute dtype -> activation; the residual adds
 round to the compute dtype.
+
+Training (:func:`binned_mp_stack_train_t`, a ``torch.autograd.Function``)
+adds, as the JAX op does in train mode: in-block dropout from a counter
+hash of (feature row, global atom column, layer/block tag, seed), bit-equal
+to the JAX mask; the x_other projection folded in front of layer 0
+(``x0 = act(kb^T emb + bb)``, kernel 1c); each layer's input saved by the
+forward; and a backward that recomputes each layer from its saved input
+and walks it back (kernel 1b, ``csrc/mp_stack_bwd.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.activation import ACTIVATION_CODES, get_activation_function
+from ..utils.activation import ACTIVATION_CODES, activation_grad, get_activation_function
 from . import cuda_build
 
 
@@ -221,3 +229,521 @@ def binned_mp_stack_t(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights,
     if xT.device.type == "cpu":
         return mp_stack_plain(xT, bin_adj, sw, act)
     raise ValueError(f"binned_mp_stack_t: unsupported device {xT.device}")
+
+
+# --------------------------------------------------------------------- #
+# Training: dropout hash, projection fold, saved layer inputs, backward
+# --------------------------------------------------------------------- #
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 tensors holding uint32 values, without
+    leaving int64's range (the constant is split into 16-bit halves)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_keep(rows: int, col0: int, cols: int, rate: float, seed: int, tag: int,
+                 device=None) -> torch.Tensor:
+    """Keep-mask (rows, cols) of the in-kernel dropout, bit-equal to the JAX
+    package's ``_dropout_mask``: murmur3's fmix32 over
+    ``i*0x85EBCA6B ^ j*0xC2B2AE35 ^ (seed + tag*0x9E3779B9)`` with ``i`` the
+    feature row and ``j = col0 + column`` the global atom column; keep iff
+    the hash is at least ``floor(rate * 2**32)``."""
+    i = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(col0, col0 + cols, dtype=torch.int64, device=device)[None, :]
+    mix = (int(seed) + int(tag) * 0x9E3779B9) & _M32
+    x = _mul32(i, 0x85EBCA6B) ^ _mul32(j, 0xC2B2AE35) ^ mix
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x >= drop_threshold(rate)
+
+
+def drop_threshold(rate: float) -> int:
+    return min(int(rate * 2**32), 2**32 - 1)
+
+
+def drop_scale(rate: float, dt: torch.dtype) -> float:
+    """``1 / (1 - rate)`` rounded to the compute dtype, as JAX applies it."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float64).to(dt))
+
+
+@dataclasses.dataclass
+class ProjWeights:
+    """The folded x_other projection ``x0 = act(kb^T emb + bb)`` in the
+    kernels' form: ``kbT`` (Dp, E) and ``bb`` (Dp,) in the compute dtype,
+    D padded to Dp with zero rows; ``flat`` holds them for the forward
+    kernel and ``flat_t`` holds kb (E, Dp) for the backward (tile-major in
+    bf16)."""
+
+    kbT: torch.Tensor
+    bb: torch.Tensor
+    flat: torch.Tensor
+    flat_t: torch.Tensor
+
+    @property
+    def E(self) -> int:
+        return self.kbT.shape[1]
+
+
+def prep_proj(kb: torch.Tensor, bb: torch.Tensor, dt: torch.dtype, Dp: int) -> ProjWeights:
+    """kb (E, D), bb (D,) fp32 masters (flax orientation) -> ProjWeights."""
+    E, D = kb.shape
+    kbT = kb.new_zeros(Dp, E, dtype=dt)
+    kbT[:D] = kb.T.to(dt)
+    b = bb.new_zeros(Dp, dtype=dt)
+    b[:D] = bb.to(dt)
+    tiled = dt == torch.bfloat16
+    lay = tile_major if tiled else (lambda w: w.reshape(-1))
+    flat = torch.cat([lay(kbT), b]).contiguous()
+    flat_t = lay(kbT.T.contiguous()).contiguous()
+    return ProjWeights(kbT, b, flat, flat_t)
+
+
+def stack_weights_t(sw: StackWeights) -> torch.Tensor:
+    """The transposed weights the backward walk multiplies by, one flat
+    buffer: per layer ``[W_s^T | W_in^T]`` (2Dp, 2Dp), then ``W1^T, W2^T``
+    of every block (Dp, Dp); tile-major in bf16."""
+    lay = tile_major if sw.dtype == torch.bfloat16 else (lambda w: w.reshape(-1))
+    parts = []
+    for ws in sw.layers:
+        parts.append(lay(torch.cat([ws[2].T, ws[0].T], dim=1).contiguous()))
+        for i in range(sw.n_blocks):
+            w1, _, w2, _ = ws[4 + 4 * i : 8 + 4 * i]
+            parts += [lay(w1.T.contiguous()), lay(w2.T.contiguous())]
+    return torch.cat(parts).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSpec:
+    """Static configuration of one training call of the stack."""
+
+    act: str
+    rate: float = 0.0
+    seed: int = 0  # uint32 bits of the step's dropout seed
+    n_layers: int = 0  # layers of the autograd function's flat weight list
+
+    def drop(self, l: int, i: int, n_blocks: int):
+        """(rate, seed, tag) of block ``i`` of layer ``l``, or None."""
+        if self.rate <= 0.0:
+            return None
+        return self.rate, self.seed, l * n_blocks + i
+
+
+def _apply_drop(v: torch.Tensor, drop, col0: int = 0) -> torch.Tensor:
+    rate, seed, tag = drop
+    keep = dropout_keep(v.shape[0], col0, v.shape[1], rate, seed, tag, v.device)
+    return torch.where(keep, v * drop_scale(rate, v.dtype), torch.zeros((), dtype=v.dtype))
+
+
+def _recompute_plain(x, adj, ws, act, n_blocks, spec, l):
+    """Layer ``l`` forward from its (padded) input, keeping what the
+    backward reads: (xa, t, hs, us, vs)."""
+    dt = x.dtype
+    Dp, A = x.shape
+    nb, ab, _ = adj.shape
+    fn = get_activation_function(act)
+    xb = x.reshape(Dp, nb, ab).permute(1, 0, 2)
+    agg = torch.matmul(xb.float(), adj.float().transpose(1, 2)).permute(1, 0, 2).reshape(Dp, A)
+    xa = torch.cat([x, agg.to(dt)], dim=0)
+    t = _dot(ws[0], xa, dt) + ws[1][:, None]
+    h = fn(t)
+    hs, us, vs = [], [], []
+    for i in range(n_blocks):
+        w1, b1, w2, b2 = ws[4 + 4 * i : 8 + 4 * i]
+        u = _dot(w1, h, dt) + b1[:, None]
+        v = fn(u)
+        drop = spec.drop(l, i, n_blocks)
+        if drop is not None:
+            v = _apply_drop(v, drop)
+        hs.append(h)
+        us.append(u)
+        vs.append(v)
+        h = _dot(w2, v, dt) + b2[:, None] + h
+    return xa, t, h, hs, us, vs
+
+
+def _pad_rows(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    D = x.shape[0]
+    return torch.cat([x, x.new_zeros(Dp - D, x.shape[1])]) if Dp > D else x
+
+
+def mp_stack_train_plain(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
+                         pw: Optional[ProjWeights] = None):
+    """Plain PyTorch version of the training forward.  ``x`` is (D, A) in
+    the compute dtype, or the embeddings (E, A) when ``pw`` folds the
+    projection in.  Returns (out (D, A), saved layer inputs): the inputs of
+    layers 1.. and, under the fold, layer 0's too."""
+    dt = sw.dtype
+    fn = get_activation_function(spec.act)
+    if pw is not None:
+        x = fn(_dot(pw.kbT, x, dt) + pw.bb[:, None])
+    else:
+        x = _pad_rows(x, sw.Dp)
+    saved = []
+    for l, ws in enumerate(sw.layers):
+        if pw is not None or l > 0:
+            saved.append(x[: sw.D].contiguous())
+        xa, t, h, hs, us, vs = _recompute_plain(x, adj, ws, spec.act, sw.n_blocks, spec, l)
+        s = _dot(ws[2], xa, dt) + ws[3][:, None]
+        x = (h + s) + x
+    return x[: sw.D].contiguous(), saved
+
+
+def _layer_bwd_plain(x, adj, ws, spec, n_blocks, l, g32):
+    """Backward of layer ``l`` (``_bwd_xa_from_saved`` + the aggregation
+    transpose of the JAX kernel) from its padded input and the fp32
+    cotangent of its output; returns (the cotangent of its input, fp32,
+    with the residual path added) and the layer's weight grads in the
+    prepped (out, in) orientation."""
+    dt = x.dtype
+    Dp, A = x.shape
+    nb, ab, _ = adj.shape
+    xa, t, _, hs, us, vs = _recompute_plain(x, adj, ws, spec.act, n_blocks, spec, l)
+    f = lambda a: a.float()  # noqa: E731
+    gd = g32.to(dt)
+    dws = f(gd) @ f(xa).T
+    dbs = f(gd).sum(1)
+    dxa = f(ws[2]).T @ f(gd)
+    dh = gd
+    blocks = []
+    for i in range(n_blocks - 1, -1, -1):
+        w1, _, w2, _ = ws[4 + 4 * i : 8 + 4 * i]
+        dw2 = f(dh) @ f(vs[i]).T
+        db2 = f(dh).sum(1)
+        dv = (f(w2).T @ f(dh)).to(dt)
+        drop = spec.drop(l, i, n_blocks)
+        if drop is not None:
+            dv = _apply_drop(dv, drop)
+        du = dv * activation_grad(spec.act, us[i])
+        dw1 = f(du) @ f(hs[i]).T
+        db1 = f(du).sum(1)
+        dh = (f(dh) + f(w1).T @ f(du)).to(dt)
+        blocks.append((dw1, db1, dw2, db2))
+    dtin = dh * activation_grad(spec.act, t)
+    dwin = f(dtin) @ f(xa).T
+    dbin = f(dtin).sum(1)
+    dxa = dxa + f(ws[0]).T @ f(dtin)
+    dA = dxa[Dp:].to(dt).float().reshape(Dp, nb, ab).permute(1, 0, 2)
+    dagg = torch.matmul(dA, adj.float()).permute(1, 0, 2).reshape(Dp, A)
+    grads = [dwin, dbin, dws, dbs]
+    for blk in reversed(blocks):
+        grads += list(blk)
+    return (dxa[:Dp] + dagg) + g32, grads
+
+
+def mp_stack_bwd_plain(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
+                       pw: Optional[ProjWeights] = None):
+    """Plain PyTorch version of the backward.  ``x`` and ``saved`` as the
+    forward took and returned them, ``g`` (D, A) the cotangent of its
+    output.  Returns (dx (D, A) or demb (E, A) in the compute dtype,
+    per-layer weight grads (prepped orientation, fp32), proj grads
+    (dkbT (Dp, E), dbb (Dp,)) or None)."""
+    dt = sw.dtype
+    L = len(sw.layers)
+    first = 0 if pw is not None else 1
+    g32 = _pad_rows(g.float(), sw.Dp)
+    layer_grads = [None] * L
+    for l in range(L - 1, -1, -1):
+        xl = saved[l - first] if l >= first else x
+        g32, layer_grads[l] = _layer_bwd_plain(
+            _pad_rows(xl, sw.Dp), adj, sw.layers[l], spec, sw.n_blocks, l, g32)
+    if pw is None:
+        return g32[: sw.D].to(dt), layer_grads, None
+    t0 = _dot(pw.kbT, x, dt) + pw.bb[:, None]
+    dt0 = g32 * activation_grad(spec.act, t0).float()
+    dt0c = dt0.to(dt)
+    dkbT = dt0c.float() @ x.float().T
+    demb = (pw.kbT.float().T @ dt0c.float()).to(dt)
+    return demb, layer_grads, (dkbT, dt0.sum(1))
+
+
+def unprep_layer_grads(sw: StackWeights, lg: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One layer's prepped-orientation grads -> the caller's order and
+    orientation ``(w_in0, w_in1, b_in, w_s0, w_s1, b_s, [w1, b1, w2, b2]...)``
+    with kernels (in, out), padding dropped."""
+    D, Dp = sw.D, sw.Dp
+    dwin, dbin, dws, dbs = lg[:4]
+    out = [dwin[:D, :D].T, dwin[:D, Dp : Dp + D].T, dbin[:D],
+           dws[:D, :D].T, dws[:D, Dp : Dp + D].T, dbs[:D]]
+    out += [w[:D, :D].T if w.ndim == 2 else w[:D] for w in lg[4:]]
+    return [o.contiguous() for o in out]
+
+
+# ---- CUDA wrappers of the training kernels -------------------------------- #
+
+
+def _lib_train() -> ctypes.CDLL:
+    lib = _lib()
+    if not getattr(lib, "_typed_train", False):
+        vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.mp_stack_fwd_train.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [i] * 13 + [u, u, f, vp]
+        lib.mp_stack_fwd_train.restype = i
+        lib._typed_train = True
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = cuda_build.load("mp_stack_bwd")
+    if not getattr(lib, "_typed", False):
+        vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.mp_stack_bwd_layer.argtypes = [vp] * 6 + [i] * 10 + [u, u, f, vp]
+        lib.mp_stack_bwd_layer.restype = i
+        lib.mp_stack_bwd_proj.argtypes = [vp] * 6 + [i] * 7 + [vp]
+        lib.mp_stack_bwd_proj.restype = i
+        lib.wgrad.argtypes = [vp] * 4 + [i] * 5 + [vp]
+        lib.wgrad.restype = i
+        lib.sum_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
+        lib.sum_partials.restype = i
+        lib.mp_stack_bwd_smem_bytes.argtypes = [i, i, i, i]
+        lib.mp_stack_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_stack_bwd_error_string.argtypes = [i]
+        lib.mp_stack_bwd_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_cuda(what: str, dev, *named):
+    for name, t, align in named:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: {name} must be on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} must be contiguous and {align}-byte aligned")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_shapes(what: str, x, adj, sw, E=None):
+    if adj.dtype != torch.int8:
+        raise TypeError(f"{what}: bin_adj must be int8")
+    nb, ab, ab2 = adj.shape
+    rows, A = x.shape
+    want = sw.D if E is None else E
+    if ab != ab2 or ab % 64 or A != nb * ab or rows != want or (E is not None and E % 16):
+        raise ValueError(
+            f"{what}: input {tuple(x.shape)}, bin_adj {tuple(adj.shape)}, D={sw.D}: need "
+            "A = nb*ab, ab a multiple of 64, rows matching the weights (E a multiple of 16)")
+    return nb, ab, A
+
+
+def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
+                       pw: Optional[ProjWeights] = None):
+    """Launch the stack kernel in training form: dropout, the projection
+    fold when ``pw`` is given, and each layer's input saved.  Returns (out
+    (D, A), saved inputs (n, D, A)).  Raises on anything it cannot take."""
+    what = "mp_stack_fwd_train"
+    if x.dtype != sw.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: input {x.dtype}, weights {sw.dtype}")
+    E = pw.E if pw is not None else None
+    nb, ab, A = _check_shapes(what, x, adj, sw, E)
+    named = [("x", x, 16), ("bin_adj", adj, 16), ("weights", sw.flat, 32)]
+    if pw is not None:
+        named.append(("proj", pw.flat, 32))
+    _check_cuda(what, x.device, *named)
+    if spec.act.lower() not in ACTIVATION_CODES:
+        raise ValueError(f"{what}: unsupported activation {spec.act!r}")
+    lib = _lib_train()
+    bf16 = int(x.dtype == torch.bfloat16)
+    D, Dp, L = sw.D, sw.Dp, len(sw.layers)
+    limit = lib.mp_stack_smem_limit()
+    global_mode = int(lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, 0) > limit)
+    if lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, global_mode) > limit:
+        raise ValueError(f"{what}: D={D}, ab={ab} exceed one block's shared memory")
+    dev = x.device
+    out = torch.empty(Dp if global_mode else D, A, dtype=x.dtype, device=dev)
+    agg = torch.empty(Dp, A, dtype=x.dtype, device=dev) if global_mode else out
+    first = 0 if pw is not None else 1
+    xs = torch.empty(L - first, D, A, dtype=x.dtype, device=dev)
+    if nb:
+        status = lib.mp_stack_fwd_train(
+            x.data_ptr(), out.data_ptr(), agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
+            pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(),
+            bf16, D, Dp, E or 0, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
+            global_mode, first, int(spec.rate > 0),
+            spec.seed & _M32, drop_threshold(spec.rate), drop_scale(spec.rate, x.dtype) if spec.rate > 0 else 1.0,
+            _stream(dev),
+        )
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+        mp_stack_fwd_train.launches += 1
+    return (out[:D] if global_mode else out), list(xs.unbind(0))
+
+
+mp_stack_fwd_train.launches = 0
+
+WGRAD_CHUNK = 4096  # atoms per split of the weight-gradient contraction
+
+
+def wgrad(dY: torch.Tensor, X: torch.Tensor, bias_src: Optional[torch.Tensor] = None):
+    """``dY @ X^T`` (M, N) fp32 and the row sums of ``bias_src`` (or dY),
+    contracted over the atom axis by the hand-written split-K kernel
+    (``csrc/wgrad.cuh``): fp32 partials per chunk of atoms, then a fixed-order
+    sum, so the result is the same from run to run."""
+    lib = _lib_bwd()
+    M, A = dY.shape
+    N = X.shape[0]
+    nch = max(1, -(-A // WGRAD_CHUNK))
+    dev = dY.device
+    part = torch.empty(nch, M * N + M, dtype=torch.float32, device=dev)
+    status = lib.wgrad(dY.data_ptr(), X.data_ptr(),
+                       bias_src.data_ptr() if bias_src is not None else None,
+                       part.data_ptr(), int(dY.dtype == torch.bfloat16), M, N, A,
+                       WGRAD_CHUNK, _stream(dev))
+    if status != 0:
+        raise RuntimeError(f"wgrad: {lib.mp_stack_bwd_error_string(status).decode()}")
+    out = sum_partials(part)
+    return out[: M * N].view(M, N), out[M * N :]
+
+
+def sum_partials(part: torch.Tensor) -> torch.Tensor:
+    """Column sums of a (n, size) fp32 partials array, in a fixed order."""
+    lib = _lib_bwd()
+    n, size = part.shape
+    out = torch.empty(size, dtype=torch.float32, device=part.device)
+    status = lib.sum_partials(part.data_ptr(), out.data_ptr(), n, size, _stream(part.device))
+    if status != 0:
+        raise RuntimeError(f"sum_partials: {lib.mp_stack_bwd_error_string(status).decode()}")
+    return out
+
+
+def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
+                 pw: Optional[ProjWeights] = None):
+    """Launch the backward (kernel 1b): per layer, last to first, the walk
+    kernel (recompute from the saved input, walk back, fold the aggregation
+    transpose), then the weight-gradient contractions; under the fold, the
+    projection's backward.  Same returns as :func:`mp_stack_bwd_plain`."""
+    what = "mp_stack_bwd"
+    dt = sw.dtype
+    if g.dtype != dt or x.dtype != dt:
+        raise TypeError(f"{what}: cotangent {g.dtype}, input {x.dtype}, weights {dt}")
+    E = pw.E if pw is not None else None
+    nb, ab, A = _check_shapes(what, x, adj, sw, E)
+    g = g.contiguous()
+    _check_cuda(what, x.device, ("x", x, 16), ("bin_adj", adj, 16), ("g", g, 16),
+                ("weights", sw.flat, 32), *[(f"saved[{i}]", s, 16) for i, s in enumerate(saved)])
+    lib = _lib_bwd()
+    bf16 = int(dt == torch.bfloat16)
+    D, Dp, L, nblk = sw.D, sw.Dp, len(sw.layers), sw.n_blocks
+    if lib.mp_stack_bwd_smem_bytes(bf16, Dp, ab, nblk) > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"{what}: D={D}, ab={ab} exceed one block's shared memory")
+    dev = x.device
+    wT = stack_weights_t(sw)
+    n_slabs = 5 * nblk + 5
+    wk = torch.empty(n_slabs, Dp, A, dtype=dt, device=dev)
+    g32 = torch.zeros(Dp, A, dtype=torch.float32, device=dev)
+    g32[:D] = g.float()
+    first = 0 if pw is not None else 1
+    act = ACTIVATION_CODES[spec.act.lower()]
+    layer_sz = sw.flat.numel() // L
+    layer_sz_t = wT.numel() // L
+    slab = lambda k: wk[k]  # noqa: E731
+    H0, U0, V0, DH0, DU0 = 3, 3 + nblk, 3 + 2 * nblk, 3 + 3 * nblk, 3 + 4 * nblk
+    DT, DA = 3 + 5 * nblk, 4 + 5 * nblk
+    layer_grads = [None] * L
+    for l in range(L - 1, -1, -1):
+        xl = saved[l - first] if l >= first else x
+        status = lib.mp_stack_bwd_layer(
+            xl.data_ptr(), wk.data_ptr(), g32.data_ptr(), adj.data_ptr(),
+            sw.flat[l * layer_sz :].data_ptr(), wT[l * layer_sz_t :].data_ptr(),
+            bf16, D, Dp, A, nb, ab, nblk, act, int(spec.rate > 0), l,
+            spec.seed & _M32, drop_threshold(spec.rate),
+            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0, _stream(dev),
+        )
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+        xa = wk[0:2].reshape(2 * Dp, A)
+        dwin, dbin = wgrad(slab(DT), xa)
+        dws, dbs = wgrad(slab(DH0 + nblk - 1), xa)
+        grads = [dwin, dbin, dws, dbs]
+        for i in range(nblk):
+            dw1, db1 = wgrad(slab(DU0 + i), slab(H0 + i))
+            dw2, db2 = wgrad(slab(DH0 + i), slab(V0 + i))
+            grads += [dw1, db1, dw2, db2]
+        layer_grads[l] = grads
+    mp_stack_bwd.launches += 1
+    if pw is None:
+        return g32[:D].to(dt), layer_grads, None
+    _check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
+    demb = torch.empty(E, A, dtype=dt, device=dev)
+    status = lib.mp_stack_bwd_proj(
+        x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
+        slab(DT).data_ptr(), demb.data_ptr(), bf16, Dp, E, A, nb, ab, act, _stream(dev),
+    )
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+    # g32 now holds the fp32 cotangent of the projection's pre-activation
+    dkbT, dbb = wgrad(slab(DT), x, bias_src=g32)
+    return demb, layer_grads, (dkbT, dbb)
+
+
+mp_stack_bwd.launches = 0
+
+
+# ---- autograd ------------------------------------------------------------- #
+
+
+class _StackTrainFn(torch.autograd.Function):
+    """``x -> stack(x)`` (or ``emb -> stack(act(kb^T emb + bb))``) with the
+    fp32 master weights as differentiable inputs: the forward preps them
+    once per call (cast, pad, transpose) and the backward returns their
+    fp32 grads in the caller's orientation."""
+
+    @staticmethod
+    def forward(ctx, x, adj, spec, dt, kb, bb, *ws):
+        per = len(ws) // spec.n_layers
+        with torch.no_grad():
+            sw = stack_weights([ws[l * per : (l + 1) * per] for l in range(spec.n_layers)], dt)
+            pw = prep_proj(kb, bb, dt, sw.Dp) if kb is not None else None
+        if x.device.type == "cuda":
+            out, saved = mp_stack_fwd_train(x, adj, sw, spec, pw)
+        elif x.device.type == "cpu":
+            out, saved = mp_stack_train_plain(x, adj, sw, spec, pw)
+        else:
+            raise ValueError(f"binned_mp_stack_train_t: unsupported device {x.device}")
+        ctx.save_for_backward(x, adj, *saved)
+        ctx.sw, ctx.pw, ctx.spec = sw, pw, spec
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, adj, *saved = ctx.saved_tensors
+        sw, pw, spec = ctx.sw, ctx.pw, ctx.spec
+        g = g.to(sw.dtype)
+        bwd = mp_stack_bwd if x.device.type == "cuda" else mp_stack_bwd_plain
+        dx, layer_grads, proj = bwd(x, adj, sw, spec, saved, g, pw)
+        grads = [w for lg in layer_grads for w in unprep_layer_grads(sw, lg)]
+        dkb = dbb = None
+        if proj is not None:
+            dkbT, dbb_p = proj
+            dkb, dbb = dkbT[: sw.D].T.contiguous(), dbb_p[: sw.D].contiguous()
+        return (dx, None, None, None, dkb, dbb, *grads)
+
+
+def binned_mp_stack_train_t(
+    x: torch.Tensor,
+    bin_adj: torch.Tensor,
+    layers_ws: Sequence[Sequence[torch.Tensor]],
+    dtype: torch.dtype,
+    act: str = "silu",
+    dropout: float = 0.0,
+    seed: int = 0,
+    proj_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Differentiable stack for training (the JAX ``binned_mp_stack_t`` in
+    a train step).  ``layers_ws``: every layer's fp32 master weights, as
+    ``ShellConvolutionLayer.stack_weights`` gives them.  With
+    ``proj_weights=(kb (E, D), bb (D,))`` x is the embedding array (E, A)
+    and the x_other projection runs inside the kernel.  ``seed`` is the
+    step's dropout seed (its low 32 bits are used).  CUDA tensors go
+    through the kernels, CPU tensors through the plain versions."""
+    kb, bb = proj_weights if proj_weights is not None else (None, None)
+    flat = [w for lw in layers_ws for w in lw]
+    spec = StackSpec(act.lower(), float(dropout), int(seed) & _M32, len(layers_ws))
+    return _StackTrainFn.apply(x.to(dtype).contiguous(), bin_adj, spec, dtype, kb, bb, *flat)

@@ -21,7 +21,13 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"mp_stack": "mp_stack.cu", "wpool": "wpool.cu"}
+SOURCES = {
+    "mp_stack": "mp_stack.cu",
+    "mp_stack_bwd": "mp_stack_bwd.cu",
+    "attnpool": "attnpool.cu",
+    "wpool": "wpool.cu",
+}
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -41,7 +47,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    # the source and every shared header it may include
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,1 +1,1 @@
-"""Prediction drivers.  Training itself is a later slice of the port."""
+"""Training loop, evaluation, LR schedulers and prediction drivers."""

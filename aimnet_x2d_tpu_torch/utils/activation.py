@@ -12,6 +12,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable
 
+import torch
 import torch.nn.functional as F
 
 _ACTIVATIONS: dict[str, Callable] = {
@@ -35,3 +36,26 @@ def get_activation_function(name: str = "silu") -> Callable:
         raise ValueError(
             f"Unsupported activation: {name}. Supported: {sorted(_ACTIVATIONS)}"
         ) from None
+
+
+def activation_grad(name: str, u: torch.Tensor) -> torch.Tensor:
+    """Derivative of activation ``name`` at ``u``, computed in fp32 and
+    rounded once to ``u``'s dtype (the kernels' ``act_grad``).  The
+    piecewise activations compare in fp32, as the JAX kernels do."""
+    name = name.lower()
+    uf = u.float()
+    if name == "silu":
+        s = torch.sigmoid(uf)
+        g = s * (1.0 + uf * (1.0 - s))
+    elif name == "relu":
+        g = (uf > 0).float()
+    elif name == "leakyrelu":
+        g = torch.where(uf >= 0, 1.0, 0.01)
+    elif name == "elu":
+        g = torch.where(uf > 0, torch.ones_like(uf), torch.exp(uf))
+    elif name == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(uf * 0.7071067811865476))
+        g = cdf + uf * 0.3989422804014327 * torch.exp(-0.5 * uf * uf)
+    else:
+        raise ValueError(f"Unsupported activation: {name}")
+    return g.to(u.dtype)

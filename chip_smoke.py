@@ -6,17 +6,29 @@
 Phases, each of which fails the run when it fails:
 
 1. print the card's name and power limit; turn TF32 off for fp32 products;
-2. build the CUDA kernels from ``aimnet_x2d_tpu_torch/csrc`` (nvcc, sm_90a);
-3. hold each kernel against its plain PyTorch version at the flagship
-   serving shapes (a batch of 2048 molecules of the script's SMILES), in
-   fp32 and bf16, and time kernel, plain version and library yardstick;
-4. serve end to end: write a flagship artifact (hidden 512, bf16, random
-   weights from the seed, fitted scaler), run a CSV of the script's SMILES
-   through the port's CLI on ``cuda`` with the kernel launch counters reset
-   just before, check every row is present and finite and both kernels ran,
-   and compare one batch with the same model run on the CPU (plain
-   versions);
-5. print the ``kernels`` JSON line, the card line and, last, the result
+2. build the CUDA kernels from ``aimnet_x2d_tpu_torch/csrc`` (nvcc, sm_90a,
+   one process per source, all at once);
+3. ``[kernel]``: hold each serving kernel against its plain PyTorch version
+   at the flagship serving shapes (a batch of 2048 molecules of the
+   script's SMILES), in fp32 and bf16, and time kernel, plain version and
+   library yardstick;
+4. ``[serve]``: write a flagship artifact (hidden 512, bf16, random weights
+   from the seed, fitted scaler), run a CSV of the script's SMILES through
+   the port's CLI on ``cuda`` with the launch counters reset just before,
+   check every row is present and finite and both kernels ran, and compare
+   one batch with the same model run on the CPU (plain versions);
+5. ``[train-kernel]``: hold each training kernel (stack forward with
+   dropout and the projection fold, stack backward, attention pool forward
+   and backward) against its plain version at the flagship training shapes
+   (a size-sorted batch of 2048), bf16, and time kernel and plain version;
+6. ``[train]``: train the flagship model (bf16, dropout 0.05, 12 synthetic
+   targets from the seed) through the port's CLI at batch 2048 with the
+   launch counters reset just before; then 24 steps of the train step on
+   card-resident batches, timed, with a falling loss, launches per step and
+   a profiler breakdown of one step; then one step on a small batch on the
+   card and on the CPU (plain versions) from the same weights, all
+   gradients compared;
+7. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -58,6 +70,11 @@ TOL = {
 # Tolerance of the card's bf16 predictions against the CPU run of the same
 # model (plain versions, same bf16 cast points), as max|diff| / max|cpu|.
 E2E_TOL = 5e-2
+# Training kernels and the card-vs-CPU gradients, bf16: the same bar (an
+# fp32 sum that rounds to the other bf16 neighbour moves an intermediate by
+# 2**-8, and the flip propagates through the layers and the backward walk).
+TRAIN_TOL = 5e-2
+TRAIN_STEPS = 24
 
 
 def card_line() -> str:
@@ -117,6 +134,14 @@ def flagship_config(pkg):
         task_type="multitask", activation_type="silu", shell_conv_dropout=0.0,
         ffn_dropout=0.0, compute_dtype="bfloat16",
     )
+
+
+def train_config(cfg):
+    """The flagship in training: shell_conv_dropout and ffn_dropout at the
+    CLI default of 0.05 (the serving config turns them off)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, shell_conv_dropout=0.05, ffn_dropout=0.05)
 
 
 def check_kernels(pkg, cfg, batch, seed: int) -> dict:
@@ -319,6 +344,286 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
     return launches
 
 
+def _max_rel(pairs) -> tuple:
+    """(max abs err, max over pairs of max|got - ref| / max|ref|)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for got, ref, scale in pairs:
+        a, _ = rel_err(got, ref)
+        s_ = float(ref.float().abs().max()) if scale is None else scale
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, a / max(s_, 1e-30))
+    return worst_abs, worst_rel
+
+
+def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+    """Phase 5: each training kernel against its plain version at the
+    flagship training shapes (bf16), with times and bounds."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.ops.embed import embed_concat_onehot_t
+
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    adj, pm = batch.bin_adj, batch.pool_mat
+    nb, ab, _ = adj.shape
+    mb = pm.shape[1]
+    A, B = nb * ab, nb * mb
+    D, Ds, H = cfg.x_other_dim, cfg.x_self_dim, cfg.attention_num_heads
+    E = 4 * cfg.embedding_dim
+    L, nblk = cfg.num_message_passing_layers, cfg.shell_conv_num_mlp_layers
+    n = int(batch.atom_mask.sum())
+    nnz = int((adj != 0).sum())
+    print(f"[train-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms={n} "
+          f"adjacency nonzeros={nnz}", flush=True)
+    names = ("atom_type", "hydrogen_count", "degree", "hybridization")
+    with torch.no_grad():
+        tables = [getattr(model, f"{k}_embedding").weight for k in names]
+        emb = embed_concat_onehot_t(tables, [getattr(batch, k) for k in names], dtype=dt)
+        sw = bin_mp.stack_weights([layer.stack_weights() for layer in model.message_passing_layers], dt)
+        W, b = model.embedding_projection.weight, model.embedding_projection.bias
+        pw = bin_mp.prep_proj(W[Ds:].T, b[Ds:], dt, sw.Dp)
+        score_k, score_b = model.pooling._score_fold(model.concat_self_other.weight.T,
+                                                      model.concat_self_other.bias)
+        aw = bin_attnpool.prep_weights(W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b, dt)
+    spec = bin_mp.StackSpec(cfg.activation_type, 0.05, 0x1234567)
+    act = cfg.activation_type
+    res = {}
+    isz = 2  # bf16 bytes
+
+    def record(name, pairs, ms, plain_ms, ops, nbytes):
+        abs_err, rel = _max_rel(pairs)
+        t_ops, t_bytes = ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[train-kernel] {name} bf16: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+              f"(tol {TRAIN_TOL:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if not rel <= TRAIN_TOL:
+            raise AssertionError(f"{name}: rel err {rel:.3e} > {TRAIN_TOL:g}")
+        res[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+
+    w_layer = 2 * D * 2 * D + nblk * 2 * D * D  # weight matrix elements of one layer
+    w_mat = L * w_layer
+    # --- kernel 1 (training form) + 1c: forward with dropout and the fold
+    out, saved = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
+    ref, ref_saved = bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw)
+    torch.cuda.synchronize()
+    ops = 2 * n * E * D + L * (2 * nnz * D + n * 2 * w_layer)
+    nbytes = (E * A + D * A + L * D * A) * isz + nb * ab * ab + (w_mat + E * D) * isz
+    record("mp_stack_fwd_train", [(out, ref, None)] + [(a, r, None) for a, r in zip(saved, ref_saved)],
+           time_ms(lambda: bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)),
+           time_ms(lambda: bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw), iters=5),
+           ops, nbytes)
+
+    # --- kernel 1b (+ 1c backward)
+    g = (torch.randn(D, A, generator=gen, device=dev) * 0.05).to(dt)
+    got = bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw)
+    want = bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, g, pw)
+    torch.cuda.synchronize()
+    pairs = [(got[0], want[0], None)]
+    pairs += [(a, r, None) for la, lr_ in zip(got[1], want[1]) for a, r in zip(la, lr_)]
+    pairs += [(a, r, None) for a, r in zip(got[2], want[2])]
+    # recompute (no skip product, no last W2) + walk (W2^T, W1^T, [Ws|Win]^T)
+    # + aggregation and its transpose + weight gradients + the fold's three
+    per_layer = (2 * 2 * nnz * D + n * 2 * (2 * D * D + (2 * nblk - 1) * D * D)
+                 + n * 2 * (2 * nblk * D * D + 4 * D * D) + n * 2 * w_layer)
+    ops = L * per_layer + 3 * 2 * n * E * D
+    nbytes = (E * A + L * D * A + D * A + E * A) * isz + nb * ab * ab + 4 * (w_mat + E * D)
+    record("mp_stack_bwd", pairs,
+           time_ms(lambda: bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw), iters=10),
+           time_ms(lambda: bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, g, pw), iters=3),
+           ops, nbytes)
+
+    # --- kernel 3: attention pool, forward and backward
+    xo = out
+    fwd = bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)
+    fref = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act)
+    torch.cuda.synchronize()
+    npm = int((pm != 0).sum())
+    ops = 2 * n * E * Ds + 2 * n * H * (Ds + D) + 2 * npm * (Ds + D + 1)
+    nbytes = (E + D) * A * isz + nb * mb * ab + 4 * ((Ds + D + 1) * B + H * A)
+    record("attnpool_fwd", list(zip(fwd, fref, [None] * 4)),
+           time_ms(lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)),
+           time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act), iters=5),
+           ops, nbytes)
+    gps = torch.randn(Ds, B, generator=gen, device=dev) * 1e-3
+    gpo = torch.randn(D, B, generator=gen, device=dev) * 1e-3
+    gcov = torch.randn(B, generator=gen, device=dev) * 1e-3
+    args = (emb, xo, pm, aw, act, fref[3], gps, gpo, gcov)
+    bg = bin_attnpool.attnpool_bwd(*args)
+    br = bin_attnpool.attnpool_bwd_plain(*args)
+    torch.cuda.synchronize()
+    dks_scale = float(br[2][2].abs().max())  # d_sb's exact value is 0: held to d_ks's scale
+    pairs = [(bg[0], br[0], None), (bg[1], br[1], None)]
+    pairs += [(a, r, dks_scale if i == 4 else None) for i, (a, r) in enumerate(zip(bg[2], br[2]))]
+    ops = 3 * 2 * n * E * Ds + 4 * 2 * n * H * (Ds + D) + 2 * npm * (Ds + D)
+    nbytes = (2 * E + 2 * D) * A * isz + nb * mb * ab + 4 * (H * A + (Ds + D + 1) * B) + 4 * (E * Ds)
+    record("attnpool_bwd", pairs,
+           time_ms(lambda: bin_attnpool.attnpool_bwd(*args), iters=10),
+           time_ms(lambda: bin_attnpool.attnpool_bwd_plain(*args), iters=5), ops, nbytes)
+    return res
+
+
+def synthetic_targets(ds, T: int, seed: int) -> np.ndarray:
+    """T targets per molecule that depend on its composition (learnable),
+    with noise, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros((len(ds), 10), np.float64)
+    for i, f in enumerate(ds.features):
+        z = np.clip(np.asarray(f.atomic_numbers), 0, 9)
+        counts[i] = np.bincount(z, minlength=10)[:10]
+    mix = rng.normal(size=(10, T))
+    return (counts @ mix + rng.normal(size=(len(ds), T)) * 0.1).astype(np.float32)
+
+
+def profile_step(step, top: int = 12) -> None:
+    """Device time of one train step, by kernel (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        print("[train] device time not measured (no CUDA events in the trace)", flush=True)
+        return
+    print(f"[train] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{100 * e.self_device_time_total / total:5.1f}%  x{e.count:<3d} {e.key[:90]}",
+              flush=True)
+
+
+def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
+    """Phase 6: the CLI's training path on the card, a timed train-step
+    loop, and one step card against CPU."""
+    import dataclasses
+
+    import pandas as pd
+
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, load_artifact, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    T = cfg.output_dim
+    counters = (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_attnpool.attnpool_fwd,
+                bin_attnpool.attnpool_bwd)
+    targets = synthetic_targets(ds, T, seed)
+    cols = [f"target_{i}" for i in range(T)]
+    csv = os.path.join(work, "train.csv")
+    df = pd.DataFrame(targets, columns=cols)
+    df.insert(0, "smiles", ds.smiles)
+    df.to_csv(csv, index=False)
+    art = os.path.join(work, "trained.npz")
+
+    # --- the user's entry point: the CLI, bf16, dropout 0.05 (the defaults)
+    for c in counters:
+        c.launches = 0
+    summary = cli.main(["--data_path", csv, "--multi_target_columns", ",".join(cols),
+                        "--task_type", "multitask", "--mixed_precision", "--epochs", "3",
+                        "--batch_size", "2048", "--learning_rate", "1e-3",
+                        "--model_save_path", art, "--seed", str(seed)])
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"[train] launches on the main path (CLI, 3 epochs): {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a training kernel never launched: {launches}")
+    hist = summary["history"]
+    print(f"[train] CLI epochs: train loss {[round(h['train_loss'], 5) for h in hist]}, "
+          f"val loss {[round(h['val_loss'], 5) for h in hist]}, test "
+          f"{ {k: v for k, v in summary['test_metrics'].items() if k != 'per_task'} }",
+          flush=True)
+    losses = [h["train_loss"] for h in hist] + [h["val_loss"] for h in hist]
+    if not np.isfinite(losses).all() or not np.isfinite(summary["test_metrics"]["mae"]):
+        raise AssertionError("the CLI's training produced non-finite losses")
+    loaded = load_artifact(art)
+    mc = loaded.model_config
+    if (mc.hidden_dim, mc.output_dim, mc.compute_dtype) != (cfg.hidden_dim, T, "bfloat16"):
+        raise AssertionError(f"the saved artifact's config is not the flagship's: {mc}")
+
+    # --- the train step, timed on card-resident batches
+    pipe = loaded.pipeline
+    tds = ds.with_targets(pipe.transform(ds.atomic_numbers(), targets))
+    loader = BatchLoader(tds, 2048, shuffle=True, seed=seed)
+    batches = []
+    for epoch in range(TRAIN_STEPS // len(loader) + 1):
+        loader.set_epoch(epoch)
+        batches += [b.to("cuda") for b in loader]
+    batches = batches[:TRAIN_STEPS]
+    model = pkg.models.gnn.GNN(cfg)
+    model.load_state_dict(params_from_flax(init_params(cfg, seed)))
+    model.to("cuda").train()
+    opt = trainer.Optimizer(model.parameters(), 1.0)
+    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    ms, losses = [], []
+    for c in counters:
+        c.launches = 0
+    for b in batches:
+        drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=host))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(model, opt, b, 5e-4, loss_fn, drop_seed, gen)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    per_step = {c.__name__: c.launches / len(batches) for c in counters}
+    n_mol = int(batches[0].graph_mask.sum())
+    med = float(np.median(ms[2:]))
+    print(f"[train] {len(batches)} steps, batch {n_mol} molecules: median {med:.3f} ms/step "
+          f"(host clock around a synchronized step) = {n_mol / med * 1e3:.1f} mol/s; "
+          f"loss first {losses[0]:.5f} last {losses[-1]:.5f}; launches per step {per_step}",
+          flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the training loss did not fall: {losses}")
+    print(f"[train] step ms: {[round(x, 3) for x in ms]}", flush=True)
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    b0 = batches[0]
+    profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen))
+
+    # --- one step card vs CPU, flagship widths, a small batch; the stack's
+    # dropout mask is the same hash on both sides, the FFN's generator is not
+    cfg1 = dataclasses.replace(cfg, ffn_dropout=0.0)
+    small = MoleculeDataset.from_smiles(smiles[:96], targets[:96], cfg.num_shells)
+    sb = next(iter(BatchLoader(small.with_targets(pipe.transform(small.atomic_numbers(),
+                                                                 small.targets)), 96)))
+    grads = {}
+    for where in ("cuda", "cpu"):
+        m = pkg.models.gnn.GNN(cfg1)
+        m.load_state_dict(params_from_flax(init_params(cfg, seed)))
+        m.to(where)
+        bb = sb.to(where)
+        out = m(bb, train=True, drop_seed=77)
+        loss_fn(out.predictions, bb.targets, bb.graph_mask).backward()
+        grads[where] = {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()
+                        if p.grad is not None}
+    def scale(k):
+        # the heads' score biases shift every score of a head alike, which
+        # leaves each molecule's softmax unchanged: their exact gradient is
+        # 0, so both sides hold rounding residue, held to the heads' kernels
+        if k.startswith("pooling.attention_weights.") and k.endswith(".bias"):
+            k = k[: -len("bias")] + "weight"
+        return max(float(grads["cpu"][k].abs().max()), 1e-30)
+
+    errs = {k: float((grads["cuda"][k] - g).abs().max()) / scale(k)
+            for k, g in grads["cpu"].items()}
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    worst = top[0][1]
+    print(f"[train] one step card vs cpu ({int(sb.graph_mask.sum())} molecules, "
+          f"{len(grads['cpu'])} gradients): worst max|d|/max|cpu| {worst:.3e} "
+          f"(tol {TRAIN_TOL:g}); largest {[(k, f'{v:.2e}') for k, v in top]}", flush=True)
+    if not worst <= TRAIN_TOL:
+        raise AssertionError(f"card gradients differ from the CPU run: {worst:.3e}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -366,12 +671,34 @@ def main() -> int:
     res = check_kernels(pkg, cfg, batch, args.seed)
     launches = serve(pkg, cfg, smiles, args.seed, work, batch)
 
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+
+    tcfg = train_config(cfg)
+    tloader = BatchLoader(ds, 2048, shuffle=True, seed=args.seed)
+    tbatch = next(iter(tloader)).to("cuda")
+    tmodel = pkg.models.gnn.GNN(tcfg)
+    tmodel.load_state_dict(params_from_flax(init_params(tcfg, args.seed)))
+    tmodel.to("cuda")
+    for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed).items():
+        res[(name, torch.bfloat16)] = r
+    full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
+                                       cfg.num_shells)
+    launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
+
     kernels = []
     for name, src, tpu in (
         ("mp_stack_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu", "aimnet_x2d_tpu/ops/bin_mp.py:639"),
         ("wpool_fwd", "aimnet_x2d_tpu_torch/csrc/wpool.cu", "aimnet_x2d_tpu/ops/bin_wpool.py:83"),
+        ("mp_stack_fwd_train", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:639"),
+        ("mp_stack_bwd", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:659"),
+        ("attnpool_fwd", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
+         "aimnet_x2d_tpu/ops/bin_attnpool.py:202"),
+        ("attnpool_bwd", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
+         "aimnet_x2d_tpu/ops/bin_attnpool.py:228"),
     ):
-        r = res[(name, torch.bfloat16)]  # the serving path's dtype
+        r = res[(name, torch.bfloat16)]  # the flagship's dtype
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -84,3 +84,114 @@ def test_kernel_errors_raise(dev):
         bin_mp.binned_mp_stack_t(x.to(torch.bfloat16), adj, sw, "silu").float().cpu().numpy(),
         x.to(torch.bfloat16).float().cpu().numpy(),  # zero weights: x + 0
     )
+
+
+# ---- training kernels: stack forward (training form) and backward, the
+# attention pool forward and backward, the weight-gradient contraction.
+# Same tolerances; the backward's sums run over every atom of the batch in
+# another order than the plain version's, which fp32 1e-4 covers.
+
+
+def _stack_train_case(dev, D, E, nb, ab, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # molecule-like: a few neighbours per atom (a dense random adjacency
+    # grows activations ~ab-fold per layer, past what bf16 gradients hold)
+    near = torch.rand(nb, ab, ab, generator=g, device=dev) < 6.0 / ab
+    adj = (near * torch.randint(1, 3, (nb, ab, ab), generator=g, device=dev)).to(torch.int8)
+    # the model's initialisation scale: U(+-1/sqrt(fan_in))
+    u = lambda s, fan: (torch.rand(s, generator=g, device=dev) * 2 - 1) / fan**0.5  # noqa: E731
+    layers = []
+    for _ in range(3):
+        lw = [u((D, D), 4 * D), u((D, D), 4 * D), u((D,), 4 * D)] * 2
+        for _ in range(2):
+            lw += [u((D, D), D), u((D,), D), u((D, D), D), u((D,), D)]
+        layers.append(lw)
+    sw = bin_mp.stack_weights(layers, dtype)
+    kb = u((E, D), E)
+    bb = u((D,), E)
+    pw = bin_mp.prep_proj(kb, bb, dtype, sw.Dp)
+    emb = torch.randn(E, nb * ab, generator=g, device=dev).to(dtype)
+    x = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+    gout = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+    return adj, sw, pw, emb, x, gout
+
+
+@pytest.mark.parametrize("proj", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [19, 153])
+def test_stack_train_kernels_match_plain(dev, D, dtype, proj):
+    nb, ab, E = 5, 256 if D == 153 else 64, 256 if D == 153 else 32
+    adj, sw, pw, emb, x, gout = _stack_train_case(dev, D, E, nb, ab, dtype, D + 1)
+    spec = bin_mp.StackSpec("silu", 0.05, 0xDEADBEEF)
+    xin, pw_ = (emb, pw) if proj else (x, None)
+    out, saved = bin_mp.mp_stack_fwd_train(xin, adj, sw, spec, pw_)
+    ref, ref_saved = bin_mp.mp_stack_train_plain(xin, adj, sw, spec, pw_)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert _rel(out, ref) < tol
+    for s_, r_ in zip(saved, ref_saved):
+        assert _rel(s_, r_) < tol
+    dx, lg, pg = bin_mp.mp_stack_bwd(xin, adj, sw, spec, saved, gout, pw_)
+    rdx, rlg, rpg = bin_mp.mp_stack_bwd_plain(xin, adj, sw, spec, ref_saved, gout, pw_)
+    torch.cuda.synchronize()
+    errs = {"dx": _rel(dx, rdx)}
+    for l, (got_l, ref_l) in enumerate(zip(lg, rlg)):
+        for k, (got, r) in enumerate(zip(got_l, ref_l)):
+            errs[f"layer {l} grad {k}"] = _rel(got, r)
+    for k, (got, r) in enumerate(zip(pg or (), rpg or ())):
+        errs[f"proj grad {k}"] = _rel(got, r)
+    print(f"D={D} {dtype} proj={proj}: worst {max(errs.values()):.2e}", errs)
+    assert max(errs.values()) < tol
+
+
+def test_stack_serving_unchanged_by_training_form(dev):
+    """Without dropout, the training forward computes the serving forward."""
+    adj, sw, _, _, x, _ = _stack_train_case(dev, 153, 256, 3, 256, torch.bfloat16, 3)
+    out, _ = bin_mp.mp_stack_fwd_train(x, adj, sw, bin_mp.StackSpec("silu"))
+    torch.testing.assert_close(out, bin_mp.mp_stack_fwd(x, adj, sw, "silu"), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(359, 153, 256, 16, 256), (21, 13, 32, 12, 64)])
+def test_attnpool_kernels_match_plain(dev, dtype, shape):
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    Ds, Do, E, mb, ab = shape
+    nb, H = 6, 4
+    g = torch.Generator(device=dev).manual_seed(Ds)
+    owner = torch.randint(-1, mb - 1, (nb, ab), generator=g, device=dev)
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    emb = torch.randn(E, nb * ab, generator=g, device=dev).to(dtype)
+    xo = torch.randn(Do, nb * ab, generator=g, device=dev).to(dtype)
+    r = lambda *s: (torch.rand(*s, generator=g, device=dev) - 0.5) * 0.4  # noqa: E731
+    w = bin_attnpool.prep_weights(r(E, Ds), r(Ds), r(Ds, H), r(Do, H), r(H), dtype)
+    got = bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu")
+    ref = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, w, "silu")
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < tol
+    gps = torch.randn(Ds, nb * mb, generator=g, device=dev)
+    gpo = torch.randn(Do, nb * mb, generator=g, device=dev)
+    gcov = torch.randn(nb * mb, generator=g, device=dev)
+    demb, dxo, grads = bin_attnpool.attnpool_bwd(emb, xo, pm, w, "silu", ref[3], gps, gpo, gcov)
+    rdemb, rdxo, rgrads = bin_attnpool.attnpool_bwd_plain(emb, xo, pm, w, "silu", ref[3], gps,
+                                                          gpo, gcov)
+    torch.cuda.synchronize()
+    assert _rel(demb, rdemb) < tol and _rel(dxo, rdxo) < tol
+    # d_sb is a sum of terms that cancel to 0: held to the scale of d_ks
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[2].abs().max()) if i == 4 else float(b.abs().max())
+        assert float((a - b).abs().max()) / scale < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_matches_matmul(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    dY = torch.randn(160, 10 * 1024, generator=g, device=dev).to(dtype)
+    X = torch.randn(320, 10 * 1024, generator=g, device=dev).to(dtype)
+    dw, db = bin_mp.wgrad(dY, X)
+    assert _rel(dw, dY.float() @ X.float().T) < 1e-4
+    assert _rel(db, dY.float().sum(1)) < 1e-4
+    dw2, _ = bin_mp.wgrad(dY, X)
+    assert torch.equal(dw, dw2)  # fixed-order sums: the same bits every run

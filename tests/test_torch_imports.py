@@ -28,8 +28,12 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "aimnet_x2d_tpu_torch/ops/bin_mp.py" in names
     assert "aimnet_x2d_tpu_torch/ops/bin_wpool.py" in names
-    assert (ROOT / "aimnet_x2d_tpu_torch/csrc/mp_stack.cu").exists()
-    assert (ROOT / "aimnet_x2d_tpu_torch/csrc/wpool.cu").exists()
+    for mod in ("ops/bin_attnpool.py", "models/losses.py", "training/trainer.py",
+                "training/evaluator.py", "training/schedulers.py", "data/io.py", "runner.py"):
+        assert f"aimnet_x2d_tpu_torch/{mod}" in names
+    for src in ("mp_stack.cu", "mp_stack_bwd.cu", "attnpool.cu", "wpool.cu", "common.cuh",
+                "wgrad.cuh"):
+        assert (ROOT / "aimnet_x2d_tpu_torch/csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
