@@ -201,8 +201,8 @@ class GNN(nn.Module):
         which cost an A x hidden x hidden product and are skipped otherwise.
         ``train``: the training forward (see the module docstring), with the
         stack's dropout seed ``drop_seed`` (drawn from ``generator`` when not
-        given) and the FFN's dropout masks from ``generator`` (no FFN
-        dropout without one)."""
+        given) and the FFN's dropout masks from ``generator``; training with
+        a dropout rate above 0 and no generator raises."""
         cfg = self.config
         if batch.bin_adj is None or batch.pool_mat is None:
             raise NotImplementedError("the flat (non-binned) layout is not ported yet")
@@ -273,6 +273,8 @@ class GNN(nn.Module):
         W, b = self.embedding_projection.weight, self.embedding_projection.bias
         xs = cfg.x_self_dim
         rate = cfg.shell_conv_dropout
+        if cfg.ffn_dropout > 0.0 and generator is None:
+            raise ValueError("training with FFN dropout needs a generator")
         if rate > 0.0 and drop_seed is None:
             if generator is None:
                 raise ValueError("training with dropout needs drop_seed or a generator")

@@ -57,7 +57,8 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 
 class LinearBlock(nn.Module):
     """Linear -> act -> dropout -> Linear, with an identity skip when the
-    widths match.  Dropout runs only when ``forward`` gets a generator."""
+    widths match.  Dropout runs only when ``forward`` gets a generator:
+    serving passes none, and the training forward raises without one."""
 
     def __init__(self, in_features: int, features: int, activation_type: str = "silu",
                  use_skip: bool = True, dtype: Optional[torch.dtype] = None,

@@ -72,6 +72,14 @@ def prep_weights(kb, bb, ks, ko, sb, dt: torch.dtype) -> AttnPoolWeights:
                            kb.shape[1])
 
 
+def check_one_owner(pm: torch.Tensor) -> None:
+    """Raise unless ``pm`` (nb, mb, ab) holds only 0 and 1 and puts each
+    atom in at most one molecule of its bin: the kernels read the first
+    molecule that holds an atom and nothing else."""
+    if bool(((pm != 0) & (pm != 1)).any()) or bool((pm.sum(dim=1, dtype=torch.int32) > 1).any()):
+        raise ValueError("pool_mat must hold 0/1 and give each atom at most one molecule")
+
+
 def _softmax_plain(s: torch.Tensor, pm: torch.Tensor) -> torch.Tensor:
     """The JAX kernel's ``_softmax_bin`` over every bin: s (H, A) fp32."""
     nb, mb, ab = pm.shape
@@ -183,8 +191,8 @@ def _check(what, emb, xo, pm, w: AttnPoolWeights, act):
     if ab % 64 or A != nb * ab or xo.shape[1] != A or E != w.kbT.shape[1] or E % 16:
         raise ValueError(f"{what}: emb {tuple(emb.shape)}, x_other {tuple(xo.shape)}, pool_mat "
                          f"{tuple(pm.shape)}: need A = nb*ab, ab a multiple of 64, E a multiple of 16")
-    bin_mp._check_cuda(what, emb.device, ("emb", emb, 16), ("x_other", xo, 16), ("pool_mat", pm, 1),
-                       ("weights", w.flat, 32), ("weights_t", w.flat_t, 32), ("score", w.score, 4))
+    cuda_build.check_cuda(what, emb.device, ("emb", emb, 16), ("x_other", xo, 16), ("pool_mat", pm, 1),
+                          ("weights", w.flat, 32), ("weights_t", w.flat_t, 32), ("score", w.score, 4))
     lib = _lib()
     H = w.sb.shape[0]
     bf16 = int(w.dtype == torch.bfloat16)
@@ -227,8 +235,8 @@ def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov
     dev = emb.device
     gps, gpo, gcov = gps.float().contiguous(), gpo.float().contiguous(), gcov.float().contiguous()
     attn = attn.contiguous()
-    bin_mp._check_cuda("attnpool_bwd", dev, ("attn", attn, 4), ("g_self", gps, 4),
-                       ("g_other", gpo, 4), ("g_cov", gcov, 4))
+    cuda_build.check_cuda("attnpool_bwd", dev, ("attn", attn, 4), ("g_self", gps, 4),
+                          ("g_other", gpo, 4), ("g_cov", gcov, 4))
     Dsp, Do, Ds = w.kbT.shape[0], xo.shape[0], w.Ds
     work = torch.empty(3, Dsp, A, dtype=w.dtype, device=dev)  # t, x_self, dt
     demb = torch.empty(E, A, dtype=w.dtype, device=dev)
@@ -264,6 +272,7 @@ class _AttnPoolFn(torch.autograd.Function):
         if emb.device.type == "cuda":
             ps, po, cov, attn = attnpool_fwd(emb, xo, pm, w, act)
         elif emb.device.type == "cpu":
+            check_one_owner(pm)  # free here; on the card it would cost a sync per step
             ps, po, cov, attn = attnpool_fwd_plain(emb, xo, pm, w, act)
         else:
             raise ValueError(f"binned_attnpool_proj_t: unsupported device {emb.device}")
@@ -301,8 +310,10 @@ def binned_attnpool_proj_t(
     """Fused projection -> scores -> softmax -> pools, differentiable.
     embT (E, A) in the compute dtype; k_blk (E, Ds) / b_blk (Ds,) fp32, the
     x_self block of embedding_projection; xoT (Do, A) post-MP x_other;
-    pool_mat (nb, mb, ab) int8; score_k_self (Ds, H) / score_k_other (Do, H)
-    / score_b (H,) fp32 with the concat and temperature folds applied.
+    pool_mat (nb, mb, ab) int8, 0/1 with at most one molecule per atom (as
+    the loaders build it; :func:`check_one_owner`, which the CPU path runs and
+    the kernels do not); score_k_self (Ds, H) / score_k_other (Do, H) /
+    score_b (H,) fp32 with the concat and temperature folds applied.
     Returns (pooled_self (Ds, B), pooled_other (Do, B), coverage (B,),
     attn (H, A)), all fp32, B = nb*mb; attn carries no gradient."""
     dt = embT.dtype

@@ -165,32 +165,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_shapes(what: str, x, adj, sw, E=None):
+    if adj.dtype != torch.int8:
+        raise TypeError(f"{what}: bin_adj must be int8")
+    nb, ab, ab2 = adj.shape
+    rows, A = x.shape
+    want = sw.D if E is None else E
+    if ab != ab2 or ab % 64 or A != nb * ab or rows != want or (E is not None and E % 16):
+        raise ValueError(
+            f"{what}: input {tuple(x.shape)}, bin_adj {tuple(adj.shape)}, D={sw.D}: need "
+            "A = nb*ab, ab a multiple of 64, rows matching the weights (E a multiple of 16)")
+    return nb, ab, A
+
+
 def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str) -> torch.Tensor:
     """Launch the CUDA stack kernel (one block per bin) on the current
     stream.  Raises on any input the kernel does not take and on any
     launch error; never falls back."""
-    if xT.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mp_stack_fwd: unsupported dtype {xT.dtype}")
-    if sw.dtype != xT.dtype:
-        raise TypeError(f"mp_stack_fwd: weights are {sw.dtype}, activations {xT.dtype}")
+    what = "mp_stack_fwd"
+    if xT.dtype != sw.dtype or xT.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: input {xT.dtype}, weights {sw.dtype}")
+    nb, ab, A = _check_shapes(what, xT, bin_adj, sw)
     # the kernel reads x and bin_adj in 16-byte vectors, the weights as wmma
     # fragments (32-byte aligned)
-    for name, t, align in (("xT", xT, 16), ("bin_adj", bin_adj, 16), ("weights", sw.flat, 32)):
-        if not t.is_cuda or t.device != xT.device:
-            raise ValueError(f"mp_stack_fwd: {name} must be on {xT.device}")
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"mp_stack_fwd: {name} must be contiguous and {align}-byte aligned")
-    if bin_adj.dtype != torch.int8:
-        raise TypeError("mp_stack_fwd: bin_adj must be int8")
+    cuda_build.check_cuda(what, xT.device, ("xT", xT, 16), ("bin_adj", bin_adj, 16),
+                          ("weights", sw.flat, 32))
     if act.lower() not in ACTIVATION_CODES:
-        raise ValueError(f"mp_stack_fwd: unsupported activation {act!r}")
-    nb, ab, ab2 = bin_adj.shape
-    D, A = xT.shape
-    if ab != ab2 or ab % 64 or A != nb * ab or D != sw.D:
-        raise ValueError(
-            f"mp_stack_fwd: xT {tuple(xT.shape)}, bin_adj {tuple(bin_adj.shape)}, D={sw.D}: "
-            "need A = nb*ab, ab a multiple of 64, D matching the weights"
-        )
+        raise ValueError(f"{what}: unsupported activation {act!r}")
+    D = sw.D
     lib = _lib()
     bf16 = int(xT.dtype == torch.bfloat16)
     Dp = sw.Dp
@@ -508,29 +510,8 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(what: str, dev, *named):
-    for name, t, align in named:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{what}: {name} must be on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"{what}: {name} must be contiguous and {align}-byte aligned")
-
-
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check_shapes(what: str, x, adj, sw, E=None):
-    if adj.dtype != torch.int8:
-        raise TypeError(f"{what}: bin_adj must be int8")
-    nb, ab, ab2 = adj.shape
-    rows, A = x.shape
-    want = sw.D if E is None else E
-    if ab != ab2 or ab % 64 or A != nb * ab or rows != want or (E is not None and E % 16):
-        raise ValueError(
-            f"{what}: input {tuple(x.shape)}, bin_adj {tuple(adj.shape)}, D={sw.D}: need "
-            "A = nb*ab, ab a multiple of 64, rows matching the weights (E a multiple of 16)")
-    return nb, ab, A
 
 
 def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
@@ -546,7 +527,7 @@ def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spe
     named = [("x", x, 16), ("bin_adj", adj, 16), ("weights", sw.flat, 32)]
     if pw is not None:
         named.append(("proj", pw.flat, 32))
-    _check_cuda(what, x.device, *named)
+    cuda_build.check_cuda(what, x.device, *named)
     if spec.act.lower() not in ACTIVATION_CODES:
         raise ValueError(f"{what}: unsupported activation {spec.act!r}")
     lib = _lib_train()
@@ -626,7 +607,7 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     E = pw.E if pw is not None else None
     nb, ab, A = _check_shapes(what, x, adj, sw, E)
     g = g.contiguous()
-    _check_cuda(what, x.device, ("x", x, 16), ("bin_adj", adj, 16), ("g", g, 16),
+    cuda_build.check_cuda(what, x.device, ("x", x, 16), ("bin_adj", adj, 16), ("g", g, 16),
                 ("weights", sw.flat, 32), *[(f"saved[{i}]", s, 16) for i, s in enumerate(saved)])
     lib = _lib_bwd()
     bf16 = int(dt == torch.bfloat16)
@@ -670,7 +651,7 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     mp_stack_bwd.launches += 1
     if pw is None:
         return g32[:D].to(dt), layer_grads, None
-    _check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
+    cuda_build.check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
     demb = torch.empty(E, A, dtype=dt, device=dev)
     status = lib.mp_stack_bwd_proj(
         x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),

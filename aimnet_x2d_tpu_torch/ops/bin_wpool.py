@@ -44,9 +44,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-
-
 def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA pool kernel on the current stream.  Raises on any
     input the kernel does not take and on any launch error."""
@@ -55,11 +52,8 @@ def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torc
     w = w.reshape(-1)
     if w.dtype != torch.float32 or pool_mat.dtype != torch.int8:
         raise TypeError("wpool_fwd: w must be float32 and pool_mat int8")
-    for name, t in (("xT", xT), ("w", w), ("pool_mat", pool_mat)):
-        if not t.is_cuda or t.device != xT.device:
-            raise ValueError(f"wpool_fwd: {name} must be on {xT.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"wpool_fwd: {name} must be contiguous")
+    cuda_build.check_cuda("wpool_fwd", xT.device, ("xT", xT, 1), ("w", w, 1),
+                          ("pool_mat", pool_mat, 1))
     D, A = xT.shape
     nb, mb, ab = pool_mat.shape
     if A != nb * ab or w.shape[0] != A:
@@ -68,7 +62,7 @@ def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torc
             f"{tuple(pool_mat.shape)}: need A = nb*ab"
         )
     lib = _lib()
-    if lib.wpool_smem_bytes(mb, ab) > SMEM_LIMIT:
+    if lib.wpool_smem_bytes(mb, ab) > cuda_build.SMEM_LIMIT:
         raise ValueError(f"wpool_fwd: mb={mb}, ab={ab} exceed one block's shared memory")
     out = torch.empty(D, nb * mb, dtype=torch.float32, device=xT.device)
     if D and nb and mb:

@@ -94,6 +94,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_cuda(what: str, dev, *named) -> None:
+    """Raise unless each ``(name, tensor, align)`` lies on CUDA device
+    ``dev``, is contiguous and starts on an ``align``-byte boundary."""
+    for name, t, align in named:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: {name} must be on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} must be contiguous and {align}-byte aligned")
+
+
 def check(status: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if status != 0:

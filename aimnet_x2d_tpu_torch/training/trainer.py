@@ -55,7 +55,6 @@ class TrainConfig:
     lr_step_size: int = 10
     lr_step_gamma: float = 0.1
     lr_exp_gamma: float = 0.95
-    log_every: int = 0  # epochs between prints; 0 = every epoch
 
 
 @dataclasses.dataclass
@@ -145,7 +144,6 @@ def train(
     device: "str | torch.device" = "cuda",
     seed: int = 0,
     pipeline=None,
-    verbose: bool = True,
 ) -> TrainResult:
     """Epoch loop with validation, LR scheduling, early stopping and
     best-parameter restore.  ``model`` is on ``device``; ``seed`` seeds the
@@ -194,8 +192,7 @@ def train(
                   **{f"val_{k}": v for k, v in val_metrics.items()
                      if k != "loss" and not isinstance(v, dict)}}
         history.append(record)
-        if verbose and (config.log_every == 0 or epoch % config.log_every == 0):
-            print(f"[epoch {epoch:3d}] train {train_loss:.5f}  val {val_loss:.5f}  "
+        print(f"[epoch {epoch:3d}] train {train_loss:.5f}  val {val_loss:.5f}  "
                   f"lr {lr:.2e}  ({seconds:.1f}s)", flush=True)
         if val_loss < best_val:
             best_val, best_epoch = val_loss, epoch
@@ -204,8 +201,7 @@ def train(
         else:
             epochs_no_improve += 1
         if config.early_stopping and epochs_no_improve >= config.patience and val_loss >= best_val:
-            if verbose:
-                print(f"[early stop] epoch {epoch}, best {best_val:.5f} @ {best_epoch}")
+            print(f"[early stop] epoch {epoch}, best {best_val:.5f} @ {best_epoch}")
             break
 
     model.load_state_dict(best_state)

@@ -436,6 +436,7 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
 
     # --- kernel 3: attention pool, forward and backward
     xo = out
+    bin_attnpool.check_one_owner(pm)  # the kernels' precondition, on the loader's matrix
     fwd = bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)
     fref = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act)
     torch.cuda.synchronize()

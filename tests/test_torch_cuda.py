@@ -161,6 +161,7 @@ def test_attnpool_kernels_match_plain(dev, dtype, shape):
     g = torch.Generator(device=dev).manual_seed(Ds)
     owner = torch.randint(-1, mb - 1, (nb, ab), generator=g, device=dev)
     pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    bin_attnpool.check_one_owner(pm)  # the kernels' precondition
     emb = torch.randn(E, nb * ab, generator=g, device=dev).to(dtype)
     xo = torch.randn(Do, nb * ab, generator=g, device=dev).to(dtype)
     r = lambda *s: (torch.rand(*s, generator=g, device=dev) - 0.5) * 0.4  # noqa: E731

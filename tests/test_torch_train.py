@@ -150,6 +150,8 @@ def test_train_forward_draws_dropout_and_differs_from_serving():
     same = model(pb, train=True, drop_seed=7, generator=torch.Generator().manual_seed(1))
     again = model(pb, train=True, drop_seed=7, generator=torch.Generator().manual_seed(1))
     assert torch.equal(same.predictions, again.predictions)
+    with pytest.raises(ValueError, match="FFN dropout"):
+        model(pb, train=True, drop_seed=7)
 
 
 def test_mean_pool_training_raises():

@@ -226,3 +226,20 @@ def test_attnpool_forward_and_backward_match_jax(dtype, act):
         # same terms weighted by the features, d_ks
         scale = np.abs(np.asarray(grads_ref[4])).max() if name == "d_sb" else None
         _check(a.grad.float(), jnp.asarray(r, jnp.float32), dtype, name, scale)
+
+
+@pytest.mark.parametrize("fault", ["two_owners", "weight_2"])
+def test_attnpool_refuses_pool_mat_the_kernels_cannot_take(fault):
+    emb, xo, pm, kb, bb, ks, ko, sb, *_ = _pool_inputs(seed=6)
+    bin_attnpool.check_one_owner(torch.from_numpy(pm))  # the loaders' form passes
+    bad = pm.copy()
+    if fault == "two_owners":
+        bad[0, :, 0] = 0
+        bad[0, 0, 0] = bad[0, 1, 0] = 1
+    else:
+        bad[0, :, 0] = 0
+        bad[0, 0, 0] = 2
+    t = [torch.from_numpy(a) for a in (emb, xo, kb, bb, ks, ko, sb)]
+    with pytest.raises(ValueError, match="at most one molecule"):
+        bin_attnpool.binned_attnpool_proj_t(t[0], t[2], t[3], "silu", t[1], torch.from_numpy(bad),
+                                            t[4], t[5], t[6])
