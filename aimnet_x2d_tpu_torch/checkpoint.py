@@ -181,6 +181,10 @@ def init_params(cfg: GNNConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     if cfg.parity_params:
         xavier("long_range_projection", H, F)
     D = cfg.x_other_dim
+    if cfg.use_stereochemistry:
+        if cfg.parity_params:
+            xavier("stereochemical_embedding", 3 * H, H)
+        xavier("stereochemical_embedding_2", 3 * D, D)
     in_dim = D * (cfg.num_shells + 1)
     for l in range(cfg.num_message_passing_layers):
         pre = f"params/message_passing_layers_{l}"

@@ -13,9 +13,10 @@ The flags are those of the JAX package's CLI that the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
 the kernels).  Flags of features that are later slices of the port
 (transfer learning, freezing, layer-wise LR decay, checkpoints, HDF5
-streaming, several devices, trackers, embedding and charge output,
-MC-dropout and evidential serving) are accepted and raise
-NotImplementedError when set.
+streaming, several devices, trackers, embedding output, MC-dropout and
+evidential serving) are accepted and raise NotImplementedError when set.
+Partial charges and stereochemistry (``--use_partial_charges``,
+``--use_stereochemistry``, ``--output_partial_charges``) are supported.
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ _LATER = {
     "transfer_learning": None, "freeze_pretrained": False, "freeze_layers": None,
     "unfreeze_layers": None, "layer_wise_lr_decay": False, "checkpoint_dir": None,
     "iterable_dataset": False, "num_devices": None, "graph_shards": 1, "enable_wandb": False,
-    "save_embeddings": False, "output_partial_charges": None, "hyperparameter_file": None,
-    "true_multi_hop": False, "use_partial_charges": False, "use_stereochemistry": False,
+    "save_embeddings": False, "hyperparameter_file": None, "true_multi_hop": False,
     "mc_samples": 0, "inference_hdf5": None,
 }
 

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: dtype conversions, the
-// activations and their derivatives, the dropout hash, and the tile product
-// the stack and attention-pool kernels are built from.
+// activations and their derivatives, the dropout hash, a warp sum, and the
+// tile product the stack, attention-pool and inject kernels are built from.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,6 +71,13 @@ __device__ __forceinline__ bool drop_keep(unsigned i, unsigned j, unsigned mix, 
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x >= thresh;
+}
+
+// Sum over the 32 lanes of a warp, in a fixed order; every lane gets it.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // C (M x kTile) = A (M x K) * B (K x kTile), where rows k < ksplit of B

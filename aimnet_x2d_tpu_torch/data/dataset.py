@@ -143,7 +143,7 @@ class BatchLoader:
             merged = max(slots.get(name, 0), getattr(self, name))
             slots[name] = merged
             setattr(self, name, merged)
-        for name in ("bins", "mb"):
+        for name in ("bins", "mb", "tetb"):  # tetb: the tet_bin table's width
             merged = max(slots.get(name, 0), self._bin_pins.get(name, 0))
             if merged:
                 slots[name] = merged

@@ -1,26 +1,41 @@
 """The GNN model (counterpart of aimnet_x2d_tpu/models/gnn.py).
 
-Forward on the binned, feature-major fast path (the JAX ``use_stack`` path):
+Forward on the binned, feature-major fast path (the JAX ``t_path``):
 
 1. four embedding lookups -> concat, feature-major (4*emb, A)
 2. embedding_projection -> act, split into x_self and x_other
    (x_other_dim = int(0.3 * hidden), quirk Q2)
-3. the fused message-passing stack on x_other (ops/bin_mp.py kernel)
+3. message passing on x_other, by one of three routes (:func:`mp_route`):
+   - ``stack``: the fused stack of every layer (ops/bin_mp.py, kernel 1);
+   - ``inject`` (partial charges and stereochemistry, config 3): per layer
+     one fused round of charge equilibration, cis/trans and tetrahedral
+     stereo, the stereo projection, the layer and its residual
+     (ops/bin_inject.py, kernel 4);
+   - ``layer`` (one of the two features, or a single layer): per layer the
+     injections as plain PyTorch (the JAX package runs them as XLA:
+     ``bin_inject.charge_rows``, :func:`stereochemistry_t`), then the
+     single-layer kernel with its residual (kernel 1d);
 4. pooling of [x_self, x_other] with concat_self_other folded in
    (attention, mean or sum; ops/bin_wpool.py kernel)
 5. post_pooling_projection -> FFN -> [h, skip_transform(h)] -> output_layer
 
-``forward(batch, train=True)`` is the training forward of the JAX train
-step (``train_mode=True``, dropout on), differentiable end to end: the
-stack takes the embeddings and folds the x_other projection in (kernels 1,
-1b, 1c), attention pooling takes the embeddings and folds the x_self
-projection in (kernel 3), so neither projection is computed outside the
-kernels; the stack's dropout seed is one int32 per step, and the FFN's
-dropout masks come from a ``torch.Generator``.
+With partial charges, row 0 of the final x_other is the per-atom charge
+(``GNNOutput.partial_charges``).
 
-Charges, stereochemistry, 1-layer stacks, max pooling and the flat layout
-are later slices of the port, as is training with mean or sum pooling; the
-model raises NotImplementedError for them rather than running anything else.
+``forward(batch, train=True)`` is the training forward of the JAX train
+step (``train_mode=True``, dropout on), differentiable end to end.  On the
+stack route the stack takes the embeddings and folds the x_other projection
+in (kernels 1, 1b, 1c); on the other routes the projection is plain autograd
+and each layer's kernel has its own backward (4, 1d).  Attention pooling
+takes the embeddings and folds the x_self projection in (kernel 3).  The
+step's dropout seed is one int32 (each single-layer call gets
+``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
+FFN's dropout masks come from a ``torch.Generator``.
+
+Max pooling, the flat layout, true multi-hop aggregation and graph-axis
+execution are later slices of the port, as is training with mean or sum
+pooling; the model raises NotImplementedError for them rather than running
+anything else.
 """
 
 from __future__ import annotations
@@ -32,7 +47,15 @@ import torch
 from torch import nn
 
 from ..data.batching import MolBatch
-from ..ops.bin_mp import StackWeights, binned_mp_stack_t, binned_mp_stack_train_t, stack_weights
+from ..ops import bin_inject
+from ..ops.bin_mp import (
+    binned_mp_layer_t,
+    binned_mp_layer_train_t,
+    binned_mp_stack_t,
+    binned_mp_stack_train_t,
+    layer_drop_seed,
+    stack_weights,
+)
 from ..ops.embed import embed_concat_onehot_t
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
@@ -120,7 +143,7 @@ class GNNConfig:
 class GNNOutput:
     predictions: torch.Tensor  # (B, T) or (B, 4T) raw outputs, fp32
     attention_weights: Optional[torch.Tensor]  # (H, A) or None
-    partial_charges: Optional[torch.Tensor]  # always None on this path
+    partial_charges: Optional[torch.Tensor]  # (A,) fp32 with partial charges, else None
     atom_embeddings: Optional[torch.Tensor]  # (A, hidden) fp32, when asked for
     mol_embeddings: torch.Tensor  # (B, hidden) pooled, fp32
 
@@ -128,15 +151,110 @@ class GNNOutput:
 def _unsupported(cfg: GNNConfig) -> Optional[str]:
     if not cfg.parity_mode:
         return "true per-hop aggregation (parity_mode=False)"
-    if cfg.use_partial_charges or cfg.use_stereochemistry:
-        return "partial charges / stereochemistry (config 3)"
-    if cfg.num_message_passing_layers < 2:
-        return "single-layer message passing"
+    if cfg.num_message_passing_layers < 1:
+        return "a model without message passing"
+    if cfg.use_partial_charges and cfg.x_other_dim < 2:
+        return "partial charges with fewer than 2 x_other features"
     if cfg.graph_axis is not None:
         return "graph-partitioned execution"
     if cfg.pooling_type not in POOLING_TYPES:
         return f"{cfg.pooling_type} pooling"
     return None
+
+
+def mp_route(cfg: GNNConfig) -> str:
+    """How the message-passing layers run (module docstring): ``inject``
+    with both charges and stereochemistry, ``layer`` with one of them or a
+    single layer, else ``stack``."""
+    if cfg.use_partial_charges and cfg.use_stereochemistry:
+        return "inject"
+    if cfg.use_partial_charges or cfg.use_stereochemistry or cfg.num_message_passing_layers == 1:
+        return "layer"
+    return "stack"
+
+
+# ---- the injections (the JAX package's XLA code between its kernels) -------- #
+
+
+@dataclasses.dataclass
+class StereoContext:
+    """Per-batch stereo tables, built once on the batch's device (the JAX
+    ``GNN._stereo_context`` on binned batches): the signed int8 per-bin
+    cis/trans adjacency (nb, ab, ab) (trans +1, cis -1 per directed pair,
+    duplicates counted), the clipped centre rows (C, 4) and their flat
+    scatter index (C*4,) (masked rows point at A), the mask of atoms next to
+    a centre (A,), and whether the batch has any centre (0-d bool)."""
+
+    stereo_adj: torch.Tensor
+    tet_nbrs: torch.Tensor
+    tet_flat: torch.Tensor
+    tet_mask: torch.Tensor
+    tet_nz: torch.Tensor
+    any_tet: torch.Tensor
+
+
+def stereo_context(batch: MolBatch) -> StereoContext:
+    nb, ab, _ = batch.bin_adj.shape
+    A = nb * ab
+    dev = batch.bin_adj.device
+    idx, vals = [], []
+    for pairs, mask, v in ((batch.cis_pairs, batch.cis_mask, -1.0),
+                           (batch.trans_pairs, batch.trans_mask, 1.0)):
+        src, dst = pairs[:, 0].long(), pairs[:, 1].long()
+        flat = (dst // ab) * (ab * ab) + (dst % ab) * ab + src % ab
+        idx.append(torch.where(mask & (dst < A), flat, torch.full_like(flat, nb * ab * ab)))
+        vals.append(torch.full(flat.shape, v, device=dev))
+    sadj = torch.zeros(nb * ab * ab + 1, device=dev).index_add_(0, torch.cat(idx), torch.cat(vals))
+    tet_flat = torch.where(batch.tet_mask[:, None], batch.tet_nbrs.long(),
+                           torch.full_like(batch.tet_nbrs, A, dtype=torch.long)).reshape(-1)
+    return StereoContext(
+        stereo_adj=sadj[:-1].reshape(nb, ab, ab).to(torch.int8),
+        tet_nbrs=batch.tet_nbrs.long().clamp(0, A - 1),
+        tet_flat=tet_flat,
+        tet_mask=batch.tet_mask,
+        tet_nz=torch.bincount(tet_flat, minlength=A + 1)[:A] > 0,
+        any_tet=batch.tet_mask.any(),
+    )
+
+
+def atom_total_charge(batch: MolBatch) -> torch.Tensor:
+    """(A,) fp32: each real atom carries its molecule's total charge,
+    padding atoms 0 (built once per batch)."""
+    B = batch.total_charge.shape[0]
+    mol = batch.atom_mol.long().clamp(0, B - 1)
+    return torch.where(batch.atom_mask, batch.total_charge.float()[mol],
+                       torch.zeros((), device=mol.device)).contiguous()
+
+
+def stereochemistry_t(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor,
+                      ctx: StereoContext) -> torch.Tensor:
+    """Stereo injection (quirks Q6/Q7; JAX ``_stereochemistry_t``, binned
+    branch), in x's dtype as JAX runs it: cct = x + (x S^T) per bin;
+    tet = x + the tetrahedral polynomial scattered into each centre's
+    neighbours, zero off them when the batch has any centre; then
+    kb^T [x; cct; tet] (one fp32 sum, one cast) + b.  ``kb`` (3D, D) and
+    ``b`` (D,) are the stereo projection's fp32 masters."""
+    dt = x.dtype
+    D, A = x.shape
+    nb, ab, _ = ctx.stereo_adj.shape
+    xb = x.reshape(D, nb, ab).permute(1, 0, 2).float()
+    agg = torch.matmul(xb, ctx.stereo_adj.float().transpose(1, 2)).permute(1, 0, 2)
+    cct = x + agg.reshape(D, A).to(dt)
+    C = ctx.tet_nbrs.shape[0]
+    emb_raw = x[:, ctx.tet_nbrs.reshape(-1)].T.reshape(C, 4, D)
+    mags = torch.linalg.vector_norm(emb_raw, dim=-1, keepdim=True)
+    emb = emb_raw / mags.clamp(min=1e-8)
+    sq = emb * emb
+    s1, s2, s3 = (torch.roll(sq, -k, dims=1) for k in (1, 2, 3))
+    e1, e2, e3 = (torch.roll(emb, -k, dims=1) for k in (1, 2, 3))
+    chir = s1 * (e2 - e3) + s2 * (e3 - e1) + s3 * (e1 - e2)
+    chir = chir * torch.tanh(mags.mean(dim=1, keepdim=True) / 3.0)
+    chir = torch.where(ctx.tet_mask[:, None, None], chir, torch.zeros((), dtype=dt, device=x.device))
+    delta = x.new_zeros(A + 1, D).index_add(0, ctx.tet_flat, chir.reshape(-1, D))[:A].T
+    zero = torch.zeros((), dtype=dt, device=x.device)
+    tet = torch.where(ctx.any_tet, torch.where(ctx.tet_nz[None], x + delta, zero), x)
+    y = sum(mm32(kb[i * D : (i + 1) * D].T, p, dt) for i, p in enumerate((x, cct, tet)))
+    return y.to(dt) + b.to(dt)[:, None]
 
 
 class GNN(nn.Module):
@@ -161,6 +279,13 @@ class GNN(nn.Module):
             ShellConvolutionLayer(cfg.x_other_dim, cfg.num_shells, cfg.shell_conv_num_mlp_layers)
             for _ in range(cfg.num_message_passing_layers)
         )
+        if cfg.use_stereochemistry:
+            if cfg.parity_params:
+                # dead parameter kept for checkpoint parity (JAX gnn.py:339-347)
+                self.stereochemical_embedding = Linear(3 * H, H)
+            # the stereo projection, shared by every layer
+            D = cfg.x_other_dim
+            self.stereochemical_embedding_2 = Linear(3 * D, D)
         self.concat_self_other = Linear(H, H)
         if cfg.pooling_type == "attention":
             self.pooling = MultiHeadAttentionPooling(H, cfg.attention_num_heads)
@@ -171,22 +296,79 @@ class GNN(nn.Module):
         )
         self.skip_transform = Linear(cfg.ffn_dim, cfg.ffn_dim, cdt)
         self.output_layer = Linear(2 * cfg.ffn_dim, cfg.final_output_dim)
-        self._stack_cache: Optional[Tuple[tuple, StackWeights]] = None
+        self.route = mp_route(cfg)
+        self._prep_cache: Optional[tuple] = None
 
-    def stack_weights(self) -> StackWeights:
-        """The MP layers' weights in the stack kernel's prepped form, built
-        once per load of the weights (cast, transposed, padded) and reused
-        by every forward until a parameter is replaced or modified."""
-        params = list(self.message_passing_layers.parameters())
+    def _stereo_proj(self):
+        """The stereo projection's fp32 masters in flax orientation: kb
+        (3D, D) and b (D,)."""
+        lin = self.stereochemical_embedding_2
+        return lin.weight.T, lin.bias
+
+    def prepped_weights(self):
+        """The MP layers' weights in the kernels' prepped form (cast,
+        transposed, padded), built once per load of the weights and reused
+        by every serving forward until a parameter is replaced or modified:
+        one ``StackWeights`` of every layer on the stack route, one per
+        layer on the layer route, one ``InjectWeights`` per layer on the
+        inject route."""
+        mods = [self.message_passing_layers]
+        if self.route == "inject":
+            mods.append(self.stereochemical_embedding_2)
+        params = [p for m in mods for p in m.parameters()]
         key = tuple((p.data_ptr(), p._version) for p in params) + (self.compute_dtype,)
-        if self._stack_cache is None or self._stack_cache[0] != key:
+        if self._prep_cache is None or self._prep_cache[0] != key:
+            dt = self.compute_dtype
+            layers = [layer.stack_weights() for layer in self.message_passing_layers]
             with torch.no_grad():
-                sw = stack_weights(
-                    [layer.stack_weights() for layer in self.message_passing_layers],
-                    self.compute_dtype,
-                )
-            self._stack_cache = (key, sw)
-        return self._stack_cache[1]
+                if self.route == "stack":
+                    prepped = stack_weights(layers, dt)
+                elif self.route == "layer":
+                    prepped = [stack_weights([lw], dt) for lw in layers]
+                else:
+                    kb, b = self._stereo_proj()
+                    prepped = [bin_inject.prep_inject(kb, b, lw, dt) for lw in layers]
+            self._prep_cache = (key, prepped)
+        return self._prep_cache[1]
+
+    def _message_passing(self, batch: MolBatch, x: torch.Tensor, train: bool,
+                         drop_seed: Optional[int]) -> torch.Tensor:
+        """The inject and layer routes over x_other (D, A) in the compute
+        dtype: per layer kernel 4, or the injections then kernel 1d.  The
+        training form takes the fp32 masters (autograd); serving takes the
+        prepped weights."""
+        cfg = self.config
+        act = cfg.activation_type
+        dt = self.compute_dtype
+        rate = cfg.shell_conv_dropout if train else 0.0
+        ctx = stereo_context(batch) if cfg.use_stereochemistry else None
+        prepped = None if train else self.prepped_weights()
+        single = self.route == "layer" and not (cfg.use_partial_charges or cfg.use_stereochemistry)
+        tca = atom_total_charge(batch) if cfg.use_partial_charges else None
+        if self.route == "inject":
+            anyt = ctx.any_tet.float().reshape(1)
+            tables = (tca, batch.pool_mat, batch.tet_bin, anyt, ctx.stereo_adj, batch.bin_adj)
+        for l, layer in enumerate(self.message_passing_layers):
+            # one layer draws its own seed in JAX; per-layer calls fold l in
+            seed = (drop_seed if single else layer_drop_seed(drop_seed, l)) if rate > 0 else 0
+            if self.route == "inject":
+                if train:
+                    kb, b = self._stereo_proj()
+                    x = bin_inject.binned_inject_mp_layer_train_t(
+                        x, *tables, kb, b, layer.stack_weights(), dt, act, rate, seed)
+                else:
+                    x = bin_inject.binned_inject_mp_layer_t(x.contiguous(), *tables, prepped[l], act)
+                continue
+            if cfg.use_partial_charges:
+                x = bin_inject.charge_rows(x, tca, batch.pool_mat)
+            if cfg.use_stereochemistry:
+                x = stereochemistry_t(x, *self._stereo_proj(), ctx)
+            if train:
+                x = binned_mp_layer_train_t(x, batch.bin_adj, layer.stack_weights(), dt, act,
+                                            rate, seed)
+            else:
+                x = binned_mp_layer_t(x.contiguous(), batch.bin_adj, prepped[l], act)
+        return x
 
     def forward(
         self,
@@ -200,7 +382,7 @@ class GNN(nn.Module):
         ``atom_embeddings``: also return the (A, hidden) atom embeddings,
         which cost an A x hidden x hidden product and are skipped otherwise.
         ``train``: the training forward (see the module docstring), with the
-        stack's dropout seed ``drop_seed`` (drawn from ``generator`` when not
+        layers' dropout seed ``drop_seed`` (drawn from ``generator`` when not
         given) and the FFN's dropout masks from ``generator``; training with
         a dropout rate above 0 and no generator raises."""
         cfg = self.config
@@ -224,10 +406,13 @@ class GNN(nn.Module):
         x_self = proj_rows(W[:xs], b[:xs])  # (xs, A)
         x_other = proj_rows(W[xs:], b[xs:])  # (D, A)
 
-        # 3. message passing: one fused stack
-        x_other = binned_mp_stack_t(
-            x_other.contiguous(), batch.bin_adj, self.stack_weights(), act=cfg.activation_type
-        )
+        # 3. message passing
+        if self.route == "stack":
+            x_other = binned_mp_stack_t(
+                x_other.contiguous(), batch.bin_adj, self.prepped_weights(), act=cfg.activation_type
+            )
+        else:
+            x_other = self._message_passing(batch, x_other, False, None)
 
         # 4. combine (atom-embedding tap) and pool
         k_cs = self.concat_self_other.weight.T  # (in, out)
@@ -247,15 +432,18 @@ class GNN(nn.Module):
             pooled = [binned_sum_pool_t(p, pm) for p in (x_self, x_other)]
             mol = pool_then_project(pooled, pm.sum(dim=2).reshape(-1), k_cs, b_cs, dt)
 
-        return self._head(mol, attention_weights, atom_emb, None)
+        return self._head(mol, attention_weights, atom_emb, self._charges(x_other), None)
 
-    def _head(self, mol, attention_weights, atom_emb, generator) -> GNNOutput:
+    def _charges(self, x_other: torch.Tensor) -> Optional[torch.Tensor]:
+        return x_other[0].float() if self.config.use_partial_charges else None
+
+    def _head(self, mol, attention_weights, atom_emb, charges, generator) -> GNNOutput:
         h = self.ffn(self.post_pooling_projection(mol), generator)
         final = torch.cat([h, self.skip_transform(h)], dim=-1).float()
         return GNNOutput(
             predictions=self.output_layer(final),
             attention_weights=attention_weights,
-            partial_charges=None,
+            partial_charges=charges,
             atom_embeddings=atom_emb,
             mol_embeddings=mol,
         )
@@ -280,14 +468,20 @@ class GNN(nn.Module):
                 raise ValueError("training with dropout needs drop_seed or a generator")
             drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
                                           device=generator.device))
-        x_other = binned_mp_stack_train_t(
-            embT, batch.bin_adj, [layer.stack_weights() for layer in self.message_passing_layers],
-            dt, act=cfg.activation_type, dropout=rate, seed=drop_seed or 0,
-            proj_weights=(W[xs:].T, b[xs:]),
-        )
+        if self.route == "stack":
+            x_other = binned_mp_stack_train_t(
+                embT, batch.bin_adj, [layer.stack_weights() for layer in self.message_passing_layers],
+                dt, act=cfg.activation_type, dropout=rate, seed=drop_seed or 0,
+                proj_weights=(W[xs:].T, b[xs:]),
+            )
+        else:
+            act = get_activation_function(cfg.activation_type)
+            cdt = dt if dt == torch.bfloat16 else None
+            x_other = act(mm32(W[xs:], embT, cdt).to(dt) + b[xs:].to(dt)[:, None])
+            x_other = self._message_passing(batch, x_other, True, drop_seed)
         k_cs = self.concat_self_other.weight.T
         mol, attn = self.pooling.forward_train(
             embT, W[:xs].T, b[:xs], cfg.activation_type, x_other, batch.pool_mat,
             (k_cs, self.concat_self_other.bias),
         )
-        return self._head(mol, attn, None, generator)
+        return self._head(mol, attn, None, self._charges(x_other), generator)

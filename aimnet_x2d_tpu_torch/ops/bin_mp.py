@@ -26,6 +26,13 @@ to the JAX mask; the x_other projection folded in front of layer 0
 (``x0 = act(kb^T emb + bb)``, kernel 1c); each layer's input saved by the
 forward; and a backward that recomputes each layer from its saved input
 and walks it back (kernel 1b, ``csrc/mp_stack_bwd.cu``).
+
+Kernel 1d, the JAX op at ``n_layers=1`` (``binned_mp_layer_t``), is the
+same two kernels launched for one layer, with their own launch counters
+(``mp_layer_fwd``, ``mp_layer_fwd_train``, ``mp_layer_bwd``):
+:func:`binned_mp_layer_t` and :func:`binned_mp_layer_train_t` return
+``layer(x) + x``, since the kernels' residual rounds where the JAX caller's
+add does.  Their plain versions are the stack's over one layer.
 """
 
 from __future__ import annotations
@@ -178,11 +185,11 @@ def _check_shapes(what: str, x, adj, sw, E=None):
     return nb, ab, A
 
 
-def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str) -> torch.Tensor:
+def _launch_fwd(what: str, xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights,
+                act: str) -> torch.Tensor:
     """Launch the CUDA stack kernel (one block per bin) on the current
     stream.  Raises on any input the kernel does not take and on any
     launch error; never falls back."""
-    what = "mp_stack_fwd"
     if xT.dtype != sw.dtype or xT.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: input {xT.dtype}, weights {sw.dtype}")
     nb, ab, A = _check_shapes(what, xT, bin_adj, sw)
@@ -199,7 +206,7 @@ def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act:
     limit = lib.mp_stack_smem_limit()
     global_mode = int(lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, 0) > limit)
     if lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, global_mode) > limit:
-        raise ValueError(f"mp_stack_fwd: D={D}, ab={ab} exceed one block's shared memory")
+        raise ValueError(f"{what}: D={D}, ab={ab} exceed one block's shared memory")
     if global_mode:
         out = torch.empty(Dp, A, dtype=xT.dtype, device=xT.device)
         agg = torch.empty(Dp, A, dtype=xT.dtype, device=xT.device)
@@ -214,12 +221,33 @@ def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act:
             torch.cuda.current_stream(xT.device).cuda_stream,
         )
         if status != 0:
-            raise RuntimeError(f"mp_stack_fwd: {lib.mp_stack_error_string(status).decode()}")
-        mp_stack_fwd.launches += 1
+            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
     return out[:D] if global_mode else out
 
 
+def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str) -> torch.Tensor:
+    """Kernel 1: the stack kernel over every layer of ``sw``."""
+    out = _launch_fwd("mp_stack_fwd", xT, bin_adj, sw, act)
+    mp_stack_fwd.launches += int(bin_adj.shape[0] > 0)
+    return out
+
+
 mp_stack_fwd.launches = 0
+
+
+def mp_layer_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str) -> torch.Tensor:
+    """Kernel 1d (the TPU op at ``n_layers=1``): the stack kernel launched
+    for one layer.  Returns ``layer(x) + x``: the kernel's residual rounds
+    as the JAX caller's ``binned_mp_layer_t(x) + x`` does,
+    ``rnd(rnd(h + s) + x)``."""
+    if len(sw.layers) != 1:
+        raise ValueError(f"mp_layer_fwd: one layer's weights, got {len(sw.layers)}")
+    out = _launch_fwd("mp_layer_fwd", xT, bin_adj, sw, act)
+    mp_layer_fwd.launches += int(bin_adj.shape[0] > 0)
+    return out
+
+
+mp_layer_fwd.launches = 0
 
 
 def binned_mp_stack_t(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str = "silu") -> torch.Tensor:
@@ -231,6 +259,19 @@ def binned_mp_stack_t(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights,
     if xT.device.type == "cpu":
         return mp_stack_plain(xT, bin_adj, sw, act)
     raise ValueError(f"binned_mp_stack_t: unsupported device {xT.device}")
+
+
+def binned_mp_layer_t(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights,
+                      act: str = "silu") -> torch.Tensor:
+    """One shell-convolution layer with its residual, ``layer(x) + x``
+    (the JAX ``binned_mp_layer_t`` plus the caller's residual add): kernel
+    1d on CUDA tensors, the plain version (:func:`mp_stack_plain` over one
+    layer) on CPU tensors."""
+    if xT.device.type == "cuda":
+        return mp_layer_fwd(xT, bin_adj, sw, act)
+    if xT.device.type == "cpu":
+        return mp_stack_plain(xT, bin_adj, sw, act)
+    raise ValueError(f"binned_mp_layer_t: unsupported device {xT.device}")
 
 
 # --------------------------------------------------------------------- #
@@ -514,12 +555,11 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
-                       pw: Optional[ProjWeights] = None):
+def _launch_fwd_train(what: str, x: torch.Tensor, adj: torch.Tensor, sw: StackWeights,
+                      spec: StackSpec, pw: Optional[ProjWeights] = None):
     """Launch the stack kernel in training form: dropout, the projection
     fold when ``pw`` is given, and each layer's input saved.  Returns (out
     (D, A), saved inputs (n, D, A)).  Raises on anything it cannot take."""
-    what = "mp_stack_fwd_train"
     if x.dtype != sw.dtype or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: input {x.dtype}, weights {sw.dtype}")
     E = pw.E if pw is not None else None
@@ -553,11 +593,33 @@ def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spe
         )
         if status != 0:
             raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
-        mp_stack_fwd_train.launches += 1
     return (out[:D] if global_mode else out), list(xs.unbind(0))
 
 
+def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
+                       pw: Optional[ProjWeights] = None):
+    """Kernel 1 in training form (with 1c when ``pw`` is given)."""
+    out = _launch_fwd_train("mp_stack_fwd_train", x, adj, sw, spec, pw)
+    mp_stack_fwd_train.launches += int(adj.shape[0] > 0)
+    return out
+
+
 mp_stack_fwd_train.launches = 0
+
+
+def mp_layer_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec):
+    """Kernel 1d in training form: one layer with dropout (``spec.seed`` is
+    the layer's own seed, block tags from 0, as the JAX per-layer op) and
+    the residual, ``layer(x) + x``.  Saves nothing: the backward
+    recomputes from x."""
+    if len(sw.layers) != 1:
+        raise ValueError(f"mp_layer_fwd_train: one layer's weights, got {len(sw.layers)}")
+    out, _ = _launch_fwd_train("mp_layer_fwd_train", x, adj, sw, spec)
+    mp_layer_fwd_train.launches += int(adj.shape[0] > 0)
+    return out
+
+
+mp_layer_fwd_train.launches = 0
 
 WGRAD_CHUNK = 4096  # atoms per split of the weight-gradient contraction
 
@@ -594,17 +656,17 @@ def sum_partials(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
-                 pw: Optional[ProjWeights] = None):
-    """Launch the backward (kernel 1b): per layer, last to first, the walk
-    kernel (recompute from the saved input, walk back, fold the aggregation
-    transpose), then the weight-gradient contractions; under the fold, the
-    projection's backward.  Same returns as :func:`mp_stack_bwd_plain`."""
-    what = "mp_stack_bwd"
+def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, first: int,
+                E: Optional[int] = None):
+    """Per layer, last to first, the walk kernel (recompute from the saved
+    input, walk back, fold the aggregation transpose), then the
+    weight-gradient contractions.  Layer ``l`` reads ``saved[l - first]``,
+    or ``x`` for ``l < first``.  Returns (g32: the fp32 cotangent (Dp, A)
+    of the first layer's input, residual path included; the per-layer
+    weight grads; the work slabs)."""
     dt = sw.dtype
     if g.dtype != dt or x.dtype != dt:
         raise TypeError(f"{what}: cotangent {g.dtype}, input {x.dtype}, weights {dt}")
-    E = pw.E if pw is not None else None
     nb, ab, A = _check_shapes(what, x, adj, sw, E)
     g = g.contiguous()
     cuda_build.check_cuda(what, x.device, ("x", x, 16), ("bin_adj", adj, 16), ("g", g, 16),
@@ -620,13 +682,12 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     wk = torch.empty(n_slabs, Dp, A, dtype=dt, device=dev)
     g32 = torch.zeros(Dp, A, dtype=torch.float32, device=dev)
     g32[:D] = g.float()
-    first = 0 if pw is not None else 1
     act = ACTIVATION_CODES[spec.act.lower()]
     layer_sz = sw.flat.numel() // L
     layer_sz_t = wT.numel() // L
     slab = lambda k: wk[k]  # noqa: E731
     H0, U0, V0, DH0, DU0 = 3, 3 + nblk, 3 + 2 * nblk, 3 + 3 * nblk, 3 + 4 * nblk
-    DT, DA = 3 + 5 * nblk, 4 + 5 * nblk
+    DT = 3 + 5 * nblk
     layer_grads = [None] * L
     for l in range(L - 1, -1, -1):
         xl = saved[l - first] if l >= first else x
@@ -648,33 +709,78 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
             dw2, db2 = wgrad(slab(DH0 + i), slab(V0 + i))
             grads += [dw1, db1, dw2, db2]
         layer_grads[l] = grads
+    return g32, layer_grads, wk
+
+
+def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
+                 pw: Optional[ProjWeights] = None):
+    """Launch the backward (kernel 1b), and under the fold the projection's
+    backward (1c).  Same returns as :func:`mp_stack_bwd_plain`."""
+    what = "mp_stack_bwd"
+    E = pw.E if pw is not None else None
+    g32, layer_grads, wk = _launch_bwd(what, x, adj, sw, spec, saved, g,
+                                       0 if pw is not None else 1, E)
     mp_stack_bwd.launches += 1
+    dt, D = sw.dtype, sw.D
     if pw is None:
         return g32[:D].to(dt), layer_grads, None
+    dev = x.device
+    nb, ab, _ = adj.shape
+    A = x.shape[1]
     cuda_build.check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
+    lib = _lib_bwd()
+    dtc = wk[3 + 5 * sw.n_blocks]  # the dt slab, free after the last layer
     demb = torch.empty(E, A, dtype=dt, device=dev)
     status = lib.mp_stack_bwd_proj(
         x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
-        slab(DT).data_ptr(), demb.data_ptr(), bf16, Dp, E, A, nb, ab, act, _stream(dev),
+        dtc.data_ptr(), demb.data_ptr(), int(dt == torch.bfloat16), sw.Dp, E, A, nb, ab,
+        ACTIVATION_CODES[spec.act.lower()], _stream(dev),
     )
     if status != 0:
         raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
     # g32 now holds the fp32 cotangent of the projection's pre-activation
-    dkbT, dbb = wgrad(slab(DT), x, bias_src=g32)
+    dkbT, dbb = wgrad(dtc, x, bias_src=g32)
     return demb, layer_grads, (dkbT, dbb)
 
 
 mp_stack_bwd.launches = 0
 
 
+def mp_layer_bwd(x, adj, sw: StackWeights, spec: StackSpec, g):
+    """Kernel 1d backward (kernel 1b launched for one layer): from the
+    layer's input ``x`` and the cotangent ``g`` of ``layer(x) + x``, return
+    (the fp32 cotangent (Dp, A) of x, residual path included; the layer's
+    weight grads, prepped orientation)."""
+    if len(sw.layers) != 1:
+        raise ValueError(f"mp_layer_bwd: one layer's weights, got {len(sw.layers)}")
+    g32, layer_grads, _ = _launch_bwd("mp_layer_bwd", x, adj, sw, spec, [], g, 1)
+    mp_layer_bwd.launches += 1
+    return g32, layer_grads[0]
+
+
+mp_layer_bwd.launches = 0
+
+
+def mp_layer_bwd_plain(x, adj, sw: StackWeights, spec: StackSpec, g):
+    """Plain PyTorch version of :func:`mp_layer_bwd`, same returns."""
+    return _layer_bwd_plain(_pad_rows(x, sw.Dp), adj, sw.layers[0], spec, sw.n_blocks, 0,
+                            _pad_rows(g.float(), sw.Dp))
+
+
 # ---- autograd ------------------------------------------------------------- #
+
+
+def _one_layer(spec: StackSpec, pw: Optional[ProjWeights]) -> bool:
+    """One layer without the projection fold: kernel 1d's launches."""
+    return spec.n_layers == 1 and pw is None
 
 
 class _StackTrainFn(torch.autograd.Function):
     """``x -> stack(x)`` (or ``emb -> stack(act(kb^T emb + bb))``) with the
     fp32 master weights as differentiable inputs: the forward preps them
     once per call (cast, pad, transpose) and the backward returns their
-    fp32 grads in the caller's orientation."""
+    fp32 grads in the caller's orientation.  One layer without the fold is
+    kernel 1d (``mp_layer_fwd_train`` / ``mp_layer_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, adj, spec, dt, kb, bb, *ws):
@@ -682,7 +788,9 @@ class _StackTrainFn(torch.autograd.Function):
         with torch.no_grad():
             sw = stack_weights([ws[l * per : (l + 1) * per] for l in range(spec.n_layers)], dt)
             pw = prep_proj(kb, bb, dt, sw.Dp) if kb is not None else None
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and _one_layer(spec, pw):
+            out, saved = mp_layer_fwd_train(x, adj, sw, spec), []
+        elif x.device.type == "cuda":
             out, saved = mp_stack_fwd_train(x, adj, sw, spec, pw)
         elif x.device.type == "cpu":
             out, saved = mp_stack_train_plain(x, adj, sw, spec, pw)
@@ -697,8 +805,12 @@ class _StackTrainFn(torch.autograd.Function):
         x, adj, *saved = ctx.saved_tensors
         sw, pw, spec = ctx.sw, ctx.pw, ctx.spec
         g = g.to(sw.dtype)
-        bwd = mp_stack_bwd if x.device.type == "cuda" else mp_stack_bwd_plain
-        dx, layer_grads, proj = bwd(x, adj, sw, spec, saved, g, pw)
+        if x.device.type == "cuda" and _one_layer(spec, pw):
+            g32, lg = mp_layer_bwd(x, adj, sw, spec, g)
+            dx, layer_grads, proj = g32[: sw.D].to(sw.dtype), [lg], None
+        else:
+            bwd = mp_stack_bwd if x.device.type == "cuda" else mp_stack_bwd_plain
+            dx, layer_grads, proj = bwd(x, adj, sw, spec, saved, g, pw)
         grads = [w for lg in layer_grads for w in unprep_layer_grads(sw, lg)]
         dkb = dbb = None
         if proj is not None:
@@ -728,3 +840,24 @@ def binned_mp_stack_train_t(
     flat = [w for lw in layers_ws for w in lw]
     spec = StackSpec(act.lower(), float(dropout), int(seed) & _M32, len(layers_ws))
     return _StackTrainFn.apply(x.to(dtype).contiguous(), bin_adj, spec, dtype, kb, bb, *flat)
+
+
+def binned_mp_layer_train_t(x: torch.Tensor, bin_adj: torch.Tensor,
+                            layer_ws: Sequence[torch.Tensor], dtype: torch.dtype,
+                            act: str = "silu", dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Differentiable single layer with its residual for training,
+    ``layer(x) + x`` (the JAX ``binned_mp_layer_t`` in a train step plus the
+    caller's residual): kernel 1d on CUDA tensors, the plain versions on CPU
+    tensors.  ``seed`` is the layer's own dropout seed
+    (:func:`layer_drop_seed`)."""
+    return binned_mp_stack_train_t(x, bin_adj, [layer_ws], dtype, act, dropout, seed)
+
+
+def layer_drop_seed(base_seed: int, l: int) -> int:
+    """Per-layer dropout seed of the single-layer entry points, the JAX
+    ``models/gnn.py::_layer_drop_seed``: ``base + tag_l`` in int32 with
+    wrap-around, ``tag_l = (l + 1) * 0x27D4EB2F`` (an odd constant other than
+    the block tag's, so layer l / block i and layer l+1 / block i-1 draw
+    different masks)."""
+    s = (int(base_seed) + (l + 1) * 0x27D4EB2F) & _M32
+    return s - (1 << 32) if s >= (1 << 31) else s

@@ -26,6 +26,7 @@ SOURCES = {
     "mp_stack_bwd": "mp_stack_bwd.cu",
     "attnpool": "attnpool.cu",
     "wpool": "wpool.cu",
+    "inject": "inject.cu",
 }
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NVCC_FLAGS = [

@@ -5,7 +5,9 @@ the SAE + standard-scaling pipeline on the train split and transforms every
 split, builds the binned loaders (the train loader shuffles per epoch),
 trains, evaluates the best parameters on the test split, and saves the
 artifact (flax-named ``.npz``, loadable by both packages) with the same
-``extra`` fields as the JAX package and a ``.summary.json`` beside it.
+``extra`` fields as the JAX package and a ``.summary.json`` beside it; with
+``--output_partial_charges`` (and partial charges on) it also writes the
+test split's per-atom charges as ``.npz`` (``charges``, ``molecule_index``).
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ import json
 import time
 from typing import Any, Dict
 
+import numpy as np
+
 from .checkpoint import init_params, params_from_flax, params_to_flax, save_artifact
 from .data.dataset import BatchLoader, MoleculeDataset
 from .data.io import load_dataset, split_dataset
 from .data.preprocessing import PreprocessingConfig, PreprocessingPipeline
 from .models.gnn import GNN, GNNConfig
 from .training.evaluator import evaluate
+from .training.predictor import extract_partial_charges
 from .training.trainer import TrainConfig, train
 from .utils.device import resolve_device
 
@@ -42,6 +47,8 @@ def gnn_config_from_args(args: argparse.Namespace, output_dim: int) -> GNNConfig
         shell_conv_dropout=args.shell_conv_dropout,
         attention_num_heads=args.attention_num_heads,
         attention_temperature=args.attention_temperature,
+        use_partial_charges=args.use_partial_charges,
+        use_stereochemistry=args.use_stereochemistry,
         loss_function=args.loss_function,
         compute_dtype="bfloat16" if args.mixed_precision else "float32",
     )
@@ -131,6 +138,10 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
         },
     )
     print(f"[artifact] saved to {args.model_save_path}")
+    if args.output_partial_charges and args.use_partial_charges:
+        charges, mol_idx = extract_partial_charges(model, test_loader, device)
+        np.savez(args.output_partial_charges, charges=charges, molecule_index=mol_idx)
+        print(f"[charges] saved to {args.output_partial_charges}")
     summary = {
         "best_val_loss": result.best_val_loss,
         "best_epoch": result.best_epoch,

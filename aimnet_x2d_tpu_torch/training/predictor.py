@@ -1,12 +1,12 @@
-"""Deterministic prediction (counterpart of
-aimnet_x2d_tpu/training/predictor.py::predict).
+"""Deterministic prediction and partial-charge extraction (counterpart of
+aimnet_x2d_tpu/training/predictor.py::predict, ::extract_partial_charges).
 
 MC-dropout and evidential uncertainty are later slices of the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,27 @@ def predict(
         result["atom_embeddings"] = np.concatenate(atoms)
         result["atom_mol_index"] = np.concatenate(atom_mols)
     return result
+
+
+def extract_partial_charges(
+    model: GNN, loader, device: "str | torch.device"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Every real atom's partial charge, in loader order, and the dense
+    index of its molecule (0.. over the loader's real molecules), as the
+    CLI's ``--output_partial_charges`` writes them.  Raises when the model
+    has no partial charges."""
+    charges, mol_idx = [], []
+    offset = 0
+    with torch.inference_mode():
+        for batch in loader:
+            out = model(batch.to(device))
+            if out.partial_charges is None:
+                raise ValueError("Model was not built with use_partial_charges=True")
+            am, gm = batch.atom_mask, batch.graph_mask
+            charges.append(out.partial_charges.cpu().numpy()[am])
+            mol_idx.append(_dense_mol_rank(gm, batch.atom_mol[am]) + offset)
+            offset += int(gm.sum())
+    return np.concatenate(charges), np.concatenate(mol_idx)
 
 
 def _inverse(preds: np.ndarray, pipeline) -> np.ndarray:

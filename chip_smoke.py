@@ -28,7 +28,22 @@ Phases, each of which fails the run when it fails:
    a profiler breakdown of one step; then one step on a small batch on the
    card and on the CPU (plain versions) from the same weights, all
    gradients compared;
-7. print the ``kernels`` JSON line, the card line and, last, the result
+7. config 3 (partial charges + stereochemistry, BASELINE.json config 3) at
+   the flagship width, on SMILES of which about half carry a tetrahedral
+   centre or a cis/trans double bond:
+   - ``[c3-kernel]``: the inject kernels (kernel 4, forward and backward)
+     and kernel 1d (serving form, training form, backward) against their
+     plain versions at the config-3 training shape, bf16, timed, with
+     bounds; the batch must hold tetrahedral centres and cis/trans pairs;
+   - ``[c3-serve]``: phase 4 for a config-3 artifact (counters of the
+     inject kernel, kernel 1d and the pool; the multi-layer stack must
+     not run);
+   - ``[c3-routes]``: one batch of config 3, charges only, stereo only and
+     a 1-layer model on the card and on the CPU, each route launching its
+     own kernels;
+   - ``[c3-train]``: phase 6 for config 3, the CLI writing the test split's
+     partial charges too, 12 timed steps;
+8. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -75,6 +90,7 @@ E2E_TOL = 5e-2
 # 2**-8, and the flip propagates through the layers and the backward walk).
 TRAIN_TOL = 5e-2
 TRAIN_STEPS = 24
+C3_TRAIN_STEPS = 12
 
 
 def card_line() -> str:
@@ -85,20 +101,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_smiles(n: int, seed: int) -> list:
+def make_smiles(n: int, seed: int, stereo: bool = False) -> list:
     """``n`` valid QM9-like SMILES: a terminal group, one to four divalent
-    chain units, a terminal group (7-40 atoms with hydrogens)."""
+    chain units, a terminal group (7-40 atoms with hydrogens).  With
+    ``stereo``, about half of them also carry a tetrahedral centre
+    (``[C@H](X)`` / ``[C@@H](X)``), a cis/trans double bond (``/C=C/``,
+    ``/C=C\\``) or both, each between two of the chain's parts."""
     rng = np.random.default_rng(seed)
     heads = ["C", "O", "N", "F", "Cl", "N#C", "FC(F)(F)", "OC(=O)", "CC", "C=C"]
     units = ["C", "CC", "O", "N", "C(C)", "C(=O)", "C=C", "C#C", "C(O)", "C(N)",
              "c1ccc(cc1)", "C1CCC(CC1)", "C1CC1", "S"]
     tails = ["C", "O", "N", "F", "Cl", "C#N", "C(F)(F)F", "C(=O)O", "CC", "C=O"]
+    chiral = ["[C@H](C)", "[C@@H](C)", "[C@H](O)", "[C@@H](N)", "[C@H](F)", "[C@@H](Cl)"]
+    double = ["/C=C/", "/C=C\\"]
     out = []
     for _ in range(n):
         k = int(rng.integers(1, 5))
         parts = [heads[rng.integers(len(heads))]]
         parts += [units[rng.integers(len(units))] for _ in range(k)]
         parts.append(tails[rng.integers(len(tails))])
+        if stereo and rng.random() < 0.5:
+            kind = int(rng.integers(3))  # 0 centre, 1 double bond, 2 both
+            if kind != 1:
+                parts.insert(int(rng.integers(1, len(parts))), chiral[rng.integers(len(chiral))])
+            if kind != 0:
+                parts.insert(int(rng.integers(1, len(parts))), double[rng.integers(len(double))])
         out.append("".join(parts))
     return out
 
@@ -266,8 +293,10 @@ def profile_forward(model, batch, top: int = 8) -> None:
               flush=True)
 
 
-def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
-    """Phase 4: the port's CLI on cuda, counters, output checks, CPU
+def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
+          counters=None) -> dict:
+    """Phase 4 (and ``[c3-serve]``): the port's CLI on cuda, counters of
+    the path's kernels (default: the flagship's), output checks, CPU
     comparison of one batch, model-only throughput."""
     from aimnet_x2d_tpu_torch import cli
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax, save_artifact
@@ -280,6 +309,7 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
 
     import pandas as pd
 
+    counters = counters or (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd)
     rng = np.random.default_rng(seed)
     T = cfg.output_dim
     scaler = StandardScaler()
@@ -288,18 +318,17 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
     prep.standard_scaler, prep.is_fitted = scaler, True
     cols = [f"target_{i}" for i in range(T)]
     flat = init_params(cfg, seed)
-    art = os.path.join(work, "flagship.npz")
+    art = os.path.join(work, f"{tag}.npz")
     save_artifact(art, flat, cfg, prep, extra={"target_columns": cols, "max_hops": cfg.num_shells})
-    csv_in, csv_out = os.path.join(work, "mols.csv"), os.path.join(work, "preds.csv")
+    csv_in, csv_out = os.path.join(work, f"{tag}-mols.csv"), os.path.join(work, f"{tag}-preds.csv")
     pd.DataFrame({"smiles": smiles}).to_csv(csv_in, index=False)
 
-    bin_mp.mp_stack_fwd.launches = 0
-    bin_wpool.wpool_fwd.launches = 0
+    for c in counters:
+        c.launches = 0
     summary = cli.main(["--inference_csv", csv_in, "--model_save_path", art,
                         "--inference_output", csv_out, "--device", "cuda"])
-    launches = {"mp_stack_fwd": bin_mp.mp_stack_fwd.launches,
-                "wpool_fwd": bin_wpool.wpool_fwd.launches}
-    print(f"[serve] launches on the main path: {launches}", flush=True)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"[{tag}] launches on the main path: {launches}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
@@ -321,7 +350,7 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
     card = (vals[:n_cpu] - scaler.means) / scaler.stds
     e2e_abs = float(np.abs(card - cpu).max())
     e2e_rel = e2e_abs / max(float(np.abs(cpu).max()), 1e-30)
-    print(f"[serve] card vs cpu on {n_cpu} molecules: max_abs_err={e2e_abs:.3e} "
+    print(f"[{tag}] card vs cpu on {n_cpu} molecules: max_abs_err={e2e_abs:.3e} "
           f"rel={e2e_rel:.3e} (tol {E2E_TOL:g}; cpu {cpu_s:.1f} s)", flush=True)
     if not e2e_rel <= E2E_TOL:
         raise AssertionError(f"card predictions differ from the CPU run: {e2e_rel:.3e}")
@@ -336,10 +365,10 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch) -> dict:
         step_ms = time_ms(lambda: model(tb), iters=10)
         profile_forward(model, tb)
     mps = n_mol / (step_ms / 1e3)
-    print(f"[serve] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
+    print(f"[{tag}] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
           f"= {summary['molecules_per_second']:.1f} mol/s end to end, of which featurization "
           f"{summary['featurize_seconds']:.3f} s (host, pure-Python featurizer)", flush=True)
-    print(f"[serve] model forward, batch of {n_mol} molecules (already on the card): "
+    print(f"[{tag}] model forward, batch of {n_mol} molecules (already on the card): "
           f"{step_ms:.3f} ms = {mps:.1f} mol/s", flush=True)
     return launches
 
@@ -352,6 +381,28 @@ def _max_rel(pairs) -> tuple:
         s_ = float(ref.float().abs().max()) if scale is None else scale
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, a / max(s_, 1e-30))
     return worst_abs, worst_rel
+
+
+def recorder(tag: str, res: dict):
+    """``record(name, pairs, ms, plain_ms, ops, nbytes)``: print a bf16
+    kernel's errors (held to TRAIN_TOL), times and bound, and keep them in
+    ``res[name]``."""
+    dt = torch.bfloat16
+
+    def record(name, pairs, ms, plain_ms, ops, nbytes):
+        abs_err, rel = _max_rel(pairs)
+        t_ops, t_bytes = ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[{tag}] {name} bf16: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+              f"(tol {TRAIN_TOL:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if not rel <= TRAIN_TOL:
+            raise AssertionError(f"{name}: rel err {rel:.3e} > {TRAIN_TOL:g}")
+        res[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+
+    return record
 
 
 def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
@@ -389,19 +440,7 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     res = {}
     isz = 2  # bf16 bytes
 
-    def record(name, pairs, ms, plain_ms, ops, nbytes):
-        abs_err, rel = _max_rel(pairs)
-        t_ops, t_bytes = ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[train-kernel] {name} bf16: max_abs_err={abs_err:.3e} rel={rel:.3e} "
-              f"(tol {TRAIN_TOL:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
-        if not rel <= TRAIN_TOL:
-            raise AssertionError(f"{name}: rel err {rel:.3e} > {TRAIN_TOL:g}")
-        res[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
-
+    record = recorder("train-kernel", res)
     w_layer = 2 * D * 2 * D + nblk * 2 * D * D  # weight matrix elements of one layer
     w_mat = L * w_layer
     # --- kernel 1 (training form) + 1c: forward with dropout and the fold
@@ -465,6 +504,178 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     return res
 
 
+def config3(cfg):
+    """BASELINE.json config 3 at the flagship width (bench.py with
+    BENCH_CHARGES_STEREO=1): the same model with partial-charge
+    equilibration and stereochemistry on."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, use_partial_charges=True, use_stereochemistry=True)
+
+
+def check_c3_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+    """``[c3-kernel]``: kernel 4 (the inject kernels, forward and backward)
+    and kernel 1d (one layer: serving form, training form, backward)
+    against their plain versions at the config-3 training shape (a
+    size-sorted batch of 2048, bf16), with times and bounds."""
+    from aimnet_x2d_tpu_torch.models.gnn import atom_total_charge, stereo_context
+    from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
+    from aimnet_x2d_tpu_torch.ops.embed import embed_concat_onehot_t
+    from aimnet_x2d_tpu_torch.utils.activation import get_activation_function
+
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    adj, pm = batch.bin_adj, batch.pool_mat
+    nb, ab, _ = adj.shape
+    A = nb * ab
+    D, Ds = cfg.x_other_dim, cfg.x_self_dim
+    nblk = cfg.shell_conv_num_mlp_layers
+    n = int(batch.atom_mask.sum())
+    ctx = stereo_context(batch)
+    tables = (atom_total_charge(batch), pm, batch.tet_bin, ctx.any_tet.float().reshape(1),
+              ctx.stereo_adj)
+    nnz, snz = int((adj != 0).sum()), int((ctx.stereo_adj != 0).sum())
+    n_tet = int(batch.tet_mask.sum())
+    n_ct = int(batch.cis_mask.sum() + batch.trans_mask.sum())
+    print(f"[c3-kernel] shapes nb={nb} ab={ab} mb={pm.shape[1]} Tc={batch.tet_bin.shape[2]} A={A} "
+          f"real atoms={n} adjacency nonzeros={nnz}; tetrahedral centres={n_tet}, cis/trans "
+          f"pairs={n_ct}, stereo adjacency nonzeros={snz}", flush=True)
+    if n_tet == 0 or n_ct == 0:
+        raise AssertionError("the config-3 batch has no tetrahedral centre or no cis/trans pair")
+    names = ("atom_type", "hydrogen_count", "degree", "hybridization")
+    with torch.no_grad():
+        # the layer input the model feeds kernel 4: act(W_other emb + b)
+        emb = embed_concat_onehot_t([getattr(model, f"{k}_embedding").weight for k in names],
+                                    [getattr(batch, k) for k in names], dtype=dt)
+        W, b = model.embedding_projection.weight, model.embedding_projection.bias
+        act_fn = get_activation_function(cfg.activation_type)
+        x = act_fn((W[Ds:].to(dt).float() @ emb.float()).to(dt) + b[Ds:].to(dt)[:, None])
+        kb, kbias = model.stereochemical_embedding_2.weight.T, model.stereochemical_embedding_2.bias
+        iw = bin_inject.prep_inject(kb, kbias, model.message_passing_layers[0].stack_weights(), dt)
+    n_clip = int((x[1] < 1e-6).sum())
+    print(f"[c3-kernel] layer input: the 1e-6 clip of f binds on {n_clip} of {A} atom slots",
+          flush=True)
+    act = cfg.activation_type
+    spec = bin_mp.StackSpec(act, 0.05, bin_mp.layer_drop_seed(0x1234567, 0) & 0xFFFFFFFF, 1)
+    sw = iw.sw
+    res = {}
+    isz = 2  # bf16 bytes
+
+    record = recorder("c3-kernel", res)
+    # per centre: 4 norms, the polynomial and the scatter, ~40 operations per
+    # feature (forward), ~120 (backward); small beside the products
+    tet_ops = 4 * n_tet * D
+    w_proj = 3 * D * D
+    table_bytes = 4 * A + nb * pm.shape[1] * ab + batch.tet_bin.numel() * 4 + nb * ab * ab
+    # --- kernel 4, inject forward: x', cct, tet and pre; xct kept for training
+    pre, xct = bin_inject.inject_fwd(x, *tables, iw)
+    rpre, rxct = bin_inject.inject_fwd_plain(x, *tables, iw)
+    torch.cuda.synchronize()
+    ops = 2 * snz * D + n * 2 * w_proj + 10 * tet_ops
+    nbytes = (D * A + D * A + 3 * D * A) * isz + table_bytes + w_proj * isz
+    record("inject_fwd", [(pre, rpre, None), (xct, rxct, None)],
+           time_ms(lambda: bin_inject.inject_fwd(x, *tables, iw)),
+           time_ms(lambda: bin_inject.inject_fwd_plain(x, *tables, iw), iters=5), ops, nbytes)
+
+    # --- kernel 1d, serving form and training form: layer(pre) + pre
+    w_layer = 2 * D * 2 * D + nblk * 2 * D * D
+    ops = 2 * nnz * D + n * 2 * w_layer
+    nbytes = 2 * D * A * isz + nb * ab * ab + w_layer * isz
+    got = bin_mp.mp_layer_fwd(rpre, adj, sw, act)
+    ref = bin_mp.mp_stack_plain(rpre, adj, sw, act)
+    torch.cuda.synchronize()
+    record("mp_layer_fwd", [(got, ref, None)],
+           time_ms(lambda: bin_mp.mp_layer_fwd(rpre, adj, sw, act)),
+           time_ms(lambda: bin_mp.mp_stack_plain(rpre, adj, sw, act), iters=5), ops, nbytes)
+    got = bin_mp.mp_layer_fwd_train(rpre, adj, sw, spec)
+    ref = bin_mp.mp_stack_train_plain(rpre, adj, sw, spec)[0]
+    torch.cuda.synchronize()
+    record("mp_layer_fwd_train", [(got, ref, None)],
+           time_ms(lambda: bin_mp.mp_layer_fwd_train(rpre, adj, sw, spec)),
+           time_ms(lambda: bin_mp.mp_stack_train_plain(rpre, adj, sw, spec), iters=5), ops, nbytes)
+
+    # --- kernel 1d backward (1b for one layer): dpre (residual included) and
+    # the layer's weight gradients
+    g = (torch.randn(D, A, generator=gen, device=dev) * 0.05).to(dt)
+    g32, lg = bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g)
+    rg32, rlg = bin_mp.mp_layer_bwd_plain(rpre, adj, sw, spec, g)
+    torch.cuda.synchronize()
+    ops = (2 * 2 * nnz * D + n * 2 * (2 * D * D + (2 * nblk - 1) * D * D)
+           + n * 2 * (2 * nblk * D * D + 4 * D * D) + n * 2 * w_layer)
+    nbytes = 3 * D * A * isz + nb * ab * ab + 4 * w_layer
+    record("mp_layer_bwd", [(g32, rg32, None)] + [(a, r, None) for a, r in zip(lg, rlg)],
+           time_ms(lambda: bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g), iters=10),
+           time_ms(lambda: bin_mp.mp_layer_bwd_plain(rpre, adj, sw, spec, g), iters=3),
+           ops, nbytes)
+
+    # --- kernel 4, inject backward: dx through the projection, the
+    # polynomial and the equilibration, and d_kb, d_b (split-K contraction)
+    dpre, rdpre = g32.to(dt), rg32.to(dt)
+
+    def bwd():
+        return (bin_inject.inject_bwd(x, *tables, iw, rxct, rdpre),
+                *bin_mp.wgrad(rdpre, rxct, bias_src=rg32))
+
+    def bwd_plain():
+        return (bin_inject.inject_bwd_plain(x, *tables, iw, rxct, rdpre),
+                rdpre.float() @ rxct.float().T, rg32.sum(1))
+
+    got, want = bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    ops = 2 * n * 2 * w_proj + 2 * snz * D + 30 * tet_ops
+    nbytes = (D * A + 3 * D * A + D * A + D * A) * isz + 4 * D * A + table_bytes + 4 * (w_proj + D)
+    record("inject_bwd", list(zip(got, want, [None] * 3)), time_ms(bwd, iters=10),
+           time_ms(bwd_plain, iters=3), ops, nbytes)
+    del dpre
+    return res
+
+
+def c3_routes(pkg, cfg, smiles, seed: int) -> None:
+    """``[c3-routes]``: one batch of config 3, charges only, stereo only and
+    a 1-layer model on the card and on the CPU (plain versions), same
+    weights: predictions and partial charges compared; each model's route
+    launches its kernels and no other MP kernel."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
+
+    ds = MoleculeDataset.from_smiles(smiles[:128], np.zeros((128, 1), np.float32), cfg.num_shells)
+    hb = next(iter(BatchLoader(ds, 128)))
+    counters = (bin_inject.inject_fwd, bin_mp.mp_layer_fwd, bin_mp.mp_stack_fwd)
+    routes = {
+        "config3": (dict(use_partial_charges=True, use_stereochemistry=True), (1, 1, 0)),
+        "charges": (dict(use_partial_charges=True), (0, 1, 0)),
+        "stereo": (dict(use_stereochemistry=True), (0, 1, 0)),
+        "one_layer": (dict(num_message_passing_layers=1), (0, 1, 0)),
+    }
+    base = dataclasses.replace(cfg, use_partial_charges=False, use_stereochemistry=False)
+    for name, (kw, want) in routes.items():
+        c = dataclasses.replace(base, **kw)
+        outs = {}
+        for c_ in counters:
+            c_.launches = 0
+        for where in ("cuda", "cpu"):
+            m = pkg.models.gnn.GNN(c)
+            m.load_state_dict(params_from_flax(init_params(c, seed)))
+            with torch.inference_mode():
+                outs[where] = m.to(where).eval()(hb.to(where))
+        ran = tuple(int(c_.launches > 0) for c_ in counters)
+        pairs = [(outs["cuda"].predictions.cpu(), outs["cpu"].predictions, None)]
+        if c.use_partial_charges:
+            am = torch.from_numpy(hb.atom_mask)
+            pairs.append((outs["cuda"].partial_charges.cpu()[am], outs["cpu"].partial_charges[am],
+                          None))
+        abs_err, rel = _max_rel(pairs)
+        print(f"[c3-routes] {name} ({m.route} route): card vs cpu max_abs_err={abs_err:.3e} "
+              f"rel={rel:.3e} (tol {E2E_TOL:g}); launches "
+              f"{ {c_.__name__: c_.launches for c_ in counters} }", flush=True)
+        if not rel <= E2E_TOL or ran != want:
+            raise AssertionError(f"{name}: rel err {rel:.3e}, kernels run {ran}, want {want}")
+
+
 def synthetic_targets(ds, T: int, seed: int) -> np.ndarray:
     """T targets per molecule that depend on its composition (learnable),
     with noise, from ``seed``."""
@@ -499,9 +710,13 @@ def profile_step(step, top: int = 12) -> None:
               flush=True)
 
 
-def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
-    """Phase 6: the CLI's training path on the card, a timed train-step
-    loop, and one step card against CPU."""
+def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
+                counters=None, steps: int = TRAIN_STEPS) -> dict:
+    """Phase 6 (and ``[c3-train]``): the CLI's training path on the card
+    with the counters of the path's kernels (default: the flagship's), a
+    timed train-step loop of ``steps`` steps, and one step card against
+    CPU.  With partial charges the CLI also writes the test split's
+    charges, which are checked."""
     import dataclasses
 
     import pandas as pd
@@ -513,15 +728,19 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
     from aimnet_x2d_tpu_torch.training import trainer
 
     T = cfg.output_dim
-    counters = (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_attnpool.attnpool_fwd,
-                bin_attnpool.attnpool_bwd)
+    counters = counters or (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd,
+                            bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)
     targets = synthetic_targets(ds, T, seed)
     cols = [f"target_{i}" for i in range(T)]
-    csv = os.path.join(work, "train.csv")
+    csv = os.path.join(work, f"{tag}.csv")
     df = pd.DataFrame(targets, columns=cols)
     df.insert(0, "smiles", ds.smiles)
     df.to_csv(csv, index=False)
-    art = os.path.join(work, "trained.npz")
+    art = os.path.join(work, f"{tag}-trained.npz")
+    charges = os.path.join(work, f"{tag}-charges.npz")
+    extra = ["--use_partial_charges", "--output_partial_charges", charges] \
+        if cfg.use_partial_charges else []
+    extra += ["--use_stereochemistry"] if cfg.use_stereochemistry else []
 
     # --- the user's entry point: the CLI, bf16, dropout 0.05 (the defaults)
     for c in counters:
@@ -529,13 +748,13 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
     summary = cli.main(["--data_path", csv, "--multi_target_columns", ",".join(cols),
                         "--task_type", "multitask", "--mixed_precision", "--epochs", "3",
                         "--batch_size", "2048", "--learning_rate", "1e-3",
-                        "--model_save_path", art, "--seed", str(seed)])
+                        "--model_save_path", art, "--seed", str(seed), *extra])
     launches = {c.__name__: c.launches for c in counters}
-    print(f"[train] launches on the main path (CLI, 3 epochs): {launches}", flush=True)
+    print(f"[{tag}] launches on the main path (CLI, 3 epochs): {launches}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a training kernel never launched: {launches}")
     hist = summary["history"]
-    print(f"[train] CLI epochs: train loss {[round(h['train_loss'], 5) for h in hist]}, "
+    print(f"[{tag}] CLI epochs: train loss {[round(h['train_loss'], 5) for h in hist]}, "
           f"val loss {[round(h['val_loss'], 5) for h in hist]}, test "
           f"{ {k: v for k, v in summary['test_metrics'].items() if k != 'per_task'} }",
           flush=True)
@@ -544,18 +763,33 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
         raise AssertionError("the CLI's training produced non-finite losses")
     loaded = load_artifact(art)
     mc = loaded.model_config
-    if (mc.hidden_dim, mc.output_dim, mc.compute_dtype) != (cfg.hidden_dim, T, "bfloat16"):
-        raise AssertionError(f"the saved artifact's config is not the flagship's: {mc}")
+    want = (cfg.hidden_dim, T, "bfloat16", cfg.use_partial_charges, cfg.use_stereochemistry)
+    if (mc.hidden_dim, mc.output_dim, mc.compute_dtype, mc.use_partial_charges,
+            mc.use_stereochemistry) != want:
+        raise AssertionError(f"the saved artifact's config is not the one trained: {mc}")
+    if cfg.use_partial_charges:
+        with np.load(charges) as f:
+            q, idx = f["charges"], f["molecule_index"]
+            names = sorted(f.files)
+        n_mol = int(idx.max()) + 1
+        print(f"[{tag}] --output_partial_charges: {q.shape[0]} atoms of {n_mol} test "
+              f"molecules, charges in [{q.min():.4f}, {q.max():.4f}]", flush=True)
+        # the JAX layout: one charge per real atom, in loader order, with the
+        # dense index (0, 1, ...) of its molecule
+        if (names != ["charges", "molecule_index"] or q.shape != idx.shape
+                or not np.isfinite(q).all() or (np.diff(idx) < 0).any()
+                or not np.array_equal(np.unique(idx), np.arange(n_mol))):
+            raise AssertionError("the charges file is not the JAX layout over the test split")
 
     # --- the train step, timed on card-resident batches
     pipe = loaded.pipeline
     tds = ds.with_targets(pipe.transform(ds.atomic_numbers(), targets))
     loader = BatchLoader(tds, 2048, shuffle=True, seed=seed)
     batches = []
-    for epoch in range(TRAIN_STEPS // len(loader) + 1):
+    for epoch in range(steps // len(loader) + 1):
         loader.set_epoch(epoch)
         batches += [b.to("cuda") for b in loader]
-    batches = batches[:TRAIN_STEPS]
+    batches = batches[:steps]
     model = pkg.models.gnn.GNN(cfg)
     model.load_state_dict(params_from_flax(init_params(cfg, seed)))
     model.to("cuda").train()
@@ -577,14 +811,14 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
     per_step = {c.__name__: c.launches / len(batches) for c in counters}
     n_mol = int(batches[0].graph_mask.sum())
     med = float(np.median(ms[2:]))
-    print(f"[train] {len(batches)} steps, batch {n_mol} molecules: median {med:.3f} ms/step "
+    print(f"[{tag}] {len(batches)} steps, batch {n_mol} molecules: median {med:.3f} ms/step "
           f"(host clock around a synchronized step) = {n_mol / med * 1e3:.1f} mol/s; "
           f"loss first {losses[0]:.5f} last {losses[-1]:.5f}; launches per step {per_step}",
           flush=True)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the training loss did not fall: {losses}")
-    print(f"[train] step ms: {[round(x, 3) for x in ms]}", flush=True)
-    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+    print(f"[{tag}] step ms: {[round(x, 3) for x in ms]}", flush=True)
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     b0 = batches[0]
     profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen))
@@ -617,7 +851,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str) -> dict:
             for k, g in grads["cpu"].items()}
     top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
     worst = top[0][1]
-    print(f"[train] one step card vs cpu ({int(sb.graph_mask.sum())} molecules, "
+    print(f"[{tag}] one step card vs cpu ({int(sb.graph_mask.sum())} molecules, "
           f"{len(grads['cpu'])} gradients): worst max|d|/max|cpu| {worst:.3e} "
           f"(tol {TRAIN_TOL:g}); largest {[(k, f'{v:.2e}') for k, v in top]}", flush=True)
     if not worst <= TRAIN_TOL:
@@ -639,6 +873,7 @@ def main() -> int:
     from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -685,6 +920,46 @@ def main() -> int:
     full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
                                        cfg.num_shells)
     launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
+    print(f"[time] flagship phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # --- config 3 (partial charges + stereochemistry) at the flagship width,
+    # on SMILES with stereo content
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_inject, bin_mp, bin_wpool
+
+    c3 = config3(cfg)
+    c3_smiles = make_smiles(args.molecules, args.seed + 1, stereo=True)
+    c3_full = MoleculeDataset.from_smiles(c3_smiles, np.zeros((len(c3_smiles), 1), np.float32),
+                                          cfg.num_shells)
+    c3_ds = MoleculeDataset(c3_full.smiles[:2048], c3_full.targets[:2048],
+                            c3_full.features[:2048], c3_full.max_hops)
+    c3_tcfg = train_config(c3)
+    c3_model = pkg.models.gnn.GNN(c3_tcfg)
+    c3_model.load_state_dict(params_from_flax(init_params(c3_tcfg, args.seed)))
+    c3_model.to("cuda")
+    c3_tbatch = next(iter(BatchLoader(c3_ds, 2048, shuffle=True, seed=args.seed))).to("cuda")
+    for name, r in check_c3_kernels(pkg, c3_tcfg, c3_model, c3_tbatch, args.seed).items():
+        res[(name, torch.bfloat16)] = r
+    del c3_model, c3_tbatch
+    c3_loader = BatchLoader(c3_ds, 2048)
+    c3_loader.warm_bin_pins()
+    c3_batch = next(iter(c3_loader)).to("cuda")
+    bin_mp.mp_stack_fwd.launches = 0
+    c3_launches = serve(pkg, c3, c3_full.smiles[:2048], args.seed, work, c3_batch, tag="c3-serve",
+                        counters=(bin_inject.inject_fwd, bin_mp.mp_layer_fwd, bin_wpool.wpool_fwd))
+    if bin_mp.mp_stack_fwd.launches != 0:
+        raise AssertionError("config 3 served through the multi-layer stack kernel")
+    del c3_batch
+    c3_routes(pkg, c3, c3_full.smiles, args.seed)
+    c3_launches.update(train_phase(
+        pkg, c3_tcfg, c3_full.smiles, c3_full, args.seed, work, tag="c3-train",
+        counters=(bin_inject.inject_fwd, bin_inject.inject_bwd, bin_mp.mp_layer_fwd_train,
+                  bin_mp.mp_layer_bwd, bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd),
+        steps=C3_TRAIN_STEPS))
+    for name in ("inject_bwd", "mp_layer_fwd_train", "mp_layer_bwd"):
+        launches[name] = c3_launches[name]
+    for name in ("inject_fwd", "mp_layer_fwd"):  # serving's counts
+        launches[name] = c3_launches[name]
+    print(f"[time] config-3 phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, src, tpu in (
@@ -698,6 +973,16 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/bin_attnpool.py:202"),
         ("attnpool_bwd", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
          "aimnet_x2d_tpu/ops/bin_attnpool.py:228"),
+        ("inject_fwd", "aimnet_x2d_tpu_torch/csrc/inject.cu",
+         "aimnet_x2d_tpu/ops/bin_inject.py:336"),
+        ("inject_bwd", "aimnet_x2d_tpu_torch/csrc/inject.cu",
+         "aimnet_x2d_tpu/ops/bin_inject.py:355"),
+        ("mp_layer_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:1278"),
+        ("mp_layer_fwd_train", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:1278"),
+        ("mp_layer_bwd", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:659"),
     ):
         r = res[(name, torch.bfloat16)]  # the flagship's dtype
         kernels.append({

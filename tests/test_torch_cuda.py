@@ -196,3 +196,151 @@ def test_wgrad_matches_matmul(dev, dtype):
     assert _rel(db, dY.float().sum(1)) < 1e-4
     dw2, _ = bin_mp.wgrad(dY, X)
     assert torch.equal(dw, dw2)  # fixed-order sums: the same bits every run
+
+
+# ---- config 3: kernel 1d (the stack kernels launched for one layer:
+# serving form, training form with dropout, backward) and kernel 4 (the
+# charge + stereo inject round), against their plain versions.  Same
+# tolerances; inputs are molecule-like (a few neighbours per atom,
+# init-scale weights) for the reason given above.
+
+
+def _init_layer(rng, D, n_blocks=2):
+    """One shell-conv layer's fp32 masters at the model's initialisation
+    scale, U(+-1/sqrt(fan_in)), in the caller's order."""
+    u = lambda s, fan: (rng.uniform(-1, 1, s) / np.sqrt(fan)).astype(np.float32)  # noqa: E731
+    lw = [u((D, D), 4 * D), u((D, D), 4 * D), u(D, 4 * D), u((D, D), 4 * D), u((D, D), 4 * D),
+          u(D, 4 * D)]
+    for _ in range(n_blocks):
+        lw += [u((D, D), D), u(D, D), u((D, D), D), u(D, D)]
+    return lw
+
+
+def _sparse_adj(rng, nb, ab, values):
+    near = rng.random((nb, ab, ab)) < 6.0 / ab
+    return (near * rng.choice(values, (nb, ab, ab))).astype(np.int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [19, 153])
+def test_layer_kernels_match_plain(dev, D, dtype):
+    rng = np.random.default_rng(D)
+    nb, ab = 5, 256 if D == 153 else 64
+    A = nb * ab
+    adj = torch.from_numpy(_sparse_adj(rng, nb, ab, [1, 2])).to(dev)
+    sw = bin_mp.stack_weights([[torch.from_numpy(w).to(dev) for w in _init_layer(rng, D)]], dtype)
+    x = torch.from_numpy(rng.normal(size=(D, A)).astype(np.float32)).to(dev, dtype)
+    gout = torch.from_numpy(rng.normal(size=(D, A)).astype(np.float32)).to(dev, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    counters = (bin_mp.mp_layer_fwd, bin_mp.mp_layer_fwd_train, bin_mp.mp_layer_bwd,
+                bin_mp.mp_stack_fwd, bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd)
+    before = [c.launches for c in counters]
+    got = bin_mp.binned_mp_layer_t(x, adj, sw, "silu")
+    errs = {"serve": _rel(got, bin_mp.mp_stack_plain(x, adj, sw, "silu"))}
+    spec = bin_mp.StackSpec("silu", 0.1, bin_mp.layer_drop_seed(-98765, 2) & 0xFFFFFFFF, 1)
+    out = bin_mp.mp_layer_fwd_train(x, adj, sw, spec)
+    errs["train"] = _rel(out, bin_mp.mp_stack_train_plain(x, adj, sw, spec)[0])
+    g32, lg = bin_mp.mp_layer_bwd(x, adj, sw, spec, gout)
+    rg32, rlg = bin_mp.mp_layer_bwd_plain(x, adj, sw, spec, gout)
+    torch.cuda.synchronize()
+    errs["dx"] = _rel(g32, rg32)
+    for k, (a, r) in enumerate(zip(lg, rlg)):
+        errs[f"grad {k}"] = _rel(a, r)
+    print(f"D={D} {dtype}: worst {max(errs.values()):.2e}", errs)
+    assert max(errs.values()) < tol
+    # each form on its own counter, none on kernel 1's
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0]
+
+
+def _c3_case(D, nb, ab, mb, tc, case, seed):
+    """A binned config-3 round as numpy arrays: whole molecules of 4-12
+    atoms per bin (padding at each bin's end), up to ``tc`` tetrahedral
+    centres per bin on four atoms of one molecule (none for ``no_tet``),
+    sparse bond and signed cis/trans adjacencies, integer total charges,
+    and f = x[1] below the 1e-6 clip on some atoms for ``clip``."""
+    rng = np.random.default_rng(seed)
+    A = nb * ab
+    owner = np.full((nb, ab), -1)
+    tet = np.full((nb, 4, tc), -1, np.int32)
+    for b in range(nb):
+        a = t = 0
+        for m in range(mb):
+            n = int(rng.integers(4, 13))
+            if a + n > ab - 4:
+                break
+            owner[b, a : a + n] = m
+            if case != "no_tet" and t < tc and rng.random() < 0.7:
+                tet[b, :, t] = a + rng.choice(n, 4, replace=False)
+                t += 1
+            a += n
+    q = rng.integers(-1, 2, (nb, mb)).astype(np.float32)
+    x = rng.normal(size=(D, A)).astype(np.float32)
+    x[1] = np.abs(x[1]) + 0.05
+    if case == "clip":
+        x[1, ::5] = -0.3
+    u = lambda s, fan: (rng.uniform(-1, 1, s) / np.sqrt(fan)).astype(np.float32)  # noqa: E731
+    return dict(
+        x=x,
+        tca=np.where(owner >= 0, q[np.arange(nb)[:, None], np.maximum(owner, 0)], 0)
+        .astype(np.float32).reshape(-1),
+        pool=(owner[:, None, :] == np.arange(mb)[None, :, None]).astype(np.int8),
+        tet_bin=tet,
+        any_tet=np.array([float((tet >= 0).any())], np.float32),
+        sadj=_sparse_adj(rng, nb, ab, [-1, 1]),
+        adj=_sparse_adj(rng, nb, ab, [1, 2]),
+        kb=u((3 * D, D), 3 * D),
+        b=u(D, 3 * D),
+        lws=_init_layer(rng, D),
+        g=rng.normal(size=(D, A)).astype(np.float32),
+        dpre=rng.normal(size=(D, A)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("case", ["tet", "no_tet", "clip"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [13, 153])
+def test_inject_kernels_match_plain(dev, D, dtype, case):
+    from aimnet_x2d_tpu_torch.ops import bin_inject
+
+    nb, ab, mb, tc = (6, 256, 16, 24) if D == 153 else (3, 64, 8, 8)
+    c = _c3_case(D, nb, ab, mb, tc, case, D + len(case))
+    t = {k: [torch.from_numpy(w).to(dev) for w in v] if k == "lws" else torch.from_numpy(v).to(dev)
+         for k, v in c.items()}
+    x = t["x"].to(dtype)
+    tables = (t["tca"], t["pool"], t["tet_bin"], t["any_tet"], t["sadj"])
+    iw = bin_inject.prep_inject(t["kb"], t["b"], t["lws"], dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    counters = (bin_inject.inject_fwd, bin_inject.inject_bwd, bin_mp.mp_layer_fwd_train,
+                bin_mp.mp_layer_bwd, bin_mp.mp_layer_fwd)
+    before = [k.launches for k in counters]
+    # the inject kernels alone
+    pre, xct = bin_inject.inject_fwd(x, *tables, iw)
+    rpre, rxct = bin_inject.inject_fwd_plain(x, *tables, iw)
+    dpre = bin_mp._pad_rows(t["dpre"], iw.sw.Dp).to(dtype)
+    dx = bin_inject.inject_bwd(x, *tables, iw, rxct, dpre)
+    rdx = bin_inject.inject_bwd_plain(x, *tables, iw, rxct, dpre)
+    torch.cuda.synchronize()
+    errs = {"pre": _rel(pre, rpre), "xct": _rel(xct, rxct), "dx": _rel(dx, rdx)}
+    # the whole round (inject + kernel 1d), training form with dropout and
+    # its backward, against the same function on CPU copies (plain versions)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        xin = x.detach().to(where).requires_grad_(True)
+        ws = [w.detach().to(where).requires_grad_(True) for w in [t["kb"], t["b"], *t["lws"]]]
+        out = bin_inject.binned_inject_mp_layer_train_t(
+            xin, *[a.to(where) for a in tables], t["adj"].to(where), ws[0], ws[1], ws[2:], dtype,
+            "silu", 0.05, -424242)
+        out.backward(t["g"].to(where, dtype))
+        outs[where] = [out.detach(), xin.grad] + [w.grad for w in ws]
+    names = ["out", "round dx", "d_kb", "d_b"] + [f"layer grad {k}" for k in range(len(t["lws"]))]
+    for n, a, r in zip(names, outs["cuda"], outs["cpu"]):
+        errs[n] = _rel(a, r.to(dev))
+    print(f"D={D} {dtype} {case}: worst {max(errs.values()):.2e}", errs)
+    assert max(errs.values()) < tol
+    assert [k.launches - b for k, b in zip(counters, before)] == [2, 2, 1, 1, 0]
+    # serving form without dropout: the training form's result, bit for bit
+    out0 = bin_inject.binned_inject_mp_layer_train_t(
+        x, *tables, t["adj"], t["kb"], t["b"], t["lws"], dtype, "silu")
+    serve = bin_inject.binned_inject_mp_layer_t(x, *tables, t["adj"], iw, "silu")
+    torch.testing.assert_close(serve, out0, rtol=0, atol=0)
+    assert bin_mp.mp_layer_fwd.launches == before[4] + 1
