@@ -8,15 +8,21 @@ CSV of SMILES.
     # serve
     python -m aimnet_x2d_tpu_torch.cli --inference_csv mols.csv \\
         --model_save_path model.npz --inference_output preds.csv
+    # fine-tune a trained model: new 12-target head, everything else frozen,
+    # checkpoints every epoch (a rerun of the same command resumes)
+    python -m aimnet_x2d_tpu_torch.cli --data_path tasks.csv ... \\
+        --transfer_learning model.npz --freeze_pretrained \\
+        --layer_wise_lr_decay --checkpoint_dir ckpt --checkpoint_every 1
 
 The flags are those of the JAX package's CLI that the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels).  Flags of features that are later slices of the port
-(transfer learning, freezing, layer-wise LR decay, checkpoints, HDF5
-streaming, several devices, trackers, embedding output, MC-dropout and
-evidential serving) are accepted and raise NotImplementedError when set.
-Partial charges and stereochemistry (``--use_partial_charges``,
-``--use_stereochemistry``, ``--output_partial_charges``) are supported.
+the kernels): every pooling type, partial charges and stereochemistry
+(``--output_partial_charges``), transfer learning, freeze and unfreeze
+patterns, layer-wise LR decay, checkpoint/resume, wandb tracking and
+``--experiment_config``.  Flags of features that are later slices of the
+port (HDF5 streaming, several devices, embedding output, true multi-hop
+aggregation, hyperparameter search, MC-dropout and evidential serving) are
+accepted and raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -27,11 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 # flag -> value that means "not used"; any other value raises
 _LATER = {
-    "transfer_learning": None, "freeze_pretrained": False, "freeze_layers": None,
-    "unfreeze_layers": None, "layer_wise_lr_decay": False, "checkpoint_dir": None,
-    "iterable_dataset": False, "num_devices": None, "graph_shards": 1, "enable_wandb": False,
-    "save_embeddings": False, "hyperparameter_file": None, "true_multi_hop": False,
-    "mc_samples": 0, "inference_hdf5": None,
+    "iterable_dataset": False, "num_devices": None, "graph_shards": 1, "save_embeddings": False,
+    "hyperparameter_file": None, "true_multi_hop": False, "mc_samples": 0, "inference_hdf5": None,
 }
 
 
@@ -95,11 +98,19 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--mixed_precision", action="store_true", help="bf16 compute, fp32 weights")
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--model_save_path", type=str, default="gnn_model.npz")
-    for flag in ("transfer_learning", "freeze_layers", "unfreeze_layers", "checkpoint_dir",
-                 "hyperparameter_file", "output_partial_charges"):
+    g.add_argument("--transfer_learning", type=str, default=None,
+                   help="path to a pretrained artifact")
+    g.add_argument("--freeze_pretrained", action="store_true")
+    g.add_argument("--freeze_layers", type=str, default=None)
+    g.add_argument("--unfreeze_layers", type=str, default=None)
+    g.add_argument("--layer_wise_lr_decay", action="store_true")
+    g.add_argument("--lr_decay_factor", type=float, default=0.8)
+    g.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="periodic training checkpoints; a run resumes from the newest")
+    g.add_argument("--checkpoint_every", type=int, default=10)
+    for flag in ("hyperparameter_file", "output_partial_charges"):
         g.add_argument(f"--{flag}", type=str, default=None)
-    for flag in ("freeze_pretrained", "layer_wise_lr_decay", "enable_wandb", "save_embeddings"):
-        g.add_argument(f"--{flag}", action="store_true")
+    g.add_argument("--save_embeddings", action="store_true")
     g.add_argument("--num_devices", type=int, default=None)
     g.add_argument("--graph_shards", type=int, default=1)
 
@@ -118,6 +129,14 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", type=str, default="cuda")
     g.add_argument("--precompute_num_workers", type=int, default=None)
     g.add_argument("--num_workers", type=int, default=4)
+
+    g = p.add_argument_group("Logging & Tracking")
+    g.add_argument("--enable_wandb", action="store_true")
+    g.add_argument("--wandb_project", type=str, default="aimnet-x2d-tpu")
+    g.add_argument("--wandb_entity", type=str, default=None)
+    g.add_argument("--wandb_tags", type=str, default=None)
+    g.add_argument("--experiment_config", type=str, default=None,
+                   help="save the resolved configuration to this YAML path")
     return p
 
 
@@ -137,6 +156,9 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args.multi_target_list = _csv_list(args.multi_target_columns, str)
     args.sae_subtask_list = _csv_list(args.sae_subtasks, int)
     args.multitask_weight_list = _csv_list(args.multitask_weights, float)
+    args.freeze_layer_list = _csv_list(args.freeze_layers, str)
+    args.unfreeze_layer_list = _csv_list(args.unfreeze_layers, str)
+    args.wandb_tag_list = _csv_list(args.wandb_tags, str)
     if args.ffn_hidden_dim is None:
         args.ffn_hidden_dim = args.hidden_dim
     args.is_inference = args.inference_csv is not None
@@ -144,14 +166,9 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    args = parse_arguments(argv)
-    if args.is_inference:
-        from .inference.engine import inference_main
+    from .runner import main_runner
 
-        return inference_main(args)
-    from .runner import run_training
-
-    return run_training(args)
+    return main_runner(parse_arguments(argv))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ Forward on the binned, feature-major fast path (the JAX ``t_path``):
      ``bin_inject.charge_rows``, :func:`stereochemistry_t`), then the
      single-layer kernel with its residual (kernel 1d);
 4. pooling of [x_self, x_other] with concat_self_other folded in
-   (attention, mean or sum; ops/bin_wpool.py kernel)
+   (attention, mean or sum; ops/bin_wpool.py kernels), or, for max
+   pooling, concat_self_other on the atoms then the masked max (plain
+   PyTorch; the JAX package has no kernel for it)
 5. post_pooling_projection -> FFN -> [h, skip_transform(h)] -> output_layer
 
 With partial charges, row 0 of the final x_other is the per-atom charge
@@ -27,15 +29,16 @@ step (``train_mode=True``, dropout on), differentiable end to end.  On the
 stack route the stack takes the embeddings and folds the x_other projection
 in (kernels 1, 1b, 1c); on the other routes the projection is plain autograd
 and each layer's kernel has its own backward (4, 1d).  Attention pooling
-takes the embeddings and folds the x_self projection in (kernel 3).  The
+takes the embeddings and folds the x_self projection in (kernel 3); mean,
+sum and max pooling take x_self from plain autograd, and mean and sum pool
+through the weighted pool's forward and backward kernels (2, 2b).  The
 step's dropout seed is one int32 (each single-layer call gets
 ``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
 FFN's dropout masks come from a ``torch.Generator``.
 
-Max pooling, the flat layout, true multi-hop aggregation and graph-axis
-execution are later slices of the port, as is training with mean or sum
-pooling; the model raises NotImplementedError for them rather than running
-anything else.
+The flat layout, true multi-hop aggregation, graph-axis execution and
+models without message passing are later slices of the port; the model
+raises NotImplementedError for them rather than running anything else.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
 from .pooling import (
     POOLING_TYPES,
     MultiHeadAttentionPooling,
+    binned_max_pool,
     binned_mean_pool_t,
     binned_sum_pool_t,
     pool_then_project,
@@ -415,24 +419,45 @@ class GNN(nn.Module):
             x_other = self._message_passing(batch, x_other, False, None)
 
         # 4. combine (atom-embedding tap) and pool
-        k_cs = self.concat_self_other.weight.T  # (in, out)
-        b_cs = self.concat_self_other.bias
-        atom_emb = None
-        if atom_embeddings:
-            y = mm32(x_self.T, k_cs[:xs], cdt) + mm32(x_other.T, k_cs[xs:], cdt)
-            atom_emb = ((y.to(dt) + b_cs.to(dt)) if cdt is not None else y + b_cs).float()
         pm = batch.pool_mat
+        atom_emb = None
+        if atom_embeddings or cfg.pooling_type == "max":
+            atom_emb = self._atom_embeddings(x_self, x_other)
         attention_weights = None
         if cfg.pooling_type == "attention":
-            mol, attention_weights = self.pooling([x_self, x_other], pm, (k_cs, b_cs))
-        elif cfg.pooling_type == "mean":
-            pooled = [binned_mean_pool_t(p, pm) for p in (x_self, x_other)]
-            mol = pool_then_project(pooled, (pm.sum(dim=2) > 0).reshape(-1), k_cs, b_cs, dt)
-        else:  # sum
-            pooled = [binned_sum_pool_t(p, pm) for p in (x_self, x_other)]
-            mol = pool_then_project(pooled, pm.sum(dim=2).reshape(-1), k_cs, b_cs, dt)
-
+            k_cs = self.concat_self_other.weight.T  # (in, out)
+            mol, attention_weights = self.pooling([x_self, x_other], pm,
+                                                  (k_cs, self.concat_self_other.bias))
+        elif cfg.pooling_type == "max":
+            mol = binned_max_pool(atom_emb, pm)
+        else:
+            mol = self._linear_pool(x_self, x_other, pm)
+        atom_emb = atom_emb.float() if atom_embeddings else None
         return self._head(mol, attention_weights, atom_emb, self._charges(x_other), None)
+
+    def _atom_embeddings(self, x_self: torch.Tensor, x_other: torch.Tensor) -> torch.Tensor:
+        """(A, hidden) in the compute dtype: concat_self_other applied to
+        [x_self, x_other] by row blocks of its kernel (the concat is never
+        formed), as the JAX package's atom-embedding tap."""
+        dt = self.compute_dtype
+        cdt = dt if dt == torch.bfloat16 else None
+        k_cs, b_cs = self.concat_self_other.weight.T, self.concat_self_other.bias
+        xs = self.config.x_self_dim
+        y = mm32(x_self.T, k_cs[:xs], cdt) + mm32(x_other.T, k_cs[xs:], cdt)
+        return (y.to(dt) + b_cs.to(dt)) if cdt is not None else y + b_cs
+
+    def _linear_pool(self, x_self: torch.Tensor, x_other: torch.Tensor,
+                     pm: torch.Tensor) -> torch.Tensor:
+        """Mean or sum pooling of each part through the weighted-pool kernels,
+        then concat_self_other on the pooled parts, its bias scaled by each
+        slot's coverage (mean) or atom count (sum): (B, hidden) fp32."""
+        mean = self.config.pooling_type == "mean"
+        pool = binned_mean_pool_t if mean else binned_sum_pool_t
+        counts = pm.sum(dim=2).reshape(-1)
+        return pool_then_project([pool(p, pm) for p in (x_self, x_other)],
+                                 counts > 0 if mean else counts,
+                                 self.concat_self_other.weight.T, self.concat_self_other.bias,
+                                 self.compute_dtype)
 
     def _charges(self, x_other: torch.Tensor) -> Optional[torch.Tensor]:
         return x_other[0].float() if self.config.use_partial_charges else None
@@ -445,17 +470,15 @@ class GNN(nn.Module):
             attention_weights=attention_weights,
             partial_charges=charges,
             atom_embeddings=atom_emb,
-            mol_embeddings=mol,
+            mol_embeddings=mol.float(),
         )
 
     def _forward_train(self, batch: MolBatch, drop_seed: Optional[int],
                        generator: Optional[torch.Generator]) -> GNNOutput:
         cfg = self.config
-        if cfg.pooling_type != "attention":
-            raise NotImplementedError(
-                f"training with {cfg.pooling_type} pooling is not ported yet (it needs the "
-                "weighted pool's backward kernel)")
         dt = self.compute_dtype
+        cdt = dt if dt == torch.bfloat16 else None
+        act = get_activation_function(cfg.activation_type)
         tables = [getattr(self, f"{n}_embedding").weight for n in _EMBEDDINGS]
         embT = embed_concat_onehot_t(tables, [getattr(batch, n) for n in _EMBEDDINGS], dtype=dt)
         W, b = self.embedding_projection.weight, self.embedding_projection.bias
@@ -475,13 +498,20 @@ class GNN(nn.Module):
                 proj_weights=(W[xs:].T, b[xs:]),
             )
         else:
-            act = get_activation_function(cfg.activation_type)
-            cdt = dt if dt == torch.bfloat16 else None
             x_other = act(mm32(W[xs:], embT, cdt).to(dt) + b[xs:].to(dt)[:, None])
             x_other = self._message_passing(batch, x_other, True, drop_seed)
-        k_cs = self.concat_self_other.weight.T
-        mol, attn = self.pooling.forward_train(
-            embT, W[:xs].T, b[:xs], cfg.activation_type, x_other, batch.pool_mat,
-            (k_cs, self.concat_self_other.bias),
-        )
+        pm = batch.pool_mat
+        attn = None
+        if cfg.pooling_type == "attention":
+            k_cs = self.concat_self_other.weight.T
+            mol, attn = self.pooling.forward_train(
+                embT, W[:xs].T, b[:xs], cfg.activation_type, x_other, pm,
+                (k_cs, self.concat_self_other.bias),
+            )
+        else:
+            x_self = act(mm32(W[:xs], embT, cdt).to(dt) + b[:xs].to(dt)[:, None])
+            if cfg.pooling_type == "max":
+                mol = binned_max_pool(self._atom_embeddings(x_self, x_other), pm)
+            else:
+                mol = self._linear_pool(x_self, x_other, pm)
         return self._head(mol, attn, None, self._charges(x_other), generator)

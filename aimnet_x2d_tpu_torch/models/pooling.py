@@ -3,8 +3,9 @@ aimnet_x2d_tpu/models/pooling.py).
 
 Atoms are laid out bins x ab and molecules bins x mb; ``pool_mat[b, m, a]``
 marks membership.  Per-molecule sums are products with the membership
-matrix, run by the weighted-pool kernel (ops/bin_wpool.py); the softmax is
-plain PyTorch with the JAX package's -1e30 mask and 1e-16 floor.
+matrix, run by the weighted-pool kernels (ops/bin_wpool.py, forward and
+backward); the softmax is plain PyTorch with the JAX package's -1e30 mask
+and 1e-16 floor.  Max pooling has no TPU kernel and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..ops.bin_attnpool import binned_attnpool_proj_t
 from ..ops.bin_wpool import binned_wpool_t
 from .layers import Linear, mm32
 
-POOLING_TYPES = ("attention", "mean", "sum")
+POOLING_TYPES = ("attention", "mean", "max", "sum")
 
 
 def _pool_dtype(xT: torch.Tensor) -> torch.dtype:
@@ -35,6 +36,25 @@ def binned_mean_pool_t(xT: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor
     tot = binned_sum_pool_t(xT, pool_mat)
     cnt = pool_mat.sum(dim=2).float().clamp(min=1.0)
     return tot / cnt.reshape(1, -1)
+
+
+def binned_max_pool(x: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
+    """x (A, D) -> (nb*mb, D) in x's compute dtype (bf16 stays bf16): each
+    molecule slot's max over its member atoms, empty slots 0 (JAX
+    ``binned_max_pool``).  A scatter-max keyed by each atom's slot (atoms of
+    no molecule go to a dropped extra row), so no (nb, mb, ab, D) array is
+    formed; its backward splits the gradient evenly among tied atoms, as
+    JAX's ``max`` does."""
+    nb, mb, ab = pool_mat.shape
+    xf = x.to(_pool_dtype(x))
+    slot_in_bin = (pool_mat.long() * torch.arange(mb, device=x.device)[None, :, None]).sum(1)
+    first = torch.arange(nb, device=x.device)[:, None] * mb
+    slot = torch.where(pool_mat.sum(1) > 0, first + slot_in_bin, nb * mb).reshape(-1)
+    # start from -inf (a start of 0 would tie with a max of exactly 0 in the
+    # backward and take half its gradient), then empty slots -> 0
+    out = xf.new_full((nb * mb + 1, xf.shape[1]), float("-inf"))
+    out = out.scatter_reduce(0, slot[:, None].expand_as(xf), xf, "amax")[: nb * mb]
+    return torch.where(torch.isneginf(out), torch.zeros((), dtype=xf.dtype, device=x.device), out)
 
 
 def binned_attention_softmax_t(scores: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,28 @@
 """Weighted per-molecule pooling over the flat feature-major layout, forward
-(counterpart of aimnet_x2d_tpu/ops/bin_wpool.py::binned_wpool_t).
+and backward (counterpart of aimnet_x2d_tpu/ops/bin_wpool.py::binned_wpool_t).
 
 ``pooled[d, b*mb + m] = sum_a x[d, b*ab + a] * w[b*ab + a] * pm[b, m, a]``:
 the attention-weighted (or plain, w = 1) molecule pool of a feature-major
 atom array.  The weight is cast to x's dtype and the product rounded in it;
 the sum accumulates in fp32 and the output is fp32.
 
-On a CUDA tensor :func:`binned_wpool_t` launches the hand-written kernel
-(``csrc/wpool.cu``), which takes every (nb, mb) the binned loader emits; on
-a CPU tensor it runs :func:`wpool_plain`.
+The backward is the JAX custom VJP's: the fp32 cotangent g is rounded to
+x's dtype, ``gatom = g @ pm`` per bin in fp32, ``dx = gatom * w`` (fp32 w)
+cast to x's dtype, and ``dw = sum_d gatom * x`` in fp32.  No model path of
+the port needs dw yet: mean and sum pooling pass a constant w, and attention
+training runs its own fused kernel (``bin_attnpool.py``); only the tests and
+``chip_smoke.py`` ask the kernel for it.
+
+On a CUDA tensor :func:`binned_wpool_t` launches the hand-written kernels
+(``csrc/wpool.cu``: ``wpool_fwd``, and ``wpool_bwd`` in the backward),
+which take every (nb, mb) the binned loader emits; on a CPU tensor it runs
+:func:`wpool_plain` and :func:`wpool_bwd_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,40 +39,63 @@ def wpool_plain(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> to
     return out.reshape(D, nb * mb)
 
 
+def wpool_bwd_plain(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor, g: torch.Tensor,
+                    need_dw: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward: g (D, nb*mb) fp32 -> dx (D, A)
+    in x's dtype and dw (A,) fp32 (None unless ``need_dw``)."""
+    D = xT.shape[0]
+    nb, mb, ab = pool_mat.shape
+    gg = g.to(xT.dtype).float().reshape(D, nb, mb)
+    gatom = torch.einsum("dbm,bma->dba", gg, pool_mat.float()).reshape(D, nb * ab)
+    dx = (gatom * w.reshape(1, -1).float()).to(xT.dtype)
+    dw = (gatom * xT.float()).sum(0) if need_dw else None
+    return dx, dw
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("wpool")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.wpool_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
         lib.wpool_fwd.restype = i
-        lib.wpool_smem_bytes.argtypes = [i, i]
-        lib.wpool_smem_bytes.restype = ctypes.c_longlong
+        lib.wpool_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.wpool_bwd.restype = i
+        for fn in (lib.wpool_smem_bytes, lib.wpool_bwd_smem_bytes):
+            fn.argtypes = [i, i]
+            fn.restype = ctypes.c_longlong
+        lib.wpool_bwd_tile_rows.argtypes = []
+        lib.wpool_bwd_tile_rows.restype = i
         lib.wpool_error_string.argtypes = [i]
         lib.wpool_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA pool kernel on the current stream.  Raises on any
-    input the kernel does not take and on any launch error."""
+def _check(what: str, xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor, smem_fn: str):
+    """Raise on any input the kernels do not take; return (lib, D, A, nb, mb, ab)."""
     if xT.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"wpool_fwd: unsupported dtype {xT.dtype}")
-    w = w.reshape(-1)
+        raise TypeError(f"{what}: unsupported dtype {xT.dtype}")
     if w.dtype != torch.float32 or pool_mat.dtype != torch.int8:
-        raise TypeError("wpool_fwd: w must be float32 and pool_mat int8")
-    cuda_build.check_cuda("wpool_fwd", xT.device, ("xT", xT, 1), ("w", w, 1),
-                          ("pool_mat", pool_mat, 1))
+        raise TypeError(f"{what}: w must be float32 and pool_mat int8")
+    cuda_build.check_cuda(what, xT.device, ("xT", xT, 1), ("w", w, 1), ("pool_mat", pool_mat, 1))
     D, A = xT.shape
     nb, mb, ab = pool_mat.shape
     if A != nb * ab or w.shape[0] != A:
         raise ValueError(
-            f"wpool_fwd: xT {tuple(xT.shape)}, w {tuple(w.shape)}, pool_mat "
+            f"{what}: xT {tuple(xT.shape)}, w {tuple(w.shape)}, pool_mat "
             f"{tuple(pool_mat.shape)}: need A = nb*ab"
         )
     lib = _lib()
-    if lib.wpool_smem_bytes(mb, ab) > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"wpool_fwd: mb={mb}, ab={ab} exceed one block's shared memory")
+    if getattr(lib, smem_fn)(mb, ab) > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"{what}: mb={mb}, ab={ab} exceed one block's shared memory")
+    return lib, D, A, nb, mb, ab
+
+
+def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA pool kernel on the current stream.  Raises on any
+    input the kernel does not take and on any launch error."""
+    w = w.reshape(-1)
+    lib, D, A, nb, mb, ab = _check("wpool_fwd", xT, w, pool_mat, "wpool_smem_bytes")
     out = torch.empty(D, nb * mb, dtype=torch.float32, device=xT.device)
     if D and nb and mb:
         status = lib.wpool_fwd(
@@ -80,13 +112,66 @@ def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torc
 wpool_fwd.launches = 0
 
 
+def wpool_bwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor, g: torch.Tensor,
+              need_dw: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the CUDA backward kernel on the current stream (and, for dw,
+    its fixed-order reduction of the row tiles' partials).  Same returns as
+    :func:`wpool_bwd_plain`.  Raises on any input the kernel does not take
+    and on any launch error."""
+    w = w.reshape(-1)
+    lib, D, A, nb, mb, ab = _check("wpool_bwd", xT, w, pool_mat, "wpool_bwd_smem_bytes")
+    if g.dtype != torch.float32 or tuple(g.shape) != (D, nb * mb):
+        raise ValueError(f"wpool_bwd: g {g.dtype} {tuple(g.shape)}, need float32 ({D}, {nb * mb})")
+    cuda_build.check_cuda("wpool_bwd", xT.device, ("g", g, 4))
+    dev = xT.device
+    dx = torch.empty_like(xT)
+    dw = torch.zeros(A, dtype=torch.float32, device=dev) if need_dw else None
+    if D and nb:
+        tiles = -(-D // lib.wpool_bwd_tile_rows())
+        part = torch.empty(tiles, A, dtype=torch.float32, device=dev) if need_dw else None
+        status = lib.wpool_bwd(
+            xT.data_ptr(), w.data_ptr(), pool_mat.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            part.data_ptr() if need_dw else None, dw.data_ptr() if need_dw else None,
+            int(xT.dtype == torch.bfloat16), D, A, nb, mb, ab,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if status != 0:
+            raise RuntimeError(f"wpool_bwd: {lib.wpool_error_string(status).decode()}")
+        wpool_bwd.launches += 1
+    return dx, dw
+
+
+wpool_bwd.launches = 0
+
+
+class _WPoolFn(torch.autograd.Function):
+    """The pool with the JAX package's VJP: kernels on CUDA tensors, plain
+    versions on CPU tensors.  dw is computed only when w needs a gradient
+    (mean and sum pooling pass a constant w)."""
+
+    @staticmethod
+    def forward(ctx, xT, w, pool_mat):
+        if xT.device.type == "cuda":
+            out = wpool_fwd(xT, w, pool_mat)
+        elif xT.device.type == "cpu":
+            out = wpool_plain(xT, w, pool_mat)
+        else:
+            raise ValueError(f"binned_wpool_t: unsupported device {xT.device}")
+        ctx.save_for_backward(xT, w, pool_mat)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xT, w, pool_mat = ctx.saved_tensors
+        bwd = wpool_bwd if xT.device.type == "cuda" else wpool_bwd_plain
+        dx, dw = bwd(xT, w, pool_mat, g.float().contiguous(), need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
 def binned_wpool_t(xT: torch.Tensor, wbar: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
     """Weighted pool: xT (D, A), wbar (A,) or (1, A) fp32, pool_mat
-    (nb, mb, ab) int8 -> pooled (D, nb*mb) fp32.  CUDA tensors go through
-    the kernel, CPU tensors through the plain version."""
-    w = wbar.reshape(-1).float()
-    if xT.device.type == "cuda":
-        return wpool_fwd(xT.contiguous(), w.contiguous(), pool_mat)
-    if xT.device.type == "cpu":
-        return wpool_plain(xT, w, pool_mat)
-    raise ValueError(f"binned_wpool_t: unsupported device {xT.device}")
+    (nb, mb, ab) int8 -> pooled (D, nb*mb) fp32, differentiable in xT and
+    wbar.  CUDA tensors go through the kernels, CPU tensors through the
+    plain versions."""
+    w = wbar.reshape(-1).float().contiguous()
+    return _WPoolFn.apply(xT.contiguous(), w, pool_mat.contiguous())

@@ -1,25 +1,42 @@
-"""Training driver (counterpart of aimnet_x2d_tpu/runner.py::_run_training).
+"""Experiment runner (counterpart of aimnet_x2d_tpu/runner.py).
 
-Loads the CSV(s), splits with the seeded two-stage split, featurizes, fits
-the SAE + standard-scaling pipeline on the train split and transforms every
-split, builds the binned loaders (the train loader shuffles per epoch),
-trains, evaluates the best parameters on the test split, and saves the
-artifact (flax-named ``.npz``, loadable by both packages) with the same
-``extra`` fields as the JAX package and a ``.summary.json`` beside it; with
+``main_runner`` validates the arguments, creates the output directories,
+checks the data paths, then serves (``inference/engine.py``) or trains.
+
+Training loads the CSV(s), splits with the seeded two-stage split,
+featurizes, fits the SAE + standard-scaling pipeline on the train split and
+transforms every split, builds the binned loaders (the train loader
+shuffles per epoch), initializes the model (copying the matching weights of
+``--transfer_learning``'s artifact), trains (freeze masks, layer-wise LR
+decay, tracker, checkpoints and resume from ``--checkpoint_dir``),
+evaluates the best parameters on the test split, and saves the artifact
+(flax-named ``.npz``, loadable by both packages) with the same ``extra``
+fields as the JAX package and a ``.summary.json`` beside it; with
 ``--output_partial_charges`` (and partial charges on) it also writes the
-test split's per-atom charges as ``.npz`` (``charges``, ``molecule_index``).
+test split's per-atom charges as ``.npz`` (``charges``, ``molecule_index``),
+and with ``--experiment_config`` the resolved arguments as YAML.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Any, Dict
 
 import numpy as np
 
-from .checkpoint import init_params, params_from_flax, params_to_flax, save_artifact
+from .checkpoint import (
+    TrainCheckpointer,
+    init_params,
+    load_artifact,
+    params_from_flax,
+    params_to_flax,
+    save_artifact,
+    transfer_params,
+)
+from .config import save_experiment_config, setup_paths, validate_args
 from .data.dataset import BatchLoader, MoleculeDataset
 from .data.io import load_dataset, split_dataset
 from .data.preprocessing import PreprocessingConfig, PreprocessingPipeline
@@ -28,6 +45,8 @@ from .training.evaluator import evaluate
 from .training.predictor import extract_partial_charges
 from .training.trainer import TrainConfig, train
 from .utils.device import resolve_device
+from .utils.optimization import count_parameters, train_mask
+from .utils.tracking import create_tracker
 
 
 def gnn_config_from_args(args: argparse.Namespace, output_dim: int) -> GNNConfig:
@@ -71,6 +90,13 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         lr_step_size=args.lr_step_size,
         lr_step_gamma=args.lr_step_gamma,
         lr_exp_gamma=args.lr_exp_gamma,
+        layer_wise_lr_decay=args.layer_wise_lr_decay,
+        lr_decay_factor=args.lr_decay_factor,
+        freeze_patterns=args.freeze_layer_list,
+        # --freeze_pretrained without a list: train the output head only
+        unfreeze_patterns=(args.unfreeze_layer_list
+                           or (["output_layer"] if args.freeze_pretrained
+                               and not args.freeze_layer_list else None)),
     )
 
 
@@ -114,13 +140,20 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
 
     cfg = gnn_config_from_args(args, num_tasks)
     model = GNN(cfg)
-    model.load_state_dict(params_from_flax(init_params(cfg, args.seed)))
+    flat = init_params(cfg, args.seed)
+    if args.transfer_learning:
+        flat, _, _ = transfer_params(load_artifact(args.transfer_learning).params, flat)
+    model.load_state_dict(params_from_flax(flat))
     model.to(device)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[model] {n_params:,} parameters on {device}")
     tc = train_config_from_args(args)
+    counts = count_parameters(model, train_mask(model, tc.freeze_patterns, tc.unfreeze_patterns))
+    print(f"[model] {counts['total_parameters']:,} parameters "
+          f"({counts['trainable_parameters']:,} trainable) on {device}")
+    tracker = create_tracker(args)
+    checkpointer = TrainCheckpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     result = train(model, train_loader, val_loader, tc, device=device, seed=args.seed,
-                   pipeline=pipe)
+                   pipeline=pipe, tracker=tracker, checkpointer=checkpointer,
+                   checkpoint_every=args.checkpoint_every)
 
     model.eval()
     test_metrics = evaluate(model, test_loader, device, config=tc, pipeline=pipe)
@@ -138,6 +171,8 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
         },
     )
     print(f"[artifact] saved to {args.model_save_path}")
+    if args.experiment_config:
+        save_experiment_config(args, args.experiment_config)
     if args.output_partial_charges and args.use_partial_charges:
         charges, mol_idx = extract_partial_charges(model, test_loader, device)
         np.savez(args.output_partial_charges, charges=charges, molecule_index=mol_idx)
@@ -152,4 +187,70 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
     }
     with open(args.model_save_path + ".summary.json", "w") as f:
         json.dump(summary, f, indent=2, default=str)
+    tracker.summary({"best_val_loss": result.best_val_loss,
+                     **{f"test_{k}": v for k, v in test_metrics.items() if not isinstance(v, dict)}})
+    tracker.finish()
+    return summary
+
+
+def check_data_consistency(args: argparse.Namespace) -> None:
+    """Raise before any work starts when an input the run needs is missing."""
+    if args.is_inference:
+        if not os.path.exists(args.inference_csv):
+            raise ValueError(f"inference CSV not found: {args.inference_csv}")
+        # save_artifact appends .npz to a path without it
+        if not (os.path.exists(args.model_save_path)
+                or os.path.exists(args.model_save_path + ".npz")):
+            raise ValueError(f"model artifact not found: {args.model_save_path}")
+        return
+    if args.data_path:
+        if args.train_data or args.val_data or args.test_data:
+            raise ValueError("--data_path and individual --train_data/--val_data/--test_data "
+                             "are mutually exclusive")
+        if not os.path.exists(args.data_path):
+            raise ValueError(f"data file not found: {args.data_path}")
+        return
+    for p, name in zip((args.train_data, args.val_data, args.test_data), ("train", "val", "test")):
+        if not os.path.exists(p):
+            raise ValueError(f"{name} data file not found: {p}")
+
+
+def print_final_summary(summary: Dict[str, Any], args: argparse.Namespace) -> None:
+    """Human-readable end-of-experiment report."""
+    nan = float("nan")
+    tm = summary.get("test_metrics", {})
+    lines = [
+        "=" * 70,
+        "experiment complete",
+        f"  best val loss   {summary.get('best_val_loss', nan):.6f} "
+        f"(epoch {summary.get('best_epoch')})",
+        f"  test            loss {tm.get('loss', nan):.6f}  mae {tm.get('mae', nan):.6f}  "
+        f"rmse {tm.get('rmse', nan):.6f}  r2 {tm.get('r2', nan):.4f}",
+        f"  wall time       {summary.get('total_seconds', 0.0):.1f}s "
+        f"({summary.get('avg_epoch_seconds', 0.0):.1f}s/epoch)",
+        f"  artifact        {args.model_save_path}",
+    ]
+    per = tm.get("per_task")
+    cols = args.multi_target_list
+    if per and cols:
+        lines.append("  per-task:")
+        for i, col in enumerate(cols[: len(per["mae"])]):
+            lines.append(f"    {col:>16s}  mae {per['mae'][i]:.6f}  "
+                         f"rmse {per['rmse'][i]:.6f}  r2 {per['r2'][i]:.4f}")
+    lines.append("=" * 70)
+    print("\n".join(lines))
+
+
+def main_runner(args: argparse.Namespace) -> Dict[str, Any]:
+    """Serve or train, as ``args`` (``cli.parse_arguments``) says."""
+    for w in validate_args(args):
+        print(f"[warning] {w}")
+    setup_paths(args)
+    check_data_consistency(args)
+    if args.is_inference:
+        from .inference.engine import inference_main
+
+        return inference_main(args)
+    summary = run_training(args)
+    print_final_summary(summary, args)
     return summary

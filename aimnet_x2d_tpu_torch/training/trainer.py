@@ -12,13 +12,18 @@ optax.scale_by_adam -> scale(-lr)``:
   ``max / (norm + 1e-6)``);
 - Adam is optax's ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8 added
   after the square root, both moments bias-corrected), and the learning
-  rate is applied as data, so the host-side schedulers change it freely.
+  rate is applied as data, so the host-side schedulers change it freely;
+- freeze masks and layer-wise LR decay come after Adam, in optax's chain
+  order: the 0/1 mask of ``freeze_patterns`` / ``unfreeze_patterns``, then
+  ``lr_decay_factor ** depth`` (``utils/optimization.py``), then ``-lr``.
+  Frozen parameters keep their gradients, so the global-norm clip and the
+  Adam moments see them as under optax, and only their update is zero.
 
 ``train`` runs the epochs: shuffled training batches (a new order every
-epoch), validation, the LR scheduler, early stopping, and a copy of the
-best parameters, restored at the end.  Transfer learning, freeze masks,
-layer-wise LR decay, checkpoint/resume, trackers and multi-device steps are
-later slices of the port.
+epoch), validation, the LR scheduler, early stopping, a copy of the best
+parameters, restored at the end, an optional tracker, and periodic
+checkpoints that a later run resumes from.  Multi-device steps are a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from ..data.batching import MolBatch
 from ..models.gnn import GNN
 from ..models.losses import create_loss_function
+from ..utils.optimization import lr_decay_scales, train_mask
 from .evaluator import evaluate
 from .schedulers import create_scheduler
 
@@ -55,6 +61,10 @@ class TrainConfig:
     lr_step_size: int = 10
     lr_step_gamma: float = 0.1
     lr_exp_gamma: float = 0.95
+    layer_wise_lr_decay: bool = False
+    lr_decay_factor: float = 0.8
+    freeze_patterns: Optional[Sequence[str]] = None  # freeze matching parameters
+    unfreeze_patterns: Optional[Sequence[str]] = None  # train only matching ones
 
 
 @dataclasses.dataclass
@@ -67,18 +77,35 @@ class TrainResult:
 
 
 class Optimizer:
-    """Global-norm clip, then Adam, with optax's arithmetic (see the module
-    docstring).  ``step(lr)`` updates every parameter that has a gradient;
-    a parameter that never gets one (the dead parameters kept for
-    checkpoint parity) keeps zero moments and never moves, as under optax."""
+    """Global-norm clip, then Adam, then an optional per-parameter factor
+    (``scales``: the freeze mask times the layer-wise decay), with optax's
+    arithmetic (see the module docstring).  ``step(lr)`` updates every
+    parameter that has a gradient; a parameter that never gets one (the
+    dead parameters kept for checkpoint parity) keeps zero moments and
+    never moves, as under optax."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], grad_clip: float = 1.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 scales: Optional[Sequence[float]] = None):
         self.params = list(params)
         self.grad_clip, self.b1, self.b2, self.eps = grad_clip, b1, b2, eps
+        self.scales = None if scales is None else [float(s) for s in scales]
+        if self.scales is not None and len(self.scales) != len(self.params):
+            raise ValueError(f"{len(self.scales)} scales for {len(self.params)} parameters")
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for mine, saved in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            if len(saved) != len(mine):
+                raise ValueError(f"optimizer state of {len(saved)} tensors, {len(mine)} expected")
+            for t, s in zip(mine, saved):
+                t.copy_(s)
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -113,9 +140,25 @@ class Optimizer:
         nu_hat = torch._foreach_div(nu, c2)
         denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
         upd = torch._foreach_div(mu_hat, denom)
+        if self.scales is not None:
+            torch._foreach_mul_(upd, [self.scales[i] for i in live])
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
         return norm
+
+
+def make_optimizer(model: GNN, config: TrainConfig) -> Optimizer:
+    """The optimizer of ``config`` over ``model.parameters()`` (the JAX
+    ``make_optimizer``): a freeze mask when freeze or unfreeze patterns are
+    given, times the layer-wise decay when it is on."""
+    named = list(model.named_parameters())
+    mask = train_mask(model, config.freeze_patterns, config.unfreeze_patterns)
+    decay = lr_decay_scales(model, config.lr_decay_factor) if config.layer_wise_lr_decay else None
+    scales = None
+    if mask is not None or decay is not None:
+        scales = [(1.0 if mask is None else mask[n]) * (1.0 if decay is None else decay[n])
+                  for n, _ in named]
+    return Optimizer([p for _, p in named], config.grad_clip, scales=scales)
 
 
 def make_loss_fn(config: TrainConfig) -> Callable:
@@ -144,13 +187,24 @@ def train(
     device: "str | torch.device" = "cuda",
     seed: int = 0,
     pipeline=None,
+    tracker=None,
+    checkpointer=None,
+    checkpoint_every: int = 10,
 ) -> TrainResult:
     """Epoch loop with validation, LR scheduling, early stopping and
     best-parameter restore.  ``model`` is on ``device``; ``seed`` seeds the
     dropout generators (the stack's per-step seed is drawn on the host, the
-    FFN's masks on the device)."""
+    FFN's masks on the device).
+
+    ``tracker`` (``utils/tracking.py``) gets each epoch's record.  With a
+    ``checkpointer`` (``checkpoint.TrainCheckpointer``) the state is saved
+    after every ``checkpoint_every``-th epoch, and a run whose checkpoint
+    directory holds one resumes after its epoch: parameters, Adam moments
+    and step count, LR, scheduler state, early-stop counters and the
+    best-so-far parameters are restored.  The dropout generators start
+    again from ``seed``, as the JAX package's dropout key does."""
     device = torch.device(device)
-    optimizer = Optimizer(model.parameters(), config.grad_clip)
+    optimizer = make_optimizer(model, config)
     loss_fn = make_loss_fn(config)
     scheduler = create_scheduler(
         config.lr_scheduler, config.learning_rate,
@@ -161,13 +215,32 @@ def train(
     host_gen = torch.Generator().manual_seed(seed)
     dev_gen = torch.Generator(device=device).manual_seed(seed)
     best_val, best_epoch = float("inf"), -1
-    best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    best_state = None
     epochs_no_improve = 0
     history: List[Dict[str, Any]] = []
     lr = config.learning_rate
     epoch_times: List[float] = []
 
-    for epoch in range(config.epochs):
+    start_epoch = 0
+    restored = checkpointer.restore() if checkpointer is not None else None
+    if restored is not None:
+        last, params, opt_state, aux, best_state = restored
+        model.load_state_dict(params)
+        optimizer.load_state_dict(opt_state)
+        start_epoch = last + 1
+        lr = aux.get("lr", lr)
+        best_val = aux.get("best_val", best_val)
+        best_epoch = int(aux.get("best_epoch", best_epoch))
+        epochs_no_improve = int(aux.get("epochs_no_improve", 0))
+        scheduler.load_state_dict(
+            {k[len("sched_"):]: v for k, v in aux.items() if k.startswith("sched_")})
+        print(f"[resume] restored checkpoint at epoch {last}", flush=True)
+    if best_state is None:
+        best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    else:
+        best_state = {k: v.to(device) for k, v in best_state.items()}
+
+    for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
         train_loader.set_epoch(epoch)
         model.train()
@@ -192,14 +265,22 @@ def train(
                   **{f"val_{k}": v for k, v in val_metrics.items()
                      if k != "loss" and not isinstance(v, dict)}}
         history.append(record)
+        if tracker is not None:
+            tracker.log(record, step=epoch)
         print(f"[epoch {epoch:3d}] train {train_loss:.5f}  val {val_loss:.5f}  "
-                  f"lr {lr:.2e}  ({seconds:.1f}s)", flush=True)
+              f"lr {lr:.2e}  ({seconds:.1f}s)", flush=True)
         if val_loss < best_val:
             best_val, best_epoch = val_loss, epoch
             best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
             epochs_no_improve = 0
         else:
             epochs_no_improve += 1
+        if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
+            aux = {"lr": float(lr), "best_val": float(best_val), "best_epoch": float(best_epoch),
+                   "epochs_no_improve": float(epochs_no_improve),
+                   **{f"sched_{k}": v for k, v in scheduler.state_dict().items()}}
+            checkpointer.save(epoch, model.state_dict(), optimizer.state_dict(), aux,
+                              best_params=best_state)
         if config.early_stopping and epochs_no_improve >= config.patience and val_loss >= best_val:
             print(f"[early stop] epoch {epoch}, best {best_val:.5f} @ {best_epoch}")
             break

@@ -43,7 +43,26 @@ Phases, each of which fails the run when it fails:
      own kernels;
    - ``[c3-train]``: phase 6 for config 3, the CLI writing the test split's
      partial charges too, 12 timed steps;
-8. print the ``kernels`` JSON line, the card line and, last, the result
+8. config 1 (BASELINE.json config 1 at the CLI defaults: 1 shell, mean
+   pooling, 1 target, bf16, dropout 0.05), on its own 1-shell featurization
+   of the flagship's SMILES:
+   - ``[c1-kernel]``: the weighted pool's backward (kernel 2b, dx and dw)
+     against its plain version, fp32 and bf16, D 359 and 153, the training
+     batch's mb and two mb that are not multiples of 16, w = 1 and a random
+     w on the real atoms; timed at the training batch with its bound and
+     the einsum yardstick;
+   - ``[c1-serve]``: phase 4 for a config-1 artifact;
+   - ``[c1-train]``: phase 6 for config 1; the weighted pool's kernels run,
+     the attention pool's never;
+   - ``[c1-finetune]``: the CLI again, from ``[c1-train]``'s artifact to a
+     12-target head with ``--transfer_learning --freeze_pretrained
+     --layer_wise_lr_decay --checkpoint_dir --checkpoint_every 1``, 2
+     epochs: every frozen tensor bit-equal to the transferred one, the head
+     moved; then the same command with ``--epochs 3`` resumes after epoch 1;
+   - ``[pool-routes]``: one batch through sum- and max-pool models, served
+     and one train step, card against CPU, each launching only its route's
+     kernels (no weighted pool for max);
+9. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -81,6 +100,11 @@ TOL = {
     ("mp_stack_fwd", torch.bfloat16): 5e-2,
     ("wpool_fwd", torch.float32): 1e-5,
     ("wpool_fwd", torch.bfloat16): 1e-5,
+    # kernel 2b: dx is the same rounded cotangent times w on both sides, dw
+    # the same fp32 products (bf16 x bf16 is exact in fp32) summed over D in
+    # another order; the bf16 bar is therefore the fp32 one
+    ("wpool_bwd", torch.float32): 1e-5,
+    ("wpool_bwd", torch.bfloat16): 1e-5,
 }
 # Tolerance of the card's bf16 predictions against the CPU run of the same
 # model (plain versions, same bf16 cast points), as max|diff| / max|cpu|.
@@ -91,6 +115,7 @@ E2E_TOL = 5e-2
 TRAIN_TOL = 5e-2
 TRAIN_STEPS = 24
 C3_TRAIN_STEPS = 12
+C1_TRAIN_STEPS = 24
 
 
 def card_line() -> str:
@@ -688,7 +713,7 @@ def synthetic_targets(ds, T: int, seed: int) -> np.ndarray:
     return (counts @ mix + rng.normal(size=(len(ds), T)) * 0.1).astype(np.float32)
 
 
-def profile_step(step, top: int = 12) -> None:
+def profile_step(step, tag: str = "train", top: int = 12) -> None:
     """Device time of one train step, by kernel (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -701,21 +726,22 @@ def profile_step(step, top: int = 12) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
-        print("[train] device time not measured (no CUDA events in the trace)", flush=True)
+        print(f"[{tag}] device time not measured (no CUDA events in the trace)", flush=True)
         return
-    print(f"[train] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
+    print(f"[{tag}] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{100 * e.self_device_time_total / total:5.1f}%  x{e.count:<3d} {e.key[:90]}",
               flush=True)
 
 
 def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
-                counters=None, steps: int = TRAIN_STEPS) -> dict:
-    """Phase 6 (and ``[c3-train]``): the CLI's training path on the card
-    with the counters of the path's kernels (default: the flagship's), a
-    timed train-step loop of ``steps`` steps, and one step card against
-    CPU.  With partial charges the CLI also writes the test split's
+                counters=None, steps: int = TRAIN_STEPS, forbidden=()) -> dict:
+    """Phase 6 (and ``[c3-train]``, ``[c1-train]``): the CLI's training path
+    on the card with the counters of the path's kernels (default: the
+    flagship's), which must all launch, and of ``forbidden`` kernels, which
+    must not; a timed train-step loop of ``steps`` steps, and one step card
+    against CPU.  With partial charges the CLI also writes the test split's
     charges, which are checked."""
     import dataclasses
 
@@ -728,6 +754,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     from aimnet_x2d_tpu_torch.training import trainer
 
     T = cfg.output_dim
+    task = "multitask" if T > 1 else "regression"
     counters = counters or (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd,
                             bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)
     targets = synthetic_targets(ds, T, seed)
@@ -741,18 +768,23 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     extra = ["--use_partial_charges", "--output_partial_charges", charges] \
         if cfg.use_partial_charges else []
     extra += ["--use_stereochemistry"] if cfg.use_stereochemistry else []
+    extra += ["--multi_target_columns", ",".join(cols)] if T > 1 else ["--target_column", cols[0]]
 
     # --- the user's entry point: the CLI, bf16, dropout 0.05 (the defaults)
-    for c in counters:
+    for c in (*counters, *forbidden):
         c.launches = 0
-    summary = cli.main(["--data_path", csv, "--multi_target_columns", ",".join(cols),
-                        "--task_type", "multitask", "--mixed_precision", "--epochs", "3",
-                        "--batch_size", "2048", "--learning_rate", "1e-3",
+    summary = cli.main(["--data_path", csv, "--task_type", task, "--mixed_precision",
+                        "--epochs", "3", "--batch_size", "2048", "--learning_rate", "1e-3",
+                        "--num_shells", str(cfg.num_shells), "--pooling_type", cfg.pooling_type,
+                        "--num_message_passing_layers", str(cfg.num_message_passing_layers),
                         "--model_save_path", art, "--seed", str(seed), *extra])
     launches = {c.__name__: c.launches for c in counters}
-    print(f"[{tag}] launches on the main path (CLI, 3 epochs): {launches}", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a training kernel never launched: {launches}")
+    ran = {c.__name__: c.launches for c in forbidden}
+    print(f"[{tag}] launches on the main path (CLI, 3 epochs): {launches}"
+          + (f"; must not launch: {ran}" if ran else ""), flush=True)
+    if min(launches.values()) <= 0 or any(ran.values()):
+        raise AssertionError(f"a training kernel never launched, or one of another route did: "
+                             f"{launches} {ran}")
     hist = summary["history"]
     print(f"[{tag}] CLI epochs: train loss {[round(h['train_loss'], 5) for h in hist]}, "
           f"val loss {[round(h['val_loss'], 5) for h in hist]}, test "
@@ -794,7 +826,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     model.load_state_dict(params_from_flax(init_params(cfg, seed)))
     model.to("cuda").train()
     opt = trainer.Optimizer(model.parameters(), 1.0)
-    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
+    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=task))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     host = torch.Generator().manual_seed(seed)
     ms, losses = [], []
@@ -821,7 +853,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     b0 = batches[0]
-    profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen))
+    profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen), tag)
 
     # --- one step card vs CPU, flagship widths, a small batch; the stack's
     # dropout mask is the same hash on both sides, the FFN's generator is not
@@ -857,6 +889,199 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     if not worst <= TRAIN_TOL:
         raise AssertionError(f"card gradients differ from the CPU run: {worst:.3e}")
     return launches
+
+
+def config1(cfg):
+    """BASELINE.json config 1 at the CLI defaults: the flagship widths
+    (hidden 512, 4x64 embeddings, 3 MP layers with 2 MLP blocks, 3-layer
+    FFN) over 1 shell, mean pooling, 1 target (regression), bf16."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, num_shells=1, pooling_type="mean", output_dim=1,
+                               task_type="regression")
+
+
+def check_c1_kernel(cfg, batch, seed: int) -> dict:
+    """``[c1-kernel]``: kernel 2b (``wpool_bwd``: dx and dw) against its
+    plain version on x_self's and x_other's rows, fp32 and bf16, at the
+    config-1 training batch's pool matrix and two with mb not a multiple
+    of 16, with w = 1 (mean pooling) and a random w on the real atoms;
+    timed (both launches of a step, dx and dw) at the training batch."""
+    from aimnet_x2d_tpu_torch.ops import bin_wpool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    pm = batch.pool_mat
+    nb, mb, ab = pm.shape
+    A = nb * ab
+    print(f"[c1-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms="
+          f"{int(batch.atom_mask.sum())} molecules={int(batch.graph_mask.sum())}", flush=True)
+
+    def rand_pm(mb_):
+        owner = torch.randint(-1, mb_, (nb, ab), generator=gen, device=dev)
+        return (owner[:, None, :] == torch.arange(mb_, device=dev)[None, :, None]).to(torch.int8)
+
+    real = batch.atom_mask.float()
+    weights = {"w=1": torch.ones(A, device=dev),
+               "w random": torch.rand(A, generator=gen, device=dev) * real}
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[("wpool_bwd", dt)]
+        worst = 0.0
+        for pm_ in (pm, rand_pm(20), rand_pm(44)):
+            mb_ = pm_.shape[1]
+            for d in (cfg.x_self_dim, cfg.x_other_dim):
+                x = torch.randn(d, A, generator=gen, device=dev).to(dt)
+                g = torch.randn(d, nb * mb_, generator=gen, device=dev)
+                for wname, w in weights.items():
+                    dx, dw = bin_wpool.wpool_bwd(x, w, pm_, g)
+                    rdx, rdw = bin_wpool.wpool_bwd_plain(x, w, pm_, g)
+                    torch.cuda.synchronize()
+                    (ax, rx), (aw, rw) = rel_err(dx, rdx), rel_err(dw, rdw)
+                    worst = max(worst, ax, aw)
+                    print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} D={d} mb={mb_} {wname}: dx "
+                          f"max_abs_err={ax:.3e} rel={rx:.3e}, dw max_abs_err={aw:.3e} "
+                          f"rel={rw:.3e} (tol {tol:g})", flush=True)
+                    if not max(rx, rw) <= tol:
+                        raise AssertionError(f"wpool_bwd {dt} D={d} mb={mb_} {wname}: rel err "
+                                             f"{max(rx, rw):.3e} > {tol:g}")
+        # main-path shapes: both launches of a step (x_self's and x_other's
+        # rows, w = 1), with dw; bytes: x read, dx written, g, pm, w, dw
+        tot = dict(max_abs_err=worst, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   bound_by="bytes")
+        no_dw_ms = 0.0
+        w = weights["w=1"]
+        npm = int((pm != 0).sum())
+        for d in (cfg.x_self_dim, cfg.x_other_dim):
+            x = torch.randn(d, A, generator=gen, device=dev).to(dt)
+            g = torch.randn(d, nb * mb, generator=gen, device=dev)
+            g3, pm_dt = g.reshape(d, nb, mb).to(dt), pm.to(dt)
+            isz = x.element_size()
+            nbytes = 2 * d * A * isz + 4 * d * nb * mb + nb * mb * ab + 4 * A + 4 * A
+            ops = 2 * d * npm + 3 * d * A
+            t_ops = ops / PEAK_FLOPS[torch.float32]
+            tot["ms"] += time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g))
+            no_dw_ms += time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g, need_dw=False))
+            tot["plain_ms"] += time_ms(lambda: bin_wpool.wpool_bwd_plain(x, w, pm, g), iters=5)
+            tot["library_ms"] += time_ms(lambda: torch.einsum("dbm,bma->dba", g3, pm_dt))
+            tot["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_S, t_ops)
+            if t_ops > nbytes / HBM_BYTES_S:
+                tot["bound_by"] = "operations"
+        print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} per step (D={cfg.x_self_dim} + "
+              f"D={cfg.x_other_dim}, mb={mb}, dx and dw): ms={tot['ms']:.4f} "
+              f"plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} (einsum of "
+              f"g with pm) bound_ms={tot['bound_ms']:.4f} ({tot['bound_by']}); without dw, as "
+              f"mean pooling runs it: {no_dw_ms:.4f} ms", flush=True)
+        res[("wpool_bwd", dt)] = tot
+    return res
+
+
+def finetune_phase(ds, seed: int, work: str, pretrained: str) -> None:
+    """``[c1-finetune]``: the CLI fine-tunes ``pretrained`` (config 1) to a
+    12-target head, everything but the head frozen, layer-wise LR decay,
+    a checkpoint every epoch; 2 epochs, then the same command with 3 epochs
+    resumes after epoch 1."""
+    import contextlib
+    import io
+    import shutil
+
+    import pandas as pd
+
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, load_artifact
+    from aimnet_x2d_tpu_torch.ops import bin_wpool
+
+    T = 12
+    cols = [f"task_{i}" for i in range(T)]
+    df = pd.DataFrame(synthetic_targets(ds, T, seed + 3), columns=cols)
+    df.insert(0, "smiles", ds.smiles)
+    csv = os.path.join(work, "c1-finetune.csv")
+    df.to_csv(csv, index=False)
+    ckpt = os.path.join(work, "c1-finetune-ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    art = os.path.join(work, "c1-finetune.npz")
+    argv = ["--data_path", csv, "--multi_target_columns", ",".join(cols), "--task_type",
+            "multitask", "--mixed_precision", "--batch_size", "2048", "--learning_rate", "1e-3",
+            "--num_shells", "1", "--pooling_type", "mean", "--seed", str(seed),
+            "--transfer_learning", pretrained, "--freeze_pretrained", "--layer_wise_lr_decay",
+            "--checkpoint_dir", ckpt, "--checkpoint_every", "1", "--model_save_path", art,
+            "--experiment_config", os.path.join(work, "c1-finetune.yaml")]
+    bin_wpool.wpool_bwd.launches = 0
+    first = cli.main([*argv, "--epochs", "2"])
+    a, b = load_artifact(pretrained), load_artifact(art)
+    frozen = [k for k in b.params if not k.startswith("params/output_layer/")]
+    changed = [k for k in frozen if not np.array_equal(b.params[k], a.params[k])]
+    fresh = init_params(b.model_config, seed)
+    moved = float(np.abs(b.params["params/output_layer/kernel"]
+                         - fresh["params/output_layer/kernel"]).max())
+    print(f"[c1-finetune] 2 epochs: train loss {[round(h['train_loss'], 5) for h in first['history']]}"
+          f"; {len(frozen) - len(changed)} of {len(frozen)} frozen tensors bit-equal to the "
+          f"transferred ones; output_layer moved by up to {moved:.3e} from its fresh "
+          f"initialization; wpool_bwd launches {bin_wpool.wpool_bwd.launches}", flush=True)
+    if changed or len(frozen) != len(a.params) - 2 or not moved > 0:
+        raise AssertionError(f"fine-tune: frozen tensors changed {changed[:5]}, or the head "
+                             f"did not move ({moved})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        second = cli.main([*argv, "--epochs", "3"])
+    print(buf.getvalue(), end="", flush=True)
+    epochs = [h["epoch"] for h in second["history"]]
+    resumed = "[resume] restored checkpoint at epoch 1" in buf.getvalue()
+    print(f"[c1-finetune] rerun with --epochs 3: resumed {resumed}, epochs run {epochs}, test "
+          f"mae {second['test_metrics']['mae']:.5f}", flush=True)
+    if not resumed or epochs != [2] or not np.isfinite(second["test_metrics"]["mae"]):
+        raise AssertionError("the fine-tune run did not resume after epoch 1 and finish")
+
+
+def pool_routes(pkg, cfg, ds, seed: int) -> None:
+    """``[pool-routes]``: one batch of 128 molecules through sum- and
+    max-pool models (config 1 otherwise, full width), served and one train
+    step, on the card and on the CPU (plain versions) from the same weights:
+    predictions and every gradient compared; each route launches its own
+    kernels (no weighted pool for max, no attention pool for either)."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    small = MoleculeDataset(ds.smiles[:128], synthetic_targets(ds, 1, seed)[:128],
+                            ds.features[:128], ds.max_hops)
+    hb = next(iter(BatchLoader(small, 128)))
+    loss_fn = trainer.make_loss_fn(trainer.TrainConfig())
+    counters = (bin_mp.mp_stack_fwd, bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd,
+                bin_wpool.wpool_fwd, bin_wpool.wpool_bwd, bin_attnpool.attnpool_fwd,
+                bin_attnpool.attnpool_bwd)
+    for pooling, want in (("sum", (1, 1, 1, 1, 1, 0, 0)), ("max", (1, 1, 1, 0, 0, 0, 0))):
+        c = dataclasses.replace(cfg, pooling_type=pooling, ffn_dropout=0.0)
+        for k in counters:
+            k.launches = 0
+        preds, grads = {}, {}
+        for where in ("cuda", "cpu"):
+            m = pkg.models.gnn.GNN(c)
+            m.load_state_dict(params_from_flax(init_params(c, seed)))
+            m.to(where)
+            bb = hb.to(where)
+            with torch.inference_mode():
+                preds[where] = m.eval()(bb).predictions.float().cpu()
+            m.train()
+            opt = trainer.make_optimizer(m, trainer.TrainConfig())
+            trainer.train_step(m, opt, bb, 1e-4, loss_fn, drop_seed=77)
+            # gradients as clipped by the step, on each side by its own norm
+            grads[where] = {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()
+                            if p.grad is not None}
+        ran = tuple(int(k.launches > 0) for k in counters)
+        p_abs, p_rel = _max_rel([(preds["cuda"], preds["cpu"], None)])
+        g_rel = max(float((grads["cuda"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                    for k, g in grads["cpu"].items())
+        print(f"[pool-routes] {pooling}: predictions card vs cpu max_abs_err={p_abs:.3e} "
+              f"rel={p_rel:.3e} (tol {E2E_TOL:g}); one step, {len(grads['cpu'])} gradients, worst "
+              f"max|d|/max|cpu| {g_rel:.3e} (tol {TRAIN_TOL:g}); launches "
+              f"{ {k.__name__: k.launches for k in counters} }", flush=True)
+        if not (p_rel <= E2E_TOL and g_rel <= TRAIN_TOL) or ran != want:
+            raise AssertionError(f"{pooling}: rel errs {p_rel:.3e} / {g_rel:.3e}, kernels run "
+                                 f"{ran}, want {want}")
 
 
 def main() -> int:
@@ -961,6 +1186,34 @@ def main() -> int:
         launches[name] = c3_launches[name]
     print(f"[time] config-3 phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # --- config 1 (1 shell, mean pooling, 1 target) on the same SMILES,
+    # featurized for 1 shell
+    c1 = config1(cfg)
+    c1_full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
+                                          c1.num_shells)
+    c1_ds = MoleculeDataset(c1_full.smiles[:2048], c1_full.targets[:2048],
+                            c1_full.features[:2048], c1_full.max_hops)
+    c1_tcfg = train_config(c1)
+    c1_tbatch = next(iter(BatchLoader(c1_ds, 2048, shuffle=True, seed=args.seed))).to("cuda")
+    res.update(check_c1_kernel(c1_tcfg, c1_tbatch, args.seed))
+    del c1_tbatch
+    c1_loader = BatchLoader(c1_ds, 2048)
+    c1_loader.warm_bin_pins()
+    c1_batch = next(iter(c1_loader)).to("cuda")
+    c1_launches = serve(pkg, c1, smiles, args.seed, work, c1_batch, tag="c1-serve")
+    del c1_batch
+    c1_launches.update(train_phase(
+        pkg, c1_tcfg, smiles, c1_full, args.seed, work, tag="c1-train",
+        counters=(bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_wpool.wpool_fwd,
+                  bin_wpool.wpool_bwd),
+        steps=C1_TRAIN_STEPS, forbidden=(bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)))
+    launches["wpool_bwd"] = c1_launches["wpool_bwd"]
+    print(f"[time] config-1 serving and training done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    finetune_phase(c1_full, args.seed, work, os.path.join(work, "c1-train-trained.npz"))
+    pool_routes(pkg, c1_tcfg, c1_full, args.seed)
+    print(f"[time] config-1 phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, src, tpu in (
         ("mp_stack_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu", "aimnet_x2d_tpu/ops/bin_mp.py:639"),
@@ -983,6 +1236,7 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/bin_mp.py:1278"),
         ("mp_layer_bwd", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
          "aimnet_x2d_tpu/ops/bin_mp.py:659"),
+        ("wpool_bwd", "aimnet_x2d_tpu_torch/csrc/wpool.cu", "aimnet_x2d_tpu/ops/bin_wpool.py:98"),
     ):
         r = res[(name, torch.bfloat16)]  # the flagship's dtype
         kernels.append({

@@ -67,6 +67,61 @@ def test_wpool_kernel_matches_plain(dev, dtype, mb):
     assert _rel(got, ref) < 1e-5
 
 
+@pytest.mark.parametrize("need_dw", [True, False])
+@pytest.mark.parametrize("mb", [5, 16, 44])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wpool_bwd_kernel_matches_plain(dev, dtype, mb, need_dw):
+    """Kernel 2b: dx is the rounded cotangent times w, the same arithmetic
+    on both sides; dw sums fp32 products over D in another order (1e-5)."""
+    g = torch.Generator(device=dev).manual_seed(100 + mb)
+    nb, ab = 7, 256
+    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    w = torch.rand(nb * ab, generator=g, device=dev) * (owner >= 0).reshape(-1)
+    for D in (359, 153):
+        x = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+        gout = torch.randn(D, nb * mb, generator=g, device=dev)
+        before = bin_wpool.wpool_bwd.launches
+        dx, dw = bin_wpool.wpool_bwd(x, w, pm, gout, need_dw)
+        assert bin_wpool.wpool_bwd.launches == before + 1
+        rdx, rdw = bin_wpool.wpool_bwd_plain(x, w, pm, gout, need_dw)
+        torch.cuda.synchronize()
+        assert dx.dtype == dtype and _rel(dx, rdx) < 1e-5
+        if need_dw:
+            assert dw.dtype == torch.float32 and _rel(dw, rdw) < 1e-5
+            assert torch.equal(dw, bin_wpool.wpool_bwd(x, w, pm, gout, True)[1])  # fixed order
+        else:
+            assert dw is None and rdw is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wpool_autograd_launches_both_kernels(dev, dtype):
+    """binned_wpool_t's backward on a CUDA tensor runs kernel 2b, with dw
+    only when w needs a gradient, and matches the same on CPU copies."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    nb, mb, ab, D = 5, 16, 256, 153
+    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    x0 = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+    w0 = torch.rand(nb * ab, generator=g, device=dev)
+    gout = torch.randn(D, nb * mb, generator=g, device=dev)
+    grads = {}
+    for where, w_grad in (("cuda", True), ("cuda", False), ("cpu", True)):
+        x = x0.detach().to(where).requires_grad_(True)
+        w = w0.detach().to(where).requires_grad_(w_grad)
+        f0, b0 = bin_wpool.wpool_fwd.launches, bin_wpool.wpool_bwd.launches
+        bin_wpool.binned_wpool_t(x, w, pm.to(where)).backward(gout.to(where))
+        ran = (bin_wpool.wpool_fwd.launches - f0, bin_wpool.wpool_bwd.launches - b0)
+        assert ran == ((1, 1) if where == "cuda" else (0, 0))
+        assert (w.grad is not None) == w_grad
+        grads[(where, w_grad)] = (x.grad, w.grad)
+    torch.cuda.synchronize()
+    ref = grads[("cpu", True)]
+    for key in (("cuda", True), ("cuda", False)):
+        assert _rel(grads[key][0], ref[0].to(dev)) < 1e-5
+    assert _rel(grads[("cuda", True)][1], ref[1].to(dev)) < 1e-5
+
+
 def test_kernel_errors_raise(dev):
     x = torch.randn(19, 128, device=dev)
     adj = torch.zeros(2, 64, 64, dtype=torch.int8, device=dev)

@@ -98,7 +98,7 @@ def test_atom_embeddings_only_on_request():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(graph_axis="g"), dict(pooling_type="max"), dict(parity_mode=False),
+    dict(graph_axis="g"), dict(num_message_passing_layers=0), dict(parity_mode=False),
 ])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError):
