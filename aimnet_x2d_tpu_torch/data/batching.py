@@ -6,6 +6,12 @@ package's host code (numpy only), so both packages build identical arrays
 from identical molecules.  ``MolBatch`` is a plain dataclass of numpy arrays;
 ``MolBatch.to(device)`` hands the model a copy whose arrays are torch tensors.
 
+A batch has one of two layouts: binned (data/binning.py: ``bin_adj``,
+``pool_mat`` and ``tet_bin`` set) or flat, whose edge layouts for the
+aggregation kernel (ops/fused_edge.py: ``fused_fwd`` keyed by destination,
+``fused_bwd`` keyed by source) :func:`attach_flat_layouts` builds on the
+host.  The fields of the other layout are None.
+
 Padding convention: padded edges point at atom slot ``A`` and padded atoms
 at graph slot ``B`` (one past the end); boolean masks mark real entries.
 Cis/trans pairs are appended again in reversed order (quirk Q7) and only
@@ -19,6 +25,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.fused_edge import EdgeLayout, build_layouts
 
 
 @dataclasses.dataclass
@@ -96,6 +104,10 @@ class MolBatch:
     pool_mat: Optional[np.ndarray] = None  # (nb, mb, ab) int8
     tet_bin: Optional[np.ndarray] = None  # (nb, 4, Tc) int32
 
+    # Flat layout (attach_flat_layouts); None on binned batches.
+    fused_fwd: Optional[EdgeLayout] = None  # CSR keyed by destination
+    fused_bwd: Optional[EdgeLayout] = None  # CSR keyed by source
+
     @property
     def num_atom_slots(self) -> int:
         return self.atom_type.shape[-1]
@@ -105,12 +117,15 @@ class MolBatch:
         return self.total_charge.shape[-1]
 
     def to(self, device: "str | torch.device") -> "MolBatch":
-        """Copy with every array field as a torch tensor on ``device``."""
+        """Copy with every array field (and the edge layouts' arrays) as a
+        torch tensor on ``device``."""
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, np.ndarray):
                 v = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            elif isinstance(v, EdgeLayout):
+                v = v.to(device)
             out[f.name] = v
         return MolBatch(**out)
 
@@ -308,3 +323,12 @@ def collate(
         trans_mask=trans_mask,
         edges_dst_sorted=bool(sort_edges),
     )
+
+
+def attach_flat_layouts(batch: MolBatch) -> MolBatch:
+    """A copy of the flat ``batch`` with its edge layouts for the
+    aggregation kernel, built on the host with numpy (the JAX package's
+    ``attach_fused_layouts``; every batch size gets them)."""
+    fwd, bwd = build_layouts(batch.edge_src, batch.edge_dst, batch.edge_mask,
+                             batch.num_atom_slots)
+    return dataclasses.replace(batch, fused_fwd=fwd, fused_bwd=bwd)

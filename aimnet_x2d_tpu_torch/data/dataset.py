@@ -1,13 +1,15 @@
-"""Featurized datasets and the binned batch loader (counterpart of
+"""Featurized datasets and the batch loader (counterpart of
 aimnet_x2d_tpu/data/dataset.py).
 
-The port trains and serves on the binned, fixed-shape, single-device layout
-only: every batch is collated, then packed whole-molecule into
-``bin_ab``-atom bins (data/binning.py).  A training loader shuffles with
-``np.random.default_rng(seed + epoch)`` and packs size-descending, as the
-JAX loader does; evaluation and serving loaders keep input order.  A
-molecule larger than a bin raises :class:`~.binning.BinningError`; the flat
-layout that would take it is not ported yet.
+A loader serves one layout, decided once when it is built, by the JAX
+rule: binned (every batch collated, then packed whole-molecule into
+``bin_ab``-atom bins, data/binning.py) when every molecule fits a bin, and
+flat otherwise (collated with fixed slot caps, with the edge layouts of the
+aggregation kernel attached, ``attach_flat_layouts``).  Streaming serving
+builds one loader per chunk, so there the layout is decided per chunk.  A
+training loader shuffles with ``np.random.default_rng(seed + epoch)`` and
+packs size-descending, as the JAX loader does; evaluation and serving
+loaders keep input order.
 """
 
 from __future__ import annotations
@@ -19,11 +21,10 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 
 from ..chem.featurize import compute_features
-from .batching import MolBatch, MolFeatures, bucket_size, collate
+from .batching import MolBatch, MolFeatures, attach_flat_layouts, bucket_size, collate
 from .binning import (
     DEFAULT_AB,
     DEFAULT_MB,
-    BinningError,
     adaptive_mb_cap,
     bin_pack_batch,
     plan_bin_counts,
@@ -84,7 +85,8 @@ class MoleculeDataset:
 
 
 class BatchLoader:
-    """Yields binned, fixed-shape :class:`MolBatch` objects.
+    """Yields fixed-shape :class:`MolBatch` objects, binned or flat (the
+    module docstring says which; ``self.binned``).
 
     Without ``shuffle``, batches come in input order, and graph-level
     outputs of a batch are in input order after masking with ``graph_mask``.
@@ -93,7 +95,8 @@ class BatchLoader:
     size-descending.  ``warm_bin_pins`` and ``pin_slots`` keep one batch
     shape across batches and loaders, so the device sees few distinct
     shapes (fewer allocator sizes; the same contract as the JAX loader,
-    whose compiled step needs it).
+    whose compiled step needs it); on a flat loader only the slot caps
+    carry over.
     """
 
     def __init__(
@@ -116,13 +119,7 @@ class BatchLoader:
         self._bin_pins: dict = {}
         feats = dataset.features
         atoms = np.array([f.num_atoms for f in feats], np.int64)
-        if atoms.size and int(atoms.max()) > bin_ab:
-            big = int(np.argmax(atoms))
-            raise BinningError(
-                f"molecule {big} ({dataset.smiles[big]!r}) has {int(atoms[big])} "
-                f"atoms, more than the {bin_ab}-atom bin; the flat layout that "
-                "serves such molecules is not ported yet"
-            )
+        self.binned = not atoms.size or int(atoms.max()) <= bin_ab
         edges = np.array([f.num_edges for f in feats], np.int64)
         tets = np.array([f.tet_nbrs.shape[0] for f in feats], np.int64)
         pairs = np.array(
@@ -143,6 +140,8 @@ class BatchLoader:
             merged = max(slots.get(name, 0), getattr(self, name))
             slots[name] = merged
             setattr(self, name, merged)
+        if not self.binned:
+            return slots
         for name in ("bins", "mb", "tetb"):  # tetb: the tet_bin table's width
             merged = max(slots.get(name, 0), self._bin_pins.get(name, 0))
             if merged:
@@ -152,7 +151,10 @@ class BatchLoader:
 
     def warm_bin_pins(self) -> None:
         """Plan every batch's bin grid and seed the pins with the largest,
-        before the first batch is built, so all batches share one shape."""
+        before the first batch is built, so all batches share one shape.
+        Nothing to do on a flat loader."""
+        if not self.binned:
+            return
         sizes_all = np.array([f.num_atoms for f in self.dataset.features], np.int64)
         tets_all = np.array(
             [f.tet_nbrs.shape[0] for f in self.dataset.features], np.int64
@@ -197,6 +199,8 @@ class BatchLoader:
             tet_slots=self.tet_slots,
             pair_slots=self.pair_slots,
         )
+        if not self.binned:
+            return attach_flat_layouts(batch)
         return bin_pack_batch(batch, ab=self.bin_ab, mb=self.bin_mb, pins=self._bin_pins,
                               size_sort=self.size_sort)
 

@@ -2,8 +2,9 @@
 aimnet_x2d_tpu/inference/pipeline.py).
 
 Chunked pandas reads -> featurization in a background thread, one chunk
-ahead -> binned fixed-shape batches -> the model on the chosen device ->
-inverse transform -> append to the output CSV.  The artifact is
+ahead -> fixed-shape batches, binned or flat as each chunk's loader
+picks (flat when a molecule exceeds a bin) -> the model on the chosen
+device -> inverse transform -> append to the output CSV.  The artifact is
 self-describing: model config, weights and preprocessing come from one
 file.  MC-dropout, evidential outputs, embedding output, HDF5 input and
 multi-host sharding are later slices of the port.

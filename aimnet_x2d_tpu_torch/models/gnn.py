@@ -1,5 +1,8 @@
 """The GNN model (counterpart of aimnet_x2d_tpu/models/gnn.py).
 
+A batch comes in one of two layouts (data/dataset.py decides): binned,
+when every molecule fits a bin, or flat.
+
 Forward on the binned, feature-major fast path (the JAX ``t_path``):
 
 1. four embedding lookups -> concat, feature-major (4*emb, A)
@@ -15,6 +18,8 @@ Forward on the binned, feature-major fast path (the JAX ``t_path``):
      injections as plain PyTorch (the JAX package runs them as XLA:
      ``bin_inject.charge_rows``, :func:`stereochemistry_t`), then the
      single-layer kernel with its residual (kernel 1d);
+   - ``none`` (no message-passing layers): x_other is the projection
+     itself (the JAX row-major binned arithmetic up to fp32 reassociation);
 4. pooling of [x_self, x_other] with concat_self_other folded in
    (attention, mean or sum; ops/bin_wpool.py kernels), or, for max
    pooling, concat_self_other on the atoms then the masked max (plain
@@ -36,9 +41,20 @@ step's dropout seed is one int32 (each single-layer call gets
 ``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
 FFN's dropout masks come from a ``torch.Generator``.
 
-The flat layout, true multi-hop aggregation, graph-axis execution and
-models without message passing are later slices of the port; the model
-raises NotImplementedError for them rather than running anything else.
+Forward on the flat, row-major layout (the JAX path of batches with a
+molecule larger than a bin), serving and training alike: the embeddings
+(fp32 gather, or in bf16 the rounded tables), the x_self and x_other
+projections, each layer (``ShellConvolutionLayer.forward``: the edge
+aggregation of kernel 7, ops/fused_edge.py, then the projections and MLP
+blocks) followed by ``+ x_other``, the atom-embedding tap, and the flat
+pools of models/pooling.py: attention and mean/sum with concat_self_other
+folded in, max over the atom embeddings.  Its dropout masks (layers and
+FFN) come from the ``generator``.
+
+True multi-hop aggregation (``parity_mode=False``), graph-axis execution,
+and partial charges or stereochemistry on a flat batch are later slices of
+the port; the model raises NotImplementedError for them rather than
+running anything else.
 """
 
 from __future__ import annotations
@@ -59,16 +75,20 @@ from ..ops.bin_mp import (
     layer_drop_seed,
     stack_weights,
 )
-from ..ops.embed import embed_concat_onehot_t
+from ..ops.embed import embed_concat_onehot, embed_concat_onehot_t
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
 from .pooling import (
     POOLING_TYPES,
     MultiHeadAttentionPooling,
+    atom_counts,
     binned_max_pool,
     binned_mean_pool_t,
     binned_sum_pool_t,
+    max_pool,
+    mean_pool,
     pool_then_project,
+    sum_pool,
 )
 
 # Feature index-space sizes = |vocabulary| + 1 OOV bucket.
@@ -155,8 +175,6 @@ class GNNOutput:
 def _unsupported(cfg: GNNConfig) -> Optional[str]:
     if not cfg.parity_mode:
         return "true per-hop aggregation (parity_mode=False)"
-    if cfg.num_message_passing_layers < 1:
-        return "a model without message passing"
     if cfg.use_partial_charges and cfg.x_other_dim < 2:
         return "partial charges with fewer than 2 x_other features"
     if cfg.graph_axis is not None:
@@ -167,9 +185,12 @@ def _unsupported(cfg: GNNConfig) -> Optional[str]:
 
 
 def mp_route(cfg: GNNConfig) -> str:
-    """How the message-passing layers run (module docstring): ``inject``
-    with both charges and stereochemistry, ``layer`` with one of them or a
-    single layer, else ``stack``."""
+    """How the message-passing layers run on the binned layout (module
+    docstring): ``none`` without layers, ``inject`` with both charges and
+    stereochemistry, ``layer`` with one of them or a single layer, else
+    ``stack``."""
+    if cfg.num_message_passing_layers == 0:
+        return "none"
     if cfg.use_partial_charges and cfg.use_stereochemistry:
         return "inject"
     if cfg.use_partial_charges or cfg.use_stereochemistry or cfg.num_message_passing_layers == 1:
@@ -280,7 +301,8 @@ class GNN(nn.Module):
             # dead parameter kept for checkpoint parity (quirk Q5)
             self.long_range_projection = Linear(H, cfg.ffn_dim)
         self.message_passing_layers = nn.ModuleList(
-            ShellConvolutionLayer(cfg.x_other_dim, cfg.num_shells, cfg.shell_conv_num_mlp_layers)
+            ShellConvolutionLayer(cfg.x_other_dim, cfg.num_shells, cfg.shell_conv_num_mlp_layers,
+                                  cfg.activation_type, cfg.shell_conv_dropout, cdt)
             for _ in range(cfg.num_message_passing_layers)
         )
         if cfg.use_stereochemistry:
@@ -340,7 +362,9 @@ class GNN(nn.Module):
         """The inject and layer routes over x_other (D, A) in the compute
         dtype: per layer kernel 4, or the injections then kernel 1d.  The
         training form takes the fp32 masters (autograd); serving takes the
-        prepped weights."""
+        prepped weights.  Without layers (route ``none``) x passes through."""
+        if self.route == "none":
+            return x
         cfg = self.config
         act = cfg.activation_type
         dt = self.compute_dtype
@@ -382,16 +406,17 @@ class GNN(nn.Module):
         drop_seed: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
     ) -> GNNOutput:
-        """``batch``: a binned MolBatch of torch tensors (``MolBatch.to``).
-        ``atom_embeddings``: also return the (A, hidden) atom embeddings,
-        which cost an A x hidden x hidden product and are skipped otherwise.
-        ``train``: the training forward (see the module docstring), with the
-        layers' dropout seed ``drop_seed`` (drawn from ``generator`` when not
-        given) and the FFN's dropout masks from ``generator``; training with
-        a dropout rate above 0 and no generator raises."""
+        """``batch``: a binned or flat MolBatch of torch tensors
+        (``MolBatch.to``).  ``atom_embeddings``: also return the (A, hidden)
+        atom embeddings, which cost an A x hidden x hidden product and are
+        skipped otherwise.  ``train``: the training forward (see the module
+        docstring), with the binned layers' dropout seed ``drop_seed`` (drawn
+        from ``generator`` when not given) and the FFN's (and the flat
+        layers') dropout masks from ``generator``; training with a dropout
+        rate above 0 and no generator raises."""
         cfg = self.config
-        if batch.bin_adj is None or batch.pool_mat is None:
-            raise NotImplementedError("the flat (non-binned) layout is not ported yet")
+        if batch.pool_mat is None:
+            return self._forward_flat(batch, atom_embeddings, train, generator)
         if train:
             return self._forward_train(batch, drop_seed, generator)
         act = get_activation_function(cfg.activation_type)
@@ -422,7 +447,7 @@ class GNN(nn.Module):
         pm = batch.pool_mat
         atom_emb = None
         if atom_embeddings or cfg.pooling_type == "max":
-            atom_emb = self._atom_embeddings(x_self, x_other)
+            atom_emb = self._atom_embeddings(x_self.T, x_other.T)
         attention_weights = None
         if cfg.pooling_type == "attention":
             k_cs = self.concat_self_other.weight.T  # (in, out)
@@ -436,14 +461,15 @@ class GNN(nn.Module):
         return self._head(mol, attention_weights, atom_emb, self._charges(x_other), None)
 
     def _atom_embeddings(self, x_self: torch.Tensor, x_other: torch.Tensor) -> torch.Tensor:
-        """(A, hidden) in the compute dtype: concat_self_other applied to
-        [x_self, x_other] by row blocks of its kernel (the concat is never
-        formed), as the JAX package's atom-embedding tap."""
+        """(A, hidden) in the compute dtype: concat_self_other applied to the
+        row-major [x_self (A, d_s), x_other (A, d_o)] by row blocks of its
+        kernel (the concat is never formed), as the JAX package's
+        atom-embedding tap."""
         dt = self.compute_dtype
         cdt = dt if dt == torch.bfloat16 else None
         k_cs, b_cs = self.concat_self_other.weight.T, self.concat_self_other.bias
         xs = self.config.x_self_dim
-        y = mm32(x_self.T, k_cs[:xs], cdt) + mm32(x_other.T, k_cs[xs:], cdt)
+        y = mm32(x_self, k_cs[:xs], cdt) + mm32(x_other, k_cs[xs:], cdt)
         return (y.to(dt) + b_cs.to(dt)) if cdt is not None else y + b_cs
 
     def _linear_pool(self, x_self: torch.Tensor, x_other: torch.Tensor,
@@ -511,7 +537,66 @@ class GNN(nn.Module):
         else:
             x_self = act(mm32(W[:xs], embT, cdt).to(dt) + b[:xs].to(dt)[:, None])
             if cfg.pooling_type == "max":
-                mol = binned_max_pool(self._atom_embeddings(x_self, x_other), pm)
+                mol = binned_max_pool(self._atom_embeddings(x_self.T, x_other.T), pm)
             else:
                 mol = self._linear_pool(x_self, x_other, pm)
         return self._head(mol, attn, None, self._charges(x_other), generator)
+
+    def _forward_flat(self, batch: MolBatch, atom_embeddings: bool, train: bool,
+                      generator: Optional[torch.Generator]) -> GNNOutput:
+        """Serving and training forward on the flat, row-major layout (the
+        module docstring; JAX ``GNN.__call__`` without ``t_path``)."""
+        cfg = self.config
+        if cfg.use_partial_charges or cfg.use_stereochemistry:
+            raise NotImplementedError(
+                "partial charges and stereochemistry on the flat layout are not ported yet")
+        if batch.fused_fwd is None or batch.fused_bwd is None:
+            raise ValueError("a flat batch needs its edge layouts (data.batching.attach_flat_layouts)")
+        layer_rate = cfg.shell_conv_dropout if cfg.num_message_passing_layers else 0.0
+        if train and generator is None and max(layer_rate, cfg.ffn_dropout) > 0.0:
+            raise ValueError("training with dropout needs a generator")
+        gen = generator if train else None
+        act = get_activation_function(cfg.activation_type)
+        dt = self.compute_dtype
+        cdt = dt if dt == torch.bfloat16 else None
+
+        # 1-2. embeddings (A, 4*emb), projection and split, row-major
+        tables = [getattr(self, f"{n}_embedding").weight for n in _EMBEDDINGS]
+        emb = embed_concat_onehot(tables, [getattr(batch, n) for n in _EMBEDDINGS], dtype=dt)
+        W, b = self.embedding_projection.weight, self.embedding_projection.bias
+        xs = cfg.x_self_dim
+
+        def proj_cols(w, bb):
+            y = mm32(emb, w.T, cdt).to(dt) if cdt is not None else emb @ w.T
+            return act(y + bb.to(y.dtype))
+
+        x_self = proj_cols(W[:xs], b[:xs])  # (A, xs)
+        x_other = proj_cols(W[xs:], b[xs:])  # (A, D)
+
+        # 3. message passing: each layer then the residual, in x_other's dtype
+        for layer in self.message_passing_layers:
+            x_other = layer(x_other, batch.fused_fwd, batch.fused_bwd, gen) + x_other
+
+        # 4. combine (atom-embedding tap) and pool
+        B = batch.total_charge.shape[0]
+        mol_id, mask = batch.atom_mol, batch.atom_mask
+        k_cs, b_cs = self.concat_self_other.weight.T, self.concat_self_other.bias
+        atom_emb = None
+        if atom_embeddings or cfg.pooling_type == "max":
+            atom_emb = self._atom_embeddings(x_self, x_other)
+        attention_weights = None
+        if cfg.pooling_type == "attention":
+            mol, attention_weights = self.pooling.forward_flat([x_self, x_other], mol_id, mask, B,
+                                                               (k_cs, b_cs))
+        elif cfg.pooling_type == "max":
+            mol = max_pool(atom_emb, mol_id, mask, B)
+        else:
+            # parts promoted to fp32 before the segment sums, then the bias
+            # scaled by each slot's coverage (mean) or atom count (sum)
+            pool = mean_pool if cfg.pooling_type == "mean" else sum_pool
+            counts = atom_counts(mol_id, mask, B)
+            mol = pool_then_project([pool(p.float(), mol_id, mask, B).T for p in (x_self, x_other)],
+                                    counts > 0 if cfg.pooling_type == "mean" else counts,
+                                    k_cs, b_cs, dt)
+        atom_emb = atom_emb.float() if atom_embeddings else None
+        return self._head(mol, attention_weights, atom_emb, None, gen)

@@ -17,6 +17,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from ..ops.fused_edge import fused_edge_aggregate
 from ..utils.activation import get_activation_function
 
 
@@ -103,22 +104,29 @@ class MultiLayerPerceptron(nn.Module):
 
 
 class ShellConvolutionLayer(nn.Module):
-    """Parameter holder of one shell-convolution layer.
+    """One shell-convolution layer.
 
     The parameters have the JAX layer's full shapes: the input and skip
     projections take (K+1)*D inputs although, under quirk Q1 (union of
-    hops), only the first 2D rows ever see data.  The layer's arithmetic
-    runs in the fused stack (ops/bin_mp.py); :meth:`stack_weights` hands it
-    the flat weight tuple."""
+    hops), only the first 2D rows ever see data.  On the binned layout the
+    layer's arithmetic runs in the fused stack (ops/bin_mp.py), and
+    :meth:`stack_weights` hands it the flat weight tuple; on the flat
+    layout :meth:`forward` runs it row-major."""
 
-    def __init__(self, dim: int, num_hops: int = 3, num_mlp_layers: int = 2):
+    def __init__(self, dim: int, num_hops: int = 3, num_mlp_layers: int = 2,
+                 activation_type: str = "silu", dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         in_dim = dim * (num_hops + 1)
         self.dim = dim
+        self.dtype = dtype  # compute dtype of the flat path; parameters stay fp32
+        self.act = get_activation_function(activation_type)
+        self.rate = dropout
         self.input_proj = Linear(in_dim, dim)
         self.global_skip_proj = Linear(in_dim, dim)
         self.mlp = nn.ModuleList(
-            nn.ModuleList([Linear(dim, dim), Linear(dim, dim)]) for _ in range(num_mlp_layers)
+            nn.ModuleList([Linear(dim, dim, dtype), Linear(dim, dim, dtype)])
+            for _ in range(num_mlp_layers)
         )
 
     def stack_weights(self) -> List[torch.Tensor]:
@@ -132,3 +140,36 @@ class ShellConvolutionLayer(nn.Module):
         for lin1, lin2 in self.mlp:
             out += [lin1.weight.T, lin1.bias, lin2.weight.T, lin2.bias]
         return out
+
+    def forward(self, x: torch.Tensor, fused_fwd, fused_bwd,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The layer on the flat layout, parity mode (the JAX layer's
+        ``fused_fwd`` branch, without its halo and graph-axis branches): x
+        (A, D) in the compute dtype, the batch's edge layouts on x's device.
+
+        agg = the edge aggregation (kernel 7, fp32); parts = [x, agg in x's
+        dtype]; the input and skip projections take each part by its row
+        block of the kernel (fp32 products of compute-dtype operands, summed,
+        cast once, then the bias in the compute dtype); then the activation,
+        the MLP blocks with their inner skip, and ``h + global_skip``.  With
+        a ``generator`` the blocks' dropout runs after the first Linear's
+        activation; its masks agree with flax's ``nn.Dropout`` in
+        distribution only (the JAX package draws them from its threefry
+        stream)."""
+        D, cdt = self.dim, self.dtype
+        agg = fused_edge_aggregate(x, fused_fwd, fused_bwd, exact=cdt is None)
+        parts = (x, agg.to(x.dtype))
+
+        def proj(lin: Linear) -> torch.Tensor:
+            w = lin.weight.T  # (in, out), only the first 2D rows see data
+            if cdt is not None:
+                y = sum(mm32(p, w[i * D : (i + 1) * D], cdt) for i, p in enumerate(parts))
+                return y.to(cdt) + lin.bias.to(cdt)
+            return sum(p @ w[i * D : (i + 1) * D] for i, p in enumerate(parts)) + lin.bias
+
+        h = self.act(proj(self.input_proj))
+        global_skip = proj(self.global_skip_proj)
+        for lin1, lin2 in self.mlp:
+            skip = h
+            h = lin2(dropout(self.act(lin1(h)), self.rate, generator)) + skip
+        return h + global_skip

@@ -1,11 +1,16 @@
-"""Pooling over the binned, feature-major layout (counterpart of
-aimnet_x2d_tpu/models/pooling.py).
+"""Pooling (counterpart of aimnet_x2d_tpu/models/pooling.py).
 
-Atoms are laid out bins x ab and molecules bins x mb; ``pool_mat[b, m, a]``
-marks membership.  Per-molecule sums are products with the membership
-matrix, run by the weighted-pool kernels (ops/bin_wpool.py, forward and
-backward); the softmax is plain PyTorch with the JAX package's -1e30 mask
-and 1e-16 floor.  Max pooling has no TPU kernel and stays plain PyTorch.
+Binned, feature-major layout: atoms are laid out bins x ab and molecules
+bins x mb; ``pool_mat[b, m, a]`` marks membership.  Per-molecule sums are
+products with the membership matrix, run by the weighted-pool kernels
+(ops/bin_wpool.py, forward and backward); the softmax is plain PyTorch with
+the JAX package's -1e30 mask and 1e-16 floor.
+
+Flat, row-major layout: per-molecule segment reductions keyed by
+``atom_mol`` (ops/segment.py; padded atoms carry id B and are dropped), as
+the JAX package runs them in XLA with no kernel.
+
+Max pooling has no TPU kernel on either layout and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from torch import nn
 
 from ..ops.bin_attnpool import binned_attnpool_proj_t
 from ..ops.bin_wpool import binned_wpool_t
+from ..ops.segment import segment_max, segment_mean, segment_softmax, segment_sum
 from .layers import Linear, mm32
 
 POOLING_TYPES = ("attention", "mean", "max", "sum")
@@ -87,6 +93,42 @@ def binned_attention_pool_t(xT: torch.Tensor, attn: torch.Tensor, pool_mat: torc
     """Head-averaged weighted pool: xT (D, A), attn (H, A) -> (D, nb*mb)
     fp32 (the head mean commutes with the membership sum)."""
     return binned_wpool_t(xT.to(_pool_dtype(xT)), attn.mean(dim=0), pool_mat)
+
+
+def _masked(x: torch.Tensor, atom_mask: torch.Tensor, fill: float) -> torch.Tensor:
+    return torch.where(atom_mask[:, None], x, torch.full((), fill, dtype=x.dtype, device=x.device))
+
+
+def _seg_ids(atom_mol: torch.Tensor, atom_mask: torch.Tensor, num_graphs: int) -> torch.Tensor:
+    return torch.where(atom_mask, atom_mol.long(), torch.full_like(atom_mol, num_graphs).long())
+
+
+def mean_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
+              num_graphs: int) -> torch.Tensor:
+    """Flat mean pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0."""
+    return segment_mean(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
+                        num_graphs)
+
+
+def sum_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
+             num_graphs: int) -> torch.Tensor:
+    """Flat sum pool: x (A, D) -> (B, D) in x's dtype."""
+    return segment_sum(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
+                       num_graphs)
+
+
+def max_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
+             num_graphs: int) -> torch.Tensor:
+    """Flat max pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0; a
+    maximum shared by several atoms splits its gradient evenly among them
+    (JAX ``segment_max``)."""
+    return segment_max(_masked(x, atom_mask, float("-inf")),
+                       _seg_ids(atom_mol, atom_mask, num_graphs), num_graphs)
+
+
+def atom_counts(atom_mol: torch.Tensor, atom_mask: torch.Tensor, num_graphs: int) -> torch.Tensor:
+    """(B,) fp32: real atoms per molecule slot."""
+    return segment_sum(atom_mask.float(), _seg_ids(atom_mol, atom_mask, num_graphs), num_graphs)
 
 
 def pool_then_project(
@@ -173,3 +215,33 @@ class MultiHeadAttentionPooling(nn.Module):
         pooled = [binned_attention_pool_t(p, attn, pool_mat) for p in parts]
         cov = binned_attention_coverage(attn, pool_mat)
         return pool_then_project(pooled, cov, k_cs, b_cs, dt), attn
+
+    def forward_flat(
+        self,
+        parts: List[torch.Tensor],
+        atom_mol: torch.Tensor,
+        atom_mask: torch.Tensor,
+        num_graphs: int,
+        pre_proj: Tuple[torch.Tensor, torch.Tensor],
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The flat layout (the JAX segment branch): parts row-major
+        [x_self (A, d_s), x_other (A, d_o)] in the compute dtype.  Scores
+        take each part by its row block of the folded kernel (cast to the
+        part's dtype, fp32 sums) over the temperature; a per-molecule
+        softmax; the head-mean weight pools each part promoted to fp32, and
+        the bias picks up each molecule's summed weight.  Returns (mol
+        (B, hidden) fp32, attention weights (H, A) fp32)."""
+        k_cs, b_cs = pre_proj
+        score_k, score_b = self._score_fold(k_cs, b_cs)
+        scores32 = score_b
+        row = 0
+        for p in parts:
+            scores32 = scores32 + mm32(p, score_k[row : row + p.shape[1]], p.dtype)
+            row += p.shape[1]
+        scores = scores32.T / self.temperature  # (H, A)
+        seg = _seg_ids(atom_mol, atom_mask, num_graphs)
+        attn = segment_softmax(scores, seg, num_graphs, mask=atom_mask)
+        wbar = attn.mean(dim=0)
+        pooled = [segment_sum(p.float() * wbar[:, None], seg, num_graphs).T for p in parts]
+        cov = segment_sum(wbar, seg, num_graphs)
+        return pool_then_project(pooled, cov, k_cs, b_cs, torch.float32), attn

@@ -1,4 +1,6 @@
-"""Operators of the binned fast path.  ``bin_mp``, ``bin_attnpool`` and
-``bin_wpool`` launch hand-written CUDA kernels (``csrc/``) on CUDA tensors
-and run their plain PyTorch versions on CPU tensors; ``embed`` is plain
+"""Operators of the port.  ``bin_mp``, ``bin_attnpool``, ``bin_wpool`` and
+``bin_inject`` (the binned layout), ``fused_edge`` (the flat layout's edge
+aggregation) and ``pallas_segment`` (the windowed segment sum) launch
+hand-written CUDA kernels (``csrc/``) on CUDA tensors and run their plain
+PyTorch versions on CPU tensors; ``embed`` and ``segment`` are plain
 PyTorch."""

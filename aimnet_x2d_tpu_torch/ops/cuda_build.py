@@ -27,6 +27,7 @@ SOURCES = {
     "attnpool": "attnpool.cu",
     "wpool": "wpool.cu",
     "inject": "inject.cu",
+    "fused_edge": "fused_edge.cu",
 }
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NVCC_FLAGS = [

@@ -1,5 +1,7 @@
-"""Concatenated multi-feature embedding, feature-major (counterpart of
-aimnet_x2d_tpu/ops/embed.py::embed_concat_onehot_t).
+"""Concatenated multi-feature embedding, row-major (counterpart of
+aimnet_x2d_tpu/ops/embed.py::embed_concat_onehot, and of the fp32 gather
+concat of the JAX model's flat path) and feature-major (::
+embed_concat_onehot_t).
 
 The JAX package computes the lookup as one block-diagonal one-hot matmul
 in XLA; a product with a one-hot matrix is exactly the gather, so the port
@@ -20,17 +22,26 @@ import torch
 import torch.nn.functional as F
 
 
-def embed_concat_onehot_t(
+def embed_concat_onehot(
     tables: Sequence[torch.Tensor],
     ids: Sequence[torch.Tensor],
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """``concat([T_i[ids_i] for i])`` as a feature-major (sum of dims, A)
-    array in ``dtype`` (table values rounded to ``dtype``)."""
+    """``concat([T_i[ids_i] for i])`` as a row-major (A, sum of dims) array
+    in ``dtype`` (table values rounded to ``dtype``)."""
     rows = []
     for t, i in zip(tables, ids):
         i = i.long()
         valid = (i >= 0) & (i < t.shape[0])
         emb = F.embedding(i.clamp(0, t.shape[0] - 1), t).to(dtype)
         rows.append(emb * valid.to(dtype)[:, None])
-    return torch.cat(rows, dim=1).T.contiguous()
+    return torch.cat(rows, dim=1)
+
+
+def embed_concat_onehot_t(
+    tables: Sequence[torch.Tensor],
+    ids: Sequence[torch.Tensor],
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The same as a feature-major (sum of dims, A) array."""
+    return embed_concat_onehot(tables, ids, dtype).T.contiguous()

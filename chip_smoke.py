@@ -62,7 +62,26 @@ Phases, each of which fails the run when it fails:
    - ``[pool-routes]``: one batch through sum- and max-pool models, served
      and one train step, card against CPU, each launching only its route's
      kernels (no weighted pool for max);
-9. print the ``kernels`` JSON line, the card line and, last, the result
+9. the flat layout: the flagship on the script's SMILES with 1 in 100
+   replaced by a molecule of 260-600 atoms with hydrogens (a linear alkane,
+   a PEG chain or a glycine peptide), so every batch holds a molecule
+   larger than a 256-atom bin and goes flat:
+   - ``[flat-kernel]``: the edge aggregation (kernel 7, forward on the
+     destination-keyed layout and backward on the source-keyed one) and
+     the windowed segment sum (kernel 8) against their plain versions on
+     the flat serving batch, D 153 and 359, fp32 and bf16, timed with
+     bounds and the library yardsticks (``torch.sparse.mm`` of the batch's
+     multiplicity adjacency; ``index_add_``); then kernel 8's op driven
+     once as its caller would, on the batch's edges (it lies on no model
+     path, in either package);
+   - ``[flat-serve]``: phase 4 on those SMILES: kernel 7 launches 3 times
+     per batch and no binned kernel launches; card against CPU on 128
+     molecules that hold 2 large ones;
+   - ``[flat-train]``: phase 6 on them: kernel 7 launches 3 times forward
+     and 3 times backward per step, no binned kernel launches; the one step
+     card against CPU runs with both dropouts off (the flat layers draw
+     their masks from a generator);
+10. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -116,6 +135,11 @@ TRAIN_TOL = 5e-2
 TRAIN_STEPS = 24
 C3_TRAIN_STEPS = 12
 C1_TRAIN_STEPS = 24
+FLAT_EVERY = 100  # one molecule larger than a bin in every FLAT_EVERY SMILES
+# Kernels 7 and 8 against their plain versions: fp32 outputs hold the same
+# fp32 values summed in another order; after the cast to bf16 a sum that
+# lands next to a rounding boundary may move by one bf16 step (2**-8).
+FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def card_line() -> str:
@@ -152,6 +176,27 @@ def make_smiles(n: int, seed: int, stereo: bool = False) -> list:
             if kind != 0:
                 parts.insert(int(rng.integers(1, len(parts))), double[rng.integers(len(double))])
         out.append("".join(parts))
+    return out
+
+
+def large_smiles(rng) -> str:
+    """One molecule of 260-600 atoms with hydrogens: a linear alkane C_nH_2n+2
+    (3n + 2 atoms), a PEG chain HO(CH2CH2O)_nH or a glycine peptide
+    H(NHCH2CO)_nOH (7n + 3 atoms each)."""
+    kind = int(rng.integers(3))
+    if kind == 0:
+        return "C" * int(rng.integers(87, 200))
+    n = int(rng.integers(37, 86))
+    return "O" + "CCO" * n if kind == 1 else "NCC(=O)" * n + "O"
+
+
+def flat_smiles(n: int, seed: int) -> list:
+    """The flagship's ``n`` SMILES with every ``FLAT_EVERY``-th one, from
+    index 20 on (so the first 128 hold two), replaced by a large molecule."""
+    out = make_smiles(n, seed)
+    rng = np.random.default_rng(seed + 5)
+    for i in range(20, n, FLAT_EVERY):
+        out[i] = large_smiles(rng)
     return out
 
 
@@ -319,10 +364,12 @@ def profile_forward(model, batch, top: int = 8) -> None:
 
 
 def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
-          counters=None) -> dict:
-    """Phase 4 (and ``[c3-serve]``): the port's CLI on cuda, counters of
-    the path's kernels (default: the flagship's), output checks, CPU
-    comparison of one batch, model-only throughput."""
+          counters=None, forbidden=(), n_cpu: int = 256) -> dict:
+    """Phase 4 (and ``[c3-serve]``, ``[c1-serve]``, ``[flat-serve]``): the
+    port's CLI on cuda, counters of the path's kernels (default: the
+    flagship's), which must all launch, and of ``forbidden`` kernels, which
+    must not; output checks, CPU comparison of the first ``n_cpu``
+    molecules, model-only throughput."""
     from aimnet_x2d_tpu_torch import cli
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax, save_artifact
     from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
@@ -348,14 +395,17 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
     csv_in, csv_out = os.path.join(work, f"{tag}-mols.csv"), os.path.join(work, f"{tag}-preds.csv")
     pd.DataFrame({"smiles": smiles}).to_csv(csv_in, index=False)
 
-    for c in counters:
+    for c in (*counters, *forbidden):
         c.launches = 0
     summary = cli.main(["--inference_csv", csv_in, "--model_save_path", art,
                         "--inference_output", csv_out, "--device", "cuda"])
     launches = {c.__name__: c.launches for c in counters}
-    print(f"[{tag}] launches on the main path: {launches}", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    ran = {c.__name__: c.launches for c in forbidden}
+    print(f"[{tag}] launches on the main path: {launches}"
+          + (f"; must not launch: {ran}" if ran else ""), flush=True)
+    if min(launches.values()) <= 0 or any(ran.values()):
+        raise AssertionError(f"a kernel of the main path never launched, or one of another "
+                             f"route did: {launches} {ran}")
 
     out = pd.read_csv(csv_out)
     if summary["valid_molecules"] != len(smiles) or len(out) != len(smiles):
@@ -365,7 +415,6 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
         raise AssertionError("predictions are not all finite or have the wrong shape")
 
     # one batch on the CPU, plain versions, raw (scaled) outputs
-    n_cpu = 256
     model_cpu = pkg.models.gnn.GNN(cfg)
     model_cpu.load_state_dict(params_from_flax(flat))
     ds = MoleculeDataset.from_smiles(smiles[:n_cpu], np.zeros((n_cpu, 1), np.float32), cfg.num_shells)
@@ -736,13 +785,15 @@ def profile_step(step, tag: str = "train", top: int = 12) -> None:
 
 
 def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
-                counters=None, steps: int = TRAIN_STEPS, forbidden=()) -> dict:
-    """Phase 6 (and ``[c3-train]``, ``[c1-train]``): the CLI's training path
-    on the card with the counters of the path's kernels (default: the
-    flagship's), which must all launch, and of ``forbidden`` kernels, which
-    must not; a timed train-step loop of ``steps`` steps, and one step card
-    against CPU.  With partial charges the CLI also writes the test split's
-    charges, which are checked."""
+                counters=None, steps: int = TRAIN_STEPS, forbidden=(),
+                want_per_step=None) -> dict:
+    """Phase 6 (and ``[c3-train]``, ``[c1-train]``, ``[flat-train]``): the
+    CLI's training path on the card with the counters of the path's kernels
+    (default: the flagship's), which must all launch, and of ``forbidden``
+    kernels, which must not; a timed train-step loop of ``steps`` steps
+    (with ``want_per_step``, each named kernel must launch exactly that
+    many times a step), and one step card against CPU.  With partial charges the
+    CLI also writes the test split's charges, which are checked."""
     import dataclasses
 
     import pandas as pd
@@ -849,6 +900,8 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
           flush=True)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the training loss did not fall: {losses}")
+    if want_per_step and any(per_step[k] != v for k, v in want_per_step.items()):
+        raise AssertionError(f"launches per step {per_step}, want {want_per_step}")
     print(f"[{tag}] step ms: {[round(x, 3) for x in ms]}", flush=True)
     print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -856,11 +909,14 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen), tag)
 
     # --- one step card vs CPU, flagship widths, a small batch; the stack's
-    # dropout mask is the same hash on both sides, the FFN's generator is not
-    cfg1 = dataclasses.replace(cfg, ffn_dropout=0.0)
+    # dropout mask is the same hash on both sides, the FFN's generator (and
+    # on a flat batch the layers') is not, so those dropouts are off
     small = MoleculeDataset.from_smiles(smiles[:96], targets[:96], cfg.num_shells)
     sb = next(iter(BatchLoader(small.with_targets(pipe.transform(small.atomic_numbers(),
                                                                  small.targets)), 96)))
+    cfg1 = dataclasses.replace(cfg, ffn_dropout=0.0)
+    if sb.pool_mat is None:
+        cfg1 = dataclasses.replace(cfg1, shell_conv_dropout=0.0)
     grads = {}
     for where in ("cuda", "cpu"):
         m = pkg.models.gnn.GNN(cfg1)
@@ -1084,6 +1140,116 @@ def pool_routes(pkg, cfg, ds, seed: int) -> None:
                                  f"{ran}, want {want}")
 
 
+def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
+    """``[flat-kernel]``: kernel 7 (``fused_edge_fwd`` on the batch's
+    destination-keyed layout, ``fused_edge_bwd`` on the source-keyed one
+    with an fp32 cotangent) and kernel 8 (``wseg_sum`` on the batch's
+    windowed layout) against their plain versions, D 153 and 359, fp32 and
+    bf16 (kernel 8: exact, and data rounded to bf16), timed at the main
+    path's shape (D = x_other's 153; kernel 7 in bf16, kernel 8 exact) with
+    bounds and library yardsticks.  Then kernel 8's op driven once, counts
+    reset just before, as its caller would.  Returns (numbers per kernel,
+    kernel 8's launches in that drive)."""
+    from aimnet_x2d_tpu_torch.ops import fused_edge, pallas_segment
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    fwd, bwd = batch.fused_fwd, batch.fused_bwd
+    A, E = batch.num_atom_slots, fwd.num_edges
+    deg = torch.diff(fwd.row_ptr)
+    print(f"[flat-kernel] shapes A={A} real atoms={int(batch.atom_mask.sum())} edges={E} "
+          f"longest row={int(deg.max())} rows without edges={int((deg == 0).sum())}", flush=True)
+
+    def adjacency(layout):
+        # the multiplicity adjacency as one coalesced CSR matrix (library operand)
+        rows = torch.repeat_interleave(torch.arange(A, device=dev), torch.diff(layout.row_ptr))
+        idx = torch.stack([rows, layout.col.long()])
+        coo = torch.sparse_coo_tensor(idx, torch.ones(E, device=dev), (A, A)).coalesce()
+        return coo.to_sparse_csr()
+
+    def record(name, key, got_ref, ms, plain_ms, library_ms, nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32]
+        res[key] = dict(max_abs_err=got_ref, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=1e3 * max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r = res[key]
+        print(f"[flat-kernel] {name} at the main path's shape: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+
+    def compare(name, got, ref, what):
+        torch.cuda.synchronize()
+        abs_err, rel32 = rel_err(got, ref)
+        _, rel16 = rel_err(got.to(torch.bfloat16), ref.to(torch.bfloat16))
+        ok = rel32 <= FLAT_TOL[torch.float32] and rel16 <= FLAT_TOL[torch.bfloat16]
+        print(f"[flat-kernel] {name} {what}: max_abs_err={abs_err:.3e} rel={rel32:.3e} (tol "
+              f"{FLAT_TOL[torch.float32]:g}), after the cast to bf16 rel={rel16:.3e} (tol "
+              f"{FLAT_TOL[torch.bfloat16]:g})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {what}: rel err {rel32:.3e} / {rel16:.3e}")
+        return abs_err
+
+    res = {}
+    adj = {"fused_edge_fwd": adjacency(fwd), "fused_edge_bwd": adjacency(bwd)}
+    for D in (cfg.x_other_dim, cfg.x_self_dim):
+        for dt in (torch.float32, torch.bfloat16):
+            exact = dt == torch.float32
+            x = torch.randn(A, D, generator=gen, device=dev).to(dt)
+            g = torch.randn(A, D, generator=gen, device=dev)
+            for name, fn, lay, inp in (("fused_edge_fwd", fused_edge.fused_edge_fwd, fwd, x),
+                                       ("fused_edge_bwd", fused_edge.fused_edge_bwd, bwd, g)):
+                err = compare(name, fn(inp, lay, exact), fused_edge.fused_edge_plain(inp, lay, exact),
+                              f"{str(dt)[6:]} D={D}")
+                if D != cfg.x_other_dim or exact:
+                    continue
+                x32 = inp.float()
+                nbytes = inp.numel() * inp.element_size() + 4 * A * D + 4 * (A + 1) + 4 * E
+                record(name, (name, torch.bfloat16), err,
+                       time_ms(lambda: fn(inp, lay, exact)),
+                       time_ms(lambda: fused_edge.fused_edge_plain(inp, lay, exact), iters=5),
+                       time_ms(lambda: torch.sparse.mm(adj[name], x32)), nbytes, E * D)
+
+    # --- kernel 8 on the batch's windowed layout (window 256)
+    src_perm, seg_local, W, cap = pallas_segment.windowed_layout(
+        host_batch.edge_src, host_batch.edge_dst, host_batch.edge_mask, A)
+    sp, sl = torch.from_numpy(src_perm).to(dev), torch.from_numpy(seg_local).to(dev)
+    window = 256
+    print(f"[flat-kernel] windowed layout: {W} windows, cap {cap} slots ({E} real of {W * cap})",
+          flush=True)
+    for D in (cfg.x_other_dim, cfg.x_self_dim):
+        x = torch.randn(A, D, generator=gen, device=dev)
+        data = torch.where((sl < window)[:, None], x[sp.long()], 0.0).contiguous()
+        for exact in (True, False):
+            got = pallas_segment.wseg_sum(data, sl, W, cap, window, exact)
+            ref = pallas_segment.windowed_segment_sum_plain(data, sl, W, cap, window, exact)
+            err = compare("wseg_sum", got, ref,
+                          f"{'exact' if exact else 'data rounded to bf16'} D={D}")
+            if D != cfg.x_other_dim or not exact:
+                continue
+            ids = torch.where(sl < window, torch.arange(W, device=dev).repeat_interleave(cap)
+                              * window + sl, W * window).long()
+            out = torch.zeros(W * window + 1, D, device=dev)
+            # the real slots' rows read, the seg ids read, the output written
+            nbytes = 4 * E * D + 4 * W * cap + 4 * W * window * D
+            record("wseg_sum", ("wseg_sum", torch.float32), err,
+                   time_ms(lambda: pallas_segment.wseg_sum(data, sl, W, cap, window, exact)),
+                   time_ms(lambda: pallas_segment.windowed_segment_sum_plain(
+                       data, sl, W, cap, window, exact), iters=5),
+                   time_ms(lambda: out.index_add_(0, ids, data)), nbytes, E * D)
+        del data
+    # the op as its caller runs it: gather, then the kernel
+    pallas_segment.wseg_sum.launches = 0
+    x = torch.randn(A, cfg.x_other_dim, generator=gen, device=dev)
+    pallas_segment.pallas_windowed_segment_sum(x, sp, sl, A, W, cap)
+    torch.cuda.synchronize()
+    launches = pallas_segment.wseg_sum.launches
+    print(f"[flat-kernel] pallas_windowed_segment_sum driven once on the batch's edges: "
+          f"wseg_sum launches {launches}", flush=True)
+    if launches != 1:
+        raise AssertionError(f"kernel 8's op launched its kernel {launches} times, want 1")
+    return res, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -1214,6 +1380,52 @@ def main() -> int:
     pool_routes(pkg, c1_tcfg, c1_full, args.seed)
     print(f"[time] config-1 phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # --- the flat layout: the flagship on SMILES of which 1 in 100 is larger
+    # than a bin, so every batch goes flat
+    from aimnet_x2d_tpu_torch.ops import fused_edge, pallas_segment
+
+    fl_smiles = flat_smiles(args.molecules, args.seed)
+    t0 = time.perf_counter()
+    fl_full = MoleculeDataset.from_smiles(fl_smiles, np.zeros((len(fl_smiles), 1), np.float32),
+                                          cfg.num_shells)
+    sizes = np.array([f.num_atoms for f in fl_full.features])
+    big = sizes > 256
+    print(f"[flat-data] {len(fl_full)} molecules, {int(big.sum())} of them larger than a bin "
+          f"({int(sizes[big].min())}-{int(sizes[big].max())} atoms with H), {int(big[:128].sum())} "
+          f"in the first 128; featurize {time.perf_counter() - t0:.3f} s (host clock)", flush=True)
+    if len(fl_full) != len(fl_smiles) or int(big[:128].sum()) < 2:
+        raise AssertionError("the flat data lost molecules or holds too few large ones")
+    fl_ds = MoleculeDataset(fl_full.smiles[:2048], fl_full.targets[:2048],
+                            fl_full.features[:2048], fl_full.max_hops)
+    fl_loader = BatchLoader(fl_ds, 2048)
+    if fl_loader.binned:
+        raise AssertionError("a loader over molecules larger than a bin stayed binned")
+    fl_host = next(iter(fl_loader))
+    fl_batch = fl_host.to("cuda")
+    fl_res, wseg_launches = check_flat_kernels(cfg, fl_host, fl_batch, args.seed)
+    res.update(fl_res)
+    binned_serving = (bin_mp.mp_stack_fwd, bin_mp.mp_layer_fwd, bin_wpool.wpool_fwd,
+                      bin_attnpool.attnpool_fwd, bin_inject.inject_fwd)
+    fl_launches = serve(pkg, cfg, fl_smiles, args.seed, work, fl_batch, tag="flat-serve",
+                        counters=(fused_edge.fused_edge_fwd,), forbidden=binned_serving, n_cpu=128)
+    n_batches = -(-len(fl_smiles) // 2048)
+    if fl_launches["fused_edge_fwd"] != 3 * n_batches:
+        raise AssertionError(f"kernel 7 launched {fl_launches['fused_edge_fwd']} times for "
+                             f"{n_batches} batches of a 3-layer model")
+    del fl_batch
+    binned_training = (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_mp.mp_layer_fwd_train,
+                       bin_mp.mp_layer_bwd, bin_wpool.wpool_fwd, bin_wpool.wpool_bwd,
+                       bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd,
+                       bin_inject.inject_fwd, bin_inject.inject_bwd)
+    fl_train = train_phase(pkg, tcfg, fl_smiles, fl_full, args.seed, work, tag="flat-train",
+                           counters=(fused_edge.fused_edge_fwd, fused_edge.fused_edge_bwd),
+                           forbidden=binned_training,
+                           want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
+    launches["fused_edge_fwd"] = fl_launches["fused_edge_fwd"]  # serving's count
+    launches["fused_edge_bwd"] = fl_train["fused_edge_bwd"]
+    launches["wseg_sum"] = wseg_launches
+    print(f"[time] flat-layout phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, src, tpu in (
         ("mp_stack_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu", "aimnet_x2d_tpu/ops/bin_mp.py:639"),
@@ -1237,8 +1449,15 @@ def main() -> int:
         ("mp_layer_bwd", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
          "aimnet_x2d_tpu/ops/bin_mp.py:659"),
         ("wpool_bwd", "aimnet_x2d_tpu_torch/csrc/wpool.cu", "aimnet_x2d_tpu/ops/bin_wpool.py:98"),
+        ("fused_edge_fwd", "aimnet_x2d_tpu_torch/csrc/fused_edge.cu",
+         "aimnet_x2d_tpu/ops/fused_edge.py:155"),
+        ("fused_edge_bwd", "aimnet_x2d_tpu_torch/csrc/fused_edge.cu",
+         "aimnet_x2d_tpu/ops/fused_edge.py:273"),
+        ("wseg_sum", "aimnet_x2d_tpu_torch/csrc/fused_edge.cu",
+         "aimnet_x2d_tpu/ops/pallas_segment.py:79"),
     ):
-        r = res[(name, torch.bfloat16)]  # the flagship's dtype
+        # the flagship's dtype; kernel 8 at its op's default, exact fp32
+        r = res[(name, torch.float32 if name == "wseg_sum" else torch.bfloat16)]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -399,3 +399,100 @@ def test_inject_kernels_match_plain(dev, D, dtype, case):
     serve = bin_inject.binned_inject_mp_layer_t(x, *tables, t["adj"], iw, "silu")
     torch.testing.assert_close(serve, out0, rtol=0, atol=0)
     assert bin_mp.mp_layer_fwd.launches == before[4] + 1
+
+
+# ---- the flat layout: kernel 7 (edge aggregation) and kernel 8 (windowed
+# segment sum).  fp32 outputs agree within 1e-5 relative (the same fp32
+# values summed in another order); after a cast to bf16 within 1e-2.
+
+
+def _flat_batch(smiles, atom_slots=None):
+    """A flat batch of the featurized SMILES (3 hops) with its edge layouts,
+    on the host."""
+    from aimnet_x2d_tpu_torch.chem import compute_features
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate
+
+    feats = [compute_features(s, 3) for s in smiles]
+    return attach_flat_layouts(collate(feats, np.zeros((len(feats), 1), np.float32), num_hops=3,
+                                       atom_slots=atom_slots))
+
+
+@pytest.fixture(scope="module")
+def flat_batch():
+    # a 596-atom alkane, a branched 485-atom alkane (rows of up to 28
+    # edges), small molecules, and padding atom slots with no edges (zero
+    # in-degree rows)
+    smiles = ["C" * 198, "CC(C)(C)" * 40 + "C", "CCO", "c1ccccc1O", "C[C@H](N)C(=O)O"] * 2
+    return _flat_batch(smiles, atom_slots=2400)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [153, 359])
+def test_fused_edge_kernels_match_plain(dev, flat_batch, D, dtype):
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    g = torch.Generator(device=dev).manual_seed(D)
+    fwd, bwd = flat_batch.fused_fwd.to(dev), flat_batch.fused_bwd.to(dev)
+    A = flat_batch.num_atom_slots
+    assert int(torch.diff(fwd.row_ptr).max()) >= 25 and int((torch.diff(fwd.row_ptr) == 0).sum()) > 0
+    exact = dtype == torch.float32
+    x = torch.randn(A, D, generator=g, device=dev).to(dtype)
+    gout = torch.randn(A, D, generator=g, device=dev)
+    before = (fused_edge.fused_edge_fwd.launches, fused_edge.fused_edge_bwd.launches)
+    out = fused_edge.fused_edge_fwd(x, fwd, exact)
+    dx = fused_edge.fused_edge_bwd(gout, bwd, exact)
+    assert (fused_edge.fused_edge_fwd.launches, fused_edge.fused_edge_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = fused_edge.fused_edge_plain(x, fwd, exact)
+    rdx = fused_edge.fused_edge_plain(gout, bwd, exact)
+    torch.cuda.synchronize()
+    assert out.dtype == dx.dtype == torch.float32
+    assert _rel(out, ref) < 1e-5 and _rel(dx, rdx) < 1e-5
+    assert _rel(out.to(dtype), ref.to(dtype)) < 1e-2 and _rel(dx.to(dtype), rdx.to(dtype)) < 1e-2
+    assert torch.equal(out, fused_edge.fused_edge_fwd(x, fwd, exact))  # the same bits every run
+    pad = torch.diff(fwd.row_ptr) == 0
+    assert out[pad].abs().sum() == 0
+
+
+def test_fused_edge_kernel_runs_on_a_batch_below_the_tpu_source_block(dev):
+    """Two small molecules (24 atom slots, fewer than the TPU layout's
+    128-row source block, where the JAX package falls back to XLA): the
+    kernel still runs."""
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    b = _flat_batch(["CCO", "CC=O"]).to(dev)
+    assert b.num_atom_slots < 128
+    x = torch.randn(b.num_atom_slots, 153, device=dev).to(torch.bfloat16).requires_grad_(True)
+    before = (fused_edge.fused_edge_fwd.launches, fused_edge.fused_edge_bwd.launches)
+    out = fused_edge.fused_edge_aggregate(x, b.fused_fwd, b.fused_bwd, exact=False)
+    out.backward(torch.ones_like(out))
+    assert (fused_edge.fused_edge_fwd.launches, fused_edge.fused_edge_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    xc = x.detach().cpu().requires_grad_(True)
+    ref = fused_edge.fused_edge_aggregate(xc, b.fused_fwd.to("cpu"), b.fused_bwd.to("cpu"), False)
+    ref.backward(torch.ones_like(ref))
+    torch.cuda.synchronize()
+    assert _rel(out.detach().cpu(), ref.detach()) < 1e-5
+    assert x.grad.dtype == torch.bfloat16 and _rel(x.grad.cpu(), xc.grad) < 1e-2
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("D", [153, 359])
+def test_windowed_segment_sum_kernel_matches_plain(dev, flat_batch, D, exact):
+    from aimnet_x2d_tpu_torch.ops import pallas_segment
+
+    A = flat_batch.num_atom_slots
+    src_perm, seg_local, W, cap = pallas_segment.windowed_layout(
+        flat_batch.edge_src, flat_batch.edge_dst, flat_batch.edge_mask, A)
+    sp, sl = torch.from_numpy(src_perm).to(dev), torch.from_numpy(seg_local).to(dev)
+    x = torch.randn(A, D, generator=torch.Generator(device=dev).manual_seed(D), device=dev)
+    before = pallas_segment.wseg_sum.launches
+    out = pallas_segment.pallas_windowed_segment_sum(x, sp, sl, A, W, cap, exact=exact)
+    assert pallas_segment.wseg_sum.launches == before + 1
+    ref = pallas_segment.pallas_windowed_segment_sum(x.cpu(), sp.cpu(), sl.cpu(), A, W, cap,
+                                                     exact=exact)
+    torch.cuda.synchronize()
+    assert out.shape == (W * 256, D)
+    assert _rel(out.cpu(), ref) < 1e-5
+    assert torch.equal(out, pallas_segment.pallas_windowed_segment_sum(x, sp, sl, A, W, cap,
+                                                                       exact=exact))

@@ -1,7 +1,7 @@
 """Host data path of the PyTorch port against the JAX package: the
 featurizer, collate and bin_pack_batch give identical arrays on a fixed
-SMILES list, and the port's binned loader keeps one batch shape and refuses
-molecules larger than a bin."""
+SMILES list, and the port's binned loader keeps one batch shape; a
+molecule larger than a bin sends the loader flat, as binning refuses it."""
 
 import dataclasses
 
@@ -78,6 +78,14 @@ def test_loader_shapes_and_order():
 
 
 def test_loader_refuses_molecules_larger_than_a_bin():
+    """A molecule over bin_ab atoms ("C" * 90: 272 with hydrogens) sends the
+    loader to the flat layout, where binning would refuse it."""
     ds = MoleculeDataset.from_smiles(["CCO", "C" * 90], np.zeros(2), max_hops=3)
-    with pytest.raises(BinningError, match="not ported yet"):
-        BatchLoader(ds, batch_size=2)
+    loader = BatchLoader(ds, batch_size=2)
+    assert loader.binned is False
+    batch = next(iter(loader))
+    assert batch.bin_adj is None and batch.fused_fwd is not None
+    assert batch.fused_fwd.num_edges == int(batch.edge_mask.sum())
+    raw = collate(ds.features, ds.targets, num_hops=3)
+    with pytest.raises(BinningError, match="272 atoms"):
+        bin_pack_batch(raw, ab=loader.bin_ab, mb=loader.bin_mb)

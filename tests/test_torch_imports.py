@@ -29,10 +29,11 @@ def test_port_has_modules():
     assert "aimnet_x2d_tpu_torch/ops/bin_mp.py" in names
     assert "aimnet_x2d_tpu_torch/ops/bin_wpool.py" in names
     for mod in ("ops/bin_attnpool.py", "models/losses.py", "training/trainer.py",
-                "training/evaluator.py", "training/schedulers.py", "data/io.py", "runner.py"):
+                "training/evaluator.py", "training/schedulers.py", "data/io.py", "runner.py",
+                "ops/fused_edge.py", "ops/pallas_segment.py", "ops/segment.py"):
         assert f"aimnet_x2d_tpu_torch/{mod}" in names
     for src in ("mp_stack.cu", "mp_stack_bwd.cu", "attnpool.cu", "wpool.cu", "common.cuh",
-                "wgrad.cuh"):
+                "wgrad.cuh", "fused_edge.cu"):
         assert (ROOT / "aimnet_x2d_tpu_torch/csrc" / src).exists()
 
 

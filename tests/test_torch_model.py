@@ -22,7 +22,7 @@ from aimnet_x2d_tpu.models import GNN as JaxGNN
 from aimnet_x2d_tpu.models import GNNConfig as JaxConfig
 from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
 from aimnet_x2d_tpu_torch.chem import compute_features
-from aimnet_x2d_tpu_torch.data.batching import collate
+from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate
 from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
 from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
 
@@ -98,8 +98,17 @@ def test_atom_embeddings_only_on_request():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(graph_axis="g"), dict(num_message_passing_layers=0), dict(parity_mode=False),
+    dict(graph_axis="g"), dict(use_partial_charges=True, use_stereochemistry=True),
+    dict(parity_mode=False),
 ])
 def test_unported_paths_raise(kw):
+    """graph_axis and parity_mode=False raise when the model is built;
+    config 3 (partial charges + stereochemistry) builds, and raises in the
+    forward of a flat batch."""
+    cfg = GNNConfig(hidden_dim=32, embedding_dim=4, **kw)
+    flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
+                                       np.zeros((3, 1)), num_hops=3)).to("cpu")
     with pytest.raises(NotImplementedError):
-        GNN(GNNConfig(hidden_dim=32, embedding_dim=4, **kw))
+        model = GNN(cfg)
+        model.load_state_dict(params_from_flax(init_params(cfg, seed=0)))
+        model(flat)
