@@ -17,12 +17,13 @@ CSV of SMILES.
 The flags are those of the JAX package's CLI that the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
 the kernels): every pooling type, partial charges and stereochemistry
-(``--output_partial_charges``), transfer learning, freeze and unfreeze
-patterns, layer-wise LR decay, checkpoint/resume, wandb tracking and
+(``--output_partial_charges``), true per-hop aggregation
+(``--true_multi_hop``), transfer learning, freeze and unfreeze patterns,
+layer-wise LR decay, checkpoint/resume, wandb tracking and
 ``--experiment_config``.  Flags of features that are later slices of the
-port (HDF5 streaming, several devices, embedding output, true multi-hop
-aggregation, hyperparameter search, MC-dropout and evidential serving) are
-accepted and raise NotImplementedError when set.
+port (HDF5 streaming, several devices, embedding output, hyperparameter
+search, MC-dropout and evidential serving) are accepted and raise
+NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence
 # flag -> value that means "not used"; any other value raises
 _LATER = {
     "iterable_dataset": False, "num_devices": None, "graph_shards": 1, "save_embeddings": False,
-    "hyperparameter_file": None, "true_multi_hop": False, "mc_samples": 0, "inference_hdf5": None,
+    "hyperparameter_file": None, "mc_samples": 0, "inference_hdf5": None,
 }
 
 

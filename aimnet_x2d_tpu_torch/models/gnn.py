@@ -8,7 +8,7 @@ Forward on the binned, feature-major fast path (the JAX ``t_path``):
 1. four embedding lookups -> concat, feature-major (4*emb, A)
 2. embedding_projection -> act, split into x_self and x_other
    (x_other_dim = int(0.3 * hidden), quirk Q2)
-3. message passing on x_other, by one of three routes (:func:`mp_route`):
+3. message passing on x_other, by one of four routes (:func:`mp_route`):
    - ``stack``: the fused stack of every layer (ops/bin_mp.py, kernel 1);
    - ``inject`` (partial charges and stereochemistry, config 3): per layer
      one fused round of charge equilibration, cis/trans and tetrahedral
@@ -41,20 +41,25 @@ step's dropout seed is one int32 (each single-layer call gets
 ``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
 FFN's dropout masks come from a ``torch.Generator``.
 
-Forward on the flat, row-major layout (the JAX path of batches with a
-molecule larger than a bin), serving and training alike: the embeddings
-(fp32 gather, or in bf16 the rounded tables), the x_self and x_other
-projections, each layer (``ShellConvolutionLayer.forward``: the edge
-aggregation of kernel 7, ops/fused_edge.py, then the projections and MLP
-blocks) followed by ``+ x_other``, the atom-embedding tap, and the flat
-pools of models/pooling.py: attention and mean/sum with concat_self_other
-folded in, max over the atom embeddings.  Its dropout masks (layers and
-FFN) come from the ``generator``.
+Forward on the row-major route: flat batches (the JAX path of batches with
+a molecule larger than a bin), and binned batches of models with true
+per-hop aggregation (``parity_mode=False``: JAX's stack routes need parity
+mode, so its binned batches then take its row-major path), serving and
+training alike: the embeddings (fp32 gather, or in bf16 the rounded
+tables), the x_self and x_other projections, each layer preceded by the
+row-major injections of config 3 (:func:`charge_equilibration`,
+:func:`stereochemistry`; binned batches sum over the membership matrix and
+the per-bin signed adjacency, flat ones over segments) and followed by
+``+ x_other`` (``ShellConvolutionLayer.forward``: in parity mode the edge
+aggregation of kernel 7, ops/fused_edge.py, else one sum per hop), the
+atom-embedding tap, and the pools with concat_self_other folded in: on
+binned batches attention through kernel 6 (ops/bin_pool.py) and mean and
+sum over the membership matrix, on flat ones the segment pools of
+models/pooling.py; max over the atom embeddings.  Its dropout masks
+(layers and FFN) come from the ``generator``.
 
-True multi-hop aggregation (``parity_mode=False``), graph-axis execution,
-and partial charges or stereochemistry on a flat batch are later slices of
-the port; the model raises NotImplementedError for them rather than
-running anything else.
+Graph-axis execution is a later slice of the port; the model raises
+NotImplementedError for it rather than running anything else.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from ..ops.bin_mp import (
     stack_weights,
 )
 from ..ops.embed import embed_concat_onehot, embed_concat_onehot_t
+from ..ops.segment import segment_sum
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
 from .pooling import (
@@ -83,7 +89,9 @@ from .pooling import (
     MultiHeadAttentionPooling,
     atom_counts,
     binned_max_pool,
+    binned_mean_pool,
     binned_mean_pool_t,
+    binned_sum_pool,
     binned_sum_pool_t,
     max_pool,
     mean_pool,
@@ -173,8 +181,6 @@ class GNNOutput:
 
 
 def _unsupported(cfg: GNNConfig) -> Optional[str]:
-    if not cfg.parity_mode:
-        return "true per-hop aggregation (parity_mode=False)"
     if cfg.use_partial_charges and cfg.x_other_dim < 2:
         return "partial charges with fewer than 2 x_other features"
     if cfg.graph_axis is not None:
@@ -186,9 +192,12 @@ def _unsupported(cfg: GNNConfig) -> Optional[str]:
 
 def mp_route(cfg: GNNConfig) -> str:
     """How the message-passing layers run on the binned layout (module
-    docstring): ``none`` without layers, ``inject`` with both charges and
+    docstring): ``rows`` (the row-major route) with true per-hop
+    aggregation, ``none`` without layers, ``inject`` with both charges and
     stereochemistry, ``layer`` with one of them or a single layer, else
     ``stack``."""
+    if not cfg.parity_mode:
+        return "rows"
     if cfg.num_message_passing_layers == 0:
         return "none"
     if cfg.use_partial_charges and cfg.use_stereochemistry:
@@ -204,13 +213,14 @@ def mp_route(cfg: GNNConfig) -> str:
 @dataclasses.dataclass
 class StereoContext:
     """Per-batch stereo tables, built once on the batch's device (the JAX
-    ``GNN._stereo_context`` on binned batches): the signed int8 per-bin
+    ``GNN._stereo_context``): on binned batches the signed int8 per-bin
     cis/trans adjacency (nb, ab, ab) (trans +1, cis -1 per directed pair,
-    duplicates counted), the clipped centre rows (C, 4) and their flat
-    scatter index (C*4,) (masked rows point at A), the mask of atoms next to
-    a centre (A,), and whether the batch has any centre (0-d bool)."""
+    duplicates counted; None on flat batches, which sum over the pair
+    lists), the clipped centre rows (C, 4) and their flat scatter index
+    (C*4,) (masked rows point at A), the mask of atoms next to a centre
+    (A,), and whether the batch has any centre (0-d bool)."""
 
-    stereo_adj: torch.Tensor
+    stereo_adj: Optional[torch.Tensor]
     tet_nbrs: torch.Tensor
     tet_flat: torch.Tensor
     tet_mask: torch.Tensor
@@ -219,21 +229,25 @@ class StereoContext:
 
 
 def stereo_context(batch: MolBatch) -> StereoContext:
-    nb, ab, _ = batch.bin_adj.shape
-    A = nb * ab
-    dev = batch.bin_adj.device
-    idx, vals = [], []
-    for pairs, mask, v in ((batch.cis_pairs, batch.cis_mask, -1.0),
-                           (batch.trans_pairs, batch.trans_mask, 1.0)):
-        src, dst = pairs[:, 0].long(), pairs[:, 1].long()
-        flat = (dst // ab) * (ab * ab) + (dst % ab) * ab + src % ab
-        idx.append(torch.where(mask & (dst < A), flat, torch.full_like(flat, nb * ab * ab)))
-        vals.append(torch.full(flat.shape, v, device=dev))
-    sadj = torch.zeros(nb * ab * ab + 1, device=dev).index_add_(0, torch.cat(idx), torch.cat(vals))
+    A = batch.num_atom_slots
+    dev = batch.atom_type.device
+    sadj = None
+    if batch.bin_adj is not None:
+        nb, ab, _ = batch.bin_adj.shape
+        idx, vals = [], []
+        for pairs, mask, v in ((batch.cis_pairs, batch.cis_mask, -1.0),
+                               (batch.trans_pairs, batch.trans_mask, 1.0)):
+            src, dst = pairs[:, 0].long(), pairs[:, 1].long()
+            flat = (dst // ab) * (ab * ab) + (dst % ab) * ab + src % ab
+            idx.append(torch.where(mask & (dst < A), flat, torch.full_like(flat, nb * ab * ab)))
+            vals.append(torch.full(flat.shape, v, device=dev))
+        sadj = torch.zeros(nb * ab * ab + 1, device=dev).index_add_(0, torch.cat(idx),
+                                                                    torch.cat(vals))
+        sadj = sadj[:-1].reshape(nb, ab, ab).to(torch.int8)
     tet_flat = torch.where(batch.tet_mask[:, None], batch.tet_nbrs.long(),
                            torch.full_like(batch.tet_nbrs, A, dtype=torch.long)).reshape(-1)
     return StereoContext(
-        stereo_adj=sadj[:-1].reshape(nb, ab, ab).to(torch.int8),
+        stereo_adj=sadj,
         tet_nbrs=batch.tet_nbrs.long().clamp(0, A - 1),
         tet_flat=tet_flat,
         tet_mask=batch.tet_mask,
@@ -251,12 +265,33 @@ def atom_total_charge(batch: MolBatch) -> torch.Tensor:
                        torch.zeros((), device=mol.device)).contiguous()
 
 
+def _tet_features(x: torch.Tensor, ctx: StereoContext) -> torch.Tensor:
+    """Row-major tetrahedral feature (JAX ``_tetrahedral_features``), in x's
+    dtype: each centre's 4 neighbour rows (C, 4, D) normalized, the
+    antisymmetric roll polynomial scaled by tanh(mean |row| / 3) (zero on
+    masked centres) scattered into the neighbours and added to x; every
+    other atom zero when the batch has any centre, else x itself."""
+    A, D = x.shape
+    C = ctx.tet_nbrs.shape[0]
+    emb_raw = x.index_select(0, ctx.tet_nbrs.reshape(-1)).reshape(C, 4, D)
+    mags = torch.linalg.vector_norm(emb_raw, dim=-1, keepdim=True)
+    emb = emb_raw / mags.clamp(min=1e-8)
+    sq = emb * emb
+    s1, s2, s3 = (torch.roll(sq, -k, dims=1) for k in (1, 2, 3))
+    e1, e2, e3 = (torch.roll(emb, -k, dims=1) for k in (1, 2, 3))
+    chir = s1 * (e2 - e3) + s2 * (e3 - e1) + s3 * (e1 - e2)
+    chir = chir * torch.tanh(mags.mean(dim=1, keepdim=True) / 3.0)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    chir = torch.where(ctx.tet_mask[:, None, None], chir, zero).reshape(-1, D)
+    updated = x + x.new_zeros(A + 1, D).index_add(0, ctx.tet_flat, chir)[:A]
+    return torch.where(ctx.any_tet, torch.where(ctx.tet_nz[:, None], updated, zero), x)
+
+
 def stereochemistry_t(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor,
                       ctx: StereoContext) -> torch.Tensor:
     """Stereo injection (quirks Q6/Q7; JAX ``_stereochemistry_t``, binned
-    branch), in x's dtype as JAX runs it: cct = x + (x S^T) per bin;
-    tet = x + the tetrahedral polynomial scattered into each centre's
-    neighbours, zero off them when the batch has any centre; then
+    branch), feature-major x (D, A), in x's dtype as JAX runs it:
+    cct = x + (x S^T) per bin; tet = the tetrahedral feature; then
     kb^T [x; cct; tet] (one fp32 sum, one cast) + b.  ``kb`` (3D, D) and
     ``b`` (D,) are the stereo projection's fp32 masters."""
     dt = x.dtype
@@ -265,21 +300,78 @@ def stereochemistry_t(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor,
     xb = x.reshape(D, nb, ab).permute(1, 0, 2).float()
     agg = torch.matmul(xb, ctx.stereo_adj.float().transpose(1, 2)).permute(1, 0, 2)
     cct = x + agg.reshape(D, A).to(dt)
-    C = ctx.tet_nbrs.shape[0]
-    emb_raw = x[:, ctx.tet_nbrs.reshape(-1)].T.reshape(C, 4, D)
-    mags = torch.linalg.vector_norm(emb_raw, dim=-1, keepdim=True)
-    emb = emb_raw / mags.clamp(min=1e-8)
-    sq = emb * emb
-    s1, s2, s3 = (torch.roll(sq, -k, dims=1) for k in (1, 2, 3))
-    e1, e2, e3 = (torch.roll(emb, -k, dims=1) for k in (1, 2, 3))
-    chir = s1 * (e2 - e3) + s2 * (e3 - e1) + s3 * (e1 - e2)
-    chir = chir * torch.tanh(mags.mean(dim=1, keepdim=True) / 3.0)
-    chir = torch.where(ctx.tet_mask[:, None, None], chir, torch.zeros((), dtype=dt, device=x.device))
-    delta = x.new_zeros(A + 1, D).index_add(0, ctx.tet_flat, chir.reshape(-1, D))[:A].T
-    zero = torch.zeros((), dtype=dt, device=x.device)
-    tet = torch.where(ctx.any_tet, torch.where(ctx.tet_nz[None], x + delta, zero), x)
+    tet = _tet_features(x.T, ctx).T
     y = sum(mm32(kb[i * D : (i + 1) * D].T, p, dt) for i, p in enumerate((x, cct, tet)))
     return y.to(dt) + b.to(dt)[:, None]
+
+
+def stereochemistry(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor, ctx: StereoContext,
+                    batch: MolBatch) -> torch.Tensor:
+    """Row-major stereo injection (JAX ``_stereochemistry``), x (A, D) in its
+    dtype: cct = x + the cis/trans contribution (binned: the per-bin signed
+    adjacency times x, fp32 sums cast to x's dtype; flat: -x[src] of cis
+    pairs and +x[src] of trans pairs summed into their destinations in x's
+    dtype); tet = the tetrahedral feature; then [x, cct, tet] kb, each part
+    by its row block of kb rounded to x's dtype (fp32 sums, one cast), + b."""
+    dt = x.dtype
+    A, D = x.shape
+    if ctx.stereo_adj is not None:
+        nb, ab, _ = ctx.stereo_adj.shape
+        contrib = torch.matmul(ctx.stereo_adj.to(dt).float(), x.reshape(nb, ab, D).float())
+        cct = x + contrib.reshape(A, D).to(dt)
+    else:
+        zero = torch.zeros((), dtype=dt, device=x.device)
+        src = [torch.where(mask[:, None], x.index_select(0, pairs[:, 0].long().clamp(0, A - 1)),
+                           zero)
+               for pairs, mask in ((batch.cis_pairs, batch.cis_mask),
+                                   (batch.trans_pairs, batch.trans_mask))]
+        cct = x + (segment_sum(-src[0], batch.cis_pairs[:, 1], A)
+                   + segment_sum(src[1], batch.trans_pairs[:, 1], A))
+    y = sum(mm32(p, kb[i * D : (i + 1) * D], dt)
+            for i, p in enumerate((x, cct, _tet_features(x, ctx))))
+    return y.to(dt) + b.to(dt)
+
+
+def charge_equilibration(x: torch.Tensor, batch: MolBatch) -> torch.Tensor:
+    """Row-major partial-charge equilibration (quirk Q3; JAX
+    ``_charge_equilibration``): channels 0 and 1 of x (A, D) are the charge
+    q and an electronegativity f (clipped at 1e-6); per molecule Q and
+    F = max(sum f + 1e-6, 1e-6); f <- f / F, q <- q + f (Q_total - Q).
+    Binned batches sum over the membership matrix in fp32 (atoms of no
+    molecule keep q and get f = 0); flat ones sum segments in x's dtype,
+    each atom reading its molecule (padding the last one's, as JAX's
+    clamped gather does).  The new q and f are fp32, so a bf16 x comes back
+    fp32, as JAX's concatenate promotes it."""
+    q, f, rest = x[:, :1], x[:, 1:2].clamp(min=1e-6), x[:, 2:]
+    B = batch.total_charge.shape[0]
+    pm = batch.pool_mat
+    if pm is not None:
+        nb, mb, ab = pm.shape
+        ohf = pm.float()
+        QF = torch.einsum("bma,bac->bmc", ohf, torch.cat([q, f], -1).reshape(nb, ab, 2).float())
+        F_u = (QF[..., 1:2] + 1e-6).clamp(min=1e-6)
+        dQ = batch.total_charge.float().reshape(nb, mb, 1) - QF[..., 0:1]
+        per_atom = torch.einsum("bma,bmc->bac", ohf, torch.cat([1.0 / F_u, dQ], -1)).reshape(-1, 2)
+        f_new = f * per_atom[:, 0:1]
+        q_new = q + f_new * per_atom[:, 1:2]
+    else:
+        seg = torch.where(batch.atom_mask, batch.atom_mol.long(),
+                          torch.full_like(batch.atom_mol, B, dtype=torch.long))
+        # per-molecule sums in fp32, rounded once to x's dtype (the JAX
+        # config's rule: scatter accumulation stays fp32), forward and
+        # backward (the gathers' backward sums each molecule's atoms): a
+        # bf16 running sum stalls at 256 for a molecule of hundreds of
+        # atoms, at a value that depends on the order of the adds
+        zero = torch.zeros((), device=x.device)
+        mask = batch.atom_mask[:, None]
+        Q_u = segment_sum(torch.where(mask, q.float(), zero), seg, B).to(x.dtype)
+        F_u = segment_sum(torch.where(mask, f.float(), zero), seg, B).to(x.dtype)
+        F_u = (F_u + 1e-6).clamp(min=1e-6)
+        dQ = batch.total_charge.float()[:, None] - Q_u
+        mol = batch.atom_mol.long().clamp(max=B - 1)
+        f_new = f / F_u.float().index_select(0, mol).to(x.dtype)
+        q_new = q + f_new * dQ.index_select(0, mol)
+    return torch.cat([q_new, f_new, rest], dim=-1)
 
 
 class GNN(nn.Module):
@@ -302,7 +394,8 @@ class GNN(nn.Module):
             self.long_range_projection = Linear(H, cfg.ffn_dim)
         self.message_passing_layers = nn.ModuleList(
             ShellConvolutionLayer(cfg.x_other_dim, cfg.num_shells, cfg.shell_conv_num_mlp_layers,
-                                  cfg.activation_type, cfg.shell_conv_dropout, cdt)
+                                  cfg.activation_type, cfg.shell_conv_dropout, cdt,
+                                  cfg.parity_mode)
             for _ in range(cfg.num_message_passing_layers)
         )
         if cfg.use_stereochemistry:
@@ -415,8 +508,8 @@ class GNN(nn.Module):
         layers') dropout masks from ``generator``; training with a dropout
         rate above 0 and no generator raises."""
         cfg = self.config
-        if batch.pool_mat is None:
-            return self._forward_flat(batch, atom_embeddings, train, generator)
+        if batch.pool_mat is None or self.route == "rows":
+            return self._forward_rows(batch, atom_embeddings, train, generator)
         if train:
             return self._forward_train(batch, drop_seed, generator)
         act = get_activation_function(cfg.activation_type)
@@ -542,15 +635,14 @@ class GNN(nn.Module):
                 mol = self._linear_pool(x_self, x_other, pm)
         return self._head(mol, attn, None, self._charges(x_other), generator)
 
-    def _forward_flat(self, batch: MolBatch, atom_embeddings: bool, train: bool,
+    def _forward_rows(self, batch: MolBatch, atom_embeddings: bool, train: bool,
                       generator: Optional[torch.Generator]) -> GNNOutput:
-        """Serving and training forward on the flat, row-major layout (the
-        module docstring; JAX ``GNN.__call__`` without ``t_path``)."""
+        """Serving and training forward on the row-major route, flat or
+        binned (the module docstring; JAX ``GNN.__call__`` without
+        ``t_path``)."""
         cfg = self.config
-        if cfg.use_partial_charges or cfg.use_stereochemistry:
-            raise NotImplementedError(
-                "partial charges and stereochemistry on the flat layout are not ported yet")
-        if batch.fused_fwd is None or batch.fused_bwd is None:
+        binned = batch.pool_mat is not None
+        if cfg.parity_mode and (batch.fused_fwd is None or batch.fused_bwd is None):
             raise ValueError("a flat batch needs its edge layouts (data.batching.attach_flat_layouts)")
         layer_rate = cfg.shell_conv_dropout if cfg.num_message_passing_layers else 0.0
         if train and generator is None and max(layer_rate, cfg.ffn_dropout) > 0.0:
@@ -573,30 +665,48 @@ class GNN(nn.Module):
         x_self = proj_cols(W[:xs], b[:xs])  # (A, xs)
         x_other = proj_cols(W[xs:], b[xs:])  # (A, D)
 
-        # 3. message passing: each layer then the residual, in x_other's dtype
+        # 3. message passing: the injections, each layer, then the residual;
+        # a charge equilibration promotes x_other to fp32 from there on
+        ctx = stereo_context(batch) if cfg.use_stereochemistry else None
         for layer in self.message_passing_layers:
-            x_other = layer(x_other, batch.fused_fwd, batch.fused_bwd, gen) + x_other
+            if cfg.use_partial_charges:
+                x_other = charge_equilibration(x_other, batch)
+            if ctx is not None:
+                x_other = stereochemistry(x_other, *self._stereo_proj(), ctx, batch)
+            x_other = layer(x_other, batch, gen) + x_other
+        charges = x_other[:, 0].float() if cfg.use_partial_charges else None
+        x_other = x_other.to(x_self.dtype)
 
         # 4. combine (atom-embedding tap) and pool
-        B = batch.total_charge.shape[0]
+        pm, B = batch.pool_mat, batch.total_charge.shape[0]
         mol_id, mask = batch.atom_mol, batch.atom_mask
         k_cs, b_cs = self.concat_self_other.weight.T, self.concat_self_other.bias
         atom_emb = None
         if atom_embeddings or cfg.pooling_type == "max":
             atom_emb = self._atom_embeddings(x_self, x_other)
         attention_weights = None
+        mean = cfg.pooling_type == "mean"
         if cfg.pooling_type == "attention":
-            mol, attention_weights = self.pooling.forward_flat([x_self, x_other], mol_id, mask, B,
-                                                               (k_cs, b_cs))
+            if binned:
+                mol, attention_weights = self.pooling.forward_rows([x_self, x_other], pm,
+                                                                   (k_cs, b_cs))
+            else:
+                mol, attention_weights = self.pooling.forward_flat([x_self, x_other], mol_id,
+                                                                   mask, B, (k_cs, b_cs))
         elif cfg.pooling_type == "max":
-            mol = max_pool(atom_emb, mol_id, mask, B)
+            mol = binned_max_pool(atom_emb, pm) if binned else max_pool(atom_emb, mol_id, mask, B)
+        elif binned:
+            # the lane-aligned concat pooled at once, then the bias scaled by
+            # each slot's coverage (mean) or atom count (sum)
+            pool = binned_mean_pool if mean else binned_sum_pool
+            counts = pm.sum(dim=2).reshape(-1)
+            mol = pool_then_project([pool(torch.cat([x_self, x_other], -1), pm).T],
+                                    counts > 0 if mean else counts, k_cs, b_cs, dt)
         else:
-            # parts promoted to fp32 before the segment sums, then the bias
-            # scaled by each slot's coverage (mean) or atom count (sum)
-            pool = mean_pool if cfg.pooling_type == "mean" else sum_pool
+            # parts promoted to fp32 before the segment sums
+            pool = mean_pool if mean else sum_pool
             counts = atom_counts(mol_id, mask, B)
             mol = pool_then_project([pool(p.float(), mol_id, mask, B).T for p in (x_self, x_other)],
-                                    counts > 0 if cfg.pooling_type == "mean" else counts,
-                                    k_cs, b_cs, dt)
+                                    counts > 0 if mean else counts, k_cs, b_cs, dt)
         atom_emb = atom_emb.float() if atom_embeddings else None
-        return self._head(mol, attention_weights, atom_emb, None, gen)
+        return self._head(mol, attention_weights, atom_emb, charges, gen)

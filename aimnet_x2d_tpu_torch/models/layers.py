@@ -103,23 +103,47 @@ class MultiLayerPerceptron(nn.Module):
         return x
 
 
+def hop_aggregate(x: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                  edge_hop: torch.Tensor, edge_mask: torch.Tensor, num_hops: int) -> torch.Tensor:
+    """True per-hop aggregation (the JAX layer's per-hop branch): x (A, D) ->
+    (K, A, D) fp32, where slice h sums, for each atom, the source rows of its
+    real edges of hop h + 1.  The source rows are gathered in fp32 (exact
+    for a bf16 x) and masked, then summed by ``index_add`` keyed by
+    (hop - 1) * A + dst, masked edges going to a dropped extra row.  Both
+    directions are ``index_add`` scatters in fp32: the backward of
+    ``index_select`` is one, where that of bf16 advanced indexing is a
+    sort-based kernel that took 95% of a flagship training step's device
+    time on an H100."""
+    A, D = x.shape
+    K = num_hops
+    zero = torch.zeros((), device=x.device)
+    feat = torch.where(edge_mask[:, None], x.float().index_select(0, edge_src.long()), zero)
+    idx = torch.where(edge_mask, (edge_hop.long() - 1) * A + edge_dst.long(),
+                      torch.full_like(edge_dst, K * A, dtype=torch.long))
+    agg = feat.new_zeros(K * A + 1, D).index_add(0, idx, feat)
+    return agg[: K * A].reshape(K, A, D)
+
+
 class ShellConvolutionLayer(nn.Module):
     """One shell-convolution layer.
 
     The parameters have the JAX layer's full shapes: the input and skip
-    projections take (K+1)*D inputs although, under quirk Q1 (union of
-    hops), only the first 2D rows ever see data.  On the binned layout the
-    layer's arithmetic runs in the fused stack (ops/bin_mp.py), and
-    :meth:`stack_weights` hands it the flat weight tuple; on the flat
-    layout :meth:`forward` runs it row-major."""
+    projections take (K+1)*D inputs.  Under quirk Q1 (``parity_mode``, the
+    union of hops) only the first 2D rows ever see data; with true per-hop
+    aggregation every row block takes its hop.  On the binned layout in
+    parity mode the layer's arithmetic runs in the fused stack
+    (ops/bin_mp.py), and :meth:`stack_weights` hands it the flat weight
+    tuple; otherwise :meth:`forward` runs it row-major."""
 
     def __init__(self, dim: int, num_hops: int = 3, num_mlp_layers: int = 2,
                  activation_type: str = "silu", dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, parity_mode: bool = True):
         super().__init__()
         in_dim = dim * (num_hops + 1)
         self.dim = dim
-        self.dtype = dtype  # compute dtype of the flat path; parameters stay fp32
+        self.num_hops = num_hops
+        self.parity_mode = parity_mode
+        self.dtype = dtype  # compute dtype of the row-major path; parameters stay fp32
         self.act = get_activation_function(activation_type)
         self.rate = dropout
         self.input_proj = Linear(in_dim, dim)
@@ -141,27 +165,33 @@ class ShellConvolutionLayer(nn.Module):
             out += [lin1.weight.T, lin1.bias, lin2.weight.T, lin2.bias]
         return out
 
-    def forward(self, x: torch.Tensor, fused_fwd, fused_bwd,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The layer on the flat layout, parity mode (the JAX layer's
-        ``fused_fwd`` branch, without its halo and graph-axis branches): x
-        (A, D) in the compute dtype, the batch's edge layouts on x's device.
+    def forward(self, x: torch.Tensor, batch, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """The layer row-major (the JAX layer without its halo and graph-axis
+        branches): x (A, D), in the compute dtype or, after a charge
+        equilibration, fp32; ``batch`` a MolBatch on x's device.
 
-        agg = the edge aggregation (kernel 7, fp32); parts = [x, agg in x's
-        dtype]; the input and skip projections take each part by its row
-        block of the kernel (fp32 products of compute-dtype operands, summed,
-        cast once, then the bias in the compute dtype); then the activation,
-        the MLP blocks with their inner skip, and ``h + global_skip``.  With
-        a ``generator`` the blocks' dropout runs after the first Linear's
-        activation; its masks agree with flax's ``nn.Dropout`` in
-        distribution only (the JAX package draws them from its threefry
-        stream)."""
+        agg: in parity mode the union of hops on a flat batch (kernel 7,
+        ops/fused_edge.py, from ``batch.fused_fwd``/``fused_bwd``), else one
+        sum per hop (:func:`hop_aggregate` over the batch's edge lists, on
+        either layout); parts = [x, agg... in x's dtype]; the input and skip
+        projections take each part by its row block of the kernel (fp32
+        products of compute-dtype operands, summed, cast once, then the bias
+        in the compute dtype); then the activation, the MLP blocks with
+        their inner skip, and ``h + global_skip``.  With a ``generator`` the
+        blocks' dropout runs after the first Linear's activation; its masks
+        agree with flax's ``nn.Dropout`` in distribution only (the JAX
+        package draws them from its threefry stream)."""
         D, cdt = self.dim, self.dtype
-        agg = fused_edge_aggregate(x, fused_fwd, fused_bwd, exact=cdt is None)
-        parts = (x, agg.to(x.dtype))
+        if self.parity_mode:
+            aggs = [fused_edge_aggregate(x, batch.fused_fwd, batch.fused_bwd, exact=cdt is None)]
+        else:
+            aggs = hop_aggregate(x, batch.edge_src, batch.edge_dst, batch.edge_hop,
+                                 batch.edge_mask, self.num_hops).unbind(0)
+        parts = (x, *(a.to(x.dtype) for a in aggs))
 
         def proj(lin: Linear) -> torch.Tensor:
-            w = lin.weight.T  # (in, out), only the first 2D rows see data
+            w = lin.weight.T  # (in, out), one row block per part
             if cdt is not None:
                 y = sum(mm32(p, w[i * D : (i + 1) * D], cdt) for i, p in enumerate(parts))
                 return y.to(cdt) + lin.bias.to(cdt)

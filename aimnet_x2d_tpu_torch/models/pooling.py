@@ -6,6 +6,12 @@ products with the membership matrix, run by the weighted-pool kernels
 (ops/bin_wpool.py, forward and backward); the softmax is plain PyTorch with
 the JAX package's -1e30 mask and 1e-16 floor.
 
+Binned, row-major layout (the route of true per-hop aggregation): the
+attention pool is kernel 6 (ops/bin_pool.py: scores, per-molecule softmax
+and both weighted pools in one kernel per direction); mean and sum pool the
+[x_self, x_other] concat with the membership matrix in plain PyTorch (XLA
+einsums in JAX).
+
 Flat, row-major layout: per-molecule segment reductions keyed by
 ``atom_mol`` (ops/segment.py; padded atoms carry id B and are dropped), as
 the JAX package runs them in XLA with no kernel.
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.bin_attnpool import binned_attnpool_proj_t
+from ..ops.bin_pool import binned_attention_pool_fused
 from ..ops.bin_wpool import binned_wpool_t
 from ..ops.segment import segment_max, segment_mean, segment_softmax, segment_sum
 from .layers import Linear, mm32
@@ -42,6 +49,19 @@ def binned_mean_pool_t(xT: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor
     tot = binned_sum_pool_t(xT, pool_mat)
     cnt = pool_mat.sum(dim=2).float().clamp(min=1.0)
     return tot / cnt.reshape(1, -1)
+
+
+def binned_sum_pool(x: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
+    """Row-major x (A, D) -> (nb*mb, D) fp32: each molecule slot's sum over
+    its member atoms (bf16 stays bf16 up to the fp32 sums)."""
+    nb, mb, ab = pool_mat.shape
+    xb = x.to(_pool_dtype(x)).float().reshape(nb, ab, -1)
+    return torch.einsum("bma,bad->bmd", pool_mat.float(), xb).reshape(nb * mb, -1)
+
+
+def binned_mean_pool(x: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
+    cnt = pool_mat.sum(dim=2).float().clamp(min=1.0).reshape(-1, 1)
+    return binned_sum_pool(x, pool_mat) / cnt
 
 
 def binned_max_pool(x: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
@@ -152,9 +172,11 @@ def pool_then_project(
 
 
 class MultiHeadAttentionPooling(nn.Module):
-    """Multi-head attention pooling on the binned, feature-major path with
-    the concat_self_other projection folded in (``pre_proj``): scores use
-    the folded kernel K_cs K_heads, and each concat part pools on its own."""
+    """Multi-head attention pooling with the concat_self_other projection
+    folded in (``pre_proj``): scores use the folded kernel K_cs K_heads, and
+    each concat part pools on its own.  ``forward`` and ``forward_train``
+    take the binned feature-major parts, ``forward_rows`` the binned
+    row-major ones, ``forward_flat`` the flat ones."""
 
     def __init__(self, in_features: int, num_heads: int = 4):
         super().__init__()
@@ -215,6 +237,26 @@ class MultiHeadAttentionPooling(nn.Module):
         pooled = [binned_attention_pool_t(p, attn, pool_mat) for p in parts]
         cov = binned_attention_coverage(attn, pool_mat)
         return pool_then_project(pooled, cov, k_cs, b_cs, dt), attn
+
+    def forward_rows(
+        self,
+        parts: List[torch.Tensor],
+        pool_mat: torch.Tensor,
+        pre_proj: Tuple[torch.Tensor, torch.Tensor],
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The binned row-major route (the JAX branch of binned batches that
+        are not feature-major): parts [x_self (A, d_s), x_other (A, d_o)] in
+        the compute dtype go through kernel 6 with the folded score kernel
+        and bias over the temperature (plain autograd, so d/dT flows), then
+        concat_self_other on the pooled parts, its bias scaled by each
+        slot's coverage.  Returns (mol (B, hidden) fp32, attention weights
+        (H, A) fp32)."""
+        k_cs, b_cs = pre_proj
+        score_k, score_b = self._score_fold(k_cs, b_cs)
+        T = self.temperature
+        ps, po, cov, attn = binned_attention_pool_fused(parts[0], parts[1], pool_mat,
+                                                        score_k / T, score_b / T)
+        return pool_then_project([ps.T, po.T], cov, k_cs, b_cs, parts[0].dtype), attn
 
     def forward_flat(
         self,

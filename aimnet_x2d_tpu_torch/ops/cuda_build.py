@@ -28,6 +28,7 @@ SOURCES = {
     "wpool": "wpool.cu",
     "inject": "inject.cu",
     "fused_edge": "fused_edge.cu",
+    "bin_pool": "bin_pool.cu",
 }
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NVCC_FLAGS = [

@@ -69,6 +69,7 @@ def gnn_config_from_args(args: argparse.Namespace, output_dim: int) -> GNNConfig
         use_partial_charges=args.use_partial_charges,
         use_stereochemistry=args.use_stereochemistry,
         loss_function=args.loss_function,
+        parity_mode=not args.true_multi_hop,
         compute_dtype="bfloat16" if args.mixed_precision else "float32",
     )
 

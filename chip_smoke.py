@@ -26,8 +26,8 @@ Phases, each of which fails the run when it fails:
    launch counters reset just before; then 24 steps of the train step on
    card-resident batches, timed, with a falling loss, launches per step and
    a profiler breakdown of one step; then one step on a small batch on the
-   card and on the CPU (plain versions) from the same weights, all
-   gradients compared;
+   card and on the CPU (plain versions) from the same weights, both
+   backpropagating the CPU's cotangent of the loss, all gradients compared;
 7. config 3 (partial charges + stereochemistry, BASELINE.json config 3) at
    the flagship width, on SMILES of which about half carry a tetrahedral
    centre or a cis/trans double bond:
@@ -81,7 +81,24 @@ Phases, each of which fails the run when it fails:
      and 3 times backward per step, no binned kernel launches; the one step
      card against CPU runs with both dropouts off (the flat layers draw
      their masks from a generator);
-10. print the ``kernels`` JSON line, the card line and, last, the result
+10. true per-hop aggregation (``--true_multi_hop``, the row-major route on
+   binned batches):
+   - ``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``, ``bin_pool_bwd``: the
+     binned attention pool of row-major arrays) against its plain version
+     at the flagship training shape on the loader's pool matrix, fp32 and
+     bf16, timed with the byte bound;
+   - ``[mh-serve]``: phase 4 for the flagship with per-hop aggregation:
+     kernel 6 launches, no stack, layer, inject, attention-pool,
+     weighted-pool or edge kernel;
+   - ``[mh-train]``: phase 6 for it, ``--true_multi_hop`` on the CLI;
+     kernel 6 forward and backward once a step, none of those others;
+11. ``[c3-flat]``: config 3 on the flat layout, on the script's SMILES with
+   stereo content, 1 in 100 replaced by a molecule larger than a bin (so
+   every split of the CLI's training holds one and goes flat): phase 4
+   (``[c3-flat-serve]``) and phase 6 with ``--output_partial_charges``
+   (``[c3-flat-train]``); kernel 7 launches 3 times forward (and 3
+   backward per step), no binned kernel;
+12. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -140,6 +157,12 @@ FLAT_EVERY = 100  # one molecule larger than a bin in every FLAT_EVERY SMILES
 # fp32 values summed in another order; after the cast to bf16 a sum that
 # lands next to a rounding boundary may move by one bf16 step (2**-8).
 FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Kernel 6 against its plain version: fp32, the same fp32 products summed in
+# another order (the weight gradients over every atom of the batch); bf16,
+# an fp32 head-mean weight that lands on the other side of a bf16 rounding
+# boundary moves one atom's pooled term by 2**-8 (the bf16 bar, 5e-2).
+POOL6_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+MH_TRAIN_STEPS = 12
 
 
 def card_line() -> str:
@@ -190,10 +213,10 @@ def large_smiles(rng) -> str:
     return "O" + "CCO" * n if kind == 1 else "NCC(=O)" * n + "O"
 
 
-def flat_smiles(n: int, seed: int) -> list:
-    """The flagship's ``n`` SMILES with every ``FLAT_EVERY``-th one, from
+def flat_smiles(n: int, seed: int, stereo: bool = False) -> list:
+    """``make_smiles(n, seed, stereo)`` with every ``FLAT_EVERY``-th one, from
     index 20 on (so the first 128 hold two), replaced by a large molecule."""
-    out = make_smiles(n, seed)
+    out = make_smiles(n, seed, stereo)
     rng = np.random.default_rng(seed + 5)
     for i in range(20, n, FLAT_EVERY):
         out[i] = large_smiles(rng)
@@ -819,6 +842,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     extra = ["--use_partial_charges", "--output_partial_charges", charges] \
         if cfg.use_partial_charges else []
     extra += ["--use_stereochemistry"] if cfg.use_stereochemistry else []
+    extra += [] if cfg.parity_mode else ["--true_multi_hop"]
     extra += ["--multi_target_columns", ",".join(cols)] if T > 1 else ["--target_column", cols[0]]
 
     # --- the user's entry point: the CLI, bf16, dropout 0.05 (the defaults)
@@ -846,9 +870,10 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
         raise AssertionError("the CLI's training produced non-finite losses")
     loaded = load_artifact(art)
     mc = loaded.model_config
-    want = (cfg.hidden_dim, T, "bfloat16", cfg.use_partial_charges, cfg.use_stereochemistry)
+    want = (cfg.hidden_dim, T, "bfloat16", cfg.use_partial_charges, cfg.use_stereochemistry,
+            cfg.parity_mode)
     if (mc.hidden_dim, mc.output_dim, mc.compute_dtype, mc.use_partial_charges,
-            mc.use_stereochemistry) != want:
+            mc.use_stereochemistry, mc.parity_mode) != want:
         raise AssertionError(f"the saved artifact's config is not the one trained: {mc}")
     if cfg.use_partial_charges:
         with np.load(charges) as f:
@@ -910,29 +935,53 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
 
     # --- one step card vs CPU, flagship widths, a small batch; the stack's
     # dropout mask is the same hash on both sides, the FFN's generator (and
-    # on a flat batch the layers') is not, so those dropouts are off
+    # on the row-major route the layers') is not, so those dropouts are off
     small = MoleculeDataset.from_smiles(smiles[:96], targets[:96], cfg.num_shells)
     sb = next(iter(BatchLoader(small.with_targets(pipe.transform(small.atomic_numbers(),
                                                                  small.targets)), 96)))
     cfg1 = dataclasses.replace(cfg, ffn_dropout=0.0)
-    if sb.pool_mat is None:
+    if sb.pool_mat is None or not cfg.parity_mode:
         cfg1 = dataclasses.replace(cfg1, shell_conv_dropout=0.0)
-    grads = {}
-    for where in ("cuda", "cpu"):
+    # Both sides backpropagate the CPU's cotangent of the L1 loss: a
+    # prediction within the card's bf16 noise of its target (96 x 12 values
+    # hold some |pred - target| near 1e-4) would flip the loss's sign for
+    # that value on the card alone, which moves every gradient by that
+    # molecule's share and says nothing of the kernels.
+    grads, cot = {}, None
+    for where in ("cpu", "cuda"):
         m = pkg.models.gnn.GNN(cfg1)
         m.load_state_dict(params_from_flax(init_params(cfg, seed)))
         m.to(where)
         bb = sb.to(where)
-        out = m(bb, train=True, drop_seed=77)
-        loss_fn(out.predictions, bb.targets, bb.graph_mask).backward()
+        pred = m(bb, train=True, drop_seed=77).predictions
+        if cot is None:
+            cot = torch.autograd.grad(loss_fn(pred, bb.targets, bb.graph_mask), pred,
+                                      retain_graph=True)[0]
+        pred.backward(cot.to(where))
         grads[where] = {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()
                         if p.grad is not None}
+        if where == "cpu":
+            params = {k: p.detach().float() for k, p in m.named_parameters()}
+
     def scale(k):
         # the heads' score biases shift every score of a head alike, which
         # leaves each molecule's softmax unchanged: their exact gradient is
         # 0, so both sides hold rounding residue, held to the heads' kernels
         if k.startswith("pooling.attention_weights.") and k.endswith(".bias"):
             k = k[: -len("bias")] + "weight"
+        if k == "pooling.temperature":
+            # dL/dT = -(1/T) sum over heads h of (w_h . dL/dw_h + b_h dL/db_h):
+            # the heads' terms cancel (with config 3's charges, to about a
+            # fifth of the sum of their sizes), so the scores' bf16 noise
+            # moves the sum by that factor more than each term; held to the
+            # sum of the heads' term sizes
+            def head(h):
+                n = f"pooling.attention_weights.{h}."
+                return sum(float((params[n + w] * grads["cpu"][n + w]).sum())
+                           for w in ("weight", "bias"))
+
+            return sum(abs(head(h)) for h in range(cfg.attention_num_heads)) / abs(
+                float(params[k]))
         return max(float(grads["cpu"][k].abs().max()), 1e-30)
 
     errs = {k: float((grads["cuda"][k] - g).abs().max()) / scale(k)
@@ -1250,6 +1299,84 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
     return res, launches
 
 
+def check_pool6_kernel(cfg, model, batch, seed: int) -> dict:
+    """``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``; ``bin_pool_bwd`` from
+    the forward's attention weights, with its fixed-order sum of the per-bin
+    weight-gradient partials) against its plain version at the flagship
+    training shape, on the loader's pool matrix and the model's score
+    kernel folded through concat_self_other, fp32 and bf16, with times and
+    the bound."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_pool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    pm = batch.pool_mat
+    nb, mb, ab = pm.shape
+    A, B = nb * ab, nb * mb
+    Ds, Do, H = cfg.x_self_dim, cfg.x_other_dim, cfg.attention_num_heads
+    n, npm = int(batch.atom_mask.sum()), int((pm != 0).sum())
+    print(f"[pool6-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms={n} Ds={Ds} Do={Do} "
+          f"H={H}", flush=True)
+    bin_attnpool.check_one_owner(pm)  # the kernels' precondition, on the loader's matrix
+    with torch.no_grad():
+        score_k, score_b = model.pooling._score_fold(model.concat_self_other.weight.T,
+                                                      model.concat_self_other.bias)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        isz = torch.tensor([], dtype=dt).element_size()
+        xs = torch.randn(A, Ds, generator=gen, device=dev).to(dt)
+        xo = torch.randn(A, Do, generator=gen, device=dev).to(dt)
+        ks, ko, b = score_k[:Ds].to(dt), score_k[Ds:].to(dt), score_b.float()
+        fwd = (xs, xo, pm, ks, ko, b)
+        got, ref = bin_pool.bin_pool_fwd(*fwd), bin_pool.pool_fwd_plain(*fwd)
+        torch.cuda.synchronize()
+        cot = [torch.randn(*s, generator=gen, device=dev) * 1e-3 for s in ((B, Ds), (B, Do), (B,))]
+        bwd = (xs, xo, pm, ks, ko, ref[3], *cot)
+        bg, br = bin_pool.bin_pool_bwd(*bwd), bin_pool.pool_bwd_plain(*bwd)
+        torch.cuda.synchronize()
+        # d_b is a sum of terms that cancel to 0 (a bias shifts a head's
+        # scores alike): held to d_ks's scale
+        dks_scale = float(br[2][0].abs().max())
+        cases = {
+            "bin_pool_fwd": (list(zip(got, ref, [None] * 4)), fwd, bin_pool.bin_pool_fwd,
+                             bin_pool.pool_fwd_plain,
+                             # inputs once, outputs once; scores on the real
+                             # atoms, the pools on their members
+                             (Ds + Do) * A * isz + nb * mb * ab + 4 * ((Ds + Do) * H + H)
+                             + 4 * ((Ds + Do + 1) * B + H * A),
+                             2 * n * H * (Ds + Do) + 2 * npm * (Ds + Do + 1)),
+            "bin_pool_bwd": ([(bg[0], br[0], None), (bg[1], br[1], None)]
+                             + [(a, r, dks_scale if i == 2 else None)
+                                for i, (a, r) in enumerate(zip(bg[2], br[2]))],
+                             bwd, bin_pool.bin_pool_bwd, bin_pool.pool_bwd_plain,
+                             2 * (Ds + Do) * A * isz + nb * mb * ab + 4 * (Ds + Do) * H
+                             + 4 * (H * A + (Ds + Do + 1) * B) + 4 * ((Ds + Do) * H + H),
+                             2 * n * (Ds + Do) * (2 * H + 2)),
+        }
+        for name, (pairs, args, fn, plain, nbytes, ops) in cases.items():
+            abs_err, rel = _max_rel(pairs)
+            tol = POOL6_TOL[dt]
+            ms = time_ms(lambda: fn(*args))
+            plain_ms = time_ms(lambda: plain(*args), iters=5)
+            t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[dt]
+            bound_ms = 1e3 * max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"[pool6-kernel] {name} {str(dt)[6:]}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                  f"(tol {tol:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {dt}: rel err {rel:.3e} > {tol:g}")
+            res[(name, dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    again = bin_pool.bin_pool_bwd(*bwd)
+    same = all(torch.equal(a, r) for a, r in zip((bg[0], bg[1], *bg[2]),
+                                                   (again[0], again[1], *again[2])))
+    print(f"[pool6-kernel] bin_pool_bwd bf16 twice: bit-equal {same}", flush=True)
+    if not same:
+        raise AssertionError("two runs of bin_pool_bwd differ")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -1426,6 +1553,60 @@ def main() -> int:
     launches["wseg_sum"] = wseg_launches
     print(f"[time] flat-layout phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # --- true per-hop aggregation: the flagship on the row-major binned
+    # route, its attention pool kernel 6
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    mh = dataclasses.replace(cfg, parity_mode=False)
+    for key, r in check_pool6_kernel(mh, tmodel, tbatch, args.seed).items():
+        res[key] = r
+    del tmodel, tbatch
+    edge_kernels = (fused_edge.fused_edge_fwd, fused_edge.fused_edge_bwd)
+    mh_launches = serve(pkg, mh, smiles, args.seed, work, batch, tag="mh-serve",
+                        counters=(bin_pool.bin_pool_fwd,),
+                        forbidden=binned_serving + edge_kernels)
+    mh_launches.update(train_phase(
+        pkg, train_config(mh), smiles, full, args.seed, work, tag="mh-train",
+        counters=(bin_pool.bin_pool_fwd, bin_pool.bin_pool_bwd),
+        forbidden=binned_training + edge_kernels, steps=MH_TRAIN_STEPS,
+        want_per_step={"bin_pool_fwd": 1, "bin_pool_bwd": 1}))
+    # the training CLI's counts ([mh-serve] prints serving's)
+    launches["bin_pool_fwd"] = mh_launches["bin_pool_fwd"]
+    launches["bin_pool_bwd"] = mh_launches["bin_pool_bwd"]
+    print(f"[time] per-hop phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # --- config 3 on the flat layout, on SMILES with stereo content and 1
+    # in 100 larger than a bin
+    c3f_smiles = flat_smiles(args.molecules, args.seed + 1, stereo=True)
+    t0 = time.perf_counter()
+    c3f_full = MoleculeDataset.from_smiles(c3f_smiles, np.zeros((len(c3f_smiles), 1), np.float32),
+                                           cfg.num_shells)
+    c3f_host = next(iter(BatchLoader(c3f_full, 2048)))
+    n_big = int(sum(f.num_atoms > 256 for f in c3f_full.features))
+    print(f"[c3-flat] {len(c3f_full)} molecules, {n_big} larger than a bin; the first batch: "
+          f"{int(c3f_host.tet_mask.sum())} tetrahedral centres, "
+          f"{int(c3f_host.cis_mask.sum() + c3f_host.trans_mask.sum())} cis/trans rows; featurize "
+          f"{time.perf_counter() - t0:.3f} s (host clock)", flush=True)
+    if (len(c3f_full) != len(c3f_smiles) or c3f_host.pool_mat is not None or n_big < 2
+            or not c3f_host.tet_mask.any() or not (c3f_host.cis_mask.any()
+                                                   and c3f_host.trans_mask.any())):
+        raise AssertionError("the config-3 flat data lost molecules, went binned or has no "
+                             "stereo content")
+    c3f = serve(pkg, c3, c3f_smiles, args.seed, work, c3f_host.to("cuda"), tag="c3-flat-serve",
+                counters=(fused_edge.fused_edge_fwd,),
+                forbidden=binned_serving + (bin_pool.bin_pool_fwd,), n_cpu=128)
+    if c3f["fused_edge_fwd"] != 3 * -(-len(c3f_smiles) // 2048):
+        raise AssertionError(f"kernel 7 launched {c3f['fused_edge_fwd']} times in config-3 flat "
+                             f"serving")
+    del c3f_host
+    train_phase(pkg, train_config(c3), c3f_smiles, c3f_full, args.seed, work,
+                tag="c3-flat-train", counters=edge_kernels,
+                forbidden=binned_training + (bin_pool.bin_pool_fwd, bin_pool.bin_pool_bwd),
+                steps=C3_TRAIN_STEPS, want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
+    print(f"[time] config-3 flat phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, src, tpu in (
         ("mp_stack_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu", "aimnet_x2d_tpu/ops/bin_mp.py:639"),
@@ -1455,6 +1636,10 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/fused_edge.py:273"),
         ("wseg_sum", "aimnet_x2d_tpu_torch/csrc/fused_edge.cu",
          "aimnet_x2d_tpu/ops/pallas_segment.py:79"),
+        ("bin_pool_fwd", "aimnet_x2d_tpu_torch/csrc/bin_pool.cu",
+         "aimnet_x2d_tpu/ops/bin_pool.py:181"),
+        ("bin_pool_bwd", "aimnet_x2d_tpu_torch/csrc/bin_pool.cu",
+         "aimnet_x2d_tpu/ops/bin_pool.py:205"),
     ):
         # the flagship's dtype; kernel 8 at its op's default, exact fp32
         r = res[(name, torch.float32 if name == "wseg_sum" else torch.bfloat16)]

@@ -496,3 +496,85 @@ def test_windowed_segment_sum_kernel_matches_plain(dev, flat_batch, D, exact):
     assert _rel(out.cpu(), ref) < 1e-5
     assert torch.equal(out, pallas_segment.pallas_windowed_segment_sum(x, sp, sl, A, W, cap,
                                                                        exact=exact))
+
+
+# ---- kernel 6: the binned attention pool of row-major atom arrays (the
+# route of true per-hop aggregation).  fp32 1e-5 (the same fp32 products,
+# summed in another order; the weight gradients over every atom of the
+# batch); bf16 5e-2 (an fp32 weight that lands on the other side of a bf16
+# rounding boundary moves one atom's pooled term by 2**-8).
+
+
+def _pool6_case(dev, Ds, Do, mb, dtype, seed):
+    """(x_self, x_other, pool_mat, ks, ko, b, cotangents): 6 bins of 256
+    atoms; bin 0 holds an empty molecule slot and a one-atom molecule (when
+    mb > 2), bin 1 is all padding, every bin has atoms of no molecule."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb, ab, H = 6, 256, 4
+    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
+    if mb > 2:
+        owner[0][owner[0] == mb - 1] = -1
+        owner[0][owner[0] == 0] = 1
+        owner[0, 7] = 0
+    owner[1] = -1
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    bin_attnpool.check_one_owner(pm)
+    xs = torch.randn(nb * ab, Ds, generator=g, device=dev).to(dtype)
+    xo = torch.randn(nb * ab, Do, generator=g, device=dev).to(dtype)
+    ks = (torch.randn(Ds, H, generator=g, device=dev) * 0.1).to(dtype)
+    ko = (torch.randn(Do, H, generator=g, device=dev) * 0.1).to(dtype)
+    b = torch.randn(H, generator=g, device=dev)
+    B = nb * mb
+    cot = (torch.randn(B, Ds, generator=g, device=dev), torch.randn(B, Do, generator=g, device=dev),
+           torch.randn(B, generator=g, device=dev))
+    return xs, xo, pm, ks, ko, b, cot
+
+
+@pytest.mark.parametrize("mb", [16, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(359, 153), (64, 32)])
+def test_bin_pool_kernels_match_plain(dev, widths, dtype, mb):
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    Ds, Do = widths
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, Ds, Do, mb, dtype, Ds + mb)
+    got = bin_pool.bin_pool_fwd(xs, xo, pm, ks, ko, b)
+    ref = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and _rel(a, r) < tol
+    empty = pm.sum(dim=2).reshape(-1) == 0  # bin 1's slots at least
+    assert float(got[0][empty].abs().max()) == 0.0 and float(got[2][empty].abs().max()) == 0.0
+    assert float(got[3][:, 256:512].abs().max()) == 0.0  # the padding bin
+    args = (xs, xo, pm, ks, ko, ref[3], *cot)
+    dxs, dxo, grads = bin_pool.bin_pool_bwd(*args)
+    rdxs, rdxo, rgrads = bin_pool.pool_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert dxs.dtype == dtype and _rel(dxs, rdxs) < tol and _rel(dxo, rdxo) < tol
+    # d_b is a sum of terms that cancel to 0: held to the scale of d_ks
+    for i, (a, r) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[0].abs().max()) if i == 2 else float(r.abs().max())
+        assert float((a - r).abs().max()) / scale < tol
+    # two runs of the backward are bit-equal (no atomics)
+    again = bin_pool.bin_pool_bwd(*args)
+    for a, r in zip((dxs, dxo, *grads), (again[0], again[1], *again[2])):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bin_pool_autograd_launches_both_kernels(dev, dtype):
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, 64, 32, 16, dtype, 3)
+    sk = torch.cat([ks, ko]).float().requires_grad_(True)
+    sb = b.clone().requires_grad_(True)
+    xs.requires_grad_(True)
+    f0, b0 = bin_pool.bin_pool_fwd.launches, bin_pool.bin_pool_bwd.launches
+    out = bin_pool.binned_attention_pool_fused(xs, xo, pm, sk, sb)
+    torch.autograd.backward(out[:3], list(cot))
+    assert (bin_pool.bin_pool_fwd.launches, bin_pool.bin_pool_bwd.launches) == (f0 + 1, b0 + 1)
+    assert sk.grad.dtype == torch.float32 and xs.grad.dtype == dtype
+    assert torch.isfinite(sk.grad).all() and torch.isfinite(xs.grad.float()).all()

@@ -98,13 +98,14 @@ def test_atom_embeddings_only_on_request():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(graph_axis="g"), dict(use_partial_charges=True, use_stereochemistry=True),
-    dict(parity_mode=False),
+    dict(graph_axis="g"), dict(graph_axis="g", use_partial_charges=True, use_stereochemistry=True),
+    dict(graph_axis="g", parity_mode=False),
 ])
 def test_unported_paths_raise(kw):
-    """graph_axis and parity_mode=False raise when the model is built;
-    config 3 (partial charges + stereochemistry) builds, and raises in the
-    forward of a flat batch."""
+    """Graph-partitioned execution raises when the model is built, alone,
+    with config 3 and with true per-hop aggregation (both of which now run
+    on a flat batch: tests/test_torch_flat_config3.py,
+    tests/test_torch_multihop.py)."""
     cfg = GNNConfig(hidden_dim=32, embedding_dim=4, **kw)
     flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
                                        np.zeros((3, 1)), num_hops=3)).to("cpu")
