@@ -30,8 +30,19 @@
 // first version writes v (and in the backward t and dt) to global work
 // slabs that stay in L2 while the bin is worked on, and does the per-atom
 // work with one warp per feature row (coalesced over atoms).
+//
+// Embedding fold (attnpool_fwd_vocab / attnpool_bwd_vocab, kernel 1c-vocab:
+// the TPU op's vocab_sizes, bin_attnpool.py:187-200, :301-322).  emb is
+// then never read: each 64-atom tile's embeddings are looked up from the
+// code rows and the table into shared memory (csrc/vocab.cuh) and the
+// projection reads them there (the same values and order, so t and v are
+// the emb form's bit for bit).  The backward computes rnd(kb dt) per tile
+// into the same shared tile instead of a global demb and adds each atom's
+// value at its code into the bin's compact d_bd partial (one thread per
+// table row, atoms in order), written after the bin's other partials.
 
 #include "common.cuh"
+#include "vocab.cuh"
 
 namespace {
 
@@ -49,14 +60,23 @@ struct Smem {
   float* red0;   // H x mb
   float* red1;   // H x mb
   float* xw;     // kPoolRows x ab
+  void* etile;   // the fold: E x kLdT looked-up embeddings, then rnd(kb dt)
+  float* acc;    // the fold's backward: the bin's compact d_bd partial
 };
 
-size_t smem_bytes(int Dsp, int H, int mb, int ab) {
+__host__ __device__ inline size_t smem_bytes(int Dsp, int H, int mb, int ab) {
   return ((size_t)kWarps * 256 + Dsp + 2 * (size_t)H * ab + 4 * (size_t)ab + 2 * (size_t)H * mb +
           (size_t)kPoolRows * ab) * sizeof(float);
 }
 
-__device__ Smem carve(unsigned char* base, int Dsp, int H, int mb, int ab) {
+// with the fold: the tile (128-byte aligned) and n_acc partial floats
+size_t vocab_smem_bytes(int Dsp, int H, int mb, int ab, int E, size_t tsize, size_t n_acc) {
+  return (smem_bytes(Dsp, H, mb, ab) + 127) / 128 * 128 + (size_t)E * kLdT * tsize +
+         n_acc * sizeof(float);
+}
+
+__device__ Smem carve(unsigned char* base, int Dsp, int H, int mb, int ab,
+                      size_t tile_bytes = 0) {
   Smem s;
   float* p = reinterpret_cast<float*>(base);
   s.stage = p; p += kWarps * 256;
@@ -69,6 +89,9 @@ __device__ Smem carve(unsigned char* base, int Dsp, int H, int mb, int ab) {
   s.red0 = p; p += (size_t)H * mb;
   s.red1 = p; p += (size_t)H * mb;
   s.xw = p;
+  unsigned char* q = base + (smem_bytes(Dsp, H, mb, ab) + 127) / 128 * 128;
+  s.etile = q;
+  s.acc = reinterpret_cast<float*>(q + tile_bytes);
   return s;
 }
 
@@ -96,20 +119,33 @@ __device__ void setup_bin(const Smem& s, const T* w, const int8_t* pm, int Dsp, 
   __syncthreads();
 }
 
-// t = rnd(rnd(kb^T emb) + bb), v = act(t) over the bin, tile by tile
-template <typename T>
+// t = rnd(rnd(kb^T emb) + bb), v = act(t) over the bin, tile by tile; under
+// the fold (kVocab) each tile's emb is looked up into s.etile first.  The
+// fold is a template parameter so that the emb form compiles as it did
+// without it: with a runtime choice of the B operand (shared tile or global
+// emb) both emb-form kernels measured ~25% slower on an H100.
+template <typename T, bool kVocab>
 __device__ void proj_bin(const Smem& s, const T* emb, const T* w, T* tbuf, T* vbuf, int Dsp, int E,
-                         int A, int ab, int act) {
+                         int A, int ab, int act, const int* codes, const T* bd, const Vocab& voc) {
   const size_t col0 = (size_t)blockIdx.x * ab;
   const bool tiled = sizeof(T) == 2;
   for (int c0 = 0; c0 < ab; c0 += kTile) {
     const size_t cc = col0 + c0;
-    gemm_tile(w, E, tiled, Dsp, E, emb + cc, emb + cc, A, E, s.stage, [&](int r, int c, float v) {
+    auto epi = [&](int r, int c, float v) {
       const size_t o = (size_t)r * A + cc + c;
       const float t = rnd<T>(rnd<T>(v) + s.bb[r]);
       if (tbuf) tbuf[o] = from_f<T>(t);
       vbuf[o] = from_f<T>(act_fn(act, t));
-    });
+    };
+    if constexpr (kVocab) {
+      T* et = static_cast<T*>(s.etile);
+      vocab_tile(et, codes, bd, voc, E, cc, A);
+      __syncthreads();
+      gemm_tile(w, E, tiled, Dsp, E, et, et, kLdT, E, s.stage, epi);
+      __syncthreads();  // the next tile overwrites s.etile
+    } else {
+      gemm_tile(w, E, tiled, Dsp, E, emb + cc, emb + cc, A, E, s.stage, epi);
+    }
   }
   __syncthreads();
 }
@@ -129,13 +165,13 @@ __device__ void per_molecule(const Smem& s, int H, int mb, int ab, float* out, F
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kVocab>
 __global__ void __launch_bounds__(kThreads)
 attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
                     const int8_t* __restrict__ pm, const T* __restrict__ w,
                     const float* __restrict__ score, T* vbuf, float* ps, float* po, float* cov,
                     float* attn_out, int Ds, int Dsp, int Do, int E, int H, int A, int mb, int ab,
-                    int act) {
+                    int act, const int* __restrict__ codes, const T* __restrict__ bd, Vocab voc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem s = carve(smem, Dsp, H, mb, ab);
   const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -144,7 +180,7 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
   const float* ko = score + (size_t)Ds * H;
   const float* sb = ko + (size_t)Do * H;
   setup_bin(s, w, pm, Dsp, E, mb, ab);
-  proj_bin<T>(s, emb, w, nullptr, vbuf, Dsp, E, A, ab, act);
+  proj_bin<T, kVocab>(s, emb, w, nullptr, vbuf, Dsp, E, A, ab, act, codes, bd, voc);
 
   // scores, one thread per atom
   for (int a = threadIdx.x; a < ab; a += kThreads) {
@@ -234,8 +270,9 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
 }
 
 // work: three (Dsp, A) slabs: t, v, dt.  part: per bin [d_bb (Dsp),
-// d_ks (Ds x H), d_ko (Do x H), d_sb (H)].
-template <typename T>
+// d_ks (Ds x H), d_ko (Do x H), d_sb (H)], then under the fold the compact
+// d_bd partial (Df x sum of V).
+template <typename T, bool kVocab>
 __global__ void __launch_bounds__(kThreads)
 attnpool_bwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
                     const int8_t* __restrict__ pm, const T* __restrict__ w,
@@ -243,9 +280,10 @@ attnpool_bwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
                     const float* __restrict__ attn_in, const float* __restrict__ gps,
                     const float* __restrict__ gpo, const float* __restrict__ gcov, T* work,
                     float* part, T* demb, T* dxo, int Ds, int Dsp, int Do, int E, int H, int A,
-                    int mb, int ab, int act) {
+                    int mb, int ab, int act, const int* __restrict__ codes,
+                    const T* __restrict__ bd, Vocab voc) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem, Dsp, H, mb, ab);
+  const Smem s = carve(smem, Dsp, H, mb, ab, (size_t)E * kLdT * sizeof(T));
   const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t col0 = (size_t)b * ab, B = (size_t)gridDim.x * mb, S = (size_t)Dsp * A;
   const float* ks = score;
@@ -253,12 +291,14 @@ attnpool_bwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
   T* Tw = work;
   T* Vw = work + S;
   T* DTC = work + 2 * S;
-  const size_t psize = (size_t)Dsp + (size_t)(Ds + Do) * H + H;
-  float* pb = part + (size_t)b * psize;
+  const size_t head = (size_t)Dsp + (size_t)(Ds + Do) * H + H;
+  const size_t n_acc = kVocab ? (size_t)vocab_acc_size(voc) : 0;
+  float* pb = part + (size_t)b * (head + n_acc);
   setup_bin(s, w, pm, Dsp, E, mb, ab);
   for (int e = threadIdx.x; e < H * ab; e += kThreads)
     s.S[e] = attn_in[(size_t)(e / ab) * A + col0 + e % ab];
-  proj_bin<T>(s, emb, w, Tw, Vw, Dsp, E, A, ab, act);  // ends with a barrier
+  for (size_t i = threadIdx.x; i < n_acc; i += kThreads) s.acc[i] = 0.0f;
+  proj_bin<T, kVocab>(s, emb, w, Tw, Vw, Dsp, E, A, ab, act, codes, bd, voc);  // ends with a barrier
   for (int a = threadIdx.x; a < ab; a += kThreads) {
     float acc = 0.0f;
     for (int h = 0; h < H; ++h) acc += s.S[h * ab + a];
@@ -352,29 +392,44 @@ attnpool_bwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
   }
   __syncthreads();
 
-  // demb = rnd(kb dt), kb (E x Dsp)
+  // demb = rnd(kb dt), kb (E x Dsp); under the fold per tile into s.etile,
+  // then added at each atom's code into the d_bd partial
   const bool tiled = sizeof(T) == 2;
   for (int c0 = 0; c0 < ab; c0 += kTile) {
     const size_t cc = col0 + c0;
-    gemm_tile(wt, Dsp, tiled, E, Dsp, DTC + cc, DTC + cc, A, Dsp, s.stage,
-              [&](int r, int c, float v) { demb[(size_t)r * A + cc + c] = from_f<T>(v); });
+    if constexpr (kVocab) {
+      T* et = static_cast<T*>(s.etile);
+      gemm_tile(wt, Dsp, tiled, E, Dsp, DTC + cc, DTC + cc, A, Dsp, s.stage,
+                [&](int r, int c, float v) { et[(size_t)r * kLdT + c] = from_f<T>(v); });
+      __syncthreads();
+      vocab_accumulate(s.acc, et, codes, voc, E, cc, A);
+      __syncthreads();
+    } else {
+      gemm_tile(wt, Dsp, tiled, E, Dsp, DTC + cc, DTC + cc, A, Dsp, s.stage,
+                [&](int r, int c, float v) { demb[(size_t)r * A + cc + c] = from_f<T>(v); });
+    }
   }
+  for (size_t i = threadIdx.x; i < n_acc; i += kThreads) pb[head + i] = s.acc[i];
 }
 
 template <typename T>
 int launch_fwd(const void* emb, const void* xo, const void* pm, const void* w, const void* score,
                void* vbuf, void* ps, void* po, void* cov, void* attn, int Ds, int Dsp, int Do,
-               int E, int H, int nb, int mb, int ab, int act, cudaStream_t st) {
-  const size_t bytes = smem_bytes(Dsp, H, mb, ab);
+               int E, int H, int nb, int mb, int ab, int act, cudaStream_t st,
+               const void* codes = nullptr, const void* bd = nullptr, Vocab voc = Vocab{}) {
+  const size_t bytes = codes ? vocab_smem_bytes(Dsp, H, mb, ab, E, sizeof(T), 0)
+                             : smem_bytes(Dsp, H, mb, ab);
   if (bytes > (size_t)kSmemLimit || H > kMaxH) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attnpool_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto kernel = codes ? attnpool_fwd_kernel<T, true> : attnpool_fwd_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  attnpool_fwd_kernel<T><<<nb, kThreads, bytes, st>>>(
+  kernel<<<nb, kThreads, bytes, st>>>(
       static_cast<const T*>(emb), static_cast<const T*>(xo), static_cast<const int8_t*>(pm),
       static_cast<const T*>(w), static_cast<const float*>(score), static_cast<T*>(vbuf),
       static_cast<float*>(ps), static_cast<float*>(po), static_cast<float*>(cov),
-      static_cast<float*>(attn), Ds, Dsp, Do, E, H, nb * ab, mb, ab, act);
+      static_cast<float*>(attn), Ds, Dsp, Do, E, H, nb * ab, mb, ab, act,
+      static_cast<const int*>(codes), static_cast<const T*>(bd), voc);
   return (int)cudaGetLastError();
 }
 
@@ -382,19 +437,23 @@ template <typename T>
 int launch_bwd(const void* emb, const void* xo, const void* pm, const void* w, const void* wt,
                const void* score, const void* attn, const void* gps, const void* gpo,
                const void* gcov, void* work, void* part, void* demb, void* dxo, int Ds, int Dsp,
-               int Do, int E, int H, int nb, int mb, int ab, int act, cudaStream_t st) {
-  const size_t bytes = smem_bytes(Dsp, H, mb, ab);
+               int Do, int E, int H, int nb, int mb, int ab, int act, cudaStream_t st,
+               const void* codes = nullptr, const void* bd = nullptr, Vocab voc = Vocab{}) {
+  const size_t bytes =
+      codes ? vocab_smem_bytes(Dsp, H, mb, ab, E, sizeof(T), (size_t)vocab_acc_size(voc))
+            : smem_bytes(Dsp, H, mb, ab);
   if (bytes > (size_t)kSmemLimit || H > kMaxH) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attnpool_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto kernel = codes ? attnpool_bwd_kernel<T, true> : attnpool_bwd_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  attnpool_bwd_kernel<T><<<nb, kThreads, bytes, st>>>(
+  kernel<<<nb, kThreads, bytes, st>>>(
       static_cast<const T*>(emb), static_cast<const T*>(xo), static_cast<const int8_t*>(pm),
       static_cast<const T*>(w), static_cast<const T*>(wt), static_cast<const float*>(score),
       static_cast<const float*>(attn), static_cast<const float*>(gps),
       static_cast<const float*>(gpo), static_cast<const float*>(gcov), static_cast<T*>(work),
       static_cast<float*>(part), static_cast<T*>(demb), static_cast<T*>(dxo), Ds, Dsp, Do, E, H,
-      nb * ab, mb, ab, act);
+      nb * ab, mb, ab, act, static_cast<const int*>(codes), static_cast<const T*>(bd), voc);
   return (int)cudaGetLastError();
 }
 
@@ -428,6 +487,46 @@ int attnpool_bwd(const void* emb, const void* xo, const void* pm, const void* w,
                                           part, demb, dxo, Ds, Dsp, Do, E, H, nb, mb, ab, act, st)
               : launch_bwd<float>(emb, xo, pm, w, wt, score, attn, gps, gpo, gcov, work, part,
                                   demb, dxo, Ds, Dsp, Do, E, H, nb, mb, ab, act, st);
+}
+
+// Shared memory of the folded kernels: n_acc = 0 for the forward, the
+// compact d_bd size (Df * sum of vocabularies) for the backward.
+long long attnpool_vocab_smem_bytes(int bf16, int Dsp, int H, int mb, int ab, int E, int n_acc) {
+  return H > kMaxH ? (long long)kSmemLimit + 1
+                   : (long long)vocab_smem_bytes(Dsp, H, mb, ab, E, bf16 ? 2 : 4, (size_t)n_acc);
+}
+
+// The folded forward: codes (F, A) int32 and the table bd (E, sum of
+// sizes) in the compute dtype replace emb.  Returns cudaGetLastError().
+int attnpool_fwd_vocab(const void* codes, const void* bd, const int* sizes, int F, const void* xo,
+                       const void* pm, const void* w, const void* score, void* vbuf, void* ps,
+                       void* po, void* cov, void* attn, int bf16, int Ds, int Dsp, int Do, int E,
+                       int H, int nb, int mb, int ab, int act, void* stream) {
+  Vocab voc;
+  if (!make_vocab(sizes, F, E, &voc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16>(nullptr, xo, pm, w, score, vbuf, ps, po, cov, attn, Ds,
+                                          Dsp, Do, E, H, nb, mb, ab, act, st, codes, bd, voc)
+              : launch_fwd<float>(nullptr, xo, pm, w, score, vbuf, ps, po, cov, attn, Ds, Dsp, Do,
+                                  E, H, nb, mb, ab, act, st, codes, bd, voc);
+}
+
+// The folded backward: part holds per bin [d_bb, d_ks, d_ko, d_sb, then the
+// compact d_bd partial]; there is no demb.  Returns cudaGetLastError().
+int attnpool_bwd_vocab(const void* codes, const void* bd, const int* sizes, int F, const void* xo,
+                       const void* pm, const void* w, const void* wt, const void* score,
+                       const void* attn, const void* gps, const void* gpo, const void* gcov,
+                       void* work, void* part, void* dxo, int bf16, int Ds, int Dsp, int Do, int E,
+                       int H, int nb, int mb, int ab, int act, void* stream) {
+  Vocab voc;
+  if (!make_vocab(sizes, F, E, &voc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd<__nv_bfloat16>(nullptr, xo, pm, w, wt, score, attn, gps, gpo, gcov,
+                                          work, part, nullptr, dxo, Ds, Dsp, Do, E, H, nb, mb, ab,
+                                          act, st, codes, bd, voc)
+              : launch_bwd<float>(nullptr, xo, pm, w, wt, score, attn, gps, gpo, gcov, work, part,
+                                  nullptr, dxo, Ds, Dsp, Do, E, H, nb, mb, ab, act, st, codes, bd,
+                                  voc);
 }
 
 const char* attnpool_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -59,8 +59,19 @@
 // Before each layer l runs, its input is copied to the saved-inputs array
 // (its real D rows), which the backward reads instead of recomputing the
 // chain.  The serving instantiation compiles none of this.
+//
+// Embedding fold (mp_stack_fwd_train_vocab, kernel 1c-vocab: the TPU op's
+// vocab_sizes).  The fold's input is then the code rows (F, A) int32 and
+// the block-diagonal table instead of emb: per 64-atom tile the prologue
+// looks each atom's embedding up (csrc/vocab.cuh) into the adjacency
+// scratch, which is free until the first aggregation, and the projection
+// reads its B operand from there instead of from global emb -- the same
+// values in the same order, so x0 is the emb form's bit for bit.  The
+// (E, A) embedding array never exists; a tile costs E x 64 table reads
+// from L1/L2 (the table is 72 KB in bf16).
 
 #include "common.cuh"
+#include "vocab.cuh"
 
 namespace {
 
@@ -81,13 +92,16 @@ size_t smem_bytes(int Dp, int ab, int n_blocks, int global_mode) {
 // Training arguments (read only when kTrain): pw = [kb^T (Dp x E), bb (Dp)]
 // of the fold (E > 0) with x_in then the embeddings (E, A); xs the saved
 // inputs, slot l - xs_first for layer l >= xs_first; dropout with mask
-// threshold and the scale rounded to the compute dtype.
+// threshold and the scale rounded to the compute dtype.  codes (non-null:
+// the embedding fold) holds the code rows (F, A) and bd the table, and
+// x_in is unused.
 template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __restrict__ adj,
                 const T* __restrict__ w, int D, int Dp, int A, int ab, int n_layers,
                 int n_blocks, int act, int global_mode, const T* __restrict__ pw, T* xs, int E,
-                int xs_first, int dropout, unsigned seed, unsigned thresh, float scale) {
+                int xs_first, int dropout, unsigned seed, unsigned thresh, float scale,
+                const int* __restrict__ codes, const T* __restrict__ bd, Vocab voc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bin = blockIdx.x;
   const size_t col0 = (size_t)bin * ab;
@@ -123,10 +137,16 @@ mp_stack_kernel(const T* __restrict__ x_in, T* out, T* agg_g, const int8_t* __re
     for (int e = threadIdx.x; e < Dp; e += kThreads) bias[e] = pw[(size_t)Dp * E + e];
     __syncthreads();
     for (int c0 = 0; c0 < ab; c0 += kTile) {
-      const T* be = x_in + col0 + c0;
-      gemm_tile(pw, E, tiled, Dp, E, be, be, A, E, stage, [&](int r, int c, float v) {
+      if (codes) {  // the embedding fold: look the tile up into the scratch
+        vocab_tile(scratch, codes, bd, voc, E, col0 + c0, A);
+        __syncthreads();
+      }
+      const T* be = codes ? scratch : x_in + col0 + c0;
+      const int ldb = codes ? kLdT : A;
+      gemm_tile(pw, E, tiled, Dp, E, be, be, ldb, E, stage, [&](int r, int c, float v) {
         xb[(size_t)r * ld + c0 + c] = from_f<T>(act_fn(act, rnd<T>(rnd<T>(v) + to_f(bias[r]))));
       });
+      if (codes) __syncthreads();  // the next tile overwrites the scratch
     }
     __syncthreads();
   } else {
@@ -243,9 +263,13 @@ int launch(const void* x, void* out, void* agg, const void* adj, const void* w, 
            int A, int nb, int ab, int n_layers, int n_blocks, int act, int global_mode,
            cudaStream_t stream, const void* pw = nullptr, void* xs = nullptr, int E = 0,
            int xs_first = 1, int dropout = 0, unsigned seed = 0, unsigned thresh = 0,
-           float scale = 1.0f) {
+           float scale = 1.0f, const void* codes = nullptr, const void* bd = nullptr,
+           Vocab voc = Vocab{}) {
   const size_t bytes = smem_bytes<T>(Dp, ab, n_blocks, global_mode);
   if (bytes > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  // the fold's tile borrows the scratch rows (max(ab, 2 Dp) of them)
+  if (codes && (E > (ab > 2 * Dp ? ab : 2 * Dp) || E % 16 || E % voc.F))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(mp_stack_kernel<T, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -253,7 +277,7 @@ int launch(const void* x, void* out, void* agg, const void* adj, const void* w, 
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(agg),
       static_cast<const int8_t*>(adj), static_cast<const T*>(w), D, Dp, A, ab, n_layers,
       n_blocks, act, global_mode, static_cast<const T*>(pw), static_cast<T*>(xs), E, xs_first,
-      dropout, seed, thresh, scale);
+      dropout, seed, thresh, scale, static_cast<const int*>(codes), static_cast<const T*>(bd), voc);
   return (int)cudaGetLastError();
 }
 
@@ -294,6 +318,25 @@ int mp_stack_fwd_train(const void* x, void* out, void* agg, const void* adj, con
               : launch<float, true>(x, out, agg, adj, w, D, Dp, A, nb, ab, n_layers, n_blocks,
                                     act, global_mode, s, pw, xs, E, xs_first, dropout, seed,
                                     thresh, scale);
+}
+
+// Training form under the embedding fold: codes (F, A) int32 and the table
+// bd (E, sum of sizes) in the compute dtype replace the embeddings; every
+// layer's input is saved (xs_first = 0).  Returns cudaGetLastError().
+int mp_stack_fwd_train_vocab(const void* codes, const void* bd, const int* sizes, int F,
+                             void* out, void* agg, const void* adj, const void* w, const void* pw,
+                             void* xs, int bf16, int D, int Dp, int E, int A, int nb, int ab,
+                             int n_layers, int n_blocks, int act, int global_mode, int dropout,
+                             unsigned seed, unsigned thresh, float scale, void* stream) {
+  Vocab voc;
+  if (!make_vocab(sizes, F, E, &voc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, true>(nullptr, out, agg, adj, w, D, Dp, A, nb, ab, n_layers,
+                                            n_blocks, act, global_mode, s, pw, xs, E, 0, dropout,
+                                            seed, thresh, scale, codes, bd, voc)
+              : launch<float, true>(nullptr, out, agg, adj, w, D, Dp, A, nb, ab, n_layers,
+                                    n_blocks, act, global_mode, s, pw, xs, E, 0, dropout, seed,
+                                    thresh, scale, codes, bd, voc);
 }
 
 const char* mp_stack_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

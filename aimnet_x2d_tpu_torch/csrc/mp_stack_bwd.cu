@@ -32,8 +32,19 @@
 // while a bin is worked on, and the weight gradients make a second pass
 // over them from HBM.  Keeping the walk's tiles in shared memory, and
 // fusing the weight-gradient products into the walk, are the next steps.
+//
+// Embedding fold (mp_stack_bwd_proj_vocab, kernel 1c-vocab: the TPU op's
+// vocab_sizes backward, bin_mp.py:726-746).  The walk is unchanged; the
+// fold's backward looks each 64-atom tile's embeddings up from the codes
+// into shared memory (csrc/vocab.cuh) to recompute t0, forms dt0 and
+// rnd(dt0) as above, then rnd(kb rnd(dt0)) into the same shared tile
+// instead of a global demb, and one thread per table row adds each atom's
+// value at its code into the bin's compact d_bd partial, atoms in order.
+// There is no dx (codes have no cotangent).  d_kb is the gathered split-K
+// contraction (wgrad_vocab); the bin partials are summed in bin order.
 
 #include "common.cuh"
+#include "vocab.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -241,6 +252,69 @@ bwd_proj_kernel(const T* __restrict__ emb, float* g32, const T* __restrict__ pw,
   }
 }
 
+// The fold's backward under the embedding fold, one block per bin: as
+// bwd_proj_kernel with emb looked up per tile into shared memory, and the
+// bin's compact d_bd partial (vocab_acc_size floats) in place of demb.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_proj_vocab_kernel(const int* __restrict__ codes, const T* __restrict__ bd, Vocab voc,
+                      float* g32, const T* __restrict__ pw, const T* __restrict__ pwT, T* dtc,
+                      float* part, int Dp, int E, int A, int ab, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stage = reinterpret_cast<float*>(smem);
+  float* acc = stage + kWarps * 256;
+  const size_t n_acc = (size_t)voc.Df * voc.SV;
+  T* tile = reinterpret_cast<T*>(acc + ((n_acc + 31) / 32) * 32);  // E x kLdT
+  T* bias = tile + (size_t)E * kLdT;
+  const size_t col0 = (size_t)blockIdx.x * ab;
+  const bool tiled = sizeof(T) == 2;
+  for (int e = threadIdx.x; e < Dp; e += kThreads) bias[e] = pw[(size_t)Dp * E + e];
+  for (size_t i = threadIdx.x; i < n_acc; i += kThreads) acc[i] = 0.0f;
+  for (int c0 = 0; c0 < ab; c0 += kTile) {
+    const size_t cc = col0 + c0;
+    vocab_tile(tile, codes, bd, voc, E, cc, A);
+    __syncthreads();
+    gemm_tile(pw, E, tiled, Dp, E, tile, tile, kLdT, E, stage, [&](int r, int c, float v) {
+      const size_t o = (size_t)r * A + cc + c;
+      const float t0 = rnd<T>(rnd<T>(v) + to_f(bias[r]));
+      const float d = g32[o] * rnd<T>(act_grad(act, t0));
+      g32[o] = d;
+      dtc[o] = from_f<T>(d);
+    });
+    __syncthreads();
+    gemm_tile(pwT, Dp, tiled, E, Dp, dtc + cc, dtc + cc, A, Dp, stage,
+              [&](int r, int c, float v) { tile[(size_t)r * kLdT + c] = from_f<T>(v); });
+    __syncthreads();
+    vocab_accumulate(acc, tile, codes, voc, E, cc, A);
+    __syncthreads();
+  }
+  float* pb = part + (size_t)blockIdx.x * n_acc;
+  for (size_t i = threadIdx.x; i < n_acc; i += kThreads) pb[i] = acc[i];
+}
+
+template <typename T>
+size_t proj_vocab_smem_bytes(int Dp, int E, const Vocab& voc) {
+  const size_t n_acc = ((size_t)vocab_acc_size(voc) + 31) / 32 * 32;
+  return ((size_t)kWarps * 256 + n_acc) * sizeof(float) + ((size_t)E * kLdT + Dp) * sizeof(T);
+}
+
+template <typename T>
+int launch_proj_vocab(const void* codes, const void* bd, const Vocab& voc, void* g32,
+                      const void* pw, const void* pwT, void* dtc, void* part, int Dp, int E,
+                      int A, int nb, int ab, int act, cudaStream_t s) {
+  const size_t bytes = proj_vocab_smem_bytes<T>(Dp, E, voc);
+  if (bytes > (size_t)kSmemLimit || E % 16 || Dp % 16 || ab % kTile)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bwd_proj_vocab_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  bwd_proj_vocab_kernel<T><<<nb, kThreads, bytes, s>>>(
+      static_cast<const int*>(codes), static_cast<const T*>(bd), voc, static_cast<float*>(g32),
+      static_cast<const T*>(pw), static_cast<const T*>(pwT), static_cast<T*>(dtc),
+      static_cast<float*>(part), Dp, E, A, ab, act);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_layer(const void* x_l, void* wk, void* g32, const void* adj, const void* w,
                  const void* wT, int D, int Dp, int A, int nb, int ab, int n_blocks, int act,
@@ -298,10 +372,36 @@ int mp_stack_bwd_proj(const void* emb, void* g32, const void* pw, const void* pw
               : launch_proj<float>(emb, g32, pw, pwT, dtc, demb, Dp, E, A, nb, ab, act, s);
 }
 
+// The fold's backward under the embedding fold (see the top of this file):
+// codes (F, A) int32, bd (E, sum of sizes) in the compute dtype; g32 is
+// overwritten with dt0, dtc receives rnd(dt0), part (nb, Df * sum of sizes)
+// the bins' compact d_bd partials.  Returns cudaGetLastError().
+int mp_stack_bwd_proj_vocab(const void* codes, const void* bd, const int* sizes, void* g32, int F,
+                            const void* pw, const void* pwT, void* dtc, void* part, int bf16,
+                            int Dp, int E, int A, int nb, int ab, int act, void* stream) {
+  Vocab voc;
+  if (!make_vocab(sizes, F, E, &voc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_proj_vocab<__nv_bfloat16>(codes, bd, voc, g32, pw, pwT, dtc, part, Dp, E,
+                                                 A, nb, ab, act, s)
+              : launch_proj_vocab<float>(codes, bd, voc, g32, pw, pwT, dtc, part, Dp, E, A, nb, ab,
+                                         act, s);
+}
+
 // part: (ceil(A / chunk), M * N + M) fp32 partials (see wgrad.cuh).
 int wgrad(const void* dY, const void* X, const void* bsrc, void* part, int bf16, int M, int N,
           int A, int chunk, void* stream) {
   return launch_wgrad(dY, X, bsrc, part, bf16, M, N, A, chunk, static_cast<cudaStream_t>(stream));
+}
+
+// wgrad with X the (N = E, A) embeddings looked up from codes and bd.
+int wgrad_vocab(const void* dY, const void* codes, const void* bd, const int* sizes, int F,
+                const void* bsrc, void* part, int bf16, int M, int N, int A, int chunk,
+                void* stream) {
+  Vocab voc;
+  if (!make_vocab(sizes, F, N, &voc)) return (int)cudaErrorInvalidValue;
+  return launch_wgrad_vocab(dY, codes, bd, voc, bsrc, part, bf16, M, N, A, chunk,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int sum_partials(const void* part, void* out, int n, long long size, void* stream) {

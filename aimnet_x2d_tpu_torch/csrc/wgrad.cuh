@@ -12,9 +12,16 @@
 // on the tensor cores (wmma, fp32 accumulators) with fragments loaded
 // straight from global memory; fp32 runs on the CUDA cores through shared
 // memory tiles.  M and N are multiples of 16, A of 16.
+//
+// The embedding fold's d_kb (wgrad_vocab) is the same contraction with X
+// the embeddings looked up from the code rows and the table
+// (csrc/vocab.cuh): each warp gathers its 16 x 16 fragment of X into shared
+// memory (bf16) or the block its 64 x 32 tile (fp32), so the (E, A) array
+// is never formed; the sums are the same as over the looked-up array.
 #pragma once
 
 #include "common.cuh"
+#include "vocab.cuh"
 
 namespace {
 
@@ -59,10 +66,27 @@ wgrad_kernel_bf16(const __nv_bfloat16* __restrict__ dY, const __nv_bfloat16* __r
   if (blockIdx.y == 0) wgrad_bias(dY, bsrc, P + (size_t)M * N, m0, A, a0, a1);
 }
 
+// X[n, a] of a row-major (N, A) array
+struct DenseX {
+  const float* X;
+  __device__ float operator()(int n, size_t a, int A) const { return X[(size_t)n * A + a]; }
+};
+
+// X[n, a] looked up from the code rows and the table (the embedding fold)
+template <typename T>
+struct VocabX {
+  const int* codes;
+  const T* bd;
+  Vocab voc;
+  __device__ float operator()(int n, size_t a, int A) const {
+    return to_f(vocab_emb(codes, bd, voc, n, a, A));
+  }
+};
+
+template <class XL>
 __global__ void __launch_bounds__(kWgThreads)
-wgrad_kernel_f32(const float* __restrict__ dY, const float* __restrict__ X,
-                 const float* __restrict__ bsrc, float* __restrict__ part, int M, int N, int A,
-                 int chunk) {
+wgrad_kernel_f32(const float* __restrict__ dY, XL X, const float* __restrict__ bsrc,
+                 float* __restrict__ part, int M, int N, int A, int chunk) {
   __shared__ float ys[16][33];
   __shared__ float xs[64][33];
   const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 64;
@@ -79,7 +103,7 @@ wgrad_kernel_f32(const float* __restrict__ dY, const float* __restrict__ X,
     }
     for (int e = threadIdx.x; e < 64 * 32; e += kWgThreads) {
       const int r = e / 32, k = e % 32;
-      xs[r][k] = (n0 + r < N && a + k < a1) ? X[(size_t)(n0 + r) * A + a + k] : 0.0f;
+      xs[r][k] = (n0 + r < N && a + k < a1) ? X(n0 + r, (size_t)a + k, A) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -93,6 +117,37 @@ wgrad_kernel_f32(const float* __restrict__ dY, const float* __restrict__ X,
   if (n0 + tn < N) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) P[(size_t)(m0 + tm * 8 + i) * N + n0 + tn] = acc[i];
+  }
+  if (blockIdx.y == 0) wgrad_bias(dY, bsrc, P + (size_t)M * N, m0, A, a0, a1);
+}
+
+// wgrad_kernel_bf16 with X looked up: each warp gathers its fragment
+__global__ void __launch_bounds__(kWgThreads)
+wgrad_vocab_kernel_bf16(const __nv_bfloat16* __restrict__ dY, VocabX<__nv_bfloat16> X,
+                        const float* __restrict__ bsrc, float* __restrict__ part, int M, int N,
+                        int A, int chunk) {
+  __shared__ __align__(32) __nv_bfloat16 xs[kWgThreads / 32][16 * 16];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 64 + warp * 16;
+  const int a0 = blockIdx.z * chunk, a1 = min(A, a0 + chunk);
+  float* P = part + (size_t)blockIdx.z * ((size_t)M * N + M);
+  if (n0 < N) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    const __nv_bfloat16* pa = dY + (size_t)m0 * A;
+    __nv_bfloat16* xw = xs[warp];
+    for (int a = a0; a < a1; a += 16) {
+      for (int i = lane; i < 256; i += 32)  // (a, n) at xw[n * 16 + a]: col-major, ld 16
+        xw[i] = vocab_emb(X.codes, X.bd, X.voc, n0 + i / 16, (size_t)a + i % 16, A);
+      __syncwarp();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, pa + a, A);
+      wmma::load_matrix_sync(fb, xw, 16);
+      wmma::mma_sync(acc, fa, fb, acc);
+      __syncwarp();
+    }
+    wmma::store_matrix_sync(P + (size_t)m0 * N + n0, acc, N, wmma::mem_row_major);
   }
   if (blockIdx.y == 0) wgrad_bias(dY, bsrc, P + (size_t)M * N, m0, A, a0, a1);
 }
@@ -117,7 +172,27 @@ int launch_wgrad(const void* dY, const void* X, const void* bsrc, void* part, in
         static_cast<const float*>(bsrc), static_cast<float*>(part), M, N, A, chunk);
   else
     wgrad_kernel_f32<<<grid, kWgThreads, 0, s>>>(
-        static_cast<const float*>(dY), static_cast<const float*>(X),
+        static_cast<const float*>(dY), DenseX{static_cast<const float*>(X)},
+        static_cast<const float*>(bsrc), static_cast<float*>(part), M, N, A, chunk);
+  return (int)cudaGetLastError();
+}
+
+// wgrad with X (N = E rows) looked up from codes and the table bd
+int launch_wgrad_vocab(const void* dY, const void* codes, const void* bd, const Vocab& voc,
+                       const void* bsrc, void* part, int bf16, int M, int N, int A, int chunk,
+                       cudaStream_t s) {
+  if (M % 16 || N % 16 || A % 16 || chunk % 32 || chunk <= 0 || N != voc.F * voc.Df)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(M / 16, (N + 63) / 64, (A + chunk - 1) / chunk);
+  const int* c = static_cast<const int*>(codes);
+  if (bf16)
+    wgrad_vocab_kernel_bf16<<<grid, kWgThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dY),
+        VocabX<__nv_bfloat16>{c, static_cast<const __nv_bfloat16*>(bd), voc},
+        static_cast<const float*>(bsrc), static_cast<float*>(part), M, N, A, chunk);
+  else
+    wgrad_kernel_f32<<<grid, kWgThreads, 0, s>>>(
+        static_cast<const float*>(dY), VocabX<float>{c, static_cast<const float*>(bd), voc},
         static_cast<const float*>(bsrc), static_cast<float*>(part), M, N, A, chunk);
   return (int)cudaGetLastError();
 }

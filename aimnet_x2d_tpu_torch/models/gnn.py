@@ -36,8 +36,13 @@ in (kernels 1, 1b, 1c); on the other routes the projection is plain autograd
 and each layer's kernel has its own backward (4, 1d).  Attention pooling
 takes the embeddings and folds the x_self projection in (kernel 3); mean,
 sum and max pooling take x_self from plain autograd, and mean and sum pool
-through the weighted pool's forward and backward kernels (2, 2b).  The
-step's dropout seed is one int32 (each single-layer call gets
+through the weighted pool's forward and backward kernels (2, 2b).  With
+``AIMNET_EMBED_FOLD=1`` (the JAX package's switch, read on each training
+forward) the stack and the attention pool take the atoms' code rows and
+the block-diagonal table instead of the embeddings where JAX folds (its
+feature-major path: the stack route, and the layer routes with charges or
+stereochemistry; kernel 1c-vocab), and the tables get their gradient from
+the kernels.  The step's dropout seed is one int32 (each single-layer call gets
 ``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
 FFN's dropout masks come from a ``torch.Generator``.
 
@@ -80,7 +85,8 @@ from ..ops.bin_mp import (
     layer_drop_seed,
     stack_weights,
 )
-from ..ops.embed import embed_concat_onehot, embed_concat_onehot_t
+from ..ops.bin_attnpool import embed_fold_enabled
+from ..ops.embed import blockdiag_table_t, code_rows, embed_concat_onehot, embed_concat_onehot_t
 from ..ops.segment import segment_sum
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
@@ -599,7 +605,21 @@ class GNN(nn.Module):
         cdt = dt if dt == torch.bfloat16 else None
         act = get_activation_function(cfg.activation_type)
         tables = [getattr(self, f"{n}_embedding").weight for n in _EMBEDDINGS]
-        embT = embed_concat_onehot_t(tables, [getattr(batch, n) for n in _EMBEDDINGS], dtype=dt)
+        ids = [getattr(batch, n) for n in _EMBEDDINGS]
+        # The embedding fold (AIMNET_EMBED_FOLD) applies where JAX is on its
+        # feature-major path (t_path: the stack, or layers with charges or
+        # stereochemistry): the stack folds, and the attention pool does.
+        # With both folded no (E, A) embedding array is built.
+        t_path = self.route == "stack" or (
+            self.route in ("inject", "layer") and (cfg.use_partial_charges or cfg.use_stereochemistry))
+        fold = t_path and embed_fold_enabled()
+        fold_stack = fold and self.route == "stack"
+        fold_pool = fold and cfg.pooling_type == "attention"
+        embed_spec = (code_rows(ids), blockdiag_table_t(tables),
+                      tuple(t.shape[0] for t in tables)) if fold else None
+        embT = None
+        if not (fold_stack and fold_pool):
+            embT = embed_concat_onehot_t(tables, ids, dtype=dt)
         W, b = self.embedding_projection.weight, self.embedding_projection.bias
         xs = cfg.x_self_dim
         rate = cfg.shell_conv_dropout
@@ -614,7 +634,7 @@ class GNN(nn.Module):
             x_other = binned_mp_stack_train_t(
                 embT, batch.bin_adj, [layer.stack_weights() for layer in self.message_passing_layers],
                 dt, act=cfg.activation_type, dropout=rate, seed=drop_seed or 0,
-                proj_weights=(W[xs:].T, b[xs:]),
+                proj_weights=(W[xs:].T, b[xs:]), embed_spec=embed_spec if fold_stack else None,
             )
         else:
             x_other = act(mm32(W[xs:], embT, cdt).to(dt) + b[xs:].to(dt)[:, None])
@@ -625,7 +645,7 @@ class GNN(nn.Module):
             k_cs = self.concat_self_other.weight.T
             mol, attn = self.pooling.forward_train(
                 embT, W[:xs].T, b[:xs], cfg.activation_type, x_other, pm,
-                (k_cs, self.concat_self_other.bias),
+                (k_cs, self.concat_self_other.bias), embed_spec if fold_pool else None,
             )
         else:
             x_self = act(mm32(W[:xs], embT, cdt).to(dt) + b[:xs].to(dt)[:, None])

@@ -198,21 +198,24 @@ class MultiHeadAttentionPooling(nn.Module):
         x_other: torch.Tensor,
         pool_mat: torch.Tensor,
         pre_proj: Tuple[torch.Tensor, torch.Tensor],
+        embed_spec=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training path (the JAX fused branch): the fused op recomputes
         x_self = act(k_self^T emb + b_self) in its kernels, with the score
         kernel folded through concat_self_other and divided by the
-        temperature outside it, in plain autograd.  Returns (mol (B, hidden)
-        fp32, attention weights (H, A))."""
+        temperature outside it, in plain autograd.  With ``embed_spec``
+        (codes, block-diagonal table, vocabulary sizes) the kernels also
+        look the embeddings up (the fold) and embT may be None.  Returns
+        (mol (B, hidden) fp32, attention weights (H, A))."""
         k_cs, b_cs = pre_proj
         score_k, score_b = self._score_fold(k_cs, b_cs)
         xs = k_self.shape[1]
         T = self.temperature
         ps, po, cov, attn = binned_attnpool_proj_t(
             embT, k_self, b_self, act, x_other, pool_mat,
-            score_k[:xs] / T, score_k[xs:] / T, score_b / T,
+            score_k[:xs] / T, score_k[xs:] / T, score_b / T, embed_spec=embed_spec,
         )
-        return pool_then_project([ps, po], cov, k_cs, b_cs, embT.dtype), attn
+        return pool_then_project([ps, po], cov, k_cs, b_cs, x_other.dtype), attn
 
     def forward(
         self,

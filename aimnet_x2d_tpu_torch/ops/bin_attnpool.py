@@ -21,6 +21,14 @@ and returns demb, dx_other and the fp32 grads of kb, bb, ks, ko and sb.
 The temperature and concat_self_other folds stay outside, in plain
 autograd (models/pooling.py), as in the JAX package.
 
+With the embedding fold (``embed_spec``, :func:`embed_fold_enabled`; kernel
+1c-vocab) the op takes the code rows (F, A) int32 and the fp32
+block-diagonal table (E, sum of V) instead of emb: the kernels look up
+emb = rnd(bd) one-hot per atom themselves, the backward saves the codes
+instead of emb and returns the table's fp32 cotangent d_bd = rnd(kb dt)
+one-hot^T (its diagonal blocks) instead of demb (``attnpool_fwd_vocab``,
+``attnpool_bwd_vocab``).
+
 On CUDA tensors :func:`binned_attnpool_proj_t` launches the hand-written
 kernels (``csrc/attnpool.cu``); on CPU tensors it runs the plain versions
 here.  The kernels take any (nb, mb) with ab a multiple of 64 and never
@@ -32,12 +40,22 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
 from ..utils.activation import ACTIVATION_CODES, activation_grad, get_activation_function
 from . import bin_mp, cuda_build
+from .embed import VocabTable, embed_from_codes, expand_diag, prep_vocab, table_grad
+
+
+def embed_fold_enabled() -> bool:
+    """The JAX package's embedding-fold switch, read on each training
+    forward: ``AIMNET_EMBED_FOLD`` set to ``1``, ``on`` or ``true`` folds
+    the embedding lookup into the stack's and the attention pool's kernels
+    where the JAX package folds it (models/gnn.py); default off."""
+    return os.environ.get("AIMNET_EMBED_FOLD", "").lower() in ("1", "on", "true")
 
 
 @dataclasses.dataclass
@@ -160,6 +178,22 @@ def attnpool_bwd_plain(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo
     return demb, dxo, (dkbT, dt32.sum(1), dks, dko, dsb)
 
 
+def attnpool_fwd_vocab_plain(codes, xo, pm, w: AttnPoolWeights, act: str, vt: VocabTable):
+    """Plain PyTorch version of the folded forward: the forward on
+    emb = :func:`embed_from_codes`; same returns."""
+    return attnpool_fwd_plain(embed_from_codes(codes, vt), xo, pm, w, act)
+
+
+def attnpool_bwd_vocab_plain(codes, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
+                             vt: VocabTable):
+    """Plain PyTorch version of the folded backward: returns (d_bd (E, sum
+    of V) fp32 on the diagonal blocks, dx_other, the fp32 weight grads as
+    :func:`attnpool_bwd_plain`)."""
+    demb, dxo, grads = attnpool_bwd_plain(embed_from_codes(codes, vt), xo, pm, w, act, attn,
+                                          gps, gpo, gcov)
+    return table_grad(demb, codes, vt), dxo, grads
+
+
 # ---- CUDA wrappers -------------------------------------------------------- #
 
 
@@ -173,38 +207,61 @@ def _lib() -> ctypes.CDLL:
         lib.attnpool_bwd.restype = i
         lib.attnpool_smem_bytes.argtypes = [i, i, i, i]
         lib.attnpool_smem_bytes.restype = ctypes.c_longlong
+        lib.attnpool_fwd_vocab.argtypes = [vp, vp, vp] + [i] + [vp] * 9 + [i] * 10 + [vp]
+        lib.attnpool_fwd_vocab.restype = i
+        lib.attnpool_bwd_vocab.argtypes = [vp, vp, vp] + [i] + [vp] * 12 + [i] * 10 + [vp]
+        lib.attnpool_bwd_vocab.restype = i
+        lib.attnpool_vocab_smem_bytes.argtypes = [i] * 7
+        lib.attnpool_vocab_smem_bytes.restype = ctypes.c_longlong
         lib.attnpool_error_string.argtypes = [i]
         lib.attnpool_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def _check(what, emb, xo, pm, w: AttnPoolWeights, act):
-    if emb.dtype != w.dtype or xo.dtype != w.dtype or w.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: emb {emb.dtype}, x_other {xo.dtype}, weights {w.dtype}")
+def _check(what, emb, xo, pm, w: AttnPoolWeights, act, vt: Optional[VocabTable] = None,
+           n_acc: int = 0):
+    """Validate the operands; ``emb`` is the code rows (F, A) int32 when
+    ``vt`` is given (the fold), whose d_bd partials take ``n_acc`` floats."""
+    if vt is not None:
+        if emb.dtype != torch.int32 or emb.shape[0] != len(vt.sizes) or vt.bd.dtype != w.dtype:
+            raise TypeError(f"{what}: codes {emb.dtype} {tuple(emb.shape)}, table {vt.bd.dtype}, "
+                            f"weights {w.dtype}")
+    elif emb.dtype != w.dtype:
+        raise TypeError(f"{what}: emb {emb.dtype}, weights {w.dtype}")
+    if xo.dtype != w.dtype or w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: x_other {xo.dtype}, weights {w.dtype}")
     if pm.dtype != torch.int8:
         raise TypeError(f"{what}: pool_mat must be int8")
     if act.lower() not in ACTIVATION_CODES:
         raise ValueError(f"{what}: unsupported activation {act!r}")
     nb, mb, ab = pm.shape
-    E, A = emb.shape
+    A = emb.shape[1]
+    E = vt.E if vt is not None else emb.shape[0]
     if ab % 64 or A != nb * ab or xo.shape[1] != A or E != w.kbT.shape[1] or E % 16:
         raise ValueError(f"{what}: emb {tuple(emb.shape)}, x_other {tuple(xo.shape)}, pool_mat "
                          f"{tuple(pm.shape)}: need A = nb*ab, ab a multiple of 64, E a multiple of 16")
-    cuda_build.check_cuda(what, emb.device, ("emb", emb, 16), ("x_other", xo, 16), ("pool_mat", pm, 1),
-                          ("weights", w.flat, 32), ("weights_t", w.flat_t, 32), ("score", w.score, 4))
+    named = [("emb", emb, 16), ("x_other", xo, 16), ("pool_mat", pm, 1), ("weights", w.flat, 32),
+             ("weights_t", w.flat_t, 32), ("score", w.score, 4)]
+    if vt is not None:
+        named.append(("table", vt.bd, 4))
+    cuda_build.check_cuda(what, emb.device, *named)
     lib = _lib()
     H = w.sb.shape[0]
     bf16 = int(w.dtype == torch.bfloat16)
-    if lib.attnpool_smem_bytes(w.kbT.shape[0], H, mb, ab) > cuda_build.SMEM_LIMIT:
+    Dsp = w.kbT.shape[0]
+    smem = (lib.attnpool_smem_bytes(Dsp, H, mb, ab) if vt is None else
+            lib.attnpool_vocab_smem_bytes(bf16, Dsp, H, mb, ab, E, n_acc))
+    if smem > cuda_build.SMEM_LIMIT:
         raise ValueError(f"{what}: mb={mb}, ab={ab} exceed one block's shared memory")
     return lib, nb, mb, ab, E, A, H, bf16
 
 
-def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str):
-    """Launch the forward kernel (one block per bin).  Same returns as
-    :func:`attnpool_fwd_plain`."""
-    lib, nb, mb, ab, E, A, H, bf16 = _check("attnpool_fwd", emb, xo, pm, w, act)
+def _launch_fwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, vt: Optional[VocabTable]):
+    """The forward kernel (one block per bin) on emb, or under the fold
+    (``vt``) on the code rows.  Returns (ps, po, cov, attn) and whether it
+    launched (nothing to do for nb = 0)."""
+    lib, nb, mb, ab, E, A, H, bf16 = _check(what, emb, xo, pm, w, act, vt)
     dev = emb.device
     Dsp, Do = w.kbT.shape[0], xo.shape[0]
     ps = torch.empty(w.Ds, nb * mb, dtype=torch.float32, device=dev)
@@ -212,88 +269,158 @@ def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str):
     cov = torch.empty(nb * mb, dtype=torch.float32, device=dev)
     attn = torch.empty(H, A, dtype=torch.float32, device=dev)
     vbuf = torch.empty(Dsp, A, dtype=w.dtype, device=dev)
-    if nb:
-        status = lib.attnpool_fwd(
-            emb.data_ptr(), xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.score.data_ptr(),
-            vbuf.data_ptr(), ps.data_ptr(), po.data_ptr(), cov.data_ptr(), attn.data_ptr(),
-            bf16, w.Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()],
-            bin_mp._stream(dev),
-        )
-        if status != 0:
-            raise RuntimeError(f"attnpool_fwd: {lib.attnpool_error_string(status).decode()}")
-        attnpool_fwd.launches += 1
-    return ps, po, cov, attn
+    if not nb:
+        return (ps, po, cov, attn), False
+    tail = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.score.data_ptr(), vbuf.data_ptr(),
+            ps.data_ptr(), po.data_ptr(), cov.data_ptr(), attn.data_ptr(), bf16, w.Ds, Dsp, Do, E,
+            H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
+    if vt is None:
+        status = lib.attnpool_fwd(emb.data_ptr(), *tail)
+    else:
+        status = lib.attnpool_fwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt),
+                                        len(vt.sizes), *tail)
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.attnpool_error_string(status).decode()}")
+    return (ps, po, cov, attn), True
+
+
+def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str):
+    """Launch the forward kernel (one block per bin).  Same returns as
+    :func:`attnpool_fwd_plain`."""
+    out, launched = _launch_fwd("attnpool_fwd", emb, xo, pm, w, act, None)
+    attnpool_fwd.launches += int(launched)
+    return out
 
 
 attnpool_fwd.launches = 0
 
 
-def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov):
-    """Launch the backward kernel (one block per bin) and the
-    weight-gradient contractions.  Same returns as :func:`attnpool_bwd_plain`."""
-    lib, nb, mb, ab, E, A, H, bf16 = _check("attnpool_bwd", emb, xo, pm, w, act)
+def attnpool_fwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, vt: VocabTable):
+    """Launch the folded forward kernel (1c-vocab at the pool's site): the
+    forward of :func:`attnpool_fwd` with each atom's embedding looked up
+    from the code rows (F, A) int32 and the table.  Same returns."""
+    out, launched = _launch_fwd("attnpool_fwd_vocab", codes, xo, pm, w, act, vt)
+    attnpool_fwd_vocab.launches += int(launched)
+    return out
+
+
+attnpool_fwd_vocab.launches = 0
+
+
+def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
+                vt: Optional[VocabTable]):
+    """The backward kernel (one block per bin), the fixed-order sum of its
+    per-bin partials and the d_kb contraction, on emb or under the fold on
+    the code rows.  Returns (demb, or d_bd under the fold; dx_other; the
+    fp32 weight grads)."""
+    n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
+    lib, nb, mb, ab, E, A, H, bf16 = _check(what, emb, xo, pm, w, act, vt, n_acc)
     dev = emb.device
     gps, gpo, gcov = gps.float().contiguous(), gpo.float().contiguous(), gcov.float().contiguous()
     attn = attn.contiguous()
-    cuda_build.check_cuda("attnpool_bwd", dev, ("attn", attn, 4), ("g_self", gps, 4),
+    cuda_build.check_cuda(what, dev, ("attn", attn, 4), ("g_self", gps, 4),
                           ("g_other", gpo, 4), ("g_cov", gcov, 4))
     Dsp, Do, Ds = w.kbT.shape[0], xo.shape[0], w.Ds
     work = torch.empty(3, Dsp, A, dtype=w.dtype, device=dev)  # t, x_self, dt
-    demb = torch.empty(E, A, dtype=w.dtype, device=dev)
     dxo = torch.empty(Do, A, dtype=w.dtype, device=dev)
-    # per-bin fp32 partials: dbb (Dsp), dks (Ds*H), dko (Do*H), dsb (H)
-    psize = Dsp + Ds * H + Do * H + H
-    part = torch.empty(nb, psize, dtype=torch.float32, device=dev)
-    status = lib.attnpool_bwd(
-        emb.data_ptr(), xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.flat_t.data_ptr(),
-        w.score.data_ptr(), attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr(),
-        work.data_ptr(), part.data_ptr(), demb.data_ptr(), dxo.data_ptr(), bf16, Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev),
-    )
+    # per-bin fp32 partials: dbb (Dsp), dks (Ds*H), dko (Do*H), dsb (H), then
+    # under the fold the diagonal blocks of d_bd (n_acc)
+    head = Dsp + Ds * H + Do * H + H
+    part = torch.empty(nb, head + n_acc, dtype=torch.float32, device=dev)
+    mid = (pm.data_ptr(), w.flat.data_ptr(), w.flat_t.data_ptr(), w.score.data_ptr(),
+           attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr(), work.data_ptr(),
+           part.data_ptr())
+    tail = (bf16, Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()],
+            bin_mp._stream(dev))
+    if vt is None:
+        demb = torch.empty(E, A, dtype=w.dtype, device=dev)
+        status = lib.attnpool_bwd(emb.data_ptr(), xo.data_ptr(), *mid, demb.data_ptr(),
+                                  dxo.data_ptr(), *tail)
+    else:
+        status = lib.attnpool_bwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt),
+                                        len(vt.sizes), xo.data_ptr(), *mid, dxo.data_ptr(), *tail)
     if status != 0:
-        raise RuntimeError(f"attnpool_bwd: {lib.attnpool_error_string(status).decode()}")
+        raise RuntimeError(f"{what}: {lib.attnpool_error_string(status).decode()}")
     red = bin_mp.sum_partials(part)
     dbb = red[:Dsp]
     dks = red[Dsp : Dsp + Ds * H].view(Ds, H)
     dko = red[Dsp + Ds * H : Dsp + Ds * H + Do * H].view(Do, H)
-    dsb = red[Dsp + Ds * H + Do * H :]
-    dkbT, _ = bin_mp.wgrad(work[2], emb)
+    dsb = red[Dsp + Ds * H + Do * H : head]
+    if vt is None:
+        dkbT, _ = bin_mp.wgrad(work[2], emb)
+        return demb, dxo, (dkbT, dbb, dks, dko, dsb)
+    dkbT, _ = bin_mp.wgrad_vocab(work[2], emb, vt)
+    return expand_diag(red[head:], vt), dxo, (dkbT, dbb, dks, dko, dsb)
+
+
+def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov):
+    """Launch the backward kernel (one block per bin) and the
+    weight-gradient contractions.  Same returns as :func:`attnpool_bwd_plain`."""
+    out = _launch_bwd("attnpool_bwd", emb, xo, pm, w, act, attn, gps, gpo, gcov, None)
     attnpool_bwd.launches += 1
-    return demb, dxo, (dkbT, dbb, dks, dko, dsb)
+    return out
 
 
 attnpool_bwd.launches = 0
 
 
+def attnpool_bwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
+                       vt: VocabTable):
+    """Launch the folded backward kernel (one block per bin), the gathered
+    d_kb contraction and the fixed-order sum of the per-bin partials.  Same
+    returns as :func:`attnpool_bwd_vocab_plain`."""
+    out = _launch_bwd("attnpool_bwd_vocab", codes, xo, pm, w, act, attn, gps, gpo, gcov, vt)
+    attnpool_bwd_vocab.launches += 1
+    return out
+
+
+attnpool_bwd_vocab.launches = 0
+
+
 class _AttnPoolFn(torch.autograd.Function):
+    """``emb`` is the embeddings (E, A), or under the fold (``vocab`` set)
+    the code rows (F, A) int32 with ``bd`` the fp32 block-diagonal table,
+    which then gets the gradient in place of emb."""
+
     @staticmethod
-    def forward(ctx, emb, xo, pm, act, kb, bb, ks, ko, sb):
+    def forward(ctx, emb, xo, pm, act, vocab, bd, kb, bb, ks, ko, sb):
+        dt = xo.dtype
         with torch.no_grad():
-            w = prep_weights(kb, bb, ks, ko, sb, emb.dtype)
+            w = prep_weights(kb, bb, ks, ko, sb, dt)
+            vt = prep_vocab(bd, vocab, dt) if vocab is not None else None
         if emb.device.type == "cuda":
-            ps, po, cov, attn = attnpool_fwd(emb, xo, pm, w, act)
+            ps, po, cov, attn = (attnpool_fwd(emb, xo, pm, w, act) if vt is None
+                                 else attnpool_fwd_vocab(emb, xo, pm, w, act, vt))
         elif emb.device.type == "cpu":
             check_one_owner(pm)  # free here; on the card it would cost a sync per step
-            ps, po, cov, attn = attnpool_fwd_plain(emb, xo, pm, w, act)
+            ps, po, cov, attn = (attnpool_fwd_plain(emb, xo, pm, w, act) if vt is None
+                                 else attnpool_fwd_vocab_plain(emb, xo, pm, w, act, vt))
         else:
             raise ValueError(f"binned_attnpool_proj_t: unsupported device {emb.device}")
         ctx.save_for_backward(emb, xo, pm, attn)
-        ctx.w, ctx.act = w, act
+        ctx.w, ctx.act, ctx.vt = w, act, vt
         ctx.mark_non_differentiable(attn)
         return ps, po, cov, attn
 
     @staticmethod
     def backward(ctx, gps, gpo, gcov, _gattn):
         emb, xo, pm, attn = ctx.saved_tensors
-        w = ctx.w
+        w, vt = ctx.w, ctx.vt
         zeros = lambda n: torch.zeros(n, dtype=torch.float32, device=emb.device)  # noqa: E731
         gps = gps if gps is not None else zeros((w.Ds, pm.shape[0] * pm.shape[1]))
         gpo = gpo if gpo is not None else zeros((xo.shape[0], pm.shape[0] * pm.shape[1]))
         gcov = gcov if gcov is not None else zeros(pm.shape[0] * pm.shape[1])
-        bwd = attnpool_bwd if emb.device.type == "cuda" else attnpool_bwd_plain
-        demb, dxo, (dkbT, dbb, dks, dko, dsb) = bwd(emb, xo, pm, w, ctx.act, attn, gps, gpo, gcov)
+        args = (emb, xo, pm, w, ctx.act, attn, gps, gpo, gcov)
+        cuda = emb.device.type == "cuda"
+        demb = d_bd = None
+        if vt is None:
+            demb, dxo, (dkbT, dbb, dks, dko, dsb) = (attnpool_bwd if cuda else attnpool_bwd_plain)(*args)
+        else:
+            d_bd, dxo, (dkbT, dbb, dks, dko, dsb) = (
+                attnpool_bwd_vocab if cuda else attnpool_bwd_vocab_plain)(*args, vt)
         Ds = w.Ds
-        return (demb, dxo, None, None, dkbT[:Ds].T.contiguous(), dbb[:Ds].contiguous(),
-                dks, dko, dsb)
+        return (demb, dxo, None, None, None, d_bd, dkbT[:Ds].T.contiguous(),
+                dbb[:Ds].contiguous(), dks, dko, dsb)
 
 
 def binned_attnpool_proj_t(
@@ -306,6 +433,7 @@ def binned_attnpool_proj_t(
     score_k_self: torch.Tensor,
     score_k_other: torch.Tensor,
     score_b: torch.Tensor,
+    embed_spec=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused projection -> scores -> softmax -> pools, differentiable.
     embT (E, A) in the compute dtype; k_blk (E, Ds) / b_blk (Ds,) fp32, the
@@ -315,7 +443,19 @@ def binned_attnpool_proj_t(
     the kernels do not); score_k_self (Ds, H) / score_k_other (Do, H) /
     score_b (H,) fp32 with the concat and temperature folds applied.
     Returns (pooled_self (Ds, B), pooled_other (Do, B), coverage (B,),
-    attn (H, A)), all fp32, B = nb*mb; attn carries no gradient."""
+    attn (H, A)), all fp32, B = nb*mb; attn carries no gradient.
+
+    With ``embed_spec=(codes (F, A) int32, blockdiag_t (E, sum of V) fp32,
+    vocab_sizes)`` the lookup runs in the kernels (the fold): embT is
+    ignored (may be None), the compute dtype is xoT's, and the table takes
+    the gradient."""
+    if embed_spec is not None:
+        codes, bd_t, vocab = embed_spec
+        return _AttnPoolFn.apply(codes.to(torch.int32).contiguous(), xoT.contiguous(),
+                                 pool_mat.contiguous(), act_name.lower(),
+                                 tuple(int(v) for v in vocab), bd_t, k_blk, b_blk, score_k_self,
+                                 score_k_other, score_b)
     dt = embT.dtype
     return _AttnPoolFn.apply(embT.contiguous(), xoT.to(dt).contiguous(), pool_mat.contiguous(),
-                             act_name.lower(), k_blk, b_blk, score_k_self, score_k_other, score_b)
+                             act_name.lower(), None, None, k_blk, b_blk, score_k_self,
+                             score_k_other, score_b)

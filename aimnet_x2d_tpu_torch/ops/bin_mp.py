@@ -27,6 +27,13 @@ to the JAX mask; the x_other projection folded in front of layer 0
 forward; and a backward that recomputes each layer from its saved input
 and walks it back (kernel 1b, ``csrc/mp_stack_bwd.cu``).
 
+With the embedding fold (``vt``, kernel 1c-vocab: the JAX op's
+``vocab_sizes``) the training forward takes the code rows (F, A) int32 and
+the block-diagonal table instead of emb, the kernels look each atom's
+embedding up themselves, and the backward returns the table's fp32
+cotangent (its diagonal blocks) instead of demb (``mp_stack_fwd_train_vocab``;
+the walk, then ``mp_stack_bwd_vocab``).
+
 Kernel 1d, the JAX op at ``n_layers=1`` (``binned_mp_layer_t``), is the
 same two kernels launched for one layer, with their own launch counters
 (``mp_layer_fwd``, ``mp_layer_fwd_train``, ``mp_layer_bwd``):
@@ -45,6 +52,7 @@ import torch
 
 from ..utils.activation import ACTIVATION_CODES, activation_grad, get_activation_function
 from . import cuda_build
+from .embed import VocabTable, embed_from_codes, expand_diag, prep_vocab, table_grad
 
 
 def padded_dim(D: int) -> int:
@@ -172,12 +180,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_shapes(what: str, x, adj, sw, E=None):
+def _check_shapes(what: str, x, adj, sw, E=None, want=None):
+    """Raise unless x (``want`` rows: D, or E with the projection fold) and
+    bin_adj fit the kernels; returns (nb, ab, A)."""
     if adj.dtype != torch.int8:
         raise TypeError(f"{what}: bin_adj must be int8")
     nb, ab, ab2 = adj.shape
     rows, A = x.shape
-    want = sw.D if E is None else E
+    want = want if want is not None else sw.D if E is None else E
     if ab != ab2 or ab % 64 or A != nb * ab or rows != want or (E is not None and E % 16):
         raise ValueError(
             f"{what}: input {tuple(x.shape)}, bin_adj {tuple(adj.shape)}, D={sw.D}: need "
@@ -417,13 +427,16 @@ def _pad_rows(x: torch.Tensor, Dp: int) -> torch.Tensor:
 
 
 def mp_stack_train_plain(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec,
-                         pw: Optional[ProjWeights] = None):
+                         pw: Optional[ProjWeights] = None, vt: Optional[VocabTable] = None):
     """Plain PyTorch version of the training forward.  ``x`` is (D, A) in
     the compute dtype, or the embeddings (E, A) when ``pw`` folds the
-    projection in.  Returns (out (D, A), saved layer inputs): the inputs of
-    layers 1.. and, under the fold, layer 0's too."""
+    projection in, or with ``vt`` too the code rows (F, A) int32 (the
+    embedding fold).  Returns (out (D, A), saved layer inputs): the inputs
+    of layers 1.. and, under the fold, layer 0's too."""
     dt = sw.dtype
     fn = get_activation_function(spec.act)
+    if vt is not None:
+        x = embed_from_codes(x, vt)
     if pw is not None:
         x = fn(_dot(pw.kbT, x, dt) + pw.bb[:, None])
     else:
@@ -480,13 +493,34 @@ def _layer_bwd_plain(x, adj, ws, spec, n_blocks, l, g32):
     return (dxa[:Dp] + dagg) + g32, grads
 
 
+def _proj_bwd_plain(emb, g32, pw: ProjWeights, act: str):
+    """The projection fold's backward from the fp32 cotangent (Dp, A) of
+    x0: (demb (E, A) in the compute dtype, dkbT (Dp, E), dbb (Dp,))."""
+    dt = pw.kbT.dtype
+    t0 = _dot(pw.kbT, emb, dt) + pw.bb[:, None]
+    dt0 = g32 * activation_grad(act, t0).float()
+    dt0c = dt0.to(dt)
+    dkbT = dt0c.float() @ emb.float().T
+    demb = (pw.kbT.float().T @ dt0c.float()).to(dt)
+    return demb, dkbT, dt0.sum(1)
+
+
+def mp_stack_bwd_vocab_plain(codes, g32, pw: ProjWeights, vt: VocabTable, act: str):
+    """Plain PyTorch version of :func:`mp_stack_bwd_vocab`: from the code
+    rows and the walk's fp32 cotangent (Dp, A) of x0, (d_bd (E, sum of V)
+    fp32 on the diagonal blocks, dkbT (Dp, E), dbb (Dp,))."""
+    demb, dkbT, dbb = _proj_bwd_plain(embed_from_codes(codes, vt), g32, pw, act)
+    return table_grad(demb, codes, vt), dkbT, dbb
+
+
 def mp_stack_bwd_plain(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
-                       pw: Optional[ProjWeights] = None):
+                       pw: Optional[ProjWeights] = None, vt: Optional[VocabTable] = None):
     """Plain PyTorch version of the backward.  ``x`` and ``saved`` as the
     forward took and returned them, ``g`` (D, A) the cotangent of its
-    output.  Returns (dx (D, A) or demb (E, A) in the compute dtype,
-    per-layer weight grads (prepped orientation, fp32), proj grads
-    (dkbT (Dp, E), dbb (Dp,)) or None)."""
+    output.  Returns (dx (D, A) or demb (E, A) in the compute dtype, or
+    d_bd (E, sum of V) fp32 under the embedding fold; per-layer weight
+    grads (prepped orientation, fp32); proj grads (dkbT (Dp, E), dbb (Dp,))
+    or None)."""
     dt = sw.dtype
     L = len(sw.layers)
     first = 0 if pw is not None else 1
@@ -498,12 +532,11 @@ def mp_stack_bwd_plain(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
             _pad_rows(xl, sw.Dp), adj, sw.layers[l], spec, sw.n_blocks, l, g32)
     if pw is None:
         return g32[: sw.D].to(dt), layer_grads, None
-    t0 = _dot(pw.kbT, x, dt) + pw.bb[:, None]
-    dt0 = g32 * activation_grad(spec.act, t0).float()
-    dt0c = dt0.to(dt)
-    dkbT = dt0c.float() @ x.float().T
-    demb = (pw.kbT.float().T @ dt0c.float()).to(dt)
-    return demb, layer_grads, (dkbT, dt0.sum(1))
+    if vt is not None:
+        d_bd, dkbT, dbb = mp_stack_bwd_vocab_plain(x, g32, pw, vt, spec.act)
+        return d_bd, layer_grads, (dkbT, dbb)
+    demb, dkbT, dbb = _proj_bwd_plain(x, g32, pw, spec.act)
+    return demb, layer_grads, (dkbT, dbb)
 
 
 def unprep_layer_grads(sw: StackWeights, lg: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -527,6 +560,8 @@ def _lib_train() -> ctypes.CDLL:
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.mp_stack_fwd_train.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [i] * 13 + [u, u, f, vp]
         lib.mp_stack_fwd_train.restype = i
+        lib.mp_stack_fwd_train_vocab.argtypes = [vp, vp, vp, i] + [vp] * 6 + [i] * 12 + [u, u, f, vp]
+        lib.mp_stack_fwd_train_vocab.restype = i
         lib._typed_train = True
     return lib
 
@@ -541,6 +576,10 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.mp_stack_bwd_proj.restype = i
         lib.wgrad.argtypes = [vp] * 4 + [i] * 5 + [vp]
         lib.wgrad.restype = i
+        lib.wgrad_vocab.argtypes = [vp] * 4 + [i] + [vp] * 2 + [i] * 5 + [vp]
+        lib.wgrad_vocab.restype = i
+        lib.mp_stack_bwd_proj_vocab.argtypes = [vp] * 4 + [i] + [vp] * 4 + [i] * 7 + [vp]
+        lib.mp_stack_bwd_proj_vocab.restype = i
         lib.sum_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
         lib.sum_partials.restype = i
         lib.mp_stack_bwd_smem_bytes.argtypes = [i, i, i, i]
@@ -556,40 +595,64 @@ def _stream(dev) -> int:
 
 
 def _launch_fwd_train(what: str, x: torch.Tensor, adj: torch.Tensor, sw: StackWeights,
-                      spec: StackSpec, pw: Optional[ProjWeights] = None):
+                      spec: StackSpec, pw: Optional[ProjWeights] = None,
+                      vt: Optional[VocabTable] = None):
     """Launch the stack kernel in training form: dropout, the projection
-    fold when ``pw`` is given, and each layer's input saved.  Returns (out
-    (D, A), saved inputs (n, D, A)).  Raises on anything it cannot take."""
-    if x.dtype != sw.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+    fold when ``pw`` is given (with ``vt`` the embedding fold too: x is the
+    code rows), and each layer's input saved.  Returns (out (D, A), saved
+    inputs (n, D, A)).  Raises on anything it cannot take."""
+    if vt is not None:
+        if (pw is None or x.dtype != torch.int32 or x.shape[0] != len(vt.sizes)
+                or vt.bd.dtype != sw.dtype or vt.E != pw.E):
+            raise TypeError(f"{what}: codes {x.dtype} {tuple(x.shape)}, table "
+                            f"{vt.bd.dtype} {tuple(vt.bd.shape)}, weights {sw.dtype}")
+    elif x.dtype != sw.dtype:
         raise TypeError(f"{what}: input {x.dtype}, weights {sw.dtype}")
+    if sw.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: weights {sw.dtype}")
     E = pw.E if pw is not None else None
-    nb, ab, A = _check_shapes(what, x, adj, sw, E)
+    nb, ab, A = _check_shapes(what, x, adj, sw, E, len(vt.sizes) if vt is not None else None)
     named = [("x", x, 16), ("bin_adj", adj, 16), ("weights", sw.flat, 32)]
     if pw is not None:
         named.append(("proj", pw.flat, 32))
+    if vt is not None:
+        named.append(("table", vt.bd, 4))
     cuda_build.check_cuda(what, x.device, *named)
     if spec.act.lower() not in ACTIVATION_CODES:
         raise ValueError(f"{what}: unsupported activation {spec.act!r}")
     lib = _lib_train()
-    bf16 = int(x.dtype == torch.bfloat16)
+    dt = sw.dtype
+    bf16 = int(dt == torch.bfloat16)
     D, Dp, L = sw.D, sw.Dp, len(sw.layers)
     limit = lib.mp_stack_smem_limit()
     global_mode = int(lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, 0) > limit)
     if lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, global_mode) > limit:
         raise ValueError(f"{what}: D={D}, ab={ab} exceed one block's shared memory")
+    if vt is not None and E > max(ab, 2 * Dp):
+        # the looked-up tile borrows the block's adjacency scratch
+        raise ValueError(f"{what}: E={E} exceeds the scratch rows max(ab, 2 Dp)")
     dev = x.device
-    out = torch.empty(Dp if global_mode else D, A, dtype=x.dtype, device=dev)
-    agg = torch.empty(Dp, A, dtype=x.dtype, device=dev) if global_mode else out
+    out = torch.empty(Dp if global_mode else D, A, dtype=dt, device=dev)
+    agg = torch.empty(Dp, A, dtype=dt, device=dev) if global_mode else out
     first = 0 if pw is not None else 1
-    xs = torch.empty(L - first, D, A, dtype=x.dtype, device=dev)
-    if nb:
+    xs = torch.empty(L - first, D, A, dtype=dt, device=dev)
+    drop = (int(spec.rate > 0), spec.seed & _M32, drop_threshold(spec.rate),
+            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0)
+    if nb and vt is not None:
+        status = lib.mp_stack_fwd_train_vocab(
+            x.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), len(vt.sizes), out.data_ptr(),
+            agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(), pw.flat.data_ptr(), xs.data_ptr(),
+            bf16, D, Dp, E, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
+            global_mode, *drop, _stream(dev),
+        )
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+    elif nb:
         status = lib.mp_stack_fwd_train(
             x.data_ptr(), out.data_ptr(), agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
             pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(),
             bf16, D, Dp, E or 0, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
-            global_mode, first, int(spec.rate > 0),
-            spec.seed & _M32, drop_threshold(spec.rate), drop_scale(spec.rate, x.dtype) if spec.rate > 0 else 1.0,
-            _stream(dev),
+            global_mode, first, *drop, _stream(dev),
         )
         if status != 0:
             raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
@@ -605,6 +668,22 @@ def mp_stack_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spe
 
 
 mp_stack_fwd_train.launches = 0
+
+
+def _sizes_arg(vt: VocabTable):
+    return (ctypes.c_int * len(vt.sizes))(*vt.sizes)
+
+
+def mp_stack_fwd_train_vocab(codes: torch.Tensor, adj: torch.Tensor, sw: StackWeights,
+                             spec: StackSpec, pw: ProjWeights, vt: VocabTable):
+    """Kernel 1 in training form with 1c-vocab: the projection fold's
+    input looked up from the code rows (F, A) int32 and the table."""
+    out = _launch_fwd_train("mp_stack_fwd_train_vocab", codes, adj, sw, spec, pw, vt)
+    mp_stack_fwd_train_vocab.launches += int(adj.shape[0] > 0)
+    return out
+
+
+mp_stack_fwd_train_vocab.launches = 0
 
 
 def mp_layer_fwd_train(x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, spec: StackSpec):
@@ -641,6 +720,27 @@ def wgrad(dY: torch.Tensor, X: torch.Tensor, bias_src: Optional[torch.Tensor] = 
                        WGRAD_CHUNK, _stream(dev))
     if status != 0:
         raise RuntimeError(f"wgrad: {lib.mp_stack_bwd_error_string(status).decode()}")
+    out = sum_partials(part)
+    return out[: M * N].view(M, N), out[M * N :]
+
+
+def wgrad_vocab(dY: torch.Tensor, codes: torch.Tensor, vt: VocabTable,
+                bias_src: Optional[torch.Tensor] = None):
+    """:func:`wgrad` with X the embeddings (E, A) looked up from the code
+    rows and the table inside the contraction (the fold's d_kb): the (E, A)
+    array is never formed."""
+    lib = _lib_bwd()
+    M, A = dY.shape
+    N = vt.E
+    nch = max(1, -(-A // WGRAD_CHUNK))
+    dev = dY.device
+    part = torch.empty(nch, M * N + M, dtype=torch.float32, device=dev)
+    status = lib.wgrad_vocab(dY.data_ptr(), codes.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt),
+                             len(vt.sizes), bias_src.data_ptr() if bias_src is not None else None,
+                             part.data_ptr(), int(dY.dtype == torch.bfloat16), M, N, A,
+                             WGRAD_CHUNK, _stream(dev))
+    if status != 0:
+        raise RuntimeError(f"wgrad_vocab: {lib.mp_stack_bwd_error_string(status).decode()}")
     out = sum_partials(part)
     return out[: M * N].view(M, N), out[M * N :]
 
@@ -713,11 +813,19 @@ def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, 
 
 
 def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
-                 pw: Optional[ProjWeights] = None):
+                 pw: Optional[ProjWeights] = None, vt: Optional[VocabTable] = None):
     """Launch the backward (kernel 1b), and under the fold the projection's
-    backward (1c).  Same returns as :func:`mp_stack_bwd_plain`."""
+    backward (1c; with ``vt``, :func:`mp_stack_bwd_vocab`).  Same returns as
+    :func:`mp_stack_bwd_plain`."""
     what = "mp_stack_bwd"
     E = pw.E if pw is not None else None
+    if vt is not None:
+        # every layer reads its saved input; the codes are not the walk's
+        g32, layer_grads, wk = _launch_bwd(what, saved[0], adj, sw, spec, saved, g, 0)
+        mp_stack_bwd.launches += 1
+        d_bd, dkbT, dbb = mp_stack_bwd_vocab(x, g32, pw, vt, spec.act, adj.shape[1],
+                                             wk[3 + 5 * sw.n_blocks])
+        return d_bd, layer_grads, (dkbT, dbb)
     g32, layer_grads, wk = _launch_bwd(what, x, adj, sw, spec, saved, g,
                                        0 if pw is not None else 1, E)
     mp_stack_bwd.launches += 1
@@ -744,6 +852,50 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
 
 
 mp_stack_bwd.launches = 0
+
+
+def mp_stack_bwd_vocab(codes, g32, pw: ProjWeights, vt: VocabTable, act: str, ab: int,
+                       dtc: Optional[torch.Tensor] = None):
+    """The projection fold's backward under the embedding fold (1c-vocab):
+    one block per bin of ``ab`` atoms recomputes t0 from the looked-up embeddings, forms
+    dt0 = g32 act'(t0) (written over ``g32``, the walk's fp32 cotangent
+    (Dp, A) of x0), rnd(dt0) into ``dtc`` (a (Dp, A) compute-dtype scratch)
+    and per-bin partials of d_bd; then d_kb by the gathered contraction.
+    Returns (d_bd (E, sum of V) fp32, zero off the diagonal blocks, dkbT
+    (Dp, E), dbb (Dp,))."""
+    what = "mp_stack_bwd_vocab"
+    dt = pw.kbT.dtype
+    Dp, A = g32.shape
+    E = pw.E
+    if codes.dtype != torch.int32 or codes.shape[0] != len(vt.sizes) or vt.E != E or \
+            vt.bd.dtype != dt or g32.dtype != torch.float32 or codes.shape[1] != A or \
+            ab % 64 or A % ab or E % 16:
+        raise TypeError(f"{what}: codes {codes.dtype} {tuple(codes.shape)}, cotangent "
+                        f"{g32.dtype} {tuple(g32.shape)}, table {vt.bd.dtype}, weights {dt}")
+    dev = codes.device
+    if dtc is None:
+        dtc = torch.empty(Dp, A, dtype=dt, device=dev)
+    cuda_build.check_cuda(what, dev, ("codes", codes, 16), ("g32", g32, 16),
+                          ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32), ("table", vt.bd, 4),
+                          ("dtc", dtc, 16))
+    nb = A // ab
+    n_acc = vt.Df * vt.offsets[-1]
+    part = torch.empty(nb, n_acc, dtype=torch.float32, device=dev)
+    lib = _lib_bwd()
+    status = lib.mp_stack_bwd_proj_vocab(
+        codes.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), g32.data_ptr(), len(vt.sizes),
+        pw.flat.data_ptr(), pw.flat_t.data_ptr(), dtc.data_ptr(), part.data_ptr(),
+        int(dt == torch.bfloat16), Dp, E, A, nb, ab, ACTIVATION_CODES[act.lower()], _stream(dev),
+    )
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+    d_bd = expand_diag(sum_partials(part), vt)
+    dkbT, dbb = wgrad_vocab(dtc, codes, vt, bias_src=g32)
+    mp_stack_bwd_vocab.launches += 1
+    return d_bd, dkbT, dbb
+
+
+mp_stack_bwd_vocab.launches = 0
 
 
 def mp_layer_bwd(x, adj, sw: StackWeights, spec: StackSpec, g):
@@ -780,43 +932,52 @@ class _StackTrainFn(torch.autograd.Function):
     fp32 master weights as differentiable inputs: the forward preps them
     once per call (cast, pad, transpose) and the backward returns their
     fp32 grads in the caller's orientation.  One layer without the fold is
-    kernel 1d (``mp_layer_fwd_train`` / ``mp_layer_bwd``)."""
+    kernel 1d (``mp_layer_fwd_train`` / ``mp_layer_bwd``).  Under the
+    embedding fold (``vocab`` set) x is the code rows, which get no
+    gradient (there is no dx, as in JAX), and ``bd``, the fp32
+    block-diagonal table, gets d_bd."""
 
     @staticmethod
-    def forward(ctx, x, adj, spec, dt, kb, bb, *ws):
+    def forward(ctx, x, adj, spec, dt, vocab, bd, kb, bb, *ws):
         per = len(ws) // spec.n_layers
         with torch.no_grad():
             sw = stack_weights([ws[l * per : (l + 1) * per] for l in range(spec.n_layers)], dt)
             pw = prep_proj(kb, bb, dt, sw.Dp) if kb is not None else None
+            vt = prep_vocab(bd, vocab, dt) if vocab is not None else None
         if x.device.type == "cuda" and _one_layer(spec, pw):
             out, saved = mp_layer_fwd_train(x, adj, sw, spec), []
+        elif x.device.type == "cuda" and vt is not None:
+            out, saved = mp_stack_fwd_train_vocab(x, adj, sw, spec, pw, vt)
         elif x.device.type == "cuda":
             out, saved = mp_stack_fwd_train(x, adj, sw, spec, pw)
         elif x.device.type == "cpu":
-            out, saved = mp_stack_train_plain(x, adj, sw, spec, pw)
+            out, saved = mp_stack_train_plain(x, adj, sw, spec, pw, vt)
         else:
             raise ValueError(f"binned_mp_stack_train_t: unsupported device {x.device}")
         ctx.save_for_backward(x, adj, *saved)
-        ctx.sw, ctx.pw, ctx.spec = sw, pw, spec
+        ctx.sw, ctx.pw, ctx.vt, ctx.spec = sw, pw, vt, spec
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, adj, *saved = ctx.saved_tensors
-        sw, pw, spec = ctx.sw, ctx.pw, ctx.spec
+        sw, pw, vt, spec = ctx.sw, ctx.pw, ctx.vt, ctx.spec
         g = g.to(sw.dtype)
         if x.device.type == "cuda" and _one_layer(spec, pw):
             g32, lg = mp_layer_bwd(x, adj, sw, spec, g)
             dx, layer_grads, proj = g32[: sw.D].to(sw.dtype), [lg], None
         else:
             bwd = mp_stack_bwd if x.device.type == "cuda" else mp_stack_bwd_plain
-            dx, layer_grads, proj = bwd(x, adj, sw, spec, saved, g, pw)
+            dx, layer_grads, proj = bwd(x, adj, sw, spec, saved, g, pw, vt)
         grads = [w for lg in layer_grads for w in unprep_layer_grads(sw, lg)]
         dkb = dbb = None
         if proj is not None:
             dkbT, dbb_p = proj
             dkb, dbb = dkbT[: sw.D].T.contiguous(), dbb_p[: sw.D].contiguous()
-        return (dx, None, None, None, dkb, dbb, *grads)
+        d_bd = None
+        if vt is not None:
+            dx, d_bd = None, dx
+        return (dx, None, None, None, None, d_bd, dkb, dbb, *grads)
 
 
 def binned_mp_stack_train_t(
@@ -828,18 +989,30 @@ def binned_mp_stack_train_t(
     dropout: float = 0.0,
     seed: int = 0,
     proj_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embed_spec=None,
 ) -> torch.Tensor:
     """Differentiable stack for training (the JAX ``binned_mp_stack_t`` in
     a train step).  ``layers_ws``: every layer's fp32 master weights, as
     ``ShellConvolutionLayer.stack_weights`` gives them.  With
     ``proj_weights=(kb (E, D), bb (D,))`` x is the embedding array (E, A)
-    and the x_other projection runs inside the kernel.  ``seed`` is the
-    step's dropout seed (its low 32 bits are used).  CUDA tensors go
-    through the kernels, CPU tensors through the plain versions."""
+    and the x_other projection runs inside the kernel.  With additionally
+    ``embed_spec=(codes (F, A) int32, blockdiag_t (E, sum of V) fp32,
+    vocab_sizes)`` x is ignored (may be None) and the embedding lookup runs
+    inside the kernels too (the fold), the table taking the gradient.
+    ``seed`` is the step's dropout seed (its low 32 bits are used).  CUDA
+    tensors go through the kernels, CPU tensors through the plain
+    versions."""
     kb, bb = proj_weights if proj_weights is not None else (None, None)
     flat = [w for lw in layers_ws for w in lw]
     spec = StackSpec(act.lower(), float(dropout), int(seed) & _M32, len(layers_ws))
-    return _StackTrainFn.apply(x.to(dtype).contiguous(), bin_adj, spec, dtype, kb, bb, *flat)
+    if embed_spec is not None:
+        if proj_weights is None:
+            raise ValueError("binned_mp_stack_train_t: the embedding fold needs proj_weights")
+        codes, bd_t, vocab = embed_spec
+        return _StackTrainFn.apply(codes.to(torch.int32).contiguous(), bin_adj, spec, dtype,
+                                   tuple(int(v) for v in vocab), bd_t, kb, bb, *flat)
+    return _StackTrainFn.apply(x.to(dtype).contiguous(), bin_adj, spec, dtype, None, None, kb, bb,
+                               *flat)
 
 
 def binned_mp_layer_train_t(x: torch.Tensor, bin_adj: torch.Tensor,

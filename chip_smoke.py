@@ -98,7 +98,22 @@ Phases, each of which fails the run when it fails:
    (``[c3-flat-serve]``) and phase 6 with ``--output_partial_charges``
    (``[c3-flat-train]``); kernel 7 launches 3 times forward (and 3
    backward per step), no binned kernel;
-12. print the ``kernels`` JSON line, the card line and, last, the result
+12. the embedding fold (``AIMNET_EMBED_FOLD=1``, kernel 1c-vocab), run
+   right after the phases it rides on:
+   - ``[fold-kernel]`` (after phase 5): the four folded kernels
+     (``mp_stack_fwd_train_vocab``, ``mp_stack_bwd_vocab``,
+     ``attnpool_fwd_vocab``, ``attnpool_bwd_vocab``) against their plain
+     versions at the flagship training shapes on the batch's own codes,
+     fp32 and bf16, timed with bounds; each backward twice, bit-equal;
+   - ``[fold-train]`` (after phase 6): phase 6 with the switch set in the
+     CLI's environment: the folded kernels launch once a step and the
+     stack's and pool's emb forms never; then, on one batch, the training
+     forward with the switch on against off (bit-equal) and the step in
+     blocks off, on, on, off: host-clock medians, launches and device time;
+   - ``[fold-routes]`` (after phase 8): one config-3 and one config-1 train
+     step under the switch, card against CPU; the pool folds only for
+     config 3, the stack only for config 1;
+13. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
@@ -163,6 +178,7 @@ FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # boundary moves one atom's pooled term by 2**-8 (the bf16 bar, 5e-2).
 POOL6_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 MH_TRAIN_STEPS = 12
+FOLD_TRAIN_STEPS = 12
 
 
 def card_line() -> str:
@@ -601,6 +617,269 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     return res
 
 
+def time_ms_reset(fn, reset, iters: int = 10, warmup: int = 2) -> float:
+    """Mean ms of ``fn`` on the card, with ``reset`` (untimed) before each
+    call: CUDA events around each call alone."""
+    for _ in range(warmup):
+        reset()
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def fold_inputs(model, batch, dt):
+    """The embedding fold's operands of a batch: the code rows (F, A) int32
+    and the tables' block-diagonal table in the kernels' form."""
+    from aimnet_x2d_tpu_torch.ops import embed
+
+    names = ("atom_type", "hydrogen_count", "degree", "hybridization")
+    tables = [getattr(model, f"{k}_embedding").weight.detach() for k in names]
+    codes = embed.code_rows([getattr(batch, k) for k in names])
+    vt = embed.prep_vocab(embed.blockdiag_table_t(tables), tuple(t.shape[0] for t in tables), dt)
+    return codes, vt
+
+
+def check_fold_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+    """[fold-kernel]: kernel 1c-vocab at both sites (stack forward, the
+    projection's backward, attention pool forward and backward) against
+    their plain versions at the flagship training shapes, fp32 and bf16,
+    timed, with bounds; each backward twice, bit-equal."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+
+    dev = torch.device("cuda")
+    adj, pm = batch.bin_adj, batch.pool_mat
+    nb, ab, _ = adj.shape
+    mb = pm.shape[1]
+    A, B = nb * ab, nb * mb
+    D, Ds, H = cfg.x_other_dim, cfg.x_self_dim, cfg.attention_num_heads
+    E = 4 * cfg.embedding_dim
+    L, nblk = cfg.num_message_passing_layers, cfg.shell_conv_num_mlp_layers
+    n = int(batch.atom_mask.sum())
+    nnz = int((adj != 0).sum())
+    npm = int((pm != 0).sum())
+    act = cfg.activation_type
+    spec = bin_mp.StackSpec(act, 0.05, 0x1234567)
+    w_layer = 2 * D * 2 * D + nblk * 2 * D * D
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        isz = 2 if dt == torch.bfloat16 else 4
+        codes, vt = fold_inputs(model, batch, dt)
+        F, SV = codes.shape[0], vt.offsets[-1]
+        if dt == torch.float32:
+            print(f"[fold-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms={n} E={E} "
+                  f"sum of V={SV} (vocabularies {vt.sizes}) Ds={Ds} Do={D} H={H}", flush=True)
+        with torch.no_grad():
+            sw = bin_mp.stack_weights([layer.stack_weights() for layer in model.message_passing_layers],
+                                      dt)
+            W, b = model.embedding_projection.weight, model.embedding_projection.bias
+            pw = bin_mp.prep_proj(W[Ds:].T, b[Ds:], dt, sw.Dp)
+            score_k, score_b = model.pooling._score_fold(model.concat_self_other.weight.T,
+                                                          model.concat_self_other.bias)
+            aw = bin_attnpool.prep_weights(W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b,
+                                           dt)
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+        lookup = 4 * F * A + E * SV * isz  # the codes and the table, in place of emb's E*A
+
+        def record(name, pairs, ms, plain_ms, ops, nbytes, tol, same=None):
+            abs_err, rel = _max_rel(pairs)
+            t_ops, t_bytes = ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
+            bound_ms = 1e3 * max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"[fold-kernel] {name} {str(dt)[6:]}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                  f"(tol {tol:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)"
+                  + ("" if same is None else f"; twice bit-equal {same}"), flush=True)
+            if not rel <= tol or same is False:
+                raise AssertionError(f"{name} {dt}: rel err {rel:.3e} > {tol:g}, or two runs "
+                                     f"differ ({same})")
+            res[(name, dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+        f32 = dt == torch.float32
+        # --- the stack's training forward, the fold's input looked up
+        out, saved = bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt)
+        ref, ref_saved = bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt)
+        torch.cuda.synchronize()
+        ops = 2 * n * E * D + L * (2 * nnz * D + n * 2 * w_layer)
+        nbytes = lookup + (D * A + L * D * A) * isz + nb * ab * ab + (L * w_layer + E * D) * isz
+        record("mp_stack_fwd_train_vocab",
+               [(out, ref, None)] + [(a, r, None) for a, r in zip(saved, ref_saved)],
+               time_ms(lambda: bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt)),
+               time_ms(lambda: bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt), iters=5),
+               ops, nbytes, 1e-4 if f32 else TRAIN_TOL)
+        # --- the projection's backward under the fold, from the walk's
+        # fp32 cotangent of x0 (which the kernel overwrites: reset per call)
+        g_src = torch.randn(sw.Dp, A, generator=gen, device=dev) * 0.05
+        g_src[D:] = 0
+        g32 = torch.empty_like(g_src)
+        run = lambda: bin_mp.mp_stack_bwd_vocab(codes, g32, pw, vt, act, ab)  # noqa: E731
+        got = (g32.copy_(g_src), run())[1]
+        again = (g32.copy_(g_src), run())[1]
+        want = bin_mp.mp_stack_bwd_vocab_plain(codes, g_src.clone(), pw, vt, act)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        ops = 3 * 2 * n * E * D
+        nbytes = lookup + 4 * D * A + E * D * isz + 4 * (E * SV + E * D + D)
+        record("mp_stack_bwd_vocab", [(a, r, None) for a, r in zip(got, want)],
+               time_ms_reset(run, lambda: g32.copy_(g_src)),
+               time_ms_reset(lambda: bin_mp.mp_stack_bwd_vocab_plain(codes, g32, pw, vt, act),
+                             lambda: g32.copy_(g_src), iters=3),
+               ops, nbytes, 1e-4 if f32 else TRAIN_TOL, same)
+        # --- the attention pool, forward and backward
+        xo = out
+        fwd = bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)
+        fref = bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, aw, act, vt)
+        torch.cuda.synchronize()
+        ops = 2 * n * E * Ds + 2 * n * H * (Ds + D) + 2 * npm * (Ds + D + 1)
+        nbytes = lookup + D * A * isz + nb * mb * ab + 4 * ((Ds + D + 1) * B + H * A)
+        record("attnpool_fwd_vocab", list(zip(fwd, fref, [None] * 4)),
+               time_ms(lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)),
+               time_ms(lambda: bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, aw, act, vt),
+                       iters=5),
+               ops, nbytes, 1e-5 if f32 else TRAIN_TOL)
+        gps = torch.randn(Ds, B, generator=gen, device=dev) * 1e-3
+        gpo = torch.randn(D, B, generator=gen, device=dev) * 1e-3
+        gcov = torch.randn(B, generator=gen, device=dev) * 1e-3
+        args = (codes, xo, pm, aw, act, fref[3], gps, gpo, gcov, vt)
+        bg = bin_attnpool.attnpool_bwd_vocab(*args)
+        again = bin_attnpool.attnpool_bwd_vocab(*args)
+        br = bin_attnpool.attnpool_bwd_vocab_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip((bg[0], bg[1], *bg[2]),
+                                                      (again[0], again[1], *again[2])))
+        dks_scale = float(br[2][2].abs().max())  # d_sb's exact value is 0: held to d_ks's scale
+        pairs = [(bg[0], br[0], None), (bg[1], br[1], None)]
+        pairs += [(a, r, dks_scale if i == 4 else None)
+                  for i, (a, r) in enumerate(zip(bg[2], br[2]))]
+        ops = 3 * 2 * n * E * Ds + 4 * 2 * n * H * (Ds + D) + 2 * npm * (Ds + D)
+        nbytes = (lookup + 2 * D * A * isz + nb * mb * ab + 4 * (H * A + (Ds + D + 1) * B)
+                  + 4 * (E * Ds + E * SV))
+        record("attnpool_bwd_vocab", pairs,
+               time_ms(lambda: bin_attnpool.attnpool_bwd_vocab(*args), iters=10),
+               time_ms(lambda: bin_attnpool.attnpool_bwd_vocab_plain(*args), iters=5),
+               ops, nbytes, 1e-4 if f32 else TRAIN_TOL, same)
+    return res
+
+
+def fold_compare(pkg, cfg, batch, seed: int) -> None:
+    """[fold-train], after the CLI: on one card-resident batch, the
+    training forward with the switch on against off (bit-equal), then the
+    train step in blocks off, on, on, off: host-clock medians, launches of
+    the folded and unfolded kernels per step, device time of one step
+    each (torch.profiler)."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    model = pkg.models.gnn.GNN(cfg)
+    model.load_state_dict(params_from_flax(init_params(cfg, seed)))
+    model.to("cuda").train()
+    task = "multitask" if cfg.output_dim > 1 else "regression"
+    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=task))
+    opt = trainer.Optimizer(model.parameters(), 1.0)
+
+    def switch(on):
+        if on:
+            os.environ["AIMNET_EMBED_FOLD"] = "1"
+        else:
+            os.environ.pop("AIMNET_EMBED_FOLD", None)
+
+    preds = []
+    for on in (True, False):
+        switch(on)
+        with torch.no_grad():
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            preds.append(model(batch, train=True, drop_seed=5, generator=gen).predictions)
+    equal = torch.equal(*preds)
+    print(f"[fold-train] training forward, fold on vs off on one batch: bit-equal {equal}",
+          flush=True)
+    if not equal:
+        raise AssertionError("the folded training forward differs from the unfolded one")
+
+    folded = (bin_mp.mp_stack_fwd_train_vocab, bin_mp.mp_stack_bwd_vocab,
+              bin_attnpool.attnpool_fwd_vocab, bin_attnpool.attnpool_bwd_vocab)
+    unfolded = (bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step = lambda: trainer.train_step(model, opt, batch, 5e-4, loss_fn, 5, gen)  # noqa: E731
+    ms = {True: [], False: []}
+    per_step = {}
+    for on in (False, True, True, False):
+        switch(on)
+        for c in folded + unfolded:
+            c.launches = 0
+        block = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            block.append(1e3 * (time.perf_counter() - t0))
+        ms[on] += block[1:]  # the first step of a block warms its kernels
+        per_step[on] = {c.__name__: c.launches / 6 for c in folded + unfolded}
+    want_on = {c.__name__: 1.0 for c in folded} | {c.__name__: 0.0 for c in unfolded}
+    want_off = {c.__name__: 0.0 for c in folded} | {c.__name__: 1.0 for c in unfolded}
+    print(f"[fold-train] launches per step: fold on {per_step[True]}; off {per_step[False]}",
+          flush=True)
+    if per_step[True] != want_on or per_step[False] != want_off:
+        raise AssertionError("a folded step launched an unfolded kernel, or the reverse")
+    device = {}
+    for on in (True, False):
+        switch(on)
+        device[on] = profile_step(step, f"fold-train {'on' if on else 'off'}", top=8)
+    switch(False)
+    n_mol = int(batch.graph_mask.sum())
+    for on in (True, False):
+        med = float(np.median(ms[on]))
+        dev_ms = "not measured" if device[on] is None else f"{device[on]:.3f} ms"
+        print(f"[fold-train] fold {'on ' if on else 'off'}: step median {med:.3f} ms (host clock, "
+              f"{len(ms[on])} steps, batch {n_mol} molecules), device {dev_ms}; steps "
+              f"{[round(x, 3) for x in ms[on]]}", flush=True)
+
+
+def fold_routes(pkg, cfgs, datasets, seed: int) -> None:
+    """[fold-routes]: one train step of config 3 and of config 1 under the
+    switch, card against CPU: the pool folds only for config 3 (attention
+    pooling on the inject route), the stack only for config 1 (the stack
+    route with mean pooling)."""
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    counters = (bin_mp.mp_stack_fwd_train_vocab, bin_mp.mp_stack_bwd_vocab,
+                bin_attnpool.attnpool_fwd_vocab, bin_attnpool.attnpool_bwd_vocab,
+                bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)
+    want = {
+        "config3": {"attnpool_fwd_vocab": 1, "attnpool_bwd_vocab": 1},
+        "config1": {"mp_stack_fwd_train_vocab": 1, "mp_stack_bwd_vocab": 1},
+    }
+    os.environ["AIMNET_EMBED_FOLD"] = "1"
+    try:
+        for name, cfg in cfgs.items():
+            ds = datasets[name]
+            T = cfg.output_dim
+            sub = type(ds)(ds.smiles[:96], synthetic_targets(ds, T, seed)[:96],
+                           ds.features[:96], ds.max_hops)
+            sb = next(iter(BatchLoader(sub, 96)))
+            task = "multitask" if T > 1 else "regression"
+            loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=task))
+            got = grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed, f"fold-routes {name}", counters)
+            expect = {c.__name__: want[name].get(c.__name__, 0) for c in counters}
+            print(f"[fold-routes] {name} ({pkg.models.gnn.mp_route(cfg)} route, "
+                  f"{cfg.pooling_type} pooling): launches {got}", flush=True)
+            if got != expect:
+                raise AssertionError(f"{name}: launches {got}, want {expect}")
+    finally:
+        os.environ.pop("AIMNET_EMBED_FOLD", None)
+
+
 def config3(cfg):
     """BASELINE.json config 3 at the flagship width (bench.py with
     BENCH_CHARGES_STEREO=1): the same model with partial-charge
@@ -785,8 +1064,9 @@ def synthetic_targets(ds, T: int, seed: int) -> np.ndarray:
     return (counts @ mix + rng.normal(size=(len(ds), T)) * 0.1).astype(np.float32)
 
 
-def profile_step(step, tag: str = "train", top: int = 12) -> None:
-    """Device time of one train step, by kernel (torch.profiler)."""
+def profile_step(step, tag: str = "train", top: int = 12):
+    """Device time of one train step, by kernel (torch.profiler); returns
+    the total in ms, or None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -799,12 +1079,13 @@ def profile_step(step, tag: str = "train", top: int = 12) -> None:
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         print(f"[{tag}] device time not measured (no CUDA events in the trace)", flush=True)
-        return
+        return None
     print(f"[{tag}] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{100 * e.self_device_time_total / total:5.1f}%  x{e.count:<3d} {e.key[:90]}",
               flush=True)
+    return total / 1e3
 
 
 def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
@@ -817,8 +1098,6 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     (with ``want_per_step``, each named kernel must launch exactly that
     many times a step), and one step card against CPU.  With partial charges the
     CLI also writes the test split's charges, which are checked."""
-    import dataclasses
-
     import pandas as pd
 
     from aimnet_x2d_tpu_torch import cli
@@ -933,12 +1212,25 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     b0 = batches[0]
     profile_step(lambda: trainer.train_step(model, opt, b0, 5e-4, loss_fn, 5, gen), tag)
 
-    # --- one step card vs CPU, flagship widths, a small batch; the stack's
-    # dropout mask is the same hash on both sides, the FFN's generator (and
-    # on the row-major route the layers') is not, so those dropouts are off
+    # --- one step card vs CPU, flagship widths, a small batch
     small = MoleculeDataset.from_smiles(smiles[:96], targets[:96], cfg.num_shells)
     sb = next(iter(BatchLoader(small.with_targets(pipe.transform(small.atomic_numbers(),
                                                                  small.targets)), 96)))
+    grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed, tag)
+    return launches
+
+
+def grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed: int, tag: str, counters=()) -> dict:
+    """One training forward and backward of the model on the host batch
+    ``sb`` on the card and on the CPU (plain versions) from the same
+    weights; every gradient held to TRAIN_TOL.  The stack's dropout mask is
+    the same hash on both sides, the FFN's generator (and on the row-major
+    route the layers') is not, so those dropouts are off.  Returns the
+    card run's launches of ``counters``."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+
     cfg1 = dataclasses.replace(cfg, ffn_dropout=0.0)
     if sb.pool_mat is None or not cfg.parity_mode:
         cfg1 = dataclasses.replace(cfg1, shell_conv_dropout=0.0)
@@ -947,12 +1239,14 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     # hold some |pred - target| near 1e-4) would flip the loss's sign for
     # that value on the card alone, which moves every gradient by that
     # molecule's share and says nothing of the kernels.
-    grads, cot = {}, None
+    grads, cot, launches = {}, None, {}
     for where in ("cpu", "cuda"):
         m = pkg.models.gnn.GNN(cfg1)
         m.load_state_dict(params_from_flax(init_params(cfg, seed)))
         m.to(where)
         bb = sb.to(where)
+        for c in counters:
+            c.launches = 0
         pred = m(bb, train=True, drop_seed=77).predictions
         if cot is None:
             cot = torch.autograd.grad(loss_fn(pred, bb.targets, bb.graph_mask), pred,
@@ -962,6 +1256,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
                         if p.grad is not None}
         if where == "cpu":
             params = {k: p.detach().float() for k, p in m.named_parameters()}
+    launches = {c.__name__: c.launches for c in counters}
 
     def scale(k):
         # the heads' score biases shift every score of a head alike, which
@@ -988,9 +1283,11 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
             for k, g in grads["cpu"].items()}
     top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
     worst = top[0][1]
+    tables = max(v for k, v in errs.items() if k.endswith("_embedding.weight"))
     print(f"[{tag}] one step card vs cpu ({int(sb.graph_mask.sum())} molecules, "
           f"{len(grads['cpu'])} gradients): worst max|d|/max|cpu| {worst:.3e} "
-          f"(tol {TRAIN_TOL:g}); largest {[(k, f'{v:.2e}') for k, v in top]}", flush=True)
+          f"(tol {TRAIN_TOL:g}), embedding tables {tables:.3e}; largest "
+          f"{[(k, f'{v:.2e}') for k, v in top]}", flush=True)
     if not worst <= TRAIN_TOL:
         raise AssertionError(f"card gradients differ from the CPU run: {worst:.3e}")
     return launches
@@ -1435,14 +1732,36 @@ def main() -> int:
     tmodel.to("cuda")
     for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed).items():
         res[(name, torch.bfloat16)] = r
+    res.update(check_fold_kernels(pkg, tcfg, tmodel, tbatch, args.seed))
     full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
                                        cfg.num_shells)
     launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
     print(f"[time] flagship phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # --- the embedding fold (AIMNET_EMBED_FOLD=1): the flagship's CLI and
+    # train step with the switch set in the environment they run in
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+
+    folded = (bin_mp.mp_stack_fwd_train_vocab, bin_mp.mp_stack_bwd, bin_mp.mp_stack_bwd_vocab,
+              bin_attnpool.attnpool_fwd_vocab, bin_attnpool.attnpool_bwd_vocab)
+    os.environ["AIMNET_EMBED_FOLD"] = "1"
+    try:
+        fold_launches = train_phase(
+            pkg, tcfg, smiles, full, args.seed, work, tag="fold-train", counters=folded,
+            forbidden=(bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd,
+                       bin_attnpool.attnpool_bwd),
+            steps=FOLD_TRAIN_STEPS, want_per_step={c.__name__: 1 for c in folded})
+    finally:
+        os.environ.pop("AIMNET_EMBED_FOLD", None)
+    for c in folded[2:] + folded[:1]:
+        launches[c.__name__] = fold_launches[c.__name__]
+    fold_compare(pkg, tcfg, tbatch, args.seed)
+    print(f"[time] embedding-fold phases done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     # --- config 3 (partial charges + stereochemistry) at the flagship width,
     # on SMILES with stereo content
-    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_inject, bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.ops import bin_inject, bin_wpool
 
     c3 = config3(cfg)
     c3_smiles = make_smiles(args.molecules, args.seed + 1, stereo=True)
@@ -1505,6 +1824,8 @@ def main() -> int:
           flush=True)
     finetune_phase(c1_full, args.seed, work, os.path.join(work, "c1-train-trained.npz"))
     pool_routes(pkg, c1_tcfg, c1_full, args.seed)
+    fold_routes(pkg, {"config3": c3_tcfg, "config1": c1_tcfg},
+                {"config3": c3_full, "config1": c1_full}, args.seed)
     print(f"[time] config-1 phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # --- the flat layout: the flagship on SMILES of which 1 in 100 is larger
@@ -1640,6 +1961,14 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/bin_pool.py:181"),
         ("bin_pool_bwd", "aimnet_x2d_tpu_torch/csrc/bin_pool.cu",
          "aimnet_x2d_tpu/ops/bin_pool.py:205"),
+        ("mp_stack_fwd_train_vocab", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:814"),
+        ("mp_stack_bwd_vocab", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:869"),
+        ("attnpool_fwd_vocab", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
+         "aimnet_x2d_tpu/ops/bin_attnpool.py:368"),
+        ("attnpool_bwd_vocab", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
+         "aimnet_x2d_tpu/ops/bin_attnpool.py:408"),
     ):
         # the flagship's dtype; kernel 8 at its op's default, exact fp32
         r = res[(name, torch.float32 if name == "wseg_sum" else torch.bfloat16)]

@@ -578,3 +578,153 @@ def test_bin_pool_autograd_launches_both_kernels(dev, dtype):
     assert (bin_pool.bin_pool_fwd.launches, bin_pool.bin_pool_bwd.launches) == (f0 + 1, b0 + 1)
     assert sk.grad.dtype == torch.float32 and xs.grad.dtype == dtype
     assert torch.isfinite(sk.grad).all() and torch.isfinite(xs.grad.float()).all()
+
+
+# ---- the embedding fold (kernel 1c-vocab) at both sites: the stack's
+# training forward and the projection's backward, the attention pool's
+# forward and backward, with the codes and the table in place of emb.  The
+# lookup is exact, so the folded forwards equal the emb forms bit for bit;
+# d_bd sums the same rounded values as the plain version in another order
+# (fp32 1e-4, bf16 5e-2); two backward runs give the same bits.
+
+
+def _vocab_case(dev, E, nb, ab, dtype, seed, vocab=(119, 9, 7, 7)):
+    """Code rows (F, A) int32 with codes outside each vocabulary, the last
+    bin a padding bin (code 0 everywhere, as the loaders fill it), the fp32
+    tables' block-diagonal table and its kernel form."""
+    from aimnet_x2d_tpu_torch.ops import embed
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = nb * ab
+    codes = torch.stack([torch.randint(0, v, (A,), generator=g, device=dev) for v in vocab])
+    codes = codes.to(torch.int32)
+    codes[0, 3], codes[1, 5], codes[2, 7], codes[3, 11] = -1, vocab[1], 1000, -(2**31)
+    codes[:, (nb - 1) * ab :] = 0
+    tables = [torch.randn(v, E // len(vocab), generator=g, device=dev) * 0.5 for v in vocab]
+    bd = embed.blockdiag_table_t(tables)
+    vt = embed.prep_vocab(bd, vocab, dtype)
+    return codes, vt, embed.embed_from_codes(codes, vt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [19, 153])
+def test_stack_vocab_kernels_match_plain(dev, D, dtype):
+    nb, ab, E = 4, 256 if D == 153 else 64, 256 if D == 153 else 32
+    adj, sw, pw, _, _, gout = _stack_train_case(dev, D, E, nb, ab, dtype, D + 7)
+    adj[-1] = 0  # the padding bin
+    codes, vt, emb = _vocab_case(dev, E, nb, ab, dtype, D)
+    spec = bin_mp.StackSpec("silu", 0.05, 0xDEADBEEF)
+    f0, e0 = bin_mp.mp_stack_fwd_train_vocab.launches, bin_mp.mp_stack_fwd_train.launches
+    out, saved = bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt)
+    assert bin_mp.mp_stack_fwd_train_vocab.launches == f0 + 1
+    ref, ref_saved = bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt)
+    # the lookup is exact: the emb form computes the same bits
+    out_e, saved_e = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
+    assert bin_mp.mp_stack_fwd_train.launches == e0 + 1
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert _rel(out, ref) < tol
+    assert torch.equal(out, out_e) and all(torch.equal(a, b) for a, b in zip(saved, saved_e))
+    g32 = torch.randn(sw.Dp, nb * ab, generator=torch.Generator(device=dev).manual_seed(D),
+                      device=dev) * 0.1
+    g32[sw.D :] = 0
+    b0 = bin_mp.mp_stack_bwd_vocab.launches
+    got = bin_mp.mp_stack_bwd_vocab(codes, g32.clone(), pw, vt, "silu", ab)
+    assert bin_mp.mp_stack_bwd_vocab.launches == b0 + 1
+    want = bin_mp.mp_stack_bwd_vocab_plain(codes, g32.clone(), pw, vt, "silu")
+    again = bin_mp.mp_stack_bwd_vocab(codes, g32.clone(), pw, vt, "silu", ab)
+    torch.cuda.synchronize()
+    errs = {n: _rel(a, r) for n, a, r in zip(("d_bd", "dkbT", "dbb"), got, want)}
+    print(f"D={D} {dtype}: {errs}")
+    assert max(errs.values()) < tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the whole folded backward (walk + 1c-vocab) through autograd
+    w0 = bin_mp.mp_stack_bwd.launches
+    dx, lg, pg = bin_mp.mp_stack_bwd(codes, adj, sw, spec, saved, gout, pw, vt)
+    rdx, rlg, rpg = bin_mp.mp_stack_bwd_plain(codes, adj, sw, spec, ref_saved, gout, pw, vt)
+    torch.cuda.synchronize()
+    assert bin_mp.mp_stack_bwd.launches == w0 + 1
+    assert _rel(dx, rdx) < tol and max(_rel(a, r) for a, r in zip(pg, rpg)) < tol
+
+
+@pytest.mark.parametrize("mb", [16, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(359, 153, 256, 256), (21, 13, 32, 64)])
+def test_attnpool_vocab_kernels_match_plain(dev, dtype, shape, mb):
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    Ds, Do, E, ab = shape
+    nb, H = 5, 4
+    g = torch.Generator(device=dev).manual_seed(Ds + mb)
+    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
+    owner[-1] = -1  # the padding bin: no molecule
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    codes, vt, emb = _vocab_case(dev, E, nb, ab, dtype, Ds + mb)
+    xo = torch.randn(Do, nb * ab, generator=g, device=dev).to(dtype)
+    r = lambda *s: (torch.rand(*s, generator=g, device=dev) - 0.5) * 0.4  # noqa: E731
+    w = bin_attnpool.prep_weights(r(E, Ds), r(Ds), r(Ds, H), r(Do, H), r(H), dtype)
+    f0 = bin_attnpool.attnpool_fwd_vocab.launches
+    got = bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, w, "silu", vt)
+    assert bin_attnpool.attnpool_fwd_vocab.launches == f0 + 1
+    ref = bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, w, "silu", vt)
+    emb_form = bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for a, b, e in zip(got, ref, emb_form):
+        assert _rel(a, b) < tol and torch.equal(a, e)
+    gps = torch.randn(Ds, nb * mb, generator=g, device=dev)
+    gpo = torch.randn(Do, nb * mb, generator=g, device=dev)
+    gcov = torch.randn(nb * mb, generator=g, device=dev)
+    args = (codes, xo, pm, w, "silu", ref[3], gps, gpo, gcov, vt)
+    b0 = bin_attnpool.attnpool_bwd_vocab.launches
+    d_bd, dxo, grads = bin_attnpool.attnpool_bwd_vocab(*args)
+    assert bin_attnpool.attnpool_bwd_vocab.launches == b0 + 1
+    rd_bd, rdxo, rgrads = bin_attnpool.attnpool_bwd_vocab_plain(*args)
+    again = bin_attnpool.attnpool_bwd_vocab(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    errs = {"d_bd": _rel(d_bd, rd_bd), "dxo": _rel(dxo, rdxo)}
+    # d_sb is a sum of terms that cancel to 0: held to the scale of d_ks
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[2].abs().max()) if i == 4 else float(b.abs().max())
+        errs[f"grad {i}"] = float((a - b).abs().max()) / scale
+    print(f"{shape} {dtype} mb={mb}: {errs}")
+    assert max(errs.values()) < tol
+    for a, b in zip((d_bd, dxo, *grads), (again[0], again[1], *again[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_autograd_launches_only_the_folded_kernels(dev, dtype):
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, embed
+
+    nb, ab, D, E, Ds, mb, H = 3, 64, 19, 32, 21, 8, 4
+    adj, sw, _, _, _, _ = _stack_train_case(dev, D, E, nb, ab, dtype, 5)
+    codes, _, _ = _vocab_case(dev, E, nb, ab, dtype, 5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tables = [(torch.randn(v, E // 4, generator=g, device=dev) * 0.5).requires_grad_(True)
+              for v in (119, 9, 7, 7)]
+    spec = (codes, embed.blockdiag_table_t(tables), (119, 9, 7, 7))
+    layers = [[torch.from_numpy(w).to(dev).requires_grad_(True)
+               for w in _init_layer(np.random.default_rng(l), D)] for l in range(2)]
+
+    def r(*shape):
+        return ((torch.rand(*shape, generator=g, device=dev) - 0.5) * 0.4).requires_grad_(True)
+
+    kb, bb = r(E, D), r(D)
+    counters = (bin_mp.mp_stack_fwd_train_vocab, bin_mp.mp_stack_bwd, bin_mp.mp_stack_bwd_vocab,
+                bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd_vocab,
+                bin_attnpool.attnpool_bwd_vocab, bin_attnpool.attnpool_fwd,
+                bin_attnpool.attnpool_bwd)
+    before = [c.launches for c in counters]
+    xo = bin_mp.binned_mp_stack_train_t(None, adj, layers, dtype, "silu", 0.05, 7,
+                                        proj_weights=(kb, bb), embed_spec=spec)
+    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    ps, po, cov, _ = bin_attnpool.binned_attnpool_proj_t(
+        None, r(E, Ds), r(Ds), "silu", xo, pm, r(Ds, H), r(D, H), r(H), embed_spec=spec)
+    (ps.sum() + po.sum() + cov.sum()).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 1, 1, 0, 0]
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tables)
+    assert kb.grad.dtype == torch.float32 and torch.isfinite(kb.grad).all()
