@@ -13,6 +13,10 @@ CSV of SMILES.
     python -m aimnet_x2d_tpu_torch.cli --data_path tasks.csv ... \\
         --transfer_learning model.npz --freeze_pretrained \\
         --layer_wise_lr_decay --checkpoint_dir ckpt --checkpoint_every 1
+    # several ranks: 2 data shards x 2 halo graph shards per step; the CLI
+    # starts the 4 rank processes itself (or run it under torchrun with 4)
+    python -m aimnet_x2d_tpu_torch.cli --data_path train.csv ... \\
+        --num_devices 2 --graph_shards 2
 
 The flags are those of the JAX package's CLI that the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
@@ -20,9 +24,11 @@ the kernels): every pooling type, partial charges and stereochemistry
 (``--output_partial_charges``), true per-hop aggregation
 (``--true_multi_hop``), transfer learning, freeze and unfreeze patterns,
 layer-wise LR decay, checkpoint/resume, wandb tracking and
-``--experiment_config``.  Flags of features that are later slices of the
-port (HDF5 streaming, several devices, embedding output, hyperparameter
-search, MC-dropout and evidential serving) are accepted and raise
+``--experiment_config``, and training over several ranks: ``--num_devices``
+data shards per step, each split into ``--graph_shards`` halo graph shards
+(runner.py starts the ranks).  Flags of features that are later slices of
+the port (HDF5 streaming, embedding output, hyperparameter search,
+MC-dropout and evidential serving) are accepted and raise
 NotImplementedError when set.
 """
 
@@ -34,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 # flag -> value that means "not used"; any other value raises
 _LATER = {
-    "iterable_dataset": False, "num_devices": None, "graph_shards": 1, "save_embeddings": False,
+    "iterable_dataset": False, "save_embeddings": False,
     "hyperparameter_file": None, "mc_samples": 0, "inference_hdf5": None,
 }
 

@@ -1,7 +1,11 @@
 """Argument validation, output directories and the experiment record
-(counterpart of aimnet_x2d_tpu/config.py).  The device checks of
-``--graph_shards`` belong to the multi-GPU slice and are not here; the CLI
-refuses that flag."""
+(counterpart of aimnet_x2d_tpu/config.py).  The rank checks of
+``--num_devices`` / ``--graph_shards``: JAX counts ``jax.devices()``; here
+each rank is a process, so under ``torchrun`` the world size must be
+``num_devices x graph_shards`` (1 without the flags: torchrun with several
+ranks and no grid would run the single-rank trainer in each, all writing the
+same artifact), and otherwise the CLI starts that many
+ranks itself (several may share one card)."""
 
 from __future__ import annotations
 
@@ -58,6 +62,20 @@ def validate_args(args: argparse.Namespace) -> List[str]:
 
     if args.use_partial_charges and int(0.3 * args.hidden_dim) < 2:
         errors.append("--use_partial_charges needs hidden_dim ≥ 7 (x_other ≥ 2)")
+
+    g_shards = 1 if args.graph_shards is None else args.graph_shards
+    if g_shards < 1:
+        errors.append("--graph_shards must be ≥ 1")
+    if args.num_devices is not None and args.num_devices < 1:
+        errors.append("--num_devices must be ≥ 1")
+    if g_shards > 1 and args.true_multi_hop:
+        errors.append("--graph_shards is only implemented for the reference's hop-collapse "
+                      "semantics (drop --true_multi_hop)")
+    world = os.environ.get("WORLD_SIZE")
+    need = (args.num_devices or 1) * max(g_shards, 1)
+    if world is not None and "RANK" in os.environ and int(world) != need:
+        errors.append(f"--num_devices {args.num_devices or 1} x --graph_shards {g_shards} needs "
+                      f"{need} ranks, torchrun started {world}")
 
     if errors:
         raise ValidationError("; ".join(errors))

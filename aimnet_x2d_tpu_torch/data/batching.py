@@ -108,6 +108,14 @@ class MolBatch:
     fused_fwd: Optional[EdgeLayout] = None  # CSR keyed by destination
     fused_bwd: Optional[EdgeLayout] = None  # CSR keyed by source
 
+    # Halo shards (parallel/halo.py); None on ordinary batches.
+    # halo_send_idx (G, Hp) int32: row g lists the local atoms this shard
+    # sends to graph rank g, -1 pads.  halo_adj (G*Hp, A_loc) int8 counts the
+    # edges from each halo row to each local atom (binned shards: every edge
+    # not in bin_adj, so the two cover each edge once).
+    halo_send_idx: Optional[np.ndarray] = None
+    halo_adj: Optional[np.ndarray] = None
+
     @property
     def num_atom_slots(self) -> int:
         return self.atom_type.shape[-1]
@@ -128,6 +136,24 @@ class MolBatch:
                 v = v.to(device)
             out[f.name] = v
         return MolBatch(**out)
+
+
+def stack_batches(batches: Sequence[MolBatch]) -> MolBatch:
+    """Stack equal-shape host batches on a new leading axis (the graph- or
+    data-rank axis); fields that are not arrays come from the first."""
+    out = {}
+    for f in dataclasses.fields(MolBatch):
+        vals = [getattr(b, f.name) for b in batches]
+        out[f.name] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals[0]
+    return MolBatch(**out)
+
+
+def index_batch(batch: MolBatch, *idx: int) -> MolBatch:
+    """The shard ``batch[idx]`` of a stacked host batch, every array field
+    indexed on its leading axes."""
+    return MolBatch(**{f.name: (v[idx] if isinstance(v, np.ndarray) else v)
+                       for f in dataclasses.fields(MolBatch)
+                       for v in [getattr(batch, f.name)]})
 
 
 # Bucket ladder: smallest power-of-two-ish size >= n, aligned to TPU lanes.

@@ -16,12 +16,21 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..chem.featurize import compute_features
-from .batching import MolBatch, MolFeatures, attach_flat_layouts, bucket_size, collate
+from ..parallel.halo import partition_halo_stack
+from .batching import (
+    MolBatch,
+    MolFeatures,
+    attach_flat_layouts,
+    bucket_size,
+    collate,
+    index_batch,
+    stack_batches,
+)
 from .binning import (
     DEFAULT_AB,
     DEFAULT_MB,
@@ -107,6 +116,9 @@ class BatchLoader:
         bin_mb: int = DEFAULT_MB,
         shuffle: bool = False,
         seed: int = 0,
+        stack_devices: int = 0,
+        halo_shards: int = 1,
+        rank: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -117,9 +129,17 @@ class BatchLoader:
         self.bin_ab = bin_ab
         self.bin_mb = bin_mb
         self._bin_pins: dict = {}
+        self.stack_devices = stack_devices
+        self.halo_shards = halo_shards
+        self.rank = rank
+        self._halo_slots: dict = {}
+        if (halo_shards > 1 or rank is not None) and stack_devices < 1:
+            raise ValueError("halo shards and a rank's shard need stack_devices >= 1")
         feats = dataset.features
         atoms = np.array([f.num_atoms for f in feats], np.int64)
-        self.binned = not atoms.size or int(atoms.max()) <= bin_ab
+        # halo shards bin-pack per graph rank inside partition_halo, which
+        # chunks larger fragments, so the bin size binds only one device
+        self.binned = halo_shards > 1 or not atoms.size or int(atoms.max()) <= bin_ab
         edges = np.array([f.num_edges for f in feats], np.int64)
         tets = np.array([f.tet_nbrs.shape[0] for f in feats], np.int64)
         pairs = np.array(
@@ -152,8 +172,9 @@ class BatchLoader:
     def warm_bin_pins(self) -> None:
         """Plan every batch's bin grid and seed the pins with the largest,
         before the first batch is built, so all batches share one shape.
-        Nothing to do on a flat loader."""
-        if not self.binned:
+        Nothing to do on a flat loader or for halo shards (partition_halo
+        pins its own slots)."""
+        if not self.binned or self.halo_shards > 1:
             return
         sizes_all = np.array([f.num_atoms for f in self.dataset.features], np.int64)
         tets_all = np.array(
@@ -161,7 +182,12 @@ class BatchLoader:
         )
         bins = self._bin_pins.get("bins", 0)
         mb = self._bin_pins.get("mb", 0)
-        for idx in self._batch_indices():
+        per = self.batch_size
+        shards = [c[d * per : (d + 1) * per] for c in self._batch_indices()
+                  for d in range(max(1, self.stack_devices))]
+        for idx in shards:
+            if not idx.size:
+                continue
             sizes = sizes_all[idx]
             cap = adaptive_mb_cap(sizes, self.bin_ab, self.bin_mb)
             if self.size_sort:  # the packer plans size-descending
@@ -176,7 +202,7 @@ class BatchLoader:
         self._bin_pins["tetb"] = max(tetb, self._bin_pins.get("tetb", 0))
 
     def __len__(self) -> int:
-        return math.ceil(len(self.dataset) / self.batch_size)
+        return math.ceil(len(self.dataset) / (self.batch_size * max(1, self.stack_devices)))
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -186,7 +212,15 @@ class BatchLoader:
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
-        return [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
+        b = self.batch_size * max(1, self.stack_devices)
+        return [order[i : i + b] for i in range(0, n, b)]
+
+    def _partition_halo_shards(self, collated: List[MolBatch]) -> List[MolBatch]:
+        """Halo-partition each data shard with shared, monotonically growing
+        slot pins (JAX ``BatchLoader._partition_halo_shards``)."""
+        parts, self._halo_slots = partition_halo_stack(
+            collated, self.halo_shards, binned=True, ab=self.bin_ab, slots=self._halo_slots)
+        return parts
 
     def _collate(self, idx: np.ndarray) -> MolBatch:
         batch = collate(
@@ -199,11 +233,33 @@ class BatchLoader:
             tet_slots=self.tet_slots,
             pair_slots=self.pair_slots,
         )
+        if self.halo_shards > 1:
+            return batch  # partition_halo bin-packs each graph rank's atoms
         if not self.binned:
             return attach_flat_layouts(batch)
         return bin_pack_batch(batch, ab=self.bin_ab, mb=self.bin_mb, pins=self._bin_pins,
                               size_sort=self.size_sort)
 
     def __iter__(self) -> Iterator[MolBatch]:
+        """Batches; with ``stack_devices`` N each step's molecules are split
+        into N data shards of ``batch_size`` (a short last step leaves later
+        shards empty), with ``halo_shards`` G each data shard is
+        halo-partitioned into G graph shards, and the loader yields the
+        stacked (N[, G], ...) batch, or with ``rank=(d, g)`` only that
+        rank's shard (data shard d alone is collated and partitioned; its G
+        graph ranks compute the same partition)."""
         for idx in self._batch_indices():
-            yield self._collate(idx)
+            if not self.stack_devices:
+                yield self._collate(idx)
+                continue
+            per = self.batch_size
+            ds = range(self.stack_devices) if self.rank is None else [self.rank[0]]
+            shards = [self._collate(idx[d * per : (d + 1) * per]) for d in ds]
+            if self.halo_shards > 1:
+                shards = self._partition_halo_shards(shards)
+            if self.rank is None:
+                yield stack_batches(shards)
+            elif self.halo_shards > 1:
+                yield index_batch(shards[0], self.rank[1])
+            else:
+                yield shards[0]

@@ -63,8 +63,20 @@ sum over the membership matrix, on flat ones the segment pools of
 models/pooling.py; max over the atom embeddings.  Its dropout masks
 (layers and FFN) come from the ``generator``.
 
-Graph-axis execution is a later slice of the port; the model raises
-NotImplementedError for it rather than running anything else.
+Forward on halo graph shards (a batch with ``halo_send_idx``, from
+parallel/halo.py with ``binned=True``; the JAX ``use_halo_stack`` route):
+the rank's atoms row-major through the embeddings and projections, then per
+layer the halo exchange over the graph axis (``GNNConfig.graph_axis``,
+default ``"graph"``, resolved by parallel/mesh.py), the local per-bin
+aggregation plus the halo rows' contribution (ops/halo.py), kernel 5 on
+``[x ; agg]`` (``binned_mp_layer_ext_t``) and the residual; then the atom
+embeddings and the segment pools with their per-molecule sums psummed over
+the graph axis (models/pooling.py), so molecules split across ranks pool
+exactly.  Dropout: the step's seed plus the graph rank, then
+``layer_drop_seed`` per layer, as JAX draws it.  Flat halo shards, partial
+charges or stereochemistry on halo shards, and graph-axis execution without
+halo shards are later slices of the port (ROADMAP Queue 1 item 8) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -78,6 +90,7 @@ from torch import nn
 from ..data.batching import MolBatch
 from ..ops import bin_inject
 from ..ops.bin_mp import (
+    binned_mp_layer_ext_t,
     binned_mp_layer_t,
     binned_mp_layer_train_t,
     binned_mp_stack_t,
@@ -87,7 +100,9 @@ from ..ops.bin_mp import (
 )
 from ..ops.bin_attnpool import embed_fold_enabled
 from ..ops.embed import blockdiag_table_t, code_rows, embed_concat_onehot, embed_concat_onehot_t
+from ..ops.halo import binned_local_agg_t, halo_agg_contrib_t, halo_exchange_t
 from ..ops.segment import segment_sum
+from ..parallel import mesh
 from ..utils.activation import get_activation_function
 from .layers import Linear, MultiLayerPerceptron, ShellConvolutionLayer, mm32
 from .pooling import (
@@ -190,9 +205,19 @@ def _unsupported(cfg: GNNConfig) -> Optional[str]:
     if cfg.use_partial_charges and cfg.x_other_dim < 2:
         return "partial charges with fewer than 2 x_other features"
     if cfg.graph_axis is not None:
-        return "graph-partitioned execution"
+        return _halo_unsupported(cfg)
     if cfg.pooling_type not in POOLING_TYPES:
         return f"{cfg.pooling_type} pooling"
+    return None
+
+
+def _halo_unsupported(cfg: GNNConfig) -> Optional[str]:
+    """Why a model cannot run on halo graph shards, or None."""
+    if cfg.use_partial_charges or cfg.use_stereochemistry:
+        return ("partial charges or stereochemistry on graph shards (ROADMAP Queue 1 item 8: "
+                "JAX gnn.py _charge_equilibration_t_seg, _stereochemistry_t with graph_axis)")
+    if not cfg.parity_mode:
+        return "true per-hop aggregation on graph shards"
     return None
 
 
@@ -514,6 +539,10 @@ class GNN(nn.Module):
         layers') dropout masks from ``generator``; training with a dropout
         rate above 0 and no generator raises."""
         cfg = self.config
+        if batch.halo_send_idx is not None:
+            return self._forward_halo(batch, atom_embeddings, train, drop_seed, generator)
+        if cfg.graph_axis is not None:
+            raise NotImplementedError("graph-axis execution without halo shards is not ported")
         if batch.pool_mat is None or self.route == "rows":
             return self._forward_rows(batch, atom_embeddings, train, generator)
         if train:
@@ -730,3 +759,68 @@ class GNN(nn.Module):
                                     counts > 0 if mean else counts, k_cs, b_cs, dt)
         atom_emb = atom_emb.float() if atom_embeddings else None
         return self._head(mol, attention_weights, atom_emb, charges, gen)
+
+    def _forward_halo(self, batch: MolBatch, atom_embeddings: bool, train: bool,
+                      drop_seed: Optional[int],
+                      generator: Optional[torch.Generator]) -> GNNOutput:
+        """Serving and training forward on a binned halo shard (the module
+        docstring; JAX ``GNN.__call__`` with ``use_halo_stack``)."""
+        cfg = self.config
+        why = _halo_unsupported(cfg)
+        if why is None and batch.bin_adj is None:
+            why = ("the flat-layout halo route (ROADMAP Queue 1 item 8: JAX layers.py:199-222 "
+                   "with ops/halo.py::halo_exchange)")
+        if why is not None:
+            raise NotImplementedError(f"{why} is not ported yet")
+        ax = mesh.axis(cfg.graph_axis or "graph")
+        rate = cfg.shell_conv_dropout if train else 0.0
+        if train and max(rate, cfg.ffn_dropout) > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        act = get_activation_function(cfg.activation_type)
+        dt = self.compute_dtype
+        cdt = dt if dt == torch.bfloat16 else None
+
+        # 1-2. embeddings, projection and split, row-major (A_loc, .)
+        tables = [getattr(self, f"{n}_embedding").weight for n in _EMBEDDINGS]
+        emb = embed_concat_onehot(tables, [getattr(batch, n) for n in _EMBEDDINGS], dtype=dt)
+        W, b = self.embedding_projection.weight, self.embedding_projection.bias
+        xs = cfg.x_self_dim
+
+        def proj_cols(w, bb):
+            y = mm32(emb, w.T, cdt).to(dt) if cdt is not None else emb @ w.T
+            return act(y + bb.to(y.dtype))
+
+        x_self = proj_cols(W[:xs], b[:xs])
+        x_other = proj_cols(W[xs:], b[xs:])
+
+        # 3. per layer: exchange, local + halo aggregation, kernel 5, residual
+        base = None
+        if rate > 0.0:
+            if drop_seed is None:
+                drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
+                                              device=generator.device))
+            # the hash keys on local atom columns: fold the graph rank in
+            base = (int(drop_seed) + ax.index + 2**31) % 2**32 - 2**31
+        xT = x_other.to(dt).T.contiguous()
+        for l, layer in enumerate(self.message_passing_layers):
+            haloT = halo_exchange_t(xT, batch.halo_send_idx, ax)
+            agg = binned_local_agg_t(xT, batch.bin_adj, dt)
+            agg = agg + halo_agg_contrib_t(haloT, batch.halo_adj, dt)
+            xa = torch.cat([xT, agg.to(dt)], dim=0)
+            seed = layer_drop_seed(base, l) if base is not None else 0
+            xT = binned_mp_layer_ext_t(xa, layer.stack_weights(), dt, cfg.activation_type,
+                                       rate, seed) + xT
+        x_other = xT.T.to(x_other.dtype)
+
+        # 4. atom embeddings, then pools psummed over the graph axis
+        atom_emb = self._atom_embeddings(x_self, x_other)
+        mol_id, mask, B = batch.atom_mol, batch.atom_mask, batch.total_charge.shape[0]
+        attention_weights = None
+        if cfg.pooling_type == "attention":
+            mol, attention_weights = self.pooling.forward_halo(atom_emb, mol_id, mask, B, ax)
+        else:
+            pool = {"mean": mean_pool, "sum": sum_pool, "max": max_pool}[cfg.pooling_type]
+            mol = pool(atom_emb, mol_id, mask, B, ax)
+        atom_emb = atom_emb.float() if atom_embeddings else None
+        return self._head(mol, attention_weights, atom_emb, None, generator if train else None)
+

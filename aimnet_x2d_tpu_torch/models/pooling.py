@@ -21,7 +21,7 @@ Max pooling has no TPU kernel on either layout and stays plain PyTorch.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +30,7 @@ from ..ops.bin_attnpool import binned_attnpool_proj_t
 from ..ops.bin_pool import binned_attention_pool_fused
 from ..ops.bin_wpool import binned_wpool_t
 from ..ops.segment import segment_max, segment_mean, segment_softmax, segment_sum
+from ..parallel.mesh import Axis
 from .layers import Linear, mm32
 
 POOLING_TYPES = ("attention", "mean", "max", "sum")
@@ -124,26 +125,42 @@ def _seg_ids(atom_mol: torch.Tensor, atom_mask: torch.Tensor, num_graphs: int) -
 
 
 def mean_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
-              num_graphs: int) -> torch.Tensor:
-    """Flat mean pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0."""
-    return segment_mean(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
-                        num_graphs)
+              num_graphs: int, axis: Optional[Axis] = None) -> torch.Tensor:
+    """Flat mean pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0.
+    With a graph ``axis`` (halo shards) the per-molecule sums and atom
+    counts are psummed over it first."""
+    seg = _seg_ids(atom_mol, atom_mask, num_graphs)
+    x = _masked(x, atom_mask, 0.0)
+    if axis is None:
+        return segment_mean(x, seg, num_graphs)
+    totals = axis.psum(segment_sum(x, seg, num_graphs))
+    counts = axis.psum(segment_sum(atom_mask.to(x.dtype), seg, num_graphs))
+    return totals / counts.clamp(min=1.0)[:, None]
 
 
 def sum_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
-             num_graphs: int) -> torch.Tensor:
-    """Flat sum pool: x (A, D) -> (B, D) in x's dtype."""
-    return segment_sum(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
-                       num_graphs)
+             num_graphs: int, axis: Optional[Axis] = None) -> torch.Tensor:
+    """Flat sum pool: x (A, D) -> (B, D) in x's dtype (psummed over a graph
+    ``axis``)."""
+    out = segment_sum(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
+                      num_graphs)
+    return out if axis is None else axis.psum(out)
 
 
 def max_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
-             num_graphs: int) -> torch.Tensor:
+             num_graphs: int, axis: Optional[Axis] = None) -> torch.Tensor:
     """Flat max pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0; a
     maximum shared by several atoms splits its gradient evenly among them
-    (JAX ``segment_max``)."""
-    return segment_max(_masked(x, atom_mask, float("-inf")),
-                       _seg_ids(atom_mol, atom_mask, num_graphs), num_graphs)
+    (JAX ``segment_max``).  Over a graph ``axis``: each rank's maxima are
+    gathered and maxed (differentiable to the rank holding the maximum)."""
+    xm = _masked(x, atom_mask, float("-inf"))
+    seg = _seg_ids(atom_mol, atom_mask, num_graphs)
+    if axis is None:
+        return segment_max(xm, seg, num_graphs)
+    out = segment_max(xm, seg, num_graphs, empty_value=float("-inf"))
+    out = axis.all_gather(out).amax(dim=0)
+    return torch.where(torch.isneginf(out), torch.zeros((), dtype=out.dtype, device=out.device),
+                       out)
 
 
 def atom_counts(atom_mol: torch.Tensor, atom_mask: torch.Tensor, num_graphs: int) -> torch.Tensor:
@@ -290,3 +307,36 @@ class MultiHeadAttentionPooling(nn.Module):
         pooled = [segment_sum(p.float() * wbar[:, None], seg, num_graphs).T for p in parts]
         cov = segment_sum(wbar, seg, num_graphs)
         return pool_then_project(pooled, cov, k_cs, b_cs, torch.float32), attn
+
+    def forward_halo(self, x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
+                     num_graphs: int, axis: Axis) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Halo shards (the JAX segment branch with ``graph_axis``): x the
+        rank's atom embeddings (A_loc, hidden) in the compute dtype, pooled
+        without the concat fold.  Scores x K_heads (K rounded to x's dtype,
+        fp32 sums) + bias over the temperature; a per-molecule softmax
+        across the graph axis: the stop-gradient pmax of the segment maxima,
+        then psums of the denominators, of the head-mean weighted pools (in
+        x's dtype) -- the molecules split across ranks are exact.  Returns
+        (mol (B, hidden) in x's dtype, attention weights (H, A_loc) fp32)."""
+        kernel = torch.cat([h.weight.T for h in self.attention_weights], dim=1)  # (D, H)
+        bias = torch.cat([h.bias for h in self.attention_weights])
+        scores = (bias + mm32(x, kernel, x.dtype)).T / self.temperature  # (H, A)
+        seg = _seg_ids(atom_mol, atom_mask, num_graphs)
+        neg = torch.full((), float("-inf"), device=scores.device)
+        masked = torch.where(atom_mask[None, :], scores, neg)
+        idx = seg[None, :].expand_as(masked)
+        smax = masked.new_full((masked.shape[0], num_graphs + 1), float("-inf"))
+        smax = smax.scatter_reduce(1, idx, masked.detach(), "amax")[:, :num_graphs]
+        smax = axis.pmax(smax)
+        smax = torch.where(torch.isneginf(smax), torch.zeros_like(smax), smax)
+        smax = torch.cat([smax, smax.new_zeros(smax.shape[0], 1)], dim=1)
+        zero = torch.zeros((), device=scores.device)
+        expd = torch.where(atom_mask[None, :], torch.exp(masked - torch.gather(smax, 1, idx)), zero)
+        denom = expd.new_zeros(expd.shape[0], num_graphs + 1).scatter_add(1, idx, expd)
+        denom = axis.psum(denom[:, :num_graphs])
+        denom = torch.cat([denom, denom.new_zeros(denom.shape[0], 1)], dim=1)
+        attn = expd / torch.gather(denom, 1, idx).clamp(min=1e-16)
+        wbar = attn.mean(dim=0)
+        pooled = axis.psum(segment_sum(x * wbar.to(x.dtype)[:, None], seg, num_graphs))
+        return pooled, attn
+

@@ -396,14 +396,21 @@ def _apply_drop(v: torch.Tensor, drop, col0: int = 0) -> torch.Tensor:
 
 def _recompute_plain(x, adj, ws, act, n_blocks, spec, l):
     """Layer ``l`` forward from its (padded) input, keeping what the
-    backward reads: (xa, t, hs, us, vs)."""
+    backward reads: (xa, t, h, hs, us, vs)."""
     dt = x.dtype
     Dp, A = x.shape
     nb, ab, _ = adj.shape
-    fn = get_activation_function(act)
     xb = x.reshape(Dp, nb, ab).permute(1, 0, 2)
     agg = torch.matmul(xb.float(), adj.float().transpose(1, 2)).permute(1, 0, 2).reshape(Dp, A)
     xa = torch.cat([x, agg.to(dt)], dim=0)
+    return (xa,) + _chain_plain(xa, ws, act, n_blocks, spec, l)
+
+
+def _chain_plain(xa, ws, act, n_blocks, spec, l):
+    """The layer's chain after the aggregation, from the padded
+    [x ; agg] (2Dp, A): (t, h, hs, us, vs), h before the skip add."""
+    dt = xa.dtype
+    fn = get_activation_function(act)
     t = _dot(ws[0], xa, dt) + ws[1][:, None]
     h = fn(t)
     hs, us, vs = [], [], []
@@ -418,7 +425,7 @@ def _recompute_plain(x, adj, ws, act, n_blocks, spec, l):
         us.append(u)
         vs.append(v)
         h = _dot(w2, v, dt) + b2[:, None] + h
-    return xa, t, h, hs, us, vs
+    return t, h, hs, us, vs
 
 
 def _pad_rows(x: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -461,8 +468,18 @@ def _layer_bwd_plain(x, adj, ws, spec, n_blocks, l, g32):
     Dp, A = x.shape
     nb, ab, _ = adj.shape
     xa, t, _, hs, us, vs = _recompute_plain(x, adj, ws, spec.act, n_blocks, spec, l)
+    dxa, grads = _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, g32.to(dt))
+    dA = dxa[Dp:].to(dt).float().reshape(Dp, nb, ab).permute(1, 0, 2)
+    dagg = torch.matmul(dA, adj.float()).permute(1, 0, 2).reshape(Dp, A)
+    return (dxa[:Dp] + dagg) + g32, grads
+
+
+def _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, gd):
+    """The JAX ``_bwd_xa_from_saved``: from the recomputed chain and the
+    compute-dtype cotangent ``gd`` of the layer's output, (dxa (2Dp, A)
+    fp32, the layer's weight grads in the prepped orientation)."""
+    dt = xa.dtype
     f = lambda a: a.float()  # noqa: E731
-    gd = g32.to(dt)
     dws = f(gd) @ f(xa).T
     dbs = f(gd).sum(1)
     dxa = f(ws[2]).T @ f(gd)
@@ -485,12 +502,10 @@ def _layer_bwd_plain(x, adj, ws, spec, n_blocks, l, g32):
     dwin = f(dtin) @ f(xa).T
     dbin = f(dtin).sum(1)
     dxa = dxa + f(ws[0]).T @ f(dtin)
-    dA = dxa[Dp:].to(dt).float().reshape(Dp, nb, ab).permute(1, 0, 2)
-    dagg = torch.matmul(dA, adj.float()).permute(1, 0, 2).reshape(Dp, A)
     grads = [dwin, dbin, dws, dbs]
     for blk in reversed(blocks):
         grads += list(blk)
-    return (dxa[:Dp] + dagg) + g32, grads
+    return dxa, grads
 
 
 def _proj_bwd_plain(emb, g32, pw: ProjWeights, act: str):
@@ -1034,3 +1049,184 @@ def layer_drop_seed(base_seed: int, l: int) -> int:
     different masks)."""
     s = (int(base_seed) + (l + 1) * 0x27D4EB2F) & _M32
     return s - (1 << 32) if s >= (1 << 31) else s
+
+
+# --------------------------------------------------------------------- #
+# Kernel 5: one layer on a pre-aggregated [x ; agg] (halo graph shards)
+# --------------------------------------------------------------------- #
+#
+# The JAX op ``binned_mp_layer_ext_t`` (``_make_ext_layer_op``): the caller
+# builds xa = [x ; agg] (2D, A), the local per-bin aggregation plus the halo
+# rows' contribution (ops/halo.py), and adds the residual itself.  The layer
+# arithmetic is the stack's (:func:`_chain_plain`, :func:`_chain_bwd_plain`
+# for the plain versions; ``csrc/mp_ext.cu`` for the kernels), with dropout
+# tags 0..n_blocks-1 and the rank's local atom columns, as the JAX kernel
+# draws them.
+
+
+def _pad_xa(xa: torch.Tensor, D: int, Dp: int) -> torch.Tensor:
+    """(2D, A) [x ; agg] -> (2Dp, A), each half padded with zero rows."""
+    if Dp == D:
+        return xa
+    z = xa.new_zeros(Dp - D, xa.shape[1])
+    return torch.cat([xa[:D], z, xa[D:], z])
+
+
+def _unpad_xa(dxa: torch.Tensor, D: int, Dp: int) -> torch.Tensor:
+    return torch.cat([dxa[:D], dxa[Dp : Dp + D]]) if Dp > D else dxa
+
+
+def mp_ext_plain(xa: torch.Tensor, sw: StackWeights, spec: StackSpec) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mp_ext_fwd`: xa (2D, A) in the
+    compute dtype -> the layer's output (D, A), residual not added."""
+    dt = sw.dtype
+    ws = sw.layers[0]
+    xp = _pad_xa(xa, sw.D, sw.Dp)
+    _, h, _, _, _ = _chain_plain(xp, ws, spec.act, sw.n_blocks, spec, 0)
+    s = _dot(ws[2], xp, dt) + ws[3][:, None]
+    return (h + s)[: sw.D].contiguous()
+
+
+def mp_ext_bwd_plain(xa: torch.Tensor, sw: StackWeights, spec: StackSpec, g: torch.Tensor):
+    """Plain PyTorch version of :func:`mp_ext_bwd`: from xa and the cotangent
+    g (D, A) of the layer's output, (dxa (2D, A) in the compute dtype, the
+    layer's fp32 weight grads in the prepped orientation)."""
+    dt = sw.dtype
+    ws = sw.layers[0]
+    xp = _pad_xa(xa, sw.D, sw.Dp)
+    t, _, hs, us, vs = _chain_plain(xp, ws, spec.act, sw.n_blocks, spec, 0)
+    dxa, grads = _chain_bwd_plain(xp, t, hs, us, vs, ws, spec, sw.n_blocks, 0,
+                                  _pad_rows(g.to(dt), sw.Dp))
+    return _unpad_xa(dxa.to(dt), sw.D, sw.Dp).contiguous(), grads
+
+
+def _lib_ext() -> ctypes.CDLL:
+    lib = cuda_build.load("mp_ext")
+    if not getattr(lib, "_typed", False):
+        vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.mp_ext_fwd.argtypes = [vp] * 3 + [i] * 7 + [u, u, f, vp]
+        lib.mp_ext_fwd.restype = i
+        lib.mp_ext_bwd.argtypes = [vp] * 6 + [i] * 7 + [u, u, f, vp]
+        lib.mp_ext_bwd.restype = i
+        lib.mp_ext_fwd_smem_bytes.argtypes = [i, i, i]
+        lib.mp_ext_fwd_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_ext_error_string.argtypes = [i]
+        lib.mp_ext_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_ext(what: str, xa: torch.Tensor, sw: StackWeights, spec: StackSpec, *named):
+    """Raise unless xa (2D, A) and the named tensors fit kernel 5; returns
+    the launch's dropout arguments."""
+    dt = sw.dtype
+    if len(sw.layers) != 1 or dt not in (torch.float32, torch.bfloat16) or xa.dtype != dt:
+        raise TypeError(f"{what}: input {xa.dtype}, {len(sw.layers)} layers of {dt} weights")
+    if xa.dim() != 2 or xa.shape[0] != 2 * sw.D or xa.shape[1] % 64:
+        raise ValueError(f"{what}: xa {tuple(xa.shape)}: need (2D, A), D={sw.D}, A a multiple of 64")
+    if spec.act.lower() not in ACTIVATION_CODES:
+        raise ValueError(f"{what}: unsupported activation {spec.act!r}")
+    cuda_build.check_cuda(what, xa.device, ("xa", xa, 16), ("weights", sw.flat, 32), *named)
+    return (int(spec.rate > 0), spec.seed & _M32, drop_threshold(spec.rate),
+            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0)
+
+
+def mp_ext_fwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec) -> torch.Tensor:
+    """Kernel 5's forward (``csrc/mp_ext.cu``, one block per 64-atom tile):
+    xa (2D, A) -> the layer's output (D, A), with dropout when
+    ``spec.rate`` > 0.  Raises on anything it cannot take."""
+    what = "mp_ext_fwd"
+    drop = _check_ext(what, xa, sw, spec)
+    lib = _lib_ext()
+    bf16 = int(sw.dtype == torch.bfloat16)
+    if lib.mp_ext_fwd_smem_bytes(bf16, sw.Dp, sw.n_blocks) > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"{what}: D={sw.D} exceeds one block's shared memory")
+    A = xa.shape[1]
+    out = torch.empty(sw.D, A, dtype=sw.dtype, device=xa.device)
+    if A:
+        status = lib.mp_ext_fwd(xa.data_ptr(), out.data_ptr(), sw.flat.data_ptr(), bf16, sw.D,
+                                sw.Dp, A, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()], *drop,
+                                _stream(xa.device))
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_ext_error_string(status).decode()}")
+        mp_ext_fwd.launches += 1
+    return out
+
+
+mp_ext_fwd.launches = 0
+
+
+def mp_ext_bwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec, g: torch.Tensor):
+    """Kernel 5's backward: the walk kernel (recompute, walk back, dxa and
+    the gradient operands), then the weight-gradient contractions
+    (:func:`wgrad`).  Same returns as :func:`mp_ext_bwd_plain`."""
+    what = "mp_ext_bwd"
+    g = g.to(sw.dtype).contiguous()
+    if g.shape != (sw.D, xa.shape[1]):
+        raise ValueError(f"{what}: cotangent {tuple(g.shape)} for xa {tuple(xa.shape)}")
+    drop = _check_ext(what, xa, sw, spec, ("g", g, 16))
+    lib = _lib_ext()
+    dt, D, Dp, nblk = sw.dtype, sw.D, sw.Dp, sw.n_blocks
+    A = xa.shape[1]
+    dev = xa.device
+    wT = stack_weights_t(sw)
+    wk = torch.empty(5 * nblk + 4, Dp, A, dtype=dt, device=dev)
+    dxa = torch.empty(2 * D, A, dtype=dt, device=dev)
+    if A:
+        status = lib.mp_ext_bwd(xa.data_ptr(), g.data_ptr(), dxa.data_ptr(), wk.data_ptr(),
+                                sw.flat.data_ptr(), wT.data_ptr(), int(dt == torch.bfloat16), D, Dp,
+                                A, nblk, ACTIVATION_CODES[spec.act.lower()], *drop, _stream(dev))
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_ext_error_string(status).decode()}")
+        mp_ext_bwd.launches += 1
+    H0, V0, DH0, DU0, DT = 3, 3 + 2 * nblk, 3 + 3 * nblk, 3 + 4 * nblk, 3 + 5 * nblk
+    xs = wk[0:2].reshape(2 * Dp, A)
+    dwin, dbin = wgrad(wk[DT], xs)
+    dws, dbs = wgrad(wk[DH0 + nblk - 1], xs)
+    grads = [dwin, dbin, dws, dbs]
+    for i in range(nblk):
+        grads += [*wgrad(wk[DU0 + i], wk[H0 + i]), *wgrad(wk[DH0 + i], wk[V0 + i])]
+    return dxa, grads
+
+
+mp_ext_bwd.launches = 0
+
+
+class _ExtLayerFn(torch.autograd.Function):
+    """``xa -> layer(xa)`` with one layer's fp32 master weights as
+    differentiable inputs: the forward preps them once per call and the
+    backward returns dxa and their fp32 grads in the caller's orientation.
+    CUDA tensors launch kernel 5, CPU tensors take its plain versions."""
+
+    @staticmethod
+    def forward(ctx, xa, spec, dt, *ws):
+        with torch.no_grad():
+            sw = stack_weights([ws], dt)
+        if xa.device.type == "cuda":
+            out = mp_ext_fwd(xa, sw, spec)
+        elif xa.device.type == "cpu":
+            out = mp_ext_plain(xa, sw, spec)
+        else:
+            raise ValueError(f"binned_mp_layer_ext_t: unsupported device {xa.device}")
+        ctx.save_for_backward(xa)
+        ctx.sw, ctx.spec = sw, spec
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (xa,) = ctx.saved_tensors
+        bwd = mp_ext_bwd if xa.device.type == "cuda" else mp_ext_bwd_plain
+        dxa, lg = bwd(xa, ctx.sw, ctx.spec, g)
+        return (dxa, None, None, *unprep_layer_grads(ctx.sw, lg))
+
+
+def binned_mp_layer_ext_t(xa: torch.Tensor, layer_ws: Sequence[torch.Tensor], dtype: torch.dtype,
+                          act: str = "silu", dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """One shell-convolution layer on a pre-aggregated feature-major input
+    (the JAX ``binned_mp_layer_ext_t``): xa (2D, A) = [x ; agg] -> (D, A) in
+    ``dtype``, the residual not added.  ``layer_ws`` is one layer's fp32
+    masters (``ShellConvolutionLayer.stack_weights``); ``seed`` the layer's
+    own dropout seed (:func:`layer_drop_seed`; its low 32 bits are used).
+    Kernel 5 on CUDA tensors, the plain versions on CPU tensors."""
+    spec = StackSpec(act.lower(), float(dropout), int(seed) & _M32, 1)
+    return _ExtLayerFn.apply(xa.to(dtype).contiguous(), spec, dtype, *layer_ws)

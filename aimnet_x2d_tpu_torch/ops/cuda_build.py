@@ -29,6 +29,7 @@ SOURCES = {
     "inject": "inject.cu",
     "fused_edge": "fused_edge.cu",
     "bin_pool": "bin_pool.cu",
+    "mp_ext": "mp_ext.cu",
 }
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NVCC_FLAGS = [

@@ -15,17 +15,35 @@ fields as the JAX package and a ``.summary.json`` beside it; with
 ``--output_partial_charges`` (and partial charges on) it also writes the
 test split's per-atom charges as ``.npz`` (``charges``, ``molecule_index``),
 and with ``--experiment_config`` the resolved arguments as YAML.
+
+With ``--num_devices N`` and/or ``--graph_shards G`` (N x G > 1) training
+runs on N x G ranks, one process each, in the (data, graph) grid of
+parallel/mesh.py (the JAX ``_parallel_from_args`` mesh): under ``torchrun``
+this process is one rank (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
+``MASTER_PORT``), otherwise the runner starts the ranks itself with
+``torch.multiprocessing`` (spawn).  Rank r runs on ``cuda:{local rank %
+cards}`` (or the CPU with ``--device cpu``), over NCCL when every rank has
+a card of its own and gloo otherwise.  Each rank featurizes the splits,
+takes its (data, graph) shard of every training step (halo-partitioned
+when G > 1), and trains with the grid's step; rank 0 evaluates, prints and
+writes the artifact; every rank leaves the process group at the end.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import pickle
+import shutil
+import socket
+import tempfile
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .checkpoint import (
     TrainCheckpointer,
@@ -41,6 +59,7 @@ from .data.dataset import BatchLoader, MoleculeDataset
 from .data.io import load_dataset, split_dataset
 from .data.preprocessing import PreprocessingConfig, PreprocessingPipeline
 from .models.gnn import GNN, GNNConfig
+from .parallel import mesh, multihost
 from .training.evaluator import evaluate
 from .training.predictor import extract_partial_charges
 from .training.trainer import TrainConfig, train
@@ -114,17 +133,27 @@ def _load_splits(args):
                                                       args.test_data))
 
 
-def run_training(args: argparse.Namespace) -> Dict[str, Any]:
+def _parallel_from_args(args: argparse.Namespace) -> Tuple[int, int]:
+    """(n_data, n_graph) from --num_devices / --graph_shards."""
+    return args.num_devices or 1, args.graph_shards or 1
+
+
+def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> Dict[str, Any]:
+    """Train, test and save; with ``grid``, this rank's part of a run over
+    the rank grid (module docstring)."""
     t_start = time.time()
-    device = resolve_device(args.device)
+    device = grid.device if grid is not None else resolve_device(args.device)
+    primary = grid is None or grid.rank == 0
+    say = print if primary else (lambda *a, **k: None)
+    n_data, n_graph = (grid.n_data, grid.n_graph) if grid is not None else (1, 1)
     (tr_s, tr_t), (va_s, va_t), (te_s, te_t) = _load_splits(args)
     num_tasks = tr_t.shape[1]
-    print(f"[data] train {len(tr_s)}  val {len(va_s)}  test {len(te_s)}  tasks {num_tasks}")
+    say(f"[data] train {len(tr_s)}  val {len(va_s)}  test {len(te_s)}  tasks {num_tasks}")
     train_ds = MoleculeDataset.from_smiles(tr_s, tr_t, args.num_shells)
     val_ds = MoleculeDataset.from_smiles(va_s, va_t, args.num_shells)
     test_ds = MoleculeDataset.from_smiles(te_s, te_t, args.num_shells)
-    print(f"[featurize] kept train {len(train_ds)}/{len(tr_s)}  val {len(val_ds)}/{len(va_s)}  "
-          f"test {len(test_ds)}/{len(te_s)}")
+    say(f"[featurize] kept train {len(train_ds)}/{len(tr_s)}  val {len(val_ds)}/{len(va_s)}  "
+        f"test {len(test_ds)}/{len(te_s)}")
 
     pipe = PreprocessingPipeline(PreprocessingConfig(
         apply_sae=args.calculate_sae, sae_subtasks=args.sae_subtask_list,
@@ -135,9 +164,15 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
         ds.with_targets(pipe.transform(ds.atomic_numbers(), ds.targets))
         for ds in (train_ds, val_ds, test_ds)
     )
-    train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
-    val_loader = BatchLoader(val_ds, args.batch_size)
-    test_loader = BatchLoader(test_ds, args.batch_size)
+    if grid is None:
+        train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
+    else:
+        # this rank's shard of every step; validation and test stay whole
+        train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
+                                   stack_devices=n_data, halo_shards=n_graph,
+                                   rank=(grid.data.index, grid.graph.index))
+    val_loader = BatchLoader(val_ds, args.batch_size * n_data)
+    test_loader = BatchLoader(test_ds, args.batch_size * n_data)
 
     cfg = gnn_config_from_args(args, num_tasks)
     model = GNN(cfg)
@@ -148,18 +183,28 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
     model.to(device)
     tc = train_config_from_args(args)
     counts = count_parameters(model, train_mask(model, tc.freeze_patterns, tc.unfreeze_patterns))
-    print(f"[model] {counts['total_parameters']:,} parameters "
-          f"({counts['trainable_parameters']:,} trainable) on {device}")
-    tracker = create_tracker(args)
+    say(f"[model] {counts['total_parameters']:,} parameters "
+        f"({counts['trainable_parameters']:,} trainable) on {device}")
+    tracker = create_tracker(args) if primary else None
     checkpointer = TrainCheckpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     result = train(model, train_loader, val_loader, tc, device=device, seed=args.seed,
                    pipeline=pipe, tracker=tracker, checkpointer=checkpointer,
-                   checkpoint_every=args.checkpoint_every)
+                   checkpoint_every=args.checkpoint_every, grid=grid)
 
     model.eval()
-    test_metrics = evaluate(model, test_loader, device, config=tc, pipeline=pipe)
-    print(f"[test] loss {test_metrics['loss']:.5f}  mae {test_metrics['mae']:.5f}  "
-          f"rmse {test_metrics['rmse']:.5f}  r2 {test_metrics['r2']:.4f}")
+    test_metrics = evaluate(model, test_loader, device, config=tc, pipeline=pipe, grid=grid)
+    say(f"[test] loss {test_metrics['loss']:.5f}  mae {test_metrics['mae']:.5f}  "
+        f"rmse {test_metrics['rmse']:.5f}  r2 {test_metrics['r2']:.4f}")
+    summary = {
+        "best_val_loss": result.best_val_loss,
+        "best_epoch": result.best_epoch,
+        "test_metrics": test_metrics,
+        "history": result.history,
+        "avg_epoch_seconds": result.avg_epoch_seconds,
+    }
+    if not primary:
+        summary["total_seconds"] = time.time() - t_start
+        return summary
     save_artifact(
         args.model_save_path, params_to_flax(result.state_dict, cfg), cfg, pipe,
         extra={
@@ -178,14 +223,7 @@ def run_training(args: argparse.Namespace) -> Dict[str, Any]:
         charges, mol_idx = extract_partial_charges(model, test_loader, device)
         np.savez(args.output_partial_charges, charges=charges, molecule_index=mol_idx)
         print(f"[charges] saved to {args.output_partial_charges}")
-    summary = {
-        "best_val_loss": result.best_val_loss,
-        "best_epoch": result.best_epoch,
-        "test_metrics": test_metrics,
-        "history": result.history,
-        "avg_epoch_seconds": result.avg_epoch_seconds,
-        "total_seconds": time.time() - t_start,
-    }
+    summary["total_seconds"] = time.time() - t_start
     with open(args.model_save_path + ".summary.json", "w") as f:
         json.dump(summary, f, indent=2, default=str)
     tracker.summary({"best_val_loss": result.best_val_loss,
@@ -242,16 +280,93 @@ def print_final_summary(summary: Dict[str, Any], args: argparse.Namespace) -> No
     print("\n".join(lines))
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, args: argparse.Namespace, address: str, world: int,
+               out_dir: Optional[str]) -> Dict[str, Any]:
+    """One rank of a run over the rank grid: join the process group, build
+    the grid, train; rank 0 leaves its summary in ``out_dir`` when given."""
+    n_data, n_graph = _parallel_from_args(args)
+    resolve_device(args.device)
+    device = mesh.local_rank_device(rank, args.device)
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    backend = mesh.choose_backend(device, local_world)
+    per_card = math.ceil(local_world / torch.cuda.device_count()) if device.type == "cuda" else 0
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+    multihost.initialize(address, world, rank, backend, device)
+    try:
+        grid = mesh.make_grid(n_data, n_graph, device, backend)
+        if rank == 0:
+            where = f"{per_card} rank(s) per card" if per_card else "on the CPU"
+            print(f"[parallel] grid {n_data} x {n_graph} (data x graph), {world} ranks, "
+                  f"backend {backend}, {where}", flush=True)
+        summary = run_training(args, grid)
+        if rank == 0 and out_dir is not None:
+            with open(os.path.join(out_dir, "summary.pkl"), "wb") as f:
+                pickle.dump(summary, f)
+        multihost.sync()
+    finally:
+        multihost.shutdown()
+    return summary
+
+
+def _launch_ranks(args: argparse.Namespace, world: int) -> Dict[str, Any]:
+    """Run the rank grid: as one rank under torchrun, else start every rank
+    here (torch.multiprocessing, spawn) and return rank 0's summary."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        address = f"{os.environ.get('MASTER_ADDR', 'localhost')}:{os.environ['MASTER_PORT']}"
+        return _rank_main(int(os.environ["RANK"]), args, address, world, None)
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="aimnet-ranks-")
+    try:
+        mp.spawn(_rank_main, args=(args, f"localhost:{_free_port()}", world, out_dir),
+                 nprocs=world, join=True)
+        with open(os.path.join(out_dir, "summary.pkl"), "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def refuse_unported_parallel(args: argparse.Namespace) -> None:
+    """NotImplementedError for rank-grid runs of later slices, before any
+    rank starts."""
+    n_data, n_graph = _parallel_from_args(args)
+    if n_data * n_graph == 1:
+        return
+    if args.is_inference:
+        raise NotImplementedError("serving over several ranks (ROADMAP Queue 1 item 8: JAX "
+                                  "inference/pipeline.py:352-395) is not ported yet")
+    if n_graph > 1 and (args.use_partial_charges or args.use_stereochemistry):
+        raise NotImplementedError("partial charges or stereochemistry with --graph_shards > 1 "
+                                  "(ROADMAP Queue 1 item 8: JAX gnn.py:956 "
+                                  "_charge_equilibration_t_seg, _stereochemistry_t) is not "
+                                  "ported yet")
+
+
 def main_runner(args: argparse.Namespace) -> Dict[str, Any]:
     """Serve or train, as ``args`` (``cli.parse_arguments``) says."""
+    primary = int(os.environ.get("RANK", 0)) == 0
     for w in validate_args(args):
-        print(f"[warning] {w}")
+        if primary:
+            print(f"[warning] {w}")
+    refuse_unported_parallel(args)
     setup_paths(args)
     check_data_consistency(args)
     if args.is_inference:
         from .inference.engine import inference_main
 
         return inference_main(args)
-    summary = run_training(args)
-    print_final_summary(summary, args)
+    n_data, n_graph = _parallel_from_args(args)
+    if n_data * n_graph > 1:
+        summary = _launch_ranks(args, n_data * n_graph)
+    else:
+        summary = run_training(args)
+    if primary:
+        print_final_summary(summary, args)
     return summary

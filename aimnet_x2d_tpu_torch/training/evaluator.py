@@ -88,10 +88,20 @@ def evaluate(
     config=None,
     loss_fn: Optional[Callable] = None,
     pipeline=None,
+    grid=None,
 ) -> Dict[str, Any]:
     """Loss (preprocessed scale, mean over real molecules) and metrics
     (inverse-transformed scale) of ``model`` over ``loader`` on ``device``,
-    with the serving forward (no dropout)."""
+    with the serving forward (no dropout).  Over a rank grid (``grid``,
+    parallel/mesh.py) the loader is the whole, unsharded split, as in the
+    JAX runner: rank 0 evaluates it and every rank returns rank 0's
+    metrics."""
+    if grid is not None and grid.size > 1:
+        from ..parallel.multihost import broadcast_pyobj
+
+        metrics = evaluate(model, loader, device, config=config, loss_fn=loss_fn,
+                           pipeline=pipeline) if grid.rank == 0 else None
+        return broadcast_pyobj(metrics)
     if loss_fn is None:
         loss_fn = create_loss_function(config.loss_function, config.task_type,
                                        config.multitask_weights,

@@ -22,8 +22,18 @@ optax.scale_by_adam -> scale(-lr)``:
 ``train`` runs the epochs: shuffled training batches (a new order every
 epoch), validation, the LR scheduler, early stopping, a copy of the best
 parameters, restored at the end, an optional tracker, and periodic
-checkpoints that a later run resumes from.  Multi-device steps are a later
-slice of the port.
+checkpoints that a later run resumes from.
+
+Over a (data, graph) rank grid (``grid``, parallel/mesh.py; the CLI's
+``--num_devices`` / ``--graph_shards``) each rank runs this loop on its own
+shard with the grid's step (``train_step(grid=)``, the rule in
+parallel/graph_parallel.py): dropout generators seeded per data rank, the
+epoch's loss and edge count the grid's, rank 0 alone printing, tracking
+and checkpointing, and the validation metrics rank 0's
+(``evaluate(grid=)``), so the scheduler, early stopping and the best
+parameters decide the same on every rank.  The edges/s meter counts each
+step's edges: the binned adjacency's multiplicities plus ``halo_adj``'s on a
+halo shard, the real edge slots otherwise.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 from ..data.batching import MolBatch
 from ..models.gnn import GNN
 from ..models.losses import create_loss_function
+from ..parallel.graph_parallel import allreduce_grads, grid_objective
 from ..utils.optimization import lr_decay_scales, train_mask
 from .evaluator import evaluate
 from .schedulers import create_scheduler
@@ -167,15 +178,38 @@ def make_loss_fn(config: TrainConfig) -> Callable:
 
 
 def train_step(model: GNN, optimizer: Optimizer, batch: MolBatch, lr: float, loss_fn: Callable,
-               drop_seed: Optional[int] = None, generator: Optional[torch.Generator] = None):
+               drop_seed: Optional[int] = None, generator: Optional[torch.Generator] = None,
+               grid=None):
     """One step on a batch already on the model's device.  Returns the loss
-    (a 0-d tensor, still on the device; reading it syncs)."""
+    and the real molecules it averages over, 0-d tensors still on the
+    device (reading them syncs).  With ``grid`` (parallel/mesh.py) the batch
+    is this rank's shard: the loss is the weighted mean over the data ranks,
+    this rank backprops its share of it and the gradients are summed over
+    every rank before the update (parallel/graph_parallel.py)."""
     optimizer.zero_grad()
     out = model(batch, train=True, drop_seed=drop_seed, generator=generator)
     loss = loss_fn(out.predictions, batch.targets, batch.graph_mask)
-    loss.backward()
+    n = batch.graph_mask.sum().float()
+    if grid is None:
+        loss.backward()
+        loss = loss.detach()
+    else:
+        objective, loss, n = grid_objective(loss, n, grid)
+        objective.backward()
+        allreduce_grads(optimizer.params, grid)
     optimizer.step(lr)
-    return loss.detach()
+    return loss, n
+
+
+# seed offset of data rank d's dropout generators (graph ranks share them)
+DATA_SEED_STRIDE = 1_000_003
+
+
+def batch_edges(batch: MolBatch) -> int:
+    """Real edges of a host batch (the edges/s meter's count)."""
+    if batch.halo_adj is not None:
+        return int(batch.bin_adj.sum(dtype=np.int64)) + int(batch.halo_adj.sum(dtype=np.int64))
+    return int(np.count_nonzero(batch.edge_mask))
 
 
 def train(
@@ -190,6 +224,7 @@ def train(
     tracker=None,
     checkpointer=None,
     checkpoint_every: int = 10,
+    grid=None,
 ) -> TrainResult:
     """Epoch loop with validation, LR scheduling, early stopping and
     best-parameter restore.  ``model`` is on ``device``; ``seed`` seeds the
@@ -202,10 +237,17 @@ def train(
     directory holds one resumes after its epoch: parameters, Adam moments
     and step count, LR, scheduler state, early-stop counters and the
     best-so-far parameters are restored.  The dropout generators start
-    again from ``seed``, as the JAX package's dropout key does."""
+    again from ``seed``, as the JAX package's dropout key does.
+
+    With ``grid`` (this rank's place in the rank grid) the loaders yield this
+    rank's shards and each step is the grid's (:func:`train_step` with
+    ``grid``; the JAX ``train(train_step=)``; see the module docstring)."""
     device = torch.device(device)
     optimizer = make_optimizer(model, config)
     loss_fn = make_loss_fn(config)
+    primary = grid is None or grid.rank == 0
+    if grid is not None:
+        seed += DATA_SEED_STRIDE * grid.data.index
     scheduler = create_scheduler(
         config.lr_scheduler, config.learning_rate,
         lr_reduce_factor=config.lr_reduce_factor, lr_patience=config.lr_patience,
@@ -234,7 +276,8 @@ def train(
         epochs_no_improve = int(aux.get("epochs_no_improve", 0))
         scheduler.load_state_dict(
             {k[len("sched_"):]: v for k, v in aux.items() if k.startswith("sched_")})
-        print(f"[resume] restored checkpoint at epoch {last}", flush=True)
+        if primary:
+            print(f"[resume] restored checkpoint at epoch {last}", flush=True)
     if best_state is None:
         best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     else:
@@ -245,44 +288,55 @@ def train(
         train_loader.set_epoch(epoch)
         model.train()
         losses, counts = [], []
+        edges = 0
         for batch in train_loader:
-            n = int(batch.graph_mask.sum())
+            edges += batch_edges(batch)
             drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=host_gen))
-            loss = train_step(model, optimizer, batch.to(device), lr, loss_fn, drop_seed, dev_gen)
+            loss, n = train_step(model, optimizer, batch.to(device), lr, loss_fn, drop_seed,
+                                 dev_gen, grid)
             losses.append(loss)
             counts.append(n)
         # one read per epoch, not one sync per step
         step_losses = torch.stack(losses).float().cpu().numpy() if losses else np.zeros(0)
-        train_loss = float((step_losses * np.asarray(counts)).sum() / max(sum(counts), 1))
+        step_counts = torch.stack(counts).float().cpu().numpy() if counts else np.zeros(0)
+        train_loss = float((step_losses * step_counts).sum() / max(step_counts.sum(), 1))
+        if grid is not None:
+            edges = int(grid.world.all_reduce(torch.tensor(float(edges), dtype=torch.float64,
+                                                           device=device)))
+        train_seconds = time.time() - t0
         model.eval()
-        val_metrics = evaluate(model, val_loader, device, loss_fn=loss_fn, pipeline=pipeline)
+        val_metrics = evaluate(model, val_loader, device, loss_fn=loss_fn, pipeline=pipeline,
+                               grid=grid)
         val_loss = val_metrics["loss"]
         lr = scheduler.step(epoch, val_loss)
         seconds = time.time() - t0
         epoch_times.append(seconds)
         record = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr,
-                  "seconds": seconds,
+                  "seconds": seconds, "edges_per_sec": edges / max(train_seconds, 1e-9),
                   **{f"val_{k}": v for k, v in val_metrics.items()
                      if k != "loss" and not isinstance(v, dict)}}
         history.append(record)
-        if tracker is not None:
+        if tracker is not None and primary:
             tracker.log(record, step=epoch)
-        print(f"[epoch {epoch:3d}] train {train_loss:.5f}  val {val_loss:.5f}  "
-              f"lr {lr:.2e}  ({seconds:.1f}s)", flush=True)
+        if primary:
+            print(f"[epoch {epoch:3d}] train {train_loss:.5f}  val {val_loss:.5f}  "
+                  f"lr {lr:.2e}  ({seconds:.1f}s, {record['edges_per_sec'] / 1e6:.2f}M edges/s)",
+                  flush=True)
         if val_loss < best_val:
             best_val, best_epoch = val_loss, epoch
             best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
             epochs_no_improve = 0
         else:
             epochs_no_improve += 1
-        if checkpointer is not None and (epoch + 1) % checkpoint_every == 0:
+        if checkpointer is not None and primary and (epoch + 1) % checkpoint_every == 0:
             aux = {"lr": float(lr), "best_val": float(best_val), "best_epoch": float(best_epoch),
                    "epochs_no_improve": float(epochs_no_improve),
                    **{f"sched_{k}": v for k, v in scheduler.state_dict().items()}}
             checkpointer.save(epoch, model.state_dict(), optimizer.state_dict(), aux,
                               best_params=best_state)
         if config.early_stopping and epochs_no_improve >= config.patience and val_loss >= best_val:
-            print(f"[early stop] epoch {epoch}, best {best_val:.5f} @ {best_epoch}")
+            if primary:
+                print(f"[early stop] epoch {epoch}, best {best_val:.5f} @ {best_epoch}")
             break
 
     model.load_state_dict(best_state)

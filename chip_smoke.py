@@ -113,8 +113,26 @@ Phases, each of which fails the run when it fails:
    - ``[fold-routes]`` (after phase 8): one config-3 and one config-1 train
      step under the switch, card against CPU; the pool folds only for
      config 3, the stack only for config 1;
-13. print the ``kernels`` JSON line, the card line and, last, the result
+13. halo graph-partitioned training (``--graph_shards``), ranks sharing the
+   one card over gloo:
+   - ``[halo-kernel]``: kernel 5 (``mp_ext_fwd`` serving and training
+     forms, ``mp_ext_bwd``) against its plain version on one graph rank's
+     share of a 2048-molecule training batch (G 2), fp32 and bf16, the
+     backward twice (bit-equal), timed with bounds;
+   - ``[halo-step]``: one train step of 4 ranks (data 2 x graph 2) on
+     halo shards of the flat SMILES (their large molecules chunked, so
+     ``halo_adj`` carries cross-bin rows), bf16 and fp32: loss and
+     gradients against the single-rank step on the same molecules, and
+     parameters bit-identical across the ranks;
+   - ``[halo-train]``: the flagship CLI with ``--graph_shards 2`` on 2 ranks
+     (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
+     launches summed over the ranks, then timed steps per rank (host and
+     device ms), then the artifact served by the single-rank ``run_csv``;
+14. print the ``kernels`` JSON line, the card line and, last, the result
    line ``{"ok": true, "device": {...}}``.
+
+On a machine with several cards the halo phases' ranks each get a card of
+their own, over NCCL.
 
 It imports nothing of JAX.  Without CUDA it exits non-zero and prints no
 result.  Work files go to ``build/smoke/`` in the checkout.
@@ -1191,7 +1209,7 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
         drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=host))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = trainer.train_step(model, opt, b, 5e-4, loss_fn, drop_seed, gen)
+        loss, _ = trainer.train_step(model, opt, b, 5e-4, loss_fn, drop_seed, gen)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
@@ -1218,6 +1236,29 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
                                                                  small.targets)), 96)))
     grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed, tag)
     return launches
+
+
+def grad_scale(k: str, params: dict, ref: dict, cfg) -> float:
+    """The scale gradient ``k`` is held to against its reference ``ref[k]``
+    (``params``: the parameters it was taken at): max|ref[k]|, except for
+    the two whose exact value is 0 or a cancelling sum."""
+    # the heads' score biases shift every score of a head alike, which
+    # leaves each molecule's softmax unchanged: their exact gradient is
+    # 0, so both sides hold rounding residue, held to the heads' kernels
+    if k.startswith("pooling.attention_weights.") and k.endswith(".bias"):
+        k = k[: -len("bias")] + "weight"
+    if k == "pooling.temperature":
+        # dL/dT = -(1/T) sum over heads h of (w_h . dL/dw_h + b_h dL/db_h):
+        # the heads' terms cancel (with config 3's charges, to about a
+        # fifth of the sum of their sizes), so the scores' bf16 noise
+        # moves the sum by that factor more than each term; held to the
+        # sum of the heads' term sizes
+        def head(h):
+            n = f"pooling.attention_weights.{h}."
+            return sum(float((params[n + w] * ref[n + w]).sum()) for w in ("weight", "bias"))
+
+        return sum(abs(head(h)) for h in range(cfg.attention_num_heads)) / abs(float(params[k]))
+    return max(float(ref[k].abs().max()), 1e-30)
 
 
 def grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed: int, tag: str, counters=()) -> dict:
@@ -1258,28 +1299,7 @@ def grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed: int, tag: str, counters=()) -
             params = {k: p.detach().float() for k, p in m.named_parameters()}
     launches = {c.__name__: c.launches for c in counters}
 
-    def scale(k):
-        # the heads' score biases shift every score of a head alike, which
-        # leaves each molecule's softmax unchanged: their exact gradient is
-        # 0, so both sides hold rounding residue, held to the heads' kernels
-        if k.startswith("pooling.attention_weights.") and k.endswith(".bias"):
-            k = k[: -len("bias")] + "weight"
-        if k == "pooling.temperature":
-            # dL/dT = -(1/T) sum over heads h of (w_h . dL/dw_h + b_h dL/db_h):
-            # the heads' terms cancel (with config 3's charges, to about a
-            # fifth of the sum of their sizes), so the scores' bf16 noise
-            # moves the sum by that factor more than each term; held to the
-            # sum of the heads' term sizes
-            def head(h):
-                n = f"pooling.attention_weights.{h}."
-                return sum(float((params[n + w] * grads["cpu"][n + w]).sum())
-                           for w in ("weight", "bias"))
-
-            return sum(abs(head(h)) for h in range(cfg.attention_num_heads)) / abs(
-                float(params[k]))
-        return max(float(grads["cpu"][k].abs().max()), 1e-30)
-
-    errs = {k: float((grads["cuda"][k] - g).abs().max()) / scale(k)
+    errs = {k: float((grads["cuda"][k] - g).abs().max()) / grad_scale(k, params, grads["cpu"], cfg)
             for k, g in grads["cpu"].items()}
     top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
     worst = top[0][1]
@@ -1674,6 +1694,462 @@ def check_pool6_kernel(cfg, model, batch, seed: int) -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# Halo graph-partitioned training: kernel 5 and the rank grid on one card
+# --------------------------------------------------------------------- #
+
+HALO_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# [halo-step]: the four ranks' summed gradients against the single-rank step
+# on the same molecules.  bf16: the bf16 bar (TRAIN_TOL).  fp32: the same
+# fp32 products summed in another order, and through another route (the
+# single rank runs these batches on the flat layout, kernel 7; the ranks on
+# binned halo shards, kernel 5): 1e-3 of each gradient's largest value.
+HALO_STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: TRAIN_TOL}
+HALO_TIMED_STEPS = 8
+
+
+def halo_shard(ds, n: int, G: int):
+    """The first ``n`` molecules of ``ds`` collated as one data shard and
+    halo-partitioned into G binned graph shards: (stacked (G, ...) host
+    batch, HaloStats, the collated batch)."""
+    from aimnet_x2d_tpu_torch.data.batching import collate
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo
+
+    b = collate(ds.features[:n], ds.targets[:n], num_hops=ds.max_hops)
+    parts, stats = partition_halo(b, G, return_stats=True, binned=True)
+    return parts, stats, b
+
+
+def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
+    """``[halo-kernel]``: kernel 5 (``mp_ext_fwd`` serving and training
+    forms, ``mp_ext_bwd``) against its plain version at the flagship layer
+    (D 153, 2 blocks) on one graph rank's share of a 2048-molecule training
+    batch (G 2, ab 256): xa = [x ; the local per-bin plus halo aggregation],
+    fp32 and bf16, the backward twice (bit-equal), timed with bounds."""
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
+    from aimnet_x2d_tpu_torch.ops import bin_mp, halo
+
+    dev = torch.device("cuda")
+    parts, stats, _ = halo_shard(ds, 2048, 2)
+    shard = index_batch(parts, 0).to(dev)
+    D, nblk = cfg.x_other_dim, cfg.shell_conv_num_mlp_layers
+    A = shard.atom_type.shape[0]
+    H = shard.halo_send_idx.numel()
+    n_real = int(shard.atom_mask.sum())
+    print(f"[halo-kernel] rank 0 of 2: A_loc={A} ({n_real} real atoms, "
+          f"{shard.bin_adj.shape[0]} bins), halo rows {stats.halo_rows}, cut edges "
+          f"{stats.cut_edges}, split molecules {stats.split_molecules}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    w_mat = 2 * (2 * D * D) + nblk * 2 * D * D  # weight matrix elements of the layer
+    # operations: 2 per multiply-add, over the real atoms (padded columns
+    # are zero: no work).  Forward: the products, w_mat.  Backward: the
+    # recompute (no W_s, no last W2: (1 + 2 nblk) D^2), the walk back
+    # ((4 + 2 nblk) D^2: W_s^T and W_in^T onto dxa, W2^T and W1^T per
+    # block) and the weight gradients (w_mat): 21/8 of the forward at 2 blocks
+    fwd_ops = 2 * n_real * w_mat
+    bwd_ops = 2 * n_real * ((1 + 2 * nblk) * D * D + (4 + 2 * nblk) * D * D + w_mat)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        isz = torch.finfo(dt).bits // 8
+        with torch.no_grad():
+            sw = bin_mp.stack_weights([model.message_passing_layers[0].stack_weights()], dt)
+            x = (torch.randn(D, A, generator=gen, device=dev) * shard.atom_mask).to(dt)
+            haloT = torch.randn(D, H, generator=gen, device=dev).to(dt)
+            agg = halo.binned_local_agg_t(x, shard.bin_adj, dt)
+            agg = agg + halo.halo_agg_contrib_t(haloT, shard.halo_adj, dt)
+            xa = torch.cat([x, agg.to(dt)]).contiguous()
+            gy = (torch.randn(D, A, generator=gen, device=dev) * 0.05).to(dt)
+        tol = HALO_TOL[dt]
+        for name, rate in (("mp_ext_fwd", 0.0), ("mp_ext_fwd_train", 0.05)):
+            spec = bin_mp.StackSpec(cfg.activation_type, rate, 0x5EED5)
+            out = bin_mp.mp_ext_fwd(xa, sw, spec)
+            ref = bin_mp.mp_ext_plain(xa, sw, spec)
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(out, ref)
+            ms = time_ms(lambda: bin_mp.mp_ext_fwd(xa, sw, spec))
+            plain_ms = time_ms(lambda: bin_mp.mp_ext_plain(xa, sw, spec), iters=5)
+            nbytes = 3 * D * A * isz + w_mat * isz
+            t_ops, t_bytes = fwd_ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
+            bound_ms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+            print(f"[halo-kernel] {name} {str(dt)[6:]}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                  f"(tol {tol:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({by}; {fwd_ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"{name}: rel err {rel:.3e} > {tol:g}")
+            if name == "mp_ext_fwd_train":
+                res[("mp_ext_fwd", dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=bound_ms, bound_by=by, library_ms=None)
+        spec = bin_mp.StackSpec(cfg.activation_type, 0.05, 0x5EED5)
+        got = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
+        again = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
+        want = bin_mp.mp_ext_bwd_plain(xa, sw, spec, gy)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        abs_err, rel = _max_rel([(got[0], want[0], None)]
+                                + [(a, r, None) for a, r in zip(got[1], want[1])])
+        ms = time_ms(lambda: bin_mp.mp_ext_bwd(xa, sw, spec, gy), iters=10)
+        plain_ms = time_ms(lambda: bin_mp.mp_ext_bwd_plain(xa, sw, spec, gy), iters=3)
+        nbytes = (2 * D + D + 2 * D) * A * isz + w_mat * isz + 4 * w_mat
+        t_ops, t_bytes = bwd_ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
+        bound_ms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[halo-kernel] mp_ext_bwd {str(dt)[6:]}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+              f"(tol {tol:g}) rerun bit-equal={same} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({by}; {bwd_ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)",
+              flush=True)
+        if not rel <= tol or not same:
+            raise AssertionError(f"mp_ext_bwd: rel err {rel:.3e} (tol {tol:g}), bit-equal {same}")
+        res[("mp_ext_bwd", dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return res
+
+
+def _digest(named) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in named:
+        h.update(k.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
+    """One of ``[halo-step]``'s four ranks (data 2 x graph 2, gloo, all on
+    cuda:0): one train step of the grid per dtype, Adam without the clip so
+    the gradients stay the all-reduced ones; writes rank 0's loss and
+    gradients and every rank's digests of its gradients and parameters."""
+    import pickle
+
+    sys.path.insert(0, ROOT)
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
+    from aimnet_x2d_tpu_torch.models.gnn import GNN
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+    from aimnet_x2d_tpu_torch.parallel import mesh, multihost
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = mesh.local_rank_device(rank, "cuda")
+    backend = mesh.choose_backend(dev, 4)
+    multihost.initialize(f"localhost:{port}", 4, rank, backend, dev)
+    try:
+        grid = mesh.make_grid(2, 2, dev, backend)
+        batch = index_batch(job["stacked"], grid.data.index, grid.graph.index).to(dev)
+        out = {}
+        for tag, cfg in job["cfgs"].items():
+            model = GNN(cfg)
+            model.load_state_dict(params_from_flax(job["params"]))
+            model.to(dev).train()
+            opt = trainer.Optimizer(model.parameters(), None)
+            loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=cfg.task_type))
+            bin_mp.mp_ext_fwd.launches = bin_mp.mp_ext_bwd.launches = 0
+            loss, n = trainer.train_step(model, opt, batch, 1e-3, loss_fn, grid=grid)
+            torch.cuda.synchronize()
+            grads = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
+            out[tag] = dict(loss=float(loss), n=float(n), grads_digest=_digest(grads),
+                            where=f"{dev} {backend}",
+                            params_digest=_digest(model.named_parameters()),
+                            launches=(bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches))
+            if rank == 0:
+                out[tag]["grads"] = {k: g.float().cpu() for k, g in grads}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        multihost.sync()
+    finally:
+        multihost.shutdown()
+
+
+def halo_step_phase(pkg, cfg, fl_full, seed: int, work: str) -> None:
+    """``[halo-step]``: one train step of the flagship (dropouts off) on 4
+    ranks (data 2 x graph 2) sharing the card over gloo, the data shards
+    1024 molecules of the flat SMILES (so their 262-599-atom molecules are
+    chunked into bin-sized pieces whose cross-bin edges run through
+    ``halo_adj``) and 5 molecules, the first larger than a bin, which the
+    graph cut splits (cut edges cross the ranks), in bf16 and fp32:
+    loss and gradients against the single-rank step on the card over the
+    same molecules (the weighted mean of the two data shards' steps), and
+    gradients and parameters bit-identical across the ranks afterwards."""
+    import dataclasses
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate, stack_batches
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo_stack
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    T = cfg.output_dim
+    targets = synthetic_targets(fl_full, T, seed)
+    sizes = np.array([f.num_atoms for f in fl_full.features])
+    # data shard 0: 1024 molecules as they come; data shard 1: a molecule
+    # larger than a bin and the 4 after it, more than half of the shard's
+    # atoms, so that the graph cut must split it (cut edges cross the ranks)
+    first = int(np.flatnonzero(sizes[1024:] > 256)[0]) + 1024
+    picks = [np.arange(1024), np.arange(first, first + 5)]
+    shards = [collate([fl_full.features[i] for i in idx], targets[idx], num_hops=fl_full.max_hops)
+              for idx in picks]
+    # one graph and stereo slot count for both shards, as a loader pins them
+    caps = dict(graph_slots=1024, tet_slots=max(b.tet_nbrs.shape[0] for b in shards),
+                pair_slots=max(max(b.cis_pairs.shape[0], b.trans_pairs.shape[0]) for b in shards))
+    shards = [collate([fl_full.features[i] for i in idx], targets[idx], num_hops=fl_full.max_hops,
+                      **caps) for idx in picks]
+    t0 = time.perf_counter()
+    parts, slots = partition_halo_stack(shards, 2, binned=True)
+    t_part = time.perf_counter() - t0
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo
+
+    stats = [partition_halo(s, 2, return_stats=True, binned=True, **slots)[1] for s in shards]
+    big = [int((sizes[idx] > 256).sum()) for idx in picks]
+    print(f"[halo-step] 2 data shards ({[len(i) for i in picks]} molecules, {big} larger than a "
+          f"bin) x 2 graph shards: halo_rows {[s.halo_rows for s in stats]}, cut_edges "
+          f"{[s.cut_edges for s in stats]}, split_molecules {[s.split_molecules for s in stats]}, "
+          f"A_loc {stats[0].atom_slots_per_device}, Hp {stats[0].halo_pair_slots}; partition "
+          f"{t_part:.3f} s (host clock)", flush=True)
+    if min(s.halo_rows for s in stats) <= 0 or stats[1].cut_edges <= 0:
+        raise AssertionError("the halo step's partition has no halo rows or no cut edges")
+    cfgs = {str(dt)[6:]: dataclasses.replace(cfg, shell_conv_dropout=0.0, ffn_dropout=0.0,
+                                             compute_dtype=str(dt)[6:])
+            for dt in (torch.bfloat16, torch.float32)}
+    flat = init_params(cfg, seed)
+    out_dir = os.path.join(work, "halo-step")
+    os.makedirs(out_dir, exist_ok=True)
+    job_path = os.path.join(out_dir, "job.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump({"stacked": stack_batches(parts), "cfgs": cfgs, "params": flat}, f)
+    t0 = time.perf_counter()
+    mp.spawn(_halo_step_rank, args=(job_path, _free_port(), out_dir), nprocs=4, join=True)
+    print(f"[halo-step] 4 ranks ran in {time.perf_counter() - t0:.1f} s (host clock, process "
+          f"start included)", flush=True)
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
+    for tag, c in cfgs.items():
+        dt = torch.bfloat16 if tag == "bfloat16" else torch.float32
+        r0 = ranks[0][tag]
+        same = all(r[tag]["params_digest"] == r0["params_digest"]
+                   and r[tag]["grads_digest"] == r0["grads_digest"] for r in ranks)
+        launches = [r[tag]["launches"] for r in ranks]
+        # the single-rank step on the card: each data shard whole (flat
+        # layout), gradients weighted by its molecules
+        model = pkg.models.gnn.GNN(c)
+        model.load_state_dict(params_from_flax(flat))
+        model.to("cuda").train()
+        ref, loss_sum, n_sum = {}, 0.0, 0.0
+        for s in shards:
+            b = attach_flat_layouts(s).to("cuda")
+            model.zero_grad(set_to_none=True)
+            n = float(b.graph_mask.sum())
+            loss = loss_fn(model(b, train=True).predictions, b.targets, b.graph_mask)
+            loss.backward()
+            for k, p in model.named_parameters():
+                if p.grad is not None:
+                    ref[k] = ref.get(k, 0.0) + p.grad.float().cpu() * n
+            loss_sum, n_sum = loss_sum + float(loss.detach()) * n, n_sum + n
+        ref = {k: v / n_sum for k, v in ref.items()}
+        params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
+        errs = {k: float((r0["grads"][k] - g).abs().max()) / grad_scale(k, params, ref, c)
+                for k, g in ref.items()}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        loss_rel = abs(r0["loss"] - loss_sum / n_sum) / abs(loss_sum / n_sum)
+        tol = HALO_STEP_TOL[dt]
+        print(f"[halo-step] {tag}: loss {r0['loss']:.6f} vs single rank {loss_sum / n_sum:.6f} "
+              f"(rel {loss_rel:.2e}); {len(ref)} gradients, worst max|d|/max|ref| {worst[1]:.3e} "
+              f"({worst[0]}; tol {tol:g}); molecules {r0['n']:.0f}; kernel 5 launches per rank "
+              f"(fwd, bwd) {launches}; gradients and parameters bit-identical across ranks: "
+              f"{same}; ranks on {[r[tag]['where'] for r in ranks]}", flush=True)
+        if not (loss_rel <= tol and worst[1] <= tol and same and r0["n"] == n_sum
+                and all(l == (3, 3) for l in launches)):
+            raise AssertionError(f"[halo-step] {tag}: the grid step disagrees with the single "
+                                 f"rank or across ranks")
+        del model
+
+
+def _halo_train_rank(rank: int, argv: list, ports: tuple, job_path: str, out_dir: str) -> None:
+    """One of ``[halo-train]``'s two ranks: the flagship CLI as ``torchrun``
+    runs it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), with
+    kernel 5's counters read around it; then, in a second process group,
+    ``HALO_TIMED_STEPS`` train steps of the grid on card-resident halo
+    shards of the same data, timed (host clock around a synchronized step,
+    and one step's device time from the profiler)."""
+    import pickle
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(ports[0]))
+    sys.path.insert(0, ROOT)
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader
+    from aimnet_x2d_tpu_torch.models.gnn import GNN
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+    from aimnet_x2d_tpu_torch.parallel import mesh, multihost
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (bin_mp.mp_ext_fwd, bin_mp.mp_ext_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    summary = cli.main(argv)
+    out = {"cli_s": time.perf_counter() - t0, "summary": summary,
+           "launches": {c.__name__: c.launches for c in counters}}
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = mesh.local_rank_device(rank, "cuda")
+    backend = mesh.choose_backend(dev, 2)
+    out["where"] = f"{dev} {backend}"
+    multihost.initialize(f"localhost:{ports[1]}", 2, rank, backend, dev)
+    try:
+        grid = mesh.make_grid(1, 2, dev, backend)
+        cfg = job["cfg"]
+        loader = BatchLoader(job["ds"], 2048, shuffle=True, seed=job["seed"], stack_devices=1,
+                             halo_shards=2, rank=(0, rank))
+        batches = []
+        for epoch in range(HALO_TIMED_STEPS // len(loader) + 1):
+            loader.set_epoch(epoch)
+            batches += [b.to(dev) for b in loader]
+        batches = batches[:HALO_TIMED_STEPS]
+        model = GNN(cfg)
+        model.load_state_dict(params_from_flax(init_params(cfg, job["seed"])))
+        model.to(dev).train()
+        opt = trainer.Optimizer(model.parameters(), 1.0)
+        loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
+        gen = torch.Generator(device=dev).manual_seed(job["seed"])
+
+        def step(b, lr, drop_seed, gen):
+            return trainer.train_step(model, opt, b, lr, loss_fn, drop_seed, gen, grid)
+
+        ms, losses = [], []
+        for c in counters:
+            c.launches = 0
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = step(b, 5e-4, 1000 + i, gen)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+        out.update(step_ms=ms, losses=losses, a_loc=int(batches[0].atom_type.shape[0]),
+                   per_step={c.__name__: c.launches / len(batches) for c in counters})
+        out["device_ms"] = profile_step(lambda: step(batches[0], 5e-4, 7, gen),
+                                        f"halo-train rank {rank}", top=6)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        multihost.sync()
+    finally:
+        multihost.shutdown()
+
+
+def halo_train_phase(pkg, cfg, full, seed: int, work: str) -> dict:
+    """``[halo-train]``: the flagship CLI with ``--graph_shards 2
+    --mixed_precision``, 3 epochs at batch 2048, on 2 ranks sharing the card
+    (gloo), on the ``[train]`` phase's CSV; kernel 5's launches summed over
+    the ranks; then timed steps per rank (``_halo_train_rank``); then the
+    artifact served by the single-rank ``run_csv`` on the card."""
+    import pickle
+
+    import pandas as pd
+    import torch.multiprocessing as mp
+
+    from aimnet_x2d_tpu_torch.checkpoint import load_artifact
+    from aimnet_x2d_tpu_torch.data.dataset import MoleculeDataset
+    from aimnet_x2d_tpu_torch.inference.pipeline import StreamingInferencePipeline
+
+    csv = os.path.join(work, "train.csv")
+    df = pd.read_csv(csv)
+    cols = [c for c in df.columns if c != "smiles"]
+    art = os.path.join(work, "halo-train-trained.npz")
+    argv = ["--data_path", csv, "--task_type", "multitask", "--mixed_precision", "--epochs", "3",
+            "--batch_size", "2048", "--learning_rate", "1e-3", "--num_shells", str(cfg.num_shells),
+            "--pooling_type", cfg.pooling_type, "--num_message_passing_layers",
+            str(cfg.num_message_passing_layers), "--model_save_path", art, "--seed", str(seed),
+            "--multi_target_columns", ",".join(cols), "--graph_shards", "2"]
+    out_dir = os.path.join(work, "halo-train")
+    os.makedirs(out_dir, exist_ok=True)
+    job_path = os.path.join(out_dir, "job.pkl")
+    loaded = None
+    ds = MoleculeDataset(full.smiles, df[cols].to_numpy(np.float32), full.features, full.max_hops)
+    with open(job_path, "wb") as f:
+        pickle.dump({"ds": ds, "cfg": cfg, "seed": seed}, f)
+    t0 = time.perf_counter()
+    mp.spawn(_halo_train_rank, args=(argv, (_free_port(), _free_port()), job_path, out_dir),
+             nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    hist = ranks[0]["summary"]["history"]
+    print(f"[halo-train] CLI --graph_shards 2 on 2 ranks: {wall:.1f} s with "
+          f"process start (host clock); epochs train loss "
+          f"{[round(h['train_loss'], 5) for h in hist]}, val loss "
+          f"{[round(h['val_loss'], 5) for h in hist]}, edges/s "
+          f"{[round(h['edges_per_sec']) for h in hist]}; kernel 5 launches summed over the ranks "
+          f"{launches}", flush=True)
+    for r, res in enumerate(ranks):
+        med = float(np.median(res["step_ms"][2:]))
+        print(f"[halo-train] rank {r} ({res['where']}): {len(res['step_ms'])} steps on A_loc "
+              f"{res['a_loc']}: "
+              f"median {med:.3f} ms/step (host clock around a synchronized step), device "
+              f"{res['device_ms'] if res['device_ms'] is None else round(res['device_ms'], 3)} "
+              f"ms (one step, profiler); loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; "
+              f"kernel 5 launches per step {res['per_step']}; step ms "
+              f"{[round(x, 3) for x in res['step_ms']]}", flush=True)
+    losses = [h["train_loss"] for h in hist] + [h["val_loss"] for h in hist]
+    if (min(launches.values()) <= 0 or not np.isfinite(losses).all()
+            or any(v != 3 for r in ranks for v in r["per_step"].values())
+            or ranks[0]["summary"]["best_val_loss"] != ranks[1]["summary"]["best_val_loss"]):
+        raise AssertionError(f"[halo-train] kernel 5 did not run on every layer of every step, "
+                             f"or the ranks disagree: {launches}")
+    # the artifact, served by one rank
+    loaded = load_artifact(art)
+    if loaded.model_config.graph_axis is not None or loaded.model_config.compute_dtype != "bfloat16":
+        raise AssertionError(f"the halo run saved another config: {loaded.model_config}")
+    mols, preds = os.path.join(out_dir, "mols.csv"), os.path.join(out_dir, "preds.csv")
+    pd.DataFrame({"smiles": full.smiles[:512]}).to_csv(mols, index=False)
+    t0 = time.perf_counter()
+    StreamingInferencePipeline(art, batch_size=512, device="cuda").run_csv(mols, preds)
+    got = pd.read_csv(preds)
+    vals = got[cols].to_numpy(np.float64)
+    print(f"[halo-train] the artifact served by run_csv on one rank: {len(got)} rows in "
+          f"{time.perf_counter() - t0:.2f} s, predictions in [{vals.min():.3f}, {vals.max():.3f}]",
+          flush=True)
+    if len(got) != 512 or not np.isfinite(vals).all():
+        raise AssertionError("serving the halo-trained artifact lost rows or gave non-finite values")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
+                launches: dict) -> None:
+    """Halo graph-partitioned training (``--graph_shards``): kernel 5 alone,
+    one step of a 2 x 2 rank grid, and the CLI on 2 ranks; on one card the
+    ranks share it over gloo, on several each has its own (NCCL)."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+
+    hmodel = pkg.models.gnn.GNN(tcfg)
+    hmodel.load_state_dict(params_from_flax(init_params(tcfg, seed)))
+    hmodel.to("cuda")
+    res.update(check_halo_kernel(tcfg, hmodel, ds, seed))
+    del hmodel
+    halo_step_phase(pkg, tcfg, fl_full, seed, work)
+    launches.update(halo_train_phase(pkg, tcfg, full, seed, work))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -1928,6 +2404,9 @@ def main() -> int:
                 steps=C3_TRAIN_STEPS, want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
     print(f"[time] config-3 flat phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    halo_phases(pkg, tcfg, ds, full, fl_full, args.seed, work, res, launches)
+    print(f"[time] halo phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     for name, src, tpu in (
         ("mp_stack_fwd", "aimnet_x2d_tpu_torch/csrc/mp_stack.cu", "aimnet_x2d_tpu/ops/bin_mp.py:639"),
@@ -1969,6 +2448,8 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/bin_attnpool.py:368"),
         ("attnpool_bwd_vocab", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
          "aimnet_x2d_tpu/ops/bin_attnpool.py:408"),
+        ("mp_ext_fwd", "aimnet_x2d_tpu_torch/csrc/mp_ext.cu", "aimnet_x2d_tpu/ops/bin_mp.py:1167"),
+        ("mp_ext_bwd", "aimnet_x2d_tpu_torch/csrc/mp_ext.cu", "aimnet_x2d_tpu/ops/bin_mp.py:1196"),
     ):
         # the flagship's dtype; kernel 8 at its op's default, exact fp32
         r = res[(name, torch.float32 if name == "wseg_sum" else torch.bfloat16)]

@@ -728,3 +728,66 @@ def test_vocab_autograd_launches_only_the_folded_kernels(dev, dtype):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 1, 1, 0, 0]
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tables)
     assert kb.grad.dtype == torch.float32 and torch.isfinite(kb.grad).all()
+
+
+def _ext_layer(dev, D, g, n_blocks=2):
+    shapes = [(D, D), (D, D), (D,), (D, D), (D, D), (D,)] + [(D, D), (D,), (D, D), (D,)] * n_blocks
+    return [(torch.rand(s, generator=g, device=dev) - 0.5) * 0.4 for s in shapes]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.05])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [19, 153])
+def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
+    """Kernel 5 (csrc/mp_ext.cu): the forward and the backward (dxa and every
+    weight gradient) against the plain versions, with a padding bin (xa 0)
+    and dropout off and on; the backward twice, bit-equal; one launch each."""
+    g = torch.Generator(device=dev).manual_seed(D + int(100 * rate))
+    A = 6 * 256
+    sw = bin_mp.stack_weights([_ext_layer(dev, D, g)], dtype)
+    spec = bin_mp.StackSpec("silu", rate, 0x5EED, 1)
+    xa = torch.randn(2 * D, A, generator=g, device=dev)
+    xa[:, -256:] = 0.0
+    xa = xa.to(dtype)
+    gy = (torch.randn(D, A, generator=g, device=dev) * 0.1).to(dtype)
+    f0, b0 = bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches
+    out = bin_mp.mp_ext_fwd(xa, sw, spec)
+    dxa, grads = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
+    dxa2, grads2 = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
+    assert (bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches) == (f0 + 1, b0 + 2)
+    ref = bin_mp.mp_ext_plain(xa, sw, spec)
+    rdxa, rgrads = bin_mp.mp_ext_bwd_plain(xa, sw, spec, gy)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert out.shape == (D, A) and dxa.shape == (2 * D, A)
+    assert _rel(out, ref) < tol
+    assert _rel(dxa, rdxa) < tol
+    for a, r in zip(grads, rgrads):
+        assert float((a - r).abs().max()) <= tol * max(float(r.abs().max()), 1e-6)
+    assert torch.equal(dxa, dxa2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert out[:, -256:].isfinite().all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ext_layer_autograd_launches_kernel_5(dev, dtype):
+    """``binned_mp_layer_ext_t`` on CUDA tensors runs kernel 5 once per
+    direction and matches the CPU's plain versions."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    D, A = 153, 512
+    ws = _ext_layer(dev, D, g)
+    xa = torch.randn(2 * D, A, generator=g, device=dev).to(dtype)
+    gy = (torch.randn(D, A, generator=g, device=dev) * 0.1).to(dtype)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        x = xa.detach().to(where).clone().requires_grad_(True)
+        w = [t.detach().to(where).clone().requires_grad_(True) for t in ws]
+        f0, b0 = bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches
+        y = bin_mp.binned_mp_layer_ext_t(x, w, dtype, "silu", 0.05, 1234)
+        y.backward(gy.to(where))
+        launched = (bin_mp.mp_ext_fwd.launches - f0, bin_mp.mp_ext_bwd.launches - b0)
+        assert launched == ((1, 1) if where == "cuda" else (0, 0))
+        grads[where] = [y.detach(), x.grad] + [t.grad for t in w]
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert float((a.cpu().float() - r.float()).abs().max()) <= tol * max(
+            float(r.float().abs().max()), 1e-6)

@@ -30,10 +30,12 @@ def test_port_has_modules():
     assert "aimnet_x2d_tpu_torch/ops/bin_wpool.py" in names
     for mod in ("ops/bin_attnpool.py", "models/losses.py", "training/trainer.py",
                 "training/evaluator.py", "training/schedulers.py", "data/io.py", "runner.py",
-                "ops/fused_edge.py", "ops/pallas_segment.py", "ops/segment.py"):
+                "ops/fused_edge.py", "ops/pallas_segment.py", "ops/segment.py", "ops/halo.py",
+                "parallel/halo.py", "parallel/mesh.py", "parallel/multihost.py",
+                "parallel/graph_parallel.py"):
         assert f"aimnet_x2d_tpu_torch/{mod}" in names
     for src in ("mp_stack.cu", "mp_stack_bwd.cu", "attnpool.cu", "wpool.cu", "common.cuh",
-                "wgrad.cuh", "fused_edge.cu"):
+                "wgrad.cuh", "fused_edge.cu", "mp_ext.cu"):
         assert (ROOT / "aimnet_x2d_tpu_torch/csrc" / src).exists()
 
 

@@ -312,7 +312,7 @@ def test_cli_trains_on_cpu_and_jax_serves_the_artifact(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--save_embeddings"], ["--inference_hdf5", "x.h5"],
-                                  ["--iterable_dataset"], ["--graph_shards", "2"]])
+                                  ["--iterable_dataset"], ["--hyperparameter_file", "hp.yaml"]])
 def test_cli_later_slices_raise(flag):
     with pytest.raises(NotImplementedError):
         cli.parse_arguments(["--data_path", "x.csv", *flag])

@@ -1,0 +1,69 @@
+"""One rank of the port's multi-rank halo tests (tests/test_torch_halo_ranks.py).
+
+    python tests/torch_halo_worker.py RANK WORLD PORT JOB.pkl OUT_DIR
+
+Imports the port only (never JAX).  Joins a gloo process group at
+``localhost:PORT``, builds the (data, graph) grid of the job and runs it on
+this rank's shard of the job's stacked host batches:
+
+- ``forward``: the serving forward of each (config, flax parameters) pair,
+  predictions saved;
+- ``step``: one train step of the grid (parallel/graph_parallel.py) with
+  Adam at the job's learning rate; the loss, the molecule count and the
+  updated parameters (flax names) saved.
+
+Writes ``OUT_DIR/rank{RANK}.pkl``.
+"""
+
+import os
+import pickle
+import sys
+
+
+def main() -> None:
+    rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    job_path, out_dir = sys.argv[4], sys.argv[5]
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import torch
+
+    torch.set_num_threads(1)
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax, params_to_flax
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
+    from aimnet_x2d_tpu_torch.models.gnn import GNN
+    from aimnet_x2d_tpu_torch.parallel import mesh, multihost
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    n_data, n_graph = job["grid"]
+    cpu = torch.device("cpu")
+    multihost.initialize(f"localhost:{port}", world, rank, "gloo", cpu)
+    out = {}
+    try:
+        grid = mesh.make_grid(n_data, n_graph, cpu, "gloo")
+        batch = index_batch(job["stacked"], grid.data.index, grid.graph.index).to(cpu)
+        if job["kind"] == "forward":
+            for name, (cfg, flat) in job["cfgs"].items():
+                model = GNN(cfg)
+                model.load_state_dict(params_from_flax(flat))
+                with torch.no_grad():
+                    out[name] = model(batch).predictions.numpy()
+        else:
+            cfg = job["cfg"]
+            model = GNN(cfg)
+            model.load_state_dict(params_from_flax(job["params"]))
+            tc = trainer.TrainConfig(learning_rate=job["lr"], task_type=cfg.task_type)
+            opt = trainer.make_optimizer(model, tc)
+            loss, n = trainer.train_step(model, opt, batch, job["lr"], trainer.make_loss_fn(tc),
+                                         grid=grid)
+            out = {"loss": float(loss), "n": float(n),
+                   "params": params_to_flax(model.state_dict(), cfg)}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        multihost.sync()
+    finally:
+        multihost.shutdown()
+
+
+if __name__ == "__main__":
+    main()
