@@ -15,14 +15,16 @@ training runs its own fused kernel (``bin_attnpool.py``); only the tests and
 
 On a CUDA tensor :func:`binned_wpool_t` launches the hand-written kernels
 (``csrc/wpool.cu``: ``wpool_fwd``, and ``wpool_bwd`` in the backward),
-which take every (nb, mb) the binned loader emits; on a CPU tensor it runs
-:func:`wpool_plain` and :func:`wpool_bwd_plain`.
+which take every (nb, mb) the binned loader emits and any int8 pool matrix
+(ab a multiple of 8, x and w on 16-byte boundaries, pool_mat on 8: the
+wrappers check); on a CPU tensor it runs :func:`wpool_plain` and
+:func:`wpool_bwd_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,51 +60,61 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.wpool_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
         lib.wpool_fwd.restype = i
-        lib.wpool_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.wpool_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
         lib.wpool_bwd.restype = i
         for fn in (lib.wpool_smem_bytes, lib.wpool_bwd_smem_bytes):
-            fn.argtypes = [i, i]
+            fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_longlong
-        lib.wpool_bwd_tile_rows.argtypes = []
-        lib.wpool_bwd_tile_rows.restype = i
         lib.wpool_error_string.argtypes = [i]
         lib.wpool_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+_SMEM: Dict[Tuple[str, int, int, int], int] = {}  # (entry, bf16, mb, ab) -> bytes
+
+
 def _check(what: str, xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor, smem_fn: str):
-    """Raise on any input the kernels do not take; return (lib, D, A, nb, mb, ab)."""
+    """Raise on any input the kernels do not take; return (lib, bf16, D, A,
+    nb, mb, ab).  The shared-memory size of a shape is asked once."""
     if xT.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: unsupported dtype {xT.dtype}")
     if w.dtype != torch.float32 or pool_mat.dtype != torch.int8:
         raise TypeError(f"{what}: w must be float32 and pool_mat int8")
-    cuda_build.check_cuda(what, xT.device, ("xT", xT, 1), ("w", w, 1), ("pool_mat", pool_mat, 1))
+    cuda_build.check_cuda(what, xT.device, ("xT", xT, 16), ("w", w, 16), ("pool_mat", pool_mat, 8))
     D, A = xT.shape
     nb, mb, ab = pool_mat.shape
-    if A != nb * ab or w.shape[0] != A:
+    if A != nb * ab or w.shape[0] != A or ab % 8:
         raise ValueError(
             f"{what}: xT {tuple(xT.shape)}, w {tuple(w.shape)}, pool_mat "
-            f"{tuple(pool_mat.shape)}: need A = nb*ab"
+            f"{tuple(pool_mat.shape)}: need A = nb*ab and ab a multiple of 8"
         )
     lib = _lib()
-    if getattr(lib, smem_fn)(mb, ab) > cuda_build.SMEM_LIMIT:
+    bf16 = int(xT.dtype == torch.bfloat16)
+    key = (smem_fn, bf16, mb, ab)
+    smem = _SMEM.get(key)
+    if smem is None:
+        smem = _SMEM[key] = getattr(lib, smem_fn)(bf16, mb, ab)
+    if smem > cuda_build.SMEM_LIMIT:
         raise ValueError(f"{what}: mb={mb}, ab={ab} exceed one block's shared memory")
-    return lib, D, A, nb, mb, ab
+    return lib, bf16, D, A, nb, mb, ab
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def wpool_fwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA pool kernel on the current stream.  Raises on any
     input the kernel does not take and on any launch error."""
-    w = w.reshape(-1)
-    lib, D, A, nb, mb, ab = _check("wpool_fwd", xT, w, pool_mat, "wpool_smem_bytes")
-    out = torch.empty(D, nb * mb, dtype=torch.float32, device=xT.device)
+    if w.dim() != 1:
+        w = w.reshape(-1)
+    lib, bf16, D, A, nb, mb, ab = _check("wpool_fwd", xT, w, pool_mat, "wpool_smem_bytes")
+    out = xT.new_empty((D, nb * mb), dtype=torch.float32)
     if D and nb and mb:
-        status = lib.wpool_fwd(
-            xT.data_ptr(), w.data_ptr(), pool_mat.data_ptr(), out.data_ptr(),
-            int(xT.dtype == torch.bfloat16), D, A, nb, mb, ab,
-            torch.cuda.current_stream(xT.device).cuda_stream,
-        )
+        status = lib.wpool_fwd(xT.data_ptr(), w.data_ptr(), pool_mat.data_ptr(), out.data_ptr(),
+                               bf16, D, A, nb, mb, ab, _stream(xT))
         if status != 0:
             raise RuntimeError(f"wpool_fwd: {lib.wpool_error_string(status).decode()}")
         wpool_fwd.launches += 1
@@ -114,30 +126,27 @@ wpool_fwd.launches = 0
 
 def wpool_bwd(xT: torch.Tensor, w: torch.Tensor, pool_mat: torch.Tensor, g: torch.Tensor,
               need_dw: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA backward kernel on the current stream (and, for dw,
-    its fixed-order reduction of the row tiles' partials).  Same returns as
+    """Launch the CUDA backward kernel on the current stream (one launch;
+    dw, when asked, is summed inside it in a fixed order).  Same returns as
     :func:`wpool_bwd_plain`.  Raises on any input the kernel does not take
     and on any launch error."""
-    w = w.reshape(-1)
-    lib, D, A, nb, mb, ab = _check("wpool_bwd", xT, w, pool_mat, "wpool_bwd_smem_bytes")
-    if g.dtype != torch.float32 or tuple(g.shape) != (D, nb * mb):
+    if w.dim() != 1:
+        w = w.reshape(-1)
+    lib, bf16, D, A, nb, mb, ab = _check("wpool_bwd", xT, w, pool_mat, "wpool_bwd_smem_bytes")
+    if g.dtype != torch.float32 or g.shape != (D, nb * mb):
         raise ValueError(f"wpool_bwd: g {g.dtype} {tuple(g.shape)}, need float32 ({D}, {nb * mb})")
     cuda_build.check_cuda("wpool_bwd", xT.device, ("g", g, 4))
-    dev = xT.device
     dx = torch.empty_like(xT)
-    dw = torch.zeros(A, dtype=torch.float32, device=dev) if need_dw else None
+    dw = torch.empty(A, dtype=torch.float32, device=xT.device) if need_dw else None
     if D and nb:
-        tiles = -(-D // lib.wpool_bwd_tile_rows())
-        part = torch.empty(tiles, A, dtype=torch.float32, device=dev) if need_dw else None
-        status = lib.wpool_bwd(
-            xT.data_ptr(), w.data_ptr(), pool_mat.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            part.data_ptr() if need_dw else None, dw.data_ptr() if need_dw else None,
-            int(xT.dtype == torch.bfloat16), D, A, nb, mb, ab,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        status = lib.wpool_bwd(xT.data_ptr(), w.data_ptr(), pool_mat.data_ptr(), g.data_ptr(),
+                               dx.data_ptr(), dw.data_ptr() if need_dw else None,
+                               bf16, D, A, nb, mb, ab, _stream(xT))
         if status != 0:
             raise RuntimeError(f"wpool_bwd: {lib.wpool_error_string(status).decode()}")
         wpool_bwd.launches += 1
+    elif need_dw:
+        dw.zero_()
     return dx, dw
 
 

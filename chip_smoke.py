@@ -11,7 +11,11 @@ Phases, each of which fails the run when it fails:
 3. ``[kernel]``: hold each serving kernel against its plain PyTorch version
    at the flagship serving shapes (a batch of 2048 molecules of the
    script's SMILES), in fp32 and bf16, and time kernel, plain version and
-   library yardstick;
+   library yardstick; the weighted pool (kernel 2) also on a pool matrix
+   that is not one-hot, bit-equal on a rerun, timed as device time from
+   ``torch.profiler`` in turns with its library call (an einsum that
+   weights inside the call), beside the event time of back-to-back calls
+   and the wrapper's host time per call;
 4. ``[serve]``: write a flagship artifact (hidden 512, bf16, random weights
    from the seed, fitted scaler), run a CSV of the script's SMILES through
    the port's CLI on ``cuda`` with the launch counters reset just before,
@@ -48,9 +52,12 @@ Phases, each of which fails the run when it fails:
    of the flagship's SMILES:
    - ``[c1-kernel]``: the weighted pool's backward (kernel 2b, dx and dw)
      against its plain version, fp32 and bf16, D 359 and 153, the training
-     batch's mb and two mb that are not multiples of 16, w = 1 and a random
-     w on the real atoms; timed at the training batch with its bound and
-     the einsum yardstick;
+     batch's mb, two mb that are not multiples of 16 and a pool matrix
+     that is not one-hot, w = 1 and a random w on the real atoms, reruns
+     bit-equal; timed at the training batch without dw (as mean and sum
+     pooling run it, beside its library call, an einsum that weights
+     inside the call) and with dw, each with its own bound, device time
+     as in phase 3;
    - ``[c1-serve]``: phase 4 for a config-1 artifact;
    - ``[c1-train]``: phase 6 for config 1; the weighted pool's kernels run,
      the attention pool's never;
@@ -129,7 +136,12 @@ Phases, each of which fails the run when it fails:
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
 14. print the ``kernels`` JSON line, the card line and, last, the result
-   line ``{"ok": true, "device": {...}}``.
+   line ``{"ok": true, "device": {...}}``.  Each row of the kernels line
+   names how its times were taken in ``timing``: "events" (CUDA events
+   around back-to-back calls from Python, host gaps included), "profiler"
+   (the kernels' device time from ``torch.profiler``; kernels 2 and 2b) or
+   "profiler+graph" (some of them from a CUDA-graph replay where the
+   profiler saw no device events).
 
 On a machine with several cards the halo phases' ranks each get a card of
 their own, over NCCL.
@@ -270,6 +282,112 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the self device time of every
+    kernel it launches, summed by ``torch.profiler`` over ``iters``
+    back-to-back calls; where the profiler records no device events, CUDA
+    events around the replay of a CUDA graph of ``iters`` calls (no launch
+    gaps), which is said on a line of its own and counted in
+    ``device_ms.graph_timed``, so that a row of the kernels line names its
+    method (``timing_of``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total > 0:
+        return total / 1e3 / iters
+    device_ms.graph_timed += 1
+    print("[timing] the profiler recorded no device events: timing a CUDA-graph replay with "
+          "events instead", flush=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+device_ms.graph_timed = 0
+
+
+def timing_of(graph_timed_before: int) -> str:
+    """The kernels line's ``timing`` of a row timed with ``device_ms`` since
+    ``device_ms.graph_timed`` read ``graph_timed_before``: "profiler", or
+    "profiler+graph" where some call fell back to a graph replay."""
+    return "profiler" if device_ms.graph_timed == graph_timed_before else "profiler+graph"
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` in µs: the host clock around
+    ``calls`` back-to-back calls with no synchronize among them (what the
+    caller's thread spends to enqueue the work)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / calls
+
+
+def in_turns(fns: dict) -> dict:
+    """``device_ms`` of each of ``fns`` twice, in turns: in the order given,
+    then in the reverse order (library, kernel, kernel, library); returns
+    name -> (first, second)."""
+    first = {name: device_ms(fn) for name, fn in fns.items()}
+    second = {name: device_ms(fns[name]) for name in reversed(list(fns))}
+    return {name: (first[name], second[name]) for name in fns}
+
+
+# Yardsticks of kernels 2 and 2b: one PyTorch call each that computes the
+# kernel's function, on operands in x's dtype (x3 (D, nb, ab), w2 (nb, ab),
+# pm (nb, mb, ab), g3 (D, nb, mb)); the weighting is inside the call.  The
+# port never calls them; tests/test_torch_wpool_yardsticks.py holds them to
+# the plain versions.  No single call computes 2b's dw.
+def wpool_fwd_library(x3, w2, pm):
+    return torch.einsum("dba,ba,bma->dbm", x3, w2, pm)
+
+
+def wpool_bwd_dx_library(g3, pm, w2):
+    return torch.einsum("dbm,bma,ba->dba", g3, pm, w2)
+
+
+def rand_pm(nb: int, mb: int, ab: int, gen, multi: bool = False) -> torch.Tensor:
+    """A random int8 pool matrix (nb, mb, ab): each atom in one slot or
+    none.  ``multi``: not one-hot, as the kernels must still take it: every
+    7th atom of a slot carries 2 there and -1 in the next slot, and slot 0
+    of every bin is empty."""
+    dev = gen.device
+    owner = torch.randint(-1, mb, (nb, ab), generator=gen, device=dev)
+    slots = torch.arange(mb, device=dev)[None, :, None]
+    pm = (owner[:, None, :] == slots).to(torch.int8)
+    if multi:
+        two = ((torch.arange(ab, device=dev) % 7 == 0)[None, :] & (owner >= 0))[:, None, :]
+        pm = torch.where(two, 2 * pm, pm)
+        pm = pm - (two & (((owner + 1) % mb)[:, None, :] == slots)).to(torch.int8)
+        pm[:, 0] = 0
+    return pm.contiguous()
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     got, ref = got.float(), ref.float()
     if not bool(torch.isfinite(got).all()):
@@ -302,7 +420,7 @@ def check_kernels(pkg, cfg, batch, seed: int) -> dict:
     """Phase 3: each kernel against its plain version at the serving
     shapes; returns per-kernel numbers for the kernels line."""
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
-    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.ops import bin_mp
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -351,48 +469,82 @@ def check_kernels(pkg, cfg, batch, seed: int) -> dict:
             bound_by=bound_by, library_ms=None,
         )
 
-    # --- kernel 2: the weighted pool (x_self 359 and x_other 153 rows;
-    # the batch's own mb plus two mb that are not multiples of 16)
-    def rand_pm(mb_):
-        owner = torch.randint(-1, mb_, (nb, ab), generator=gen, device=dev)
-        m = torch.arange(mb_, device=dev)[None, :, None]
-        return (owner[:, None, :] == m).to(torch.int8).contiguous()
+    res.update(check_wpool_fwd(cfg, batch, seed))
+    return res
 
-    pms = [pm, rand_pm(20), rand_pm(44)]
+
+def check_wpool_fwd(cfg, batch, seed: int) -> dict:
+    """``[kernel]`` for kernel 2 (``wpool_fwd``): against its plain version
+    on x_self's and x_other's rows, fp32 and bf16, at the serving batch's
+    pool matrix, two random ones with mb not a multiple of 16 and one that
+    is not one-hot, the output bit-equal on a rerun; then timed at the
+    serving batch (both launches of a batch): device time from the
+    profiler, in turns with the library yardstick, beside the event time
+    of back-to-back calls and the wrapper's host time per call."""
+    from aimnet_x2d_tpu_torch.ops import bin_wpool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pm = batch.pool_mat
+    nb, mb, ab = pm.shape
+    A = nb * ab
+    Ds = (cfg.x_self_dim, cfg.x_other_dim)
+    pms = [pm, rand_pm(nb, 20, ab, gen), rand_pm(nb, 44, ab, gen), rand_pm(nb, mb, ab, gen, True)]
     w = torch.rand(A, generator=gen, device=dev) * batch.atom_mask.float()
+    npm = int((pm != 0).sum())
+    res = {}
     for dt in (torch.float32, torch.bfloat16):
-        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-        for pm_ in pms:
-            for d in (cfg.x_self_dim, D):
+        tol = TOL[("wpool_fwd", dt)]
+        graph_timed = device_ms.graph_timed
+        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   bound_by="bytes", event_ms=0.0, host_us=0.0)
+        for k, pm_ in enumerate(pms):
+            mb_ = pm_.shape[1]
+            for d in Ds:
                 x = torch.randn(d, A, generator=gen, device=dev).to(dt)
                 got = bin_wpool.wpool_fwd(x, w, pm_)
-                ref = bin_wpool.wpool_plain(x, w, pm_)
+                ref_out = bin_wpool.wpool_plain(x, w, pm_)
+                again = bin_wpool.wpool_fwd(x, w, pm_)
                 torch.cuda.synchronize()
-                abs_err, rel = rel_err(got, ref)
-                tol = TOL[("wpool_fwd", dt)]
-                mb_ = pm_.shape[1]
-                print(f"[kernel] wpool_fwd {str(dt)[6:]} D={d} mb={mb_}: max_abs_err={abs_err:.3e} "
-                      f"rel={rel:.3e} (tol {tol:g})", flush=True)
-                if not rel <= tol:
-                    raise AssertionError(f"wpool_fwd {dt} D={d} mb={mb_}: rel err {rel:.3e} > {tol:g}")
-                if pm_ is not pm:
-                    continue
-                # main-path shapes: time both launches of a batch
-                xw = (x * w.to(dt)[None, :]).reshape(d, nb, ab)
-                pm_dt = pm_.to(dt)
-                isz = x.element_size()
-                nbytes = d * A * isz + 4 * A + nb * mb_ * ab + 4 * d * nb * mb_
-                ops = 2 * d * int((pm_ != 0).sum())
+                abs_err, rel = rel_err(got, ref_out)
+                kind = "not one-hot" if k == 3 else "one-hot"
+                print(f"[kernel] wpool_fwd {str(dt)[6:]} D={d} mb={mb_} ({kind}): "
+                      f"max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
+                if not rel <= tol or not torch.equal(got, again):
+                    raise AssertionError(f"wpool_fwd {dt} D={d} mb={mb_} ({kind}): rel err "
+                                         f"{rel:.3e} > {tol:g}, or a rerun differs")
                 tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
-                tot["ms"] += time_ms(lambda: bin_wpool.wpool_fwd(x, w, pm_))
-                tot["plain_ms"] += time_ms(lambda: bin_wpool.wpool_plain(x, w, pm_))
-                tot["library_ms"] += time_ms(lambda: torch.einsum("dba,bma->dbm", xw, pm_dt))
-                tot["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32])
-        tot["bound_by"] = "bytes"
-        print(f"[kernel] wpool_fwd {str(dt)[6:]} per batch (D={cfg.x_self_dim} + D={D}, "
-              f"mb={pm.shape[1]}): ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
-              f"library_ms={tot['library_ms']:.4f} bound_ms={tot['bound_ms']:.4f} (bytes)",
-              flush=True)
+                if k:
+                    continue
+                # main-path shapes: both launches of a batch
+                x3, w2, pm_dt = x.reshape(d, nb, ab), w.reshape(nb, ab).to(dt), pm.to(dt)
+                t = in_turns({"library": lambda: wpool_fwd_library(x3, w2, pm_dt),
+                              "kernel": lambda: bin_wpool.wpool_fwd(x, w, pm)})
+                plain = device_ms(lambda: bin_wpool.wpool_plain(x, w, pm), iters=5)
+                ev = time_ms(lambda: bin_wpool.wpool_fwd(x, w, pm))
+                hu = host_us(lambda: bin_wpool.wpool_fwd(x, w, pm))
+                nbytes = d * A * x.element_size() + 4 * A + nb * mb * ab + 4 * d * nb * mb
+                ops = 2 * d * npm
+                bound = 1e3 * max(nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32])
+                print(f"[kernel] wpool_fwd {str(dt)[6:]} D={d}: device ms kernel "
+                      f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f}, library {t['library'][0]:.4f}"
+                      f" / {t['library'][1]:.4f}; plain {plain:.4f}; bound {bound:.4f} (bytes, "
+                      f"{nbytes / 1e6:.2f} MB); "
+                      f"events over back-to-back calls {ev:.4f} ms; host {hu:.1f} us a call",
+                      flush=True)
+                tot["ms"] += sum(t["kernel"]) / 2
+                tot["library_ms"] += sum(t["library"]) / 2
+                tot["plain_ms"] += plain
+                tot["bound_ms"] += bound
+                tot["event_ms"] += ev
+                tot["host_us"] += hu / len(Ds)
+        print(f"[kernel] wpool_fwd {str(dt)[6:]} per batch (D={Ds[0]} + D={Ds[1]}, nb={nb}, "
+              f"mb={mb}, ab={ab}), device ms: kernel {tot['ms']:.4f} library {tot['library_ms']:.4f}"
+              f" plain {tot['plain_ms']:.4f} bound {tot['bound_ms']:.4f} (bytes): "
+              f"{tot['ms'] / tot['bound_ms']:.2f}x the bound, {tot['ms'] / tot['library_ms']:.2f}x "
+              f"the library call; events {tot['event_ms']:.4f} ms; host {tot['host_us']:.1f} us "
+              f"a call", flush=True)
+        tot["timing"] = timing_of(graph_timed)
         res[("wpool_fwd", dt)] = tot
     return res
 
@@ -1324,11 +1476,15 @@ def config1(cfg):
 
 
 def check_c1_kernel(cfg, batch, seed: int) -> dict:
-    """``[c1-kernel]``: kernel 2b (``wpool_bwd``: dx and dw) against its
-    plain version on x_self's and x_other's rows, fp32 and bf16, at the
-    config-1 training batch's pool matrix and two with mb not a multiple
-    of 16, with w = 1 (mean pooling) and a random w on the real atoms;
-    timed (both launches of a step, dx and dw) at the training batch."""
+    """``[c1-kernel]``: kernel 2b (``wpool_bwd``: dx, and dw when asked)
+    against its plain version on x_self's and x_other's rows, fp32 and bf16,
+    at the config-1 training batch's pool matrix, two with mb not a multiple
+    of 16 and one that is not one-hot, with w = 1 (mean pooling) and a
+    random w on the real atoms, dx and dw bit-equal on a rerun; then timed
+    at the training batch (both launches of a step, w = 1), without dw as
+    mean and sum pooling run it and with dw: device time from the profiler,
+    in turns with the library yardstick of the dx-only form, beside the
+    event time of back-to-back calls and the wrapper's host time per call."""
     from aimnet_x2d_tpu_torch.ops import bin_wpool
 
     dev = torch.device("cuda")
@@ -1336,64 +1492,97 @@ def check_c1_kernel(cfg, batch, seed: int) -> dict:
     pm = batch.pool_mat
     nb, mb, ab = pm.shape
     A = nb * ab
+    Ds = (cfg.x_self_dim, cfg.x_other_dim)
     print(f"[c1-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms="
           f"{int(batch.atom_mask.sum())} molecules={int(batch.graph_mask.sum())}", flush=True)
-
-    def rand_pm(mb_):
-        owner = torch.randint(-1, mb_, (nb, ab), generator=gen, device=dev)
-        return (owner[:, None, :] == torch.arange(mb_, device=dev)[None, :, None]).to(torch.int8)
-
     real = batch.atom_mask.float()
     weights = {"w=1": torch.ones(A, device=dev),
                "w random": torch.rand(A, generator=gen, device=dev) * real}
+    pms = [pm, rand_pm(nb, 20, ab, gen), rand_pm(nb, 44, ab, gen), rand_pm(nb, mb, ab, gen, True)]
+    npm = int((pm != 0).sum())
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[("wpool_bwd", dt)]
         worst = 0.0
-        for pm_ in (pm, rand_pm(20), rand_pm(44)):
+        for k, pm_ in enumerate(pms):
             mb_ = pm_.shape[1]
-            for d in (cfg.x_self_dim, cfg.x_other_dim):
+            kind = "not one-hot" if k == 3 else "one-hot"
+            for d in Ds:
                 x = torch.randn(d, A, generator=gen, device=dev).to(dt)
                 g = torch.randn(d, nb * mb_, generator=gen, device=dev)
                 for wname, w in weights.items():
                     dx, dw = bin_wpool.wpool_bwd(x, w, pm_, g)
+                    dx2, dw2 = bin_wpool.wpool_bwd(x, w, pm_, g)
+                    dx3, none = bin_wpool.wpool_bwd(x, w, pm_, g, need_dw=False)
                     rdx, rdw = bin_wpool.wpool_bwd_plain(x, w, pm_, g)
                     torch.cuda.synchronize()
                     (ax, rx), (aw, rw) = rel_err(dx, rdx), rel_err(dw, rdw)
                     worst = max(worst, ax, aw)
-                    print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} D={d} mb={mb_} {wname}: dx "
-                          f"max_abs_err={ax:.3e} rel={rx:.3e}, dw max_abs_err={aw:.3e} "
+                    print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} D={d} mb={mb_} ({kind}) {wname}: "
+                          f"dx max_abs_err={ax:.3e} rel={rx:.3e}, dw max_abs_err={aw:.3e} "
                           f"rel={rw:.3e} (tol {tol:g})", flush=True)
                     if not max(rx, rw) <= tol:
-                        raise AssertionError(f"wpool_bwd {dt} D={d} mb={mb_} {wname}: rel err "
-                                             f"{max(rx, rw):.3e} > {tol:g}")
+                        raise AssertionError(f"wpool_bwd {dt} D={d} mb={mb_} ({kind}) {wname}: "
+                                             f"rel err {max(rx, rw):.3e} > {tol:g}")
+                    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(dx, dx3)
+                            and none is None):
+                        raise AssertionError(f"wpool_bwd {dt} D={d} mb={mb_} ({kind}) {wname}: "
+                                             f"a rerun, or the form without dw, differs")
         # main-path shapes: both launches of a step (x_self's and x_other's
-        # rows, w = 1), with dw; bytes: x read, dx written, g, pm, w, dw
+        # rows, w = 1); bytes without dw: dx written, g, pm, w read; with
+        # dw also x read and dw written
+        graph_timed = device_ms.graph_timed
         tot = dict(max_abs_err=worst, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   bound_by="bytes")
-        no_dw_ms = 0.0
+                   bound_by="bytes", dw_ms=0.0, dw_plain_ms=0.0, dw_bound_ms=0.0, event_ms=0.0,
+                   dw_event_ms=0.0, host_us=0.0)
         w = weights["w=1"]
-        npm = int((pm != 0).sum())
-        for d in (cfg.x_self_dim, cfg.x_other_dim):
+        for d in Ds:
             x = torch.randn(d, A, generator=gen, device=dev).to(dt)
             g = torch.randn(d, nb * mb, generator=gen, device=dev)
-            g3, pm_dt = g.reshape(d, nb, mb).to(dt), pm.to(dt)
+            g3, pm_dt, w2 = g.reshape(d, nb, mb).to(dt), pm.to(dt), w.reshape(nb, ab).to(dt)
+            t = in_turns({"library": lambda: wpool_bwd_dx_library(g3, pm_dt, w2),
+                          "kernel": lambda: bin_wpool.wpool_bwd(x, w, pm, g, need_dw=False),
+                          "kernel dw": lambda: bin_wpool.wpool_bwd(x, w, pm, g)})
+            plain = device_ms(lambda: bin_wpool.wpool_bwd_plain(x, w, pm, g, need_dw=False), iters=5)
+            plain_dw = device_ms(lambda: bin_wpool.wpool_bwd_plain(x, w, pm, g), iters=5)
+            ev = time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g, need_dw=False))
+            ev_dw = time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g))
+            hu = host_us(lambda: bin_wpool.wpool_bwd(x, w, pm, g, need_dw=False))
             isz = x.element_size()
-            nbytes = 2 * d * A * isz + 4 * d * nb * mb + nb * mb * ab + 4 * A + 4 * A
-            ops = 2 * d * npm + 3 * d * A
-            t_ops = ops / PEAK_FLOPS[torch.float32]
-            tot["ms"] += time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g))
-            no_dw_ms += time_ms(lambda: bin_wpool.wpool_bwd(x, w, pm, g, need_dw=False))
-            tot["plain_ms"] += time_ms(lambda: bin_wpool.wpool_bwd_plain(x, w, pm, g), iters=5)
-            tot["library_ms"] += time_ms(lambda: torch.einsum("dbm,bma->dba", g3, pm_dt))
-            tot["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_S, t_ops)
-            if t_ops > nbytes / HBM_BYTES_S:
-                tot["bound_by"] = "operations"
-        print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} per step (D={cfg.x_self_dim} + "
-              f"D={cfg.x_other_dim}, mb={mb}, dx and dw): ms={tot['ms']:.4f} "
-              f"plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} (einsum of "
-              f"g with pm) bound_ms={tot['bound_ms']:.4f} ({tot['bound_by']}); without dw, as "
-              f"mean pooling runs it: {no_dw_ms:.4f} ms", flush=True)
+            nbytes = d * A * isz + 4 * d * nb * mb + nb * mb * ab + 4 * A
+            ops = 2 * d * npm + d * A
+            bound = 1e3 * max(nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32])
+            dw_bytes, dw_ops = nbytes + d * A * isz + 4 * A, ops + 2 * d * A
+            dw_bound = 1e3 * max(dw_bytes / HBM_BYTES_S, dw_ops / PEAK_FLOPS[torch.float32])
+            print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} D={d}: device ms without dw: kernel "
+                  f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f}, library {t['library'][0]:.4f} / "
+                  f"{t['library'][1]:.4f}, plain {plain:.4f}, bound {bound:.4f} (bytes, "
+                  f"{nbytes / 1e6:.2f} MB); with dw: kernel {t['kernel dw'][0]:.4f} / "
+                  f"{t['kernel dw'][1]:.4f}, plain {plain_dw:.4f}, bound {dw_bound:.4f} (bytes, "
+                  f"{dw_bytes / 1e6:.2f} MB);"
+                  f" events over back-to-back calls {ev:.4f} / {ev_dw:.4f} ms (without / with dw);"
+                  f" host {hu:.1f} us a call", flush=True)
+            tot["ms"] += sum(t["kernel"]) / 2
+            tot["dw_ms"] += sum(t["kernel dw"]) / 2
+            tot["library_ms"] += sum(t["library"]) / 2
+            tot["plain_ms"] += plain
+            tot["dw_plain_ms"] += plain_dw
+            tot["bound_ms"] += bound
+            tot["dw_bound_ms"] += dw_bound
+            tot["event_ms"] += ev
+            tot["dw_event_ms"] += ev_dw
+            tot["host_us"] += hu / len(Ds)
+        print(f"[c1-kernel] wpool_bwd {str(dt)[6:]} per step (D={Ds[0]} + D={Ds[1]}, nb={nb}, "
+              f"mb={mb}, ab={ab}), device ms: without dw (as mean and sum pooling run it) kernel "
+              f"{tot['ms']:.4f} library {tot['library_ms']:.4f} plain {tot['plain_ms']:.4f} bound "
+              f"{tot['bound_ms']:.4f} (bytes): "
+              f"{tot['ms'] / tot['bound_ms']:.2f}x the bound, {tot['ms'] / tot['library_ms']:.2f}x "
+              f"the library call; with dw kernel {tot['dw_ms']:.4f} plain {tot['dw_plain_ms']:.4f} "
+              f"bound {tot['dw_bound_ms']:.4f} (bytes): "
+              f"{tot['dw_ms'] / tot['dw_bound_ms']:.2f}x the bound, no single library call; "
+              f"events {tot['event_ms']:.4f} / {tot['dw_event_ms']:.4f} ms; host "
+              f"{tot['host_us']:.1f} us a call", flush=True)
+        tot["timing"] = timing_of(graph_timed)
         res[("wpool_bwd", dt)] = tot
     return res
 
@@ -2457,7 +2646,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "timing": r.get("timing", "events"),
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

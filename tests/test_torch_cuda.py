@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from aimnet_x2d_tpu_torch.ops import bin_mp, bin_wpool
+from chip_smoke import rand_pm  # one-hot, or not (multi): the pool matrices chip_smoke checks
 
 pytestmark = pytest.mark.cuda
 
@@ -50,48 +51,66 @@ def test_stack_kernel_matches_plain(dev, dtype, act, D):
     assert _rel(got, ref) < (1e-4 if dtype == torch.float32 else 5e-2)
 
 
-@pytest.mark.parametrize("mb", [5, 16, 44])
+# (nb, ab, D): the flagship's widths (D 359 and 153), ab 64 and 256, one
+# bin, one feature row
+WPOOL_SHAPES = [(7, 256, 359), (7, 256, 153), (5, 64, 153), (1, 256, 1), (1, 64, 359)]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("shape", WPOOL_SHAPES)
+@pytest.mark.parametrize("mb", [5, 16, 20, 44, 70])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wpool_kernel_matches_plain(dev, dtype, mb):
-    g = torch.Generator(device=dev).manual_seed(mb)
-    nb, ab, D = 7, 256, 359
-    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
-    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+def test_wpool_kernel_matches_plain(dev, dtype, mb, shape, multi):
+    """Kernel 2: the same rounded products as the plain version, summed in
+    fp32 in another order (1e-5); a rerun bit-equal.  mb 70 takes two slot
+    groups; ``multi``: atoms in two slots (values 2 and -1), an empty
+    slot."""
+    nb, ab, D = shape
+    g = torch.Generator(device=dev).manual_seed(mb * 100 + D + ab + multi)
+    pm = rand_pm(nb, mb, ab, g, multi)
     x = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
     w = torch.rand(nb * ab, generator=g, device=dev)
     before = bin_wpool.wpool_fwd.launches
     got = bin_wpool.binned_wpool_t(x, w, pm)
     assert bin_wpool.wpool_fwd.launches == before + 1
     ref = bin_wpool.wpool_plain(x, w, pm)
+    again = bin_wpool.wpool_fwd(x, w, pm)
     torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
     assert _rel(got, ref) < 1e-5
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("need_dw", [True, False])
-@pytest.mark.parametrize("mb", [5, 16, 44])
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("shape", WPOOL_SHAPES)
+@pytest.mark.parametrize("mb", [5, 16, 20, 44, 70])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wpool_bwd_kernel_matches_plain(dev, dtype, mb, need_dw):
-    """Kernel 2b: dx is the rounded cotangent times w, the same arithmetic
-    on both sides; dw sums fp32 products over D in another order (1e-5)."""
-    g = torch.Generator(device=dev).manual_seed(100 + mb)
-    nb, ab = 7, 256
-    owner = torch.randint(-1, mb, (nb, ab), generator=g, device=dev)
-    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
-    w = torch.rand(nb * ab, generator=g, device=dev) * (owner >= 0).reshape(-1)
-    for D in (359, 153):
-        x = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
-        gout = torch.randn(D, nb * mb, generator=g, device=dev)
-        before = bin_wpool.wpool_bwd.launches
-        dx, dw = bin_wpool.wpool_bwd(x, w, pm, gout, need_dw)
-        assert bin_wpool.wpool_bwd.launches == before + 1
-        rdx, rdw = bin_wpool.wpool_bwd_plain(x, w, pm, gout, need_dw)
-        torch.cuda.synchronize()
-        assert dx.dtype == dtype and _rel(dx, rdx) < 1e-5
-        if need_dw:
-            assert dw.dtype == torch.float32 and _rel(dw, rdw) < 1e-5
-            assert torch.equal(dw, bin_wpool.wpool_bwd(x, w, pm, gout, True)[1])  # fixed order
-        else:
-            assert dw is None and rdw is None
+def test_wpool_bwd_kernel_matches_plain(dev, dtype, mb, shape, multi, need_dw):
+    """Kernel 2b: dx is the rounded cotangent summed over the atom's slots
+    in fp32 times w, as the plain version computes it; dw sums fp32
+    products over D in another order (1e-5).  dx and dw bit-equal on a
+    rerun, dx the same with and without dw."""
+    nb, ab, D = shape
+    g = torch.Generator(device=dev).manual_seed(100 + mb * 100 + D + ab + multi)
+    pm = rand_pm(nb, mb, ab, g, multi)
+    w = torch.rand(nb * ab, generator=g, device=dev) * (pm != 0).any(1).reshape(-1)
+    x = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+    gout = torch.randn(D, nb * mb, generator=g, device=dev)
+    before = bin_wpool.wpool_bwd.launches
+    dx, dw = bin_wpool.wpool_bwd(x, w, pm, gout, need_dw)
+    assert bin_wpool.wpool_bwd.launches == before + 1
+    rdx, rdw = bin_wpool.wpool_bwd_plain(x, w, pm, gout, need_dw)
+    dx2, dw2 = bin_wpool.wpool_bwd(x, w, pm, gout, need_dw)
+    dx3, _ = bin_wpool.wpool_bwd(x, w, pm, gout, not need_dw)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and _rel(dx, rdx) < 1e-5
+    assert torch.equal(dx, dx2) and torch.equal(dx, dx3)
+    if need_dw:
+        assert dw.dtype == torch.float32 and _rel(dw, rdw) < 1e-5
+        assert torch.equal(dw, dw2)  # fixed order
+    else:
+        assert dw is None and rdw is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
