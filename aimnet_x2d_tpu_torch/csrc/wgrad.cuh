@@ -83,15 +83,15 @@ struct VocabX {
   }
 };
 
+// One block's 16 x 64 output tile (rows m0.., columns n0..) over atoms
+// [a0, a1), fp32 on the CUDA cores through shared-memory tiles, written to
+// the partial P (row-major M x N).  Shared by wgrad_kernel_f32 and the
+// grouped contraction (csrc/wgrad_group.cuh).
 template <class XL>
-__global__ void __launch_bounds__(kWgThreads)
-wgrad_kernel_f32(const float* __restrict__ dY, XL X, const float* __restrict__ bsrc,
-                 float* __restrict__ part, int M, int N, int A, int chunk) {
+__device__ void wgrad_tile_f32(const float* __restrict__ dY, XL X, float* __restrict__ P, int M,
+                               int N, int A, int m0, int n0, int a0, int a1) {
   __shared__ float ys[16][33];
   __shared__ float xs[64][33];
-  const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 64;
-  const int a0 = blockIdx.z * chunk, a1 = min(A, a0 + chunk);
-  float* P = part + (size_t)blockIdx.z * ((size_t)M * N + M);
   const int tn = threadIdx.x % 64, tm = threadIdx.x / 64;  // 8 rows each: tm*8 .. tm*8+7
   float acc[8];
 #pragma unroll
@@ -118,6 +118,16 @@ wgrad_kernel_f32(const float* __restrict__ dY, XL X, const float* __restrict__ b
 #pragma unroll
     for (int i = 0; i < 8; ++i) P[(size_t)(m0 + tm * 8 + i) * N + n0 + tn] = acc[i];
   }
+}
+
+template <class XL>
+__global__ void __launch_bounds__(kWgThreads)
+wgrad_kernel_f32(const float* __restrict__ dY, XL X, const float* __restrict__ bsrc,
+                 float* __restrict__ part, int M, int N, int A, int chunk) {
+  const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 64;
+  const int a0 = blockIdx.z * chunk, a1 = min(A, a0 + chunk);
+  float* P = part + (size_t)blockIdx.z * ((size_t)M * N + M);
+  wgrad_tile_f32(dY, X, P, M, N, A, m0, n0, a0, a1);
   if (blockIdx.y == 0) wgrad_bias(dY, bsrc, P + (size_t)M * N, m0, A, a0, a1);
 }
 

@@ -46,8 +46,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.activation import ACTIVATION_CODES, activation_grad, get_activation_function
@@ -474,10 +475,12 @@ def _layer_bwd_plain(x, adj, ws, spec, n_blocks, l, g32):
     return (dxa[:Dp] + dagg) + g32, grads
 
 
-def _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, gd):
+def _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, gd, operands=None):
     """The JAX ``_bwd_xa_from_saved``: from the recomputed chain and the
     compute-dtype cotangent ``gd`` of the layer's output, (dxa (2Dp, A)
-    fp32, the layer's weight grads in the prepped orientation)."""
+    fp32, the layer's weight grads in the prepped orientation).  A dict
+    ``operands`` receives the cotangents the weight grads contract:
+    ``dh[i]`` (that of h_{i+1}, g for the last block), ``du[i]`` and ``dt``."""
     dt = xa.dtype
     f = lambda a: a.float()  # noqa: E731
     dws = f(gd) @ f(xa).T
@@ -485,8 +488,11 @@ def _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, gd):
     dxa = f(ws[2]).T @ f(gd)
     dh = gd
     blocks = []
+    ops = operands if operands is not None else {}
+    ops["dh"], ops["du"] = {}, {}
     for i in range(n_blocks - 1, -1, -1):
         w1, _, w2, _ = ws[4 + 4 * i : 8 + 4 * i]
+        ops["dh"][i] = dh
         dw2 = f(dh) @ f(vs[i]).T
         db2 = f(dh).sum(1)
         dv = (f(w2).T @ f(dh)).to(dt)
@@ -494,11 +500,13 @@ def _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, gd):
         if drop is not None:
             dv = _apply_drop(dv, drop)
         du = dv * activation_grad(spec.act, us[i])
+        ops["du"][i] = du
         dw1 = f(du) @ f(hs[i]).T
         db1 = f(du).sum(1)
         dh = (f(dh) + f(w1).T @ f(du)).to(dt)
         blocks.append((dw1, db1, dw2, db2))
     dtin = dh * activation_grad(spec.act, t)
+    ops["dt"] = dtin
     dwin = f(dtin) @ f(xa).T
     dbin = f(dtin).sum(1)
     dxa = dxa + f(ws[0]).T @ f(dtin)
@@ -599,6 +607,14 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.sum_partials.restype = i
         lib.mp_stack_bwd_smem_bytes.argtypes = [i, i, i, i]
         lib.mp_stack_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_stack_bwd_walk.argtypes = [vp] * 5 + [i] * 9 + [u, u, f, vp]
+        lib.mp_stack_bwd_walk.restype = i
+        lib.mp_stack_bwd_walk_smem_bytes.argtypes = [i, i, i]
+        lib.mp_stack_bwd_walk_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_stack_bwd_walk_stream_elems.argtypes = [i, i]
+        lib.mp_stack_bwd_walk_stream_elems.restype = ctypes.c_longlong
+        lib.wgrad_group.argtypes = [i] + [vp] * 7 + [ctypes.c_longlong] + [i] * 3 + [vp]
+        lib.wgrad_group.restype = i
         lib.mp_stack_bwd_error_string.argtypes = [i]
         lib.mp_stack_bwd_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -606,7 +622,9 @@ def _lib_bwd() -> ctypes.CDLL:
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The current CUDA stream of ``dev``, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(
+        dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 def _launch_fwd_train(what: str, x: torch.Tensor, adj: torch.Tensor, sw: StackWeights,
@@ -760,25 +778,284 @@ def wgrad_vocab(dY: torch.Tensor, codes: torch.Tensor, vt: VocabTable,
     return out[: M * N].view(M, N), out[M * N :]
 
 
-def sum_partials(part: torch.Tensor) -> torch.Tensor:
-    """Column sums of a (n, size) fp32 partials array, in a fixed order."""
+def sum_partials(part: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Column sums of a (n, size) fp32 partials array, in a fixed order
+    (into ``out``, a contiguous (size,) fp32 array, when given)."""
     lib = _lib_bwd()
     n, size = part.shape
-    out = torch.empty(size, dtype=torch.float32, device=part.device)
+    if out is None:
+        out = torch.empty(size, dtype=torch.float32, device=part.device)
+    elif out.shape != (size,) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"sum_partials: out {tuple(out.shape)} {out.dtype} for {size} sums")
     status = lib.sum_partials(part.data_ptr(), out.data_ptr(), n, size, _stream(part.device))
     if status != 0:
         raise RuntimeError(f"sum_partials: {lib.mp_stack_bwd_error_string(status).decode()}")
     return out
 
 
+# ---- the backward walk's work slabs and weight-gradient products ---------- #
+
+
+def bwd_slabs(n_blocks: int) -> Dict[str, int]:
+    """Indices of the walk's work slabs (Dp, A) in its buffer: xa (two: x
+    rows, agg rows), h_i, v_i, dh_i (the cotangent of h_{i+1}; the last is
+    g), du_i, dt -- what the weight gradients read; ``n`` slabs in all, and
+    ``n_legacy`` with the slabs only the one-block-a-bin walk writes (t,
+    u_i, dA)."""
+    return dict(XA=0, H=2, V=2 + n_blocks, DH=2 + 2 * n_blocks, DU=2 + 3 * n_blocks,
+                DT=2 + 4 * n_blocks, n=3 + 4 * n_blocks, n_legacy=5 + 5 * n_blocks)
+
+
+def layer_products(wk: torch.Tensor, n_blocks: int):
+    """The 2 + 2 n_blocks products of one layer's weight gradients, read
+    from the walk's work slabs ``wk`` (n, Dp, A), in the order of the
+    layer's grads: (dt, xa) -> W_in, (g, xa) -> W_s, then per block
+    (du_i, h_i) -> W1_i and (dh_i, v_i) -> W2_i; each (dY, X, None)."""
+    k = bwd_slabs(n_blocks)
+    Dp, A = wk.shape[1:]
+    xa = wk[k["XA"] : k["XA"] + 2].reshape(2 * Dp, A)
+    prods = [(wk[k["DT"]], xa, None), (wk[k["DH"] + n_blocks - 1], xa, None)]
+    for i in range(n_blocks):
+        prods += [(wk[k["DU"] + i], wk[k["H"] + i], None), (wk[k["DH"] + i], wk[k["V"] + i], None)]
+    return prods
+
+
+def bwd_slabs_plain(x, adj, ws, spec: StackSpec, n_blocks: int, l: int, g32):
+    """The work slabs of layer ``l``'s walk (the first ``n`` of
+    :func:`bwd_slabs`), formed from the plain backward's own operands: from
+    the padded input ``x`` and the fp32 cotangent ``g32`` of the layer's
+    output."""
+    dt = x.dtype
+    Dp = x.shape[0]
+    xa, t, _, hs, us, vs = _recompute_plain(x, adj, ws, spec.act, n_blocks, spec, l)
+    ops: dict = {}
+    _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, g32.to(dt), ops)
+    slabs = [xa[:Dp], xa[Dp:], *hs, *vs, *(ops["dh"][i] for i in range(n_blocks)),
+             *(ops["du"][i] for i in range(n_blocks)), ops["dt"]]
+    return torch.stack([a.to(dt) for a in slabs])
+
+
+def wgrad_group_plain(products):
+    """Plain PyTorch version of :func:`wgrad_group`: per product
+    ``(dY, X, bias_src)``, ``(dY @ X^T, rowsum(bias_src or dY))`` in fp32."""
+    return [(dY.float() @ X.float().T, (b if b is not None else dY).float().sum(1))
+            for dY, X, b in products]
+
+
+GROUP_MAX = 16  # products of one launch of the grouped contraction
+
+
+def _group_chunk(bf16: int, A: int, tiles: int, dev) -> int:
+    """Atoms per split of the grouped contraction: fp32 WGRAD_CHUNK; bf16
+    so that the grid holds about two blocks for each SM (two fit one)."""
+    if not bf16:
+        return WGRAD_CHUNK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    steps = A // 64
+    n = max(1, min(steps, round(2 * sms / max(tiles, 1))))
+    return -(-steps // n) * 64
+
+
+def _group_plan(products) -> Tuple[int, int, int]:
+    """(atoms per chunk, chunks, columns) of the partials array
+    :func:`wgrad_group` fills for ``products``."""
+    dY0 = products[0][0]
+    bf16 = int(dY0.dtype == torch.bfloat16)
+    A = dY0.shape[1]
+    tiles = sum((-(-dY.shape[0] // 160) if bf16 else dY.shape[0] // 16) * -(-X.shape[0] // 64)
+                for dY, X, _ in products)
+    total = sum(dY.shape[0] * X.shape[0] + dY.shape[0] for dY, X, _ in products)
+    chunk = _group_chunk(bf16, A, tiles, dY0.device)
+    return chunk, -(-A // chunk), total
+
+
+def _group_launcher(products):
+    """Check ``products`` for the grouped contraction and prepare its launch
+    once: returns ``run(part=None, out=None)``, which launches it on those
+    tensors (as they hold then) and returns the (dW, db) pairs.  The walk
+    prepares one per call and runs it once a layer, on the same slabs."""
+    dY0 = products[0][0]
+    dt, dev, A = dY0.dtype, dY0.device, dY0.shape[1]
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"wgrad_group: unsupported dtype {dt}")
+    named = []
+    for p, (dY, X, b) in enumerate(products):
+        if dY.dtype != dt or X.dtype != dt or (b is not None and b.dtype != torch.float32):
+            raise TypeError(f"wgrad_group: product {p}: {dY.dtype}, {X.dtype}, bias source "
+                            f"{None if b is None else b.dtype}; want {dt} and fp32")
+        if (dY.dim() != 2 or X.dim() != 2 or dY.shape[1] != A or X.shape[1] != A
+                or dY.shape[0] % 16 or X.shape[0] % 16 or A % 64
+                or (b is not None and b.shape != dY.shape)):
+            raise ValueError(f"wgrad_group: product {p}: dY {tuple(dY.shape)}, X "
+                             f"{tuple(X.shape)}: need rows multiples of 16, A = {A} a multiple "
+                             "of 64, the bias source shaped as dY")
+        named += [(f"dY[{p}]", dY, 16), (f"X[{p}]", X, 16)]
+        if b is not None:
+            named.append((f"bias_src[{p}]", b, 16))
+    cuda_build.check_cuda("wgrad_group", dev, *named)
+    bf16 = int(dt == torch.bfloat16)
+    chunk, nch, total = _group_plan(products)
+    shapes = [(dY.shape[0], X.shape[0]) for dY, X, _ in products]
+    offs = np.cumsum([0] + [M * N + M for M, N in shapes[:-1]]).tolist()
+    lib = _lib_bwd()
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launches = []
+    for g0 in range(0, len(products), GROUP_MAX):
+        sub = products[g0 : g0 + GROUP_MAX]
+        n = len(sub)
+        launches.append((n, (vp * n)(*[dY.data_ptr() for dY, _, _ in sub]),
+                         (vp * n)(*[X.data_ptr() for _, X, _ in sub]),
+                         (vp * n)(*[b.data_ptr() if b is not None else None for _, _, b in sub]),
+                         (i * n)(*[M for M, _ in shapes[g0 : g0 + n]]),
+                         (i * n)(*[N for _, N in shapes[g0 : g0 + n]]),
+                         (ll * n)(*offs[g0 : g0 + n])))
+    stream = _stream(dev)
+
+    def run(part: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None):
+        if part is None:
+            part = torch.empty(nch, total, dtype=torch.float32, device=dev)
+        if part.shape != (nch, total) or part.dtype != torch.float32 or not part.is_contiguous():
+            raise ValueError(f"wgrad_group: partials {tuple(part.shape)}, want ({nch}, {total})")
+        for args in launches:
+            status = lib.wgrad_group(*args, part.data_ptr(), total, bf16, A, chunk, stream)
+            if status != 0:
+                raise RuntimeError(f"wgrad_group: {lib.mp_stack_bwd_error_string(status).decode()}")
+        out = sum_partials(part, out)
+        wgrad_group.launches += 1
+        return [(out[o : o + M * N].view(M, N), out[o + M * N : o + M * N + M])
+                for (M, N), o in zip(shapes, offs)]
+
+    return run
+
+
+def wgrad_group(products, part: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None):
+    """The weight gradients of several products at once: per ``(dY (M, A),
+    X (N, A), bias_src (M, A) fp32 or None)``, ``(dY @ X^T (M, N), the row
+    sums of bias_src or dY (M,))`` in fp32.  On CUDA tensors one launch of
+    the grouped split-K contraction (``csrc/wgrad_group.cuh``) per
+    GROUP_MAX products, then one fixed-order sum of the chunk partials
+    (``sum_partials``), so reruns are bit-equal; ``part`` (the (chunks,
+    columns) partials of :func:`_group_plan`) and ``out`` (the flat
+    results) may be given to reuse buffers.  On CPU tensors the plain
+    version."""
+    if products[0][0].device.type == "cpu":
+        return wgrad_group_plain(products)
+    return _group_launcher(products)(part, out)
+
+
+wgrad_group.launches = 0
+
+
+# ---- the bf16 walk's weight stream ---------------------------------------- #
+
+
+def walk_stream_elems(Dp: int, n_blocks: int) -> int:
+    """Elements of one layer's weight stream and biases (the C entry
+    ``mp_stack_bwd_walk_stream_elems``)."""
+    kp = lambda k: -(-k // 32) * 32  # noqa: E731
+    stages = (kp(2 * Dp) + (4 * n_blocks - 1) * kp(Dp) + 2 * kp(2 * Dp)) // 32
+    return stages * Dp * 32 + (1 + 2 * n_blocks) * Dp
+
+
+def frag_stream(w: np.ndarray, pad) -> np.ndarray:
+    """(M, K) -> the walk's stream order: K padded to a multiple of 32 with
+    ``pad``, then 16 x 16 tiles k-major (each 32-column stage holds its
+    tiles one after another), each tile in mma.sync's A-fragment order:
+    lane 4g + t holds rows g and g + 8, columns 2t, 2t + 1, 2t + 8 and
+    2t + 9, as (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1), (g, 2t+8), ...
+    -- one 16-byte load a lane."""
+    M, K = w.shape
+    Kp = -(-K // 32) * 32
+    if Kp > K:
+        w = np.concatenate([w, np.full((M, Kp - K), pad, w.dtype)], 1)
+    return w.reshape(M // 16, 2, 8, Kp // 16, 2, 4, 2).transpose(3, 0, 2, 5, 4, 1, 6).reshape(-1)
+
+
+def walk_stream_index(Dp: int, n_blocks: int, n_layers: int) -> np.ndarray:
+    """Positions in a bf16 ``StackWeights.flat`` (tile-major matrices) of
+    every element of the walk's weight streams, layer by layer: W_in, W1_0,
+    W2_0, ..., W1_{n-1} (the recompute), W2_{n-1}^T, W1_{n-1}^T, ..., W2_0^T,
+    W1_0^T (the walk back), the agg rows and then the x rows of
+    [W_s^T | W_in^T] (dxa), each in :func:`frag_stream` order, then the
+    biases b_in, b1_0, b2_0, b1_1, ...; ``len(flat)`` marks a zero."""
+    def tiles(R, C, base):
+        r, c = np.arange(R)[:, None], np.arange(C)[None, :]
+        return base + ((r // 16) * (C // 16) + c // 16) * 256 + (r % 16) * 16 + c % 16
+
+    layer_sz = 2 * (2 * Dp * Dp + Dp) + n_blocks * 2 * (Dp * Dp + Dp)
+    zero = n_layers * layer_sz
+    out = []
+    for l in range(n_layers):
+        o = l * layer_sz
+        w_in = tiles(Dp, 2 * Dp, o)
+        b_in = o + 2 * Dp * Dp + np.arange(Dp)
+        w_s = tiles(Dp, 2 * Dp, o + 2 * Dp * Dp + Dp)
+        o += 2 * (2 * Dp * Dp + Dp)
+        w1, b1, w2, b2 = [], [], [], []
+        for _ in range(n_blocks):
+            w1.append(tiles(Dp, Dp, o))
+            b1.append(o + Dp * Dp + np.arange(Dp))
+            w2.append(tiles(Dp, Dp, o + Dp * Dp + Dp))
+            b2.append(o + 2 * Dp * Dp + Dp + np.arange(Dp))
+            o += 2 * (Dp * Dp + Dp)
+        mats = [w_in]
+        for i in range(n_blocks):
+            mats += [w1[i]] + ([w2[i]] if i + 1 < n_blocks else [])
+        for i in reversed(range(n_blocks)):
+            mats += [w2[i].T, w1[i].T]
+        wt = np.concatenate([w_s.T, w_in.T], 1)
+        mats += [wt[Dp:], wt[:Dp]]
+        parts = [frag_stream(m, zero) for m in mats] + [b_in]
+        for i in range(n_blocks):
+            parts += [b1[i], b2[i]]
+        out.append(np.concatenate(parts))
+    return np.concatenate(out)
+
+
+_STREAM_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def walk_weights(sw: StackWeights) -> torch.Tensor:
+    """Every layer's weight stream of the bf16 walk, one flat buffer: one
+    gather from ``sw.flat`` by :func:`walk_stream_index` (cached per shape
+    and device)."""
+    L = len(sw.layers)
+    key = (sw.Dp, sw.n_blocks, L, sw.flat.device)
+    idx = _STREAM_INDEX.get(key)
+    if idx is None:
+        idx = _STREAM_INDEX[key] = torch.from_numpy(
+            walk_stream_index(sw.Dp, sw.n_blocks, L)).to(sw.flat.device)
+    return torch.cat([sw.flat, sw.flat.new_zeros(1)])[idx]
+
+
+_BWD_WALK: Dict[Tuple, bool] = {}  # (bf16, Dp, ab, n_blocks) -> the bf16 walk takes it
+
+
+def _takes_walk(lib, bf16: int, Dp: int, ab: int, nblk: int) -> bool:
+    """Whether the bf16 walk (``bwd_walk_kernel``) takes the shape; else the
+    one-block-a-bin walk runs it, and must fit one block's shared memory
+    (raises otherwise).  Asked of the library once per shape."""
+    key = (bf16, Dp, ab, nblk)
+    if key not in _BWD_WALK:
+        walk = bool(bf16) and lib.mp_stack_bwd_walk_smem_bytes(Dp, ab, nblk) >= 0
+        if walk and lib.mp_stack_bwd_walk_stream_elems(Dp, nblk) != walk_stream_elems(Dp, nblk):
+            raise RuntimeError("mp_stack_bwd: the walk's weight-stream length disagrees")
+        if not walk and lib.mp_stack_bwd_smem_bytes(bf16, Dp, ab, nblk) > cuda_build.SMEM_LIMIT:
+            raise ValueError(f"mp_stack_bwd: Dp={Dp}, ab={ab} exceed one block's shared memory")
+        _BWD_WALK[key] = walk
+    return _BWD_WALK[key]
+
+
 def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, first: int,
                 E: Optional[int] = None):
-    """Per layer, last to first, the walk kernel (recompute from the saved
-    input, walk back, fold the aggregation transpose), then the
-    weight-gradient contractions.  Layer ``l`` reads ``saved[l - first]``,
-    or ``x`` for ``l < first``.  Returns (g32: the fp32 cotangent (Dp, A)
-    of the first layer's input, residual path included; the per-layer
-    weight grads; the work slabs)."""
+    """Per layer, last to first, the walk (recompute from the saved input,
+    walk back, fold the aggregation transpose; ``csrc/mp_stack_bwd.cu``),
+    then the layer's weight gradients: one grouped contraction of its
+    products and one fixed-order sum (:func:`wgrad_group`).  Layer ``l``
+    reads ``saved[l - first]``, or ``x`` for ``l < first``.  Returns (g32:
+    the fp32 cotangent (Dp, A) of the first layer's input, residual path
+    included; the per-layer weight grads; the work slabs, :func:`bwd_slabs`)."""
     dt = sw.dtype
     if g.dtype != dt or x.dtype != dt:
         raise TypeError(f"{what}: cotangent {g.dtype}, input {x.dtype}, weights {dt}")
@@ -786,44 +1063,42 @@ def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, 
     g = g.contiguous()
     cuda_build.check_cuda(what, x.device, ("x", x, 16), ("bin_adj", adj, 16), ("g", g, 16),
                 ("weights", sw.flat, 32), *[(f"saved[{i}]", s, 16) for i, s in enumerate(saved)])
+    if spec.act.lower() not in ACTIVATION_CODES:
+        raise ValueError(f"{what}: unsupported activation {spec.act!r}")
     lib = _lib_bwd()
     bf16 = int(dt == torch.bfloat16)
     D, Dp, L, nblk = sw.D, sw.Dp, len(sw.layers), sw.n_blocks
-    if lib.mp_stack_bwd_smem_bytes(bf16, Dp, ab, nblk) > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"{what}: D={D}, ab={ab} exceed one block's shared memory")
+    walk = _takes_walk(lib, bf16, Dp, ab, nblk)
     dev = x.device
-    wT = stack_weights_t(sw)
-    n_slabs = 5 * nblk + 5
-    wk = torch.empty(n_slabs, Dp, A, dtype=dt, device=dev)
+    k = bwd_slabs(nblk)
+    wk = torch.empty(k["n"] if walk else k["n_legacy"], Dp, A, dtype=dt, device=dev)
     g32 = torch.zeros(Dp, A, dtype=torch.float32, device=dev)
     g32[:D] = g.float()
-    act = ACTIVATION_CODES[spec.act.lower()]
+    wts = walk_weights(sw) if walk else stack_weights_t(sw)
+    per = wts.numel() // L
     layer_sz = sw.flat.numel() // L
-    layer_sz_t = wT.numel() // L
-    slab = lambda k: wk[k]  # noqa: E731
-    H0, U0, V0, DH0, DU0 = 3, 3 + nblk, 3 + 2 * nblk, 3 + 3 * nblk, 3 + 4 * nblk
-    DT = 3 + 5 * nblk
+    args = (ACTIVATION_CODES[spec.act.lower()], int(spec.rate > 0))
+    drop = (spec.seed & _M32, drop_threshold(spec.rate),
+            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0, _stream(dev))
+    prods = layer_products(wk, nblk)
+    contract = _group_launcher(prods)
+    part = torch.empty(*_group_plan(prods)[1:], dtype=torch.float32, device=dev)
+    flat_grads = torch.empty(L, part.shape[1], dtype=torch.float32, device=dev)
     layer_grads = [None] * L
     for l in range(L - 1, -1, -1):
         xl = saved[l - first] if l >= first else x
-        status = lib.mp_stack_bwd_layer(
-            xl.data_ptr(), wk.data_ptr(), g32.data_ptr(), adj.data_ptr(),
-            sw.flat[l * layer_sz :].data_ptr(), wT[l * layer_sz_t :].data_ptr(),
-            bf16, D, Dp, A, nb, ab, nblk, act, int(spec.rate > 0), l,
-            spec.seed & _M32, drop_threshold(spec.rate),
-            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0, _stream(dev),
-        )
+        if walk:
+            status = lib.mp_stack_bwd_walk(
+                xl.data_ptr(), wk.data_ptr(), g32.data_ptr(), adj.data_ptr(),
+                wts[l * per :].data_ptr(), D, Dp, A, nb, ab, nblk, *args, l, *drop)
+        else:
+            status = lib.mp_stack_bwd_layer(
+                xl.data_ptr(), wk.data_ptr(), g32.data_ptr(), adj.data_ptr(),
+                sw.flat[l * layer_sz :].data_ptr(), wts[l * per :].data_ptr(),
+                bf16, D, Dp, A, nb, ab, nblk, *args, l, *drop)
         if status != 0:
             raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
-        xa = wk[0:2].reshape(2 * Dp, A)
-        dwin, dbin = wgrad(slab(DT), xa)
-        dws, dbs = wgrad(slab(DH0 + nblk - 1), xa)
-        grads = [dwin, dbin, dws, dbs]
-        for i in range(nblk):
-            dw1, db1 = wgrad(slab(DU0 + i), slab(H0 + i))
-            dw2, db2 = wgrad(slab(DH0 + i), slab(V0 + i))
-            grads += [dw1, db1, dw2, db2]
-        layer_grads[l] = grads
+        layer_grads[l] = [t for pair in contract(part, flat_grads[l]) for t in pair]
     return g32, layer_grads, wk
 
 
@@ -834,12 +1109,12 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     :func:`mp_stack_bwd_plain`."""
     what = "mp_stack_bwd"
     E = pw.E if pw is not None else None
+    dtc_slab = bwd_slabs(sw.n_blocks)["DT"]  # the dt slab, free after the last layer
     if vt is not None:
         # every layer reads its saved input; the codes are not the walk's
         g32, layer_grads, wk = _launch_bwd(what, saved[0], adj, sw, spec, saved, g, 0)
         mp_stack_bwd.launches += 1
-        d_bd, dkbT, dbb = mp_stack_bwd_vocab(x, g32, pw, vt, spec.act, adj.shape[1],
-                                             wk[3 + 5 * sw.n_blocks])
+        d_bd, dkbT, dbb = mp_stack_bwd_vocab(x, g32, pw, vt, spec.act, adj.shape[1], wk[dtc_slab])
         return d_bd, layer_grads, (dkbT, dbb)
     g32, layer_grads, wk = _launch_bwd(what, x, adj, sw, spec, saved, g,
                                        0 if pw is not None else 1, E)
@@ -852,7 +1127,7 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     A = x.shape[1]
     cuda_build.check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
     lib = _lib_bwd()
-    dtc = wk[3 + 5 * sw.n_blocks]  # the dt slab, free after the last layer
+    dtc = wk[dtc_slab]
     demb = torch.empty(E, A, dtype=dt, device=dev)
     status = lib.mp_stack_bwd_proj(
         x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
@@ -862,7 +1137,7 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     if status != 0:
         raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
     # g32 now holds the fp32 cotangent of the projection's pre-activation
-    dkbT, dbb = wgrad(dtc, x, bias_src=g32)
+    ((dkbT, dbb),) = wgrad_group([(dtc, x, g32)])
     return demb, layer_grads, (dkbT, dbb)
 
 

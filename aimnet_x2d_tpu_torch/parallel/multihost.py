@@ -1,9 +1,9 @@
 """Process-group utilities (counterpart of aimnet_x2d_tpu/parallel/multihost.py).
 
 One process per rank.  ``initialize`` joins the default process group at a
-``tcp://`` address with the world size and rank given (nothing on the
-machine announces a cluster); the helpers below work on that group with
-host objects:
+``tcp://`` address, or a ``file://`` rendezvous, with the world size and
+rank given (nothing on the machine announces a cluster); the helpers below
+work on that group with host objects:
 
 - ``process_index`` / ``process_count`` / ``is_primary``;
 - ``allgather_numpy``: every rank's array, concatenated on axis 0, on every
@@ -24,13 +24,14 @@ import torch.distributed as dist
 def initialize(coordinator_address: str, num_processes: int, process_id: int,
                backend: str = "gloo", device: Optional[torch.device] = None) -> None:
     """Join the default process group: ``coordinator_address`` is
-    ``host:port`` (``localhost:<free port>`` on one machine).  Under NCCL
-    the rank's card becomes the current device first, as its object
-    collectives need."""
+    ``host:port`` (``localhost:<free port>`` on one machine), or a rendezvous
+    URL such as ``file://<path>`` (ranks of one machine; no port to claim).
+    Under NCCL the rank's card becomes the current device first, as its
+    object collectives need."""
     if device is not None and device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+    init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init, world_size=num_processes, rank=process_id)
 
 
 def is_initialized() -> bool:

@@ -37,7 +37,6 @@ import math
 import os
 import pickle
 import shutil
-import socket
 import tempfile
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -280,12 +279,6 @@ def print_final_summary(summary: Dict[str, Any], args: argparse.Namespace) -> No
     print("\n".join(lines))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(rank: int, args: argparse.Namespace, address: str, world: int,
                out_dir: Optional[str]) -> Dict[str, Any]:
     """One rank of a run over the rank grid: join the process group, build
@@ -317,7 +310,10 @@ def _rank_main(rank: int, args: argparse.Namespace, address: str, world: int,
 
 def _launch_ranks(args: argparse.Namespace, world: int) -> Dict[str, Any]:
     """Run the rank grid: as one rank under torchrun, else start every rank
-    here (torch.multiprocessing, spawn) and return rank 0's summary."""
+    here (torch.multiprocessing, spawn) and return rank 0's summary.  The
+    spawned ranks meet at a ``file://`` rendezvous in their temporary
+    directory: a free TCP port read here and bound later by rank 0 could be
+    taken by another process in between."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         address = f"{os.environ.get('MASTER_ADDR', 'localhost')}:{os.environ['MASTER_PORT']}"
         return _rank_main(int(os.environ["RANK"]), args, address, world, None)
@@ -325,8 +321,8 @@ def _launch_ranks(args: argparse.Namespace, world: int) -> Dict[str, Any]:
 
     out_dir = tempfile.mkdtemp(prefix="aimnet-ranks-")
     try:
-        mp.spawn(_rank_main, args=(args, f"localhost:{_free_port()}", world, out_dir),
-                 nprocs=world, join=True)
+        rendezvous = f"file://{os.path.join(out_dir, 'rendezvous')}"
+        mp.spawn(_rank_main, args=(args, rendezvous, world, out_dir), nprocs=world, join=True)
         with open(os.path.join(out_dir, "summary.pkl"), "rb") as f:
             return pickle.load(f)
     finally:

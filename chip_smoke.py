@@ -25,6 +25,9 @@ Phases, each of which fails the run when it fails:
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
    (a size-sorted batch of 2048), bf16, and time kernel and plain version;
+   the stack backward (kernel 1b) also rerun bit-equal, timed as profiler
+   device time split by part (walk, contraction, partial sums, fold) with
+   the wrapper's host time, and its fp32 form checked and timed;
 6. ``[train]``: train the flagship model (bf16, dropout 0.05, 12 synthetic
    targets from the seed) through the port's CLI at batch 2048 with the
    launch counters reset just before; then 24 steps of the train step on
@@ -38,7 +41,8 @@ Phases, each of which fails the run when it fails:
    - ``[c3-kernel]``: the inject kernels (kernel 4, forward and backward)
      and kernel 1d (serving form, training form, backward) against their
      plain versions at the config-3 training shape, bf16, timed, with
-     bounds; the batch must hold tetrahedral centres and cis/trans pairs;
+     bounds (1d's backward as 1b's in phase 5, fp32 form included); the
+     batch must hold tetrahedral centres and cis/trans pairs;
    - ``[c3-serve]``: phase 4 for a config-3 artifact (counters of the
      inject kernel, kernel 1d and the pool; the multi-layer stack must
      not run);
@@ -135,11 +139,14 @@ Phases, each of which fails the run when it fails:
      (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
-14. print the ``kernels`` JSON line, the card line and, last, the result
-   line ``{"ok": true, "device": {...}}``.  Each row of the kernels line
-   names how its times were taken in ``timing``: "events" (CUDA events
-   around back-to-back calls from Python, host gaps included), "profiler"
-   (the kernels' device time from ``torch.profiler``; kernels 2 and 2b) or
+14. print the ``[bwd-record]`` line (the stack backward's forms: device
+   time, split, host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
+   and ``[fold-train]`` steps' device times), the ``kernels`` JSON line, the
+   card line and, last, the result line ``{"ok": true, "device": {...}}``.
+   Each row of the kernels line names how its times were taken in
+   ``timing``: "events" (CUDA events around back-to-back calls from
+   Python, host gaps included), "profiler" (the kernels' device time from
+   ``torch.profiler``; kernels 2, 2b, 1b and 1d backward) or
    "profiler+graph" (some of them from a CUDA-graph replay where the
    profiler saw no device events).
 
@@ -194,6 +201,10 @@ E2E_TOL = 5e-2
 # fp32 sum that rounds to the other bf16 neighbour moves an intermediate by
 # 2**-8, and the flip propagates through the layers and the backward walk).
 TRAIN_TOL = 5e-2
+# The stack backward's fp32 forms against their plain versions: the same
+# fp32 products, summed over every atom of the batch in another order (the
+# card tests' fp32 bar).
+FP32_TOL = 1e-4
 TRAIN_STEPS = 24
 C3_TRAIN_STEPS = 12
 C1_TRAIN_STEPS = 24
@@ -347,6 +358,56 @@ def host_us(fn, calls: int = 100) -> float:
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * elapsed / calls
+
+
+# the stack backward's parts, by the profiler's kernel names
+BWD_PARTS = (("walk", ("bwd_walk_kernel", "bwd_layer_kernel")),
+             ("contraction", ("wgrad_group", "wgrad_kernel")),
+             ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)))
+BWD_RECORD: dict = {}  # [bwd-record]: the backward's device times and splits, by form
+STEP_DEVICE_MS: dict = {}  # profile_step's one-step device time, by phase tag
+
+
+def device_parts(fn, parts=BWD_PARTS, iters: int = 10, warmup: int = 3):
+    """``device_ms`` of ``fn`` with its split by part: (total ms, {part: ms}
+    per call), each profiler kernel counted in the first part one of whose
+    name fragments it holds, else in "other"; the split is None where the
+    profiler records no device events (``device_ms`` then times a graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name, _ in parts}
+    split["other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        part = next((name for name, keys in parts if any(k in e.key for k in keys)), "other")
+        split[part] += e.self_device_time_total / 1e3 / iters
+    total = sum(split.values())
+    if total > 0:
+        return total, split
+    return device_ms(fn, iters, warmup), None
+
+
+def bwd_record(tag: str, name: str, dt, fn, ms_plain: float):
+    """Time one form of the stack backward for the record: device time and
+    its split (``device_parts``), the wrapper's host time a call; printed,
+    and kept in BWD_RECORD.  Returns (device ms, timing)."""
+    graph_timed = device_ms.graph_timed
+    ms, split = device_parts(fn)
+    hus = host_us(fn, calls=10)
+    dname = "bf16" if dt == torch.bfloat16 else "fp32"
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else "not measured"
+    print(f"[{tag}] {name} {dname}: device {ms:.4f} ms a call ({parts}); host {hus:.1f} us a "
+          f"call; plain {ms_plain:.4f} ms", flush=True)
+    BWD_RECORD[f"{name} {dname}"] = dict(device_ms=ms, split=split, host_us=hus, plain_ms=ms_plain)
+    return ms, timing_of(graph_timed)
 
 
 def in_turns(fns: dict) -> dict:
@@ -751,10 +812,36 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
                  + n * 2 * (2 * nblk * D * D + 4 * D * D) + n * 2 * w_layer)
     ops = L * per_layer + 3 * 2 * n * E * D
     nbytes = (E * A + L * D * A + D * A + E * A) * isz + nb * ab * ab + 4 * (w_mat + E * D)
-    record("mp_stack_bwd", pairs,
-           time_ms(lambda: bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw), iters=10),
-           time_ms(lambda: bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, g, pw), iters=3),
-           ops, nbytes)
+    again = bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw)
+    flat = lambda r: [r[0], *(t for l_ in r[1] for t in l_), *r[2]]  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))):
+        raise AssertionError("mp_stack_bwd: a rerun is not bit-equal")
+    plain_ms = time_ms(lambda: bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, g, pw),
+                       iters=3)
+    ms, timing = bwd_record("train-kernel", "mp_stack_bwd", dt,
+                            lambda: bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw), plain_ms)
+    record("mp_stack_bwd", pairs, ms, plain_ms, ops, nbytes)
+    res["mp_stack_bwd"]["timing"] = timing
+    # the fp32 form at the same shapes, held to FP32_TOL
+    with torch.no_grad():
+        sw32 = bin_mp.stack_weights([layer.stack_weights() for layer in model.message_passing_layers],
+                                    torch.float32)
+        pw32 = bin_mp.prep_proj(W[Ds:].T, b[Ds:], torch.float32, sw32.Dp)
+    emb32, g32_ = emb.float(), g.float()
+    _, saved32 = bin_mp.mp_stack_fwd_train(emb32, adj, sw32, spec, pw32)
+    _, ref_saved32 = bin_mp.mp_stack_train_plain(emb32, adj, sw32, spec, pw32)
+    got = bin_mp.mp_stack_bwd(emb32, adj, sw32, spec, saved32, g32_, pw32)
+    want = bin_mp.mp_stack_bwd_plain(emb32, adj, sw32, spec, ref_saved32, g32_, pw32)
+    torch.cuda.synchronize()
+    _, rel = _max_rel(list(zip(flat(got), flat(want), [None] * len(flat(got)))))
+    print(f"[train-kernel] mp_stack_bwd fp32: rel={rel:.3e} (tol {FP32_TOL:g})", flush=True)
+    if not rel <= FP32_TOL:
+        raise AssertionError(f"mp_stack_bwd fp32: rel err {rel:.3e} > {FP32_TOL:g}")
+    bwd_record("train-kernel", "mp_stack_bwd", torch.float32,
+               lambda: bin_mp.mp_stack_bwd(emb32, adj, sw32, spec, saved32, g32_, pw32),
+               time_ms(lambda: bin_mp.mp_stack_bwd_plain(emb32, adj, sw32, spec, ref_saved32, g32_,
+                                                         pw32), iters=3))
+    del saved32, ref_saved32, got, want
 
     # --- kernel 3: attention pool, forward and backward
     xo = out
@@ -1150,10 +1237,31 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     ops = (2 * 2 * nnz * D + n * 2 * (2 * D * D + (2 * nblk - 1) * D * D)
            + n * 2 * (2 * nblk * D * D + 4 * D * D) + n * 2 * w_layer)
     nbytes = 3 * D * A * isz + nb * ab * ab + 4 * w_layer
+    g32b, lgb = bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g)
+    if not (torch.equal(g32, g32b) and all(torch.equal(a, b_) for a, b_ in zip(lg, lgb))):
+        raise AssertionError("mp_layer_bwd: a rerun is not bit-equal")
+    plain_ms = time_ms(lambda: bin_mp.mp_layer_bwd_plain(rpre, adj, sw, spec, g), iters=3)
+    ms, timing = bwd_record("c3-kernel", "mp_layer_bwd", dt,
+                            lambda: bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g), plain_ms)
     record("mp_layer_bwd", [(g32, rg32, None)] + [(a, r, None) for a, r in zip(lg, rlg)],
-           time_ms(lambda: bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g), iters=10),
-           time_ms(lambda: bin_mp.mp_layer_bwd_plain(rpre, adj, sw, spec, g), iters=3),
-           ops, nbytes)
+           ms, plain_ms, ops, nbytes)
+    res["mp_layer_bwd"]["timing"] = timing
+    # the fp32 form at the same shapes, held to FP32_TOL
+    with torch.no_grad():
+        sw32 = bin_mp.stack_weights([model.message_passing_layers[0].stack_weights()],
+                                    torch.float32)
+    x32, gf = rpre.float(), g.float()
+    got32 = bin_mp.mp_layer_bwd(x32, adj, sw32, spec, gf)
+    want32 = bin_mp.mp_layer_bwd_plain(x32, adj, sw32, spec, gf)
+    torch.cuda.synchronize()
+    _, rel = _max_rel([(got32[0], want32[0], None)]
+                      + [(a, r, None) for a, r in zip(got32[1], want32[1])])
+    print(f"[c3-kernel] mp_layer_bwd fp32: rel={rel:.3e} (tol {FP32_TOL:g})", flush=True)
+    if not rel <= FP32_TOL:
+        raise AssertionError(f"mp_layer_bwd fp32: rel err {rel:.3e} > {FP32_TOL:g}")
+    bwd_record("c3-kernel", "mp_layer_bwd", torch.float32,
+               lambda: bin_mp.mp_layer_bwd(x32, adj, sw32, spec, gf),
+               time_ms(lambda: bin_mp.mp_layer_bwd_plain(x32, adj, sw32, spec, gf), iters=3))
 
     # --- kernel 4, inject backward: dx through the projection, the
     # polynomial and the equilibration, and d_kb, d_b (split-K contraction)
@@ -1250,6 +1358,7 @@ def profile_step(step, tag: str = "train", top: int = 12):
     if total <= 0:
         print(f"[{tag}] device time not measured (no CUDA events in the trace)", flush=True)
         return None
+    STEP_DEVICE_MS[tag] = total / 1e3
     print(f"[{tag}] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -2648,6 +2757,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "timing": r.get("timing", "events"),
         })
+    steps = {k: round(v, 3) for k, v in STEP_DEVICE_MS.items()
+             if k in ("train", "c3-train", "c1-train", "fold-train on", "fold-train off")}
+    print(f"[bwd-record] {card}: the stack backward by form (device ms, split, host us a "
+          f"call) {json.dumps(BWD_RECORD)}; train steps' device ms {json.dumps(steps)}",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -166,7 +166,7 @@ def test_kernel_errors_raise(dev):
 # another order than the plain version's, which fp32 1e-4 covers.
 
 
-def _stack_train_case(dev, D, E, nb, ab, dtype, seed):
+def _stack_train_case(dev, D, E, nb, ab, dtype, seed, n_blocks=2):
     g = torch.Generator(device=dev).manual_seed(seed)
     # molecule-like: a few neighbours per atom (a dense random adjacency
     # grows activations ~ab-fold per layer, past what bf16 gradients hold)
@@ -177,7 +177,7 @@ def _stack_train_case(dev, D, E, nb, ab, dtype, seed):
     layers = []
     for _ in range(3):
         lw = [u((D, D), 4 * D), u((D, D), 4 * D), u((D,), 4 * D)] * 2
-        for _ in range(2):
+        for _ in range(n_blocks):
             lw += [u((D, D), D), u((D,), D), u((D, D), D), u((D,), D)]
         layers.append(lw)
     sw = bin_mp.stack_weights(layers, dtype)
@@ -190,13 +190,25 @@ def _stack_train_case(dev, D, E, nb, ab, dtype, seed):
     return adj, sw, pw, emb, x, gout
 
 
+# (ab, nb, dropout on, activation, MLP blocks) of the backward walk's
+# cases, the first the original one: ab None is 256 at D 153 and 64 at D 19;
+# ab 256 by 5 bins is 20 blocks in clusters of 4 (no whole wave), by 37
+# bins 148 blocks (one wave and a bit)
+WALK_CASES = [(None, 5, True, "silu", 2), (64, 1, False, "relu", 1), (128, 3, True, "gelu", 2),
+              (256, 1, False, "silu", 1), (256, 37, True, "relu", 2)]
+WALK_IDS = [f"ab{a}-nb{n}-{'drop' if d else 'nodrop'}-{f}-k{k}" for a, n, d, f, k in WALK_CASES]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
 @pytest.mark.parametrize("proj", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [19, 153])
-def test_stack_train_kernels_match_plain(dev, D, dtype, proj):
-    nb, ab, E = 5, 256 if D == 153 else 64, 256 if D == 153 else 32
-    adj, sw, pw, emb, x, gout = _stack_train_case(dev, D, E, nb, ab, dtype, D + 1)
-    spec = bin_mp.StackSpec("silu", 0.05, 0xDEADBEEF)
+def test_stack_train_kernels_match_plain(dev, D, dtype, proj, case):
+    ab, nb, drop, act, n_blocks = case
+    ab, rate = ab or (256 if D == 153 else 64), 0.05 if drop else 0.0
+    E = 256 if D == 153 else 32
+    adj, sw, pw, emb, x, gout = _stack_train_case(dev, D, E, nb, ab, dtype, D + 1, n_blocks)
+    spec = bin_mp.StackSpec(act, rate, 0xDEADBEEF)
     xin, pw_ = (emb, pw) if proj else (x, None)
     out, saved = bin_mp.mp_stack_fwd_train(xin, adj, sw, spec, pw_)
     ref, ref_saved = bin_mp.mp_stack_train_plain(xin, adj, sw, spec, pw_)
@@ -205,8 +217,13 @@ def test_stack_train_kernels_match_plain(dev, D, dtype, proj):
     assert _rel(out, ref) < tol
     for s_, r_ in zip(saved, ref_saved):
         assert _rel(s_, r_) < tol
+    b0, w0 = bin_mp.mp_stack_bwd.launches, bin_mp.wgrad_group.launches
     dx, lg, pg = bin_mp.mp_stack_bwd(xin, adj, sw, spec, saved, gout, pw_)
+    assert bin_mp.mp_stack_bwd.launches == b0 + 1
+    # one grouped contraction a layer, and one for the fold
+    assert bin_mp.wgrad_group.launches == w0 + 3 + int(proj)
     rdx, rlg, rpg = bin_mp.mp_stack_bwd_plain(xin, adj, sw, spec, ref_saved, gout, pw_)
+    again = bin_mp.mp_stack_bwd(xin, adj, sw, spec, saved, gout, pw_)
     torch.cuda.synchronize()
     errs = {"dx": _rel(dx, rdx)}
     for l, (got_l, ref_l) in enumerate(zip(lg, rlg)):
@@ -214,8 +231,11 @@ def test_stack_train_kernels_match_plain(dev, D, dtype, proj):
             errs[f"layer {l} grad {k}"] = _rel(got, r)
     for k, (got, r) in enumerate(zip(pg or (), rpg or ())):
         errs[f"proj grad {k}"] = _rel(got, r)
-    print(f"D={D} {dtype} proj={proj}: worst {max(errs.values()):.2e}", errs)
+    print(f"D={D} {dtype} proj={proj} {case}: worst {max(errs.values()):.2e}", errs)
     assert max(errs.values()) < tol
+    # fixed-order sums: a rerun gives the same bits
+    flat = lambda r: [r[0], *(t for l_ in r[1] for t in l_), *(r[2] or ())]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat((dx, lg, pg)), flat(again)))
 
 
 def test_stack_serving_unchanged_by_training_form(dev):
@@ -261,6 +281,32 @@ def test_attnpool_kernels_match_plain(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_group_matches_matmul(dev, dtype):
+    """The grouped contraction against fp32 matmuls and row sums: the walk's
+    shapes (M 160 by N 320 and 160), a product whose M is not a multiple of
+    64, one past GROUP_MAX products (two launches), a bias source."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    A = 10 * 1024
+    r = lambda m: torch.randn(m, A, generator=g, device=dev)  # noqa: E731
+    shapes = [(160, 320), (160, 320), (160, 160), (160, 160), (48, 16), (32, 64)]
+    prods = [(r(m).to(dtype), r(n).to(dtype), None) for m, n in shapes]
+    prods.append((r(160).to(dtype), r(256).to(dtype), r(160)))
+    prods += [(r(16).to(dtype), r(16).to(dtype), None)] * (bin_mp.GROUP_MAX - len(prods) + 1)
+    before = bin_mp.wgrad_group.launches
+    got = bin_mp.wgrad_group(prods)
+    assert bin_mp.wgrad_group.launches == before + 1
+    for (dw, db), (dY, X, b) in zip(got, prods):
+        assert _rel(dw, dY.float() @ X.float().T) < 1e-4
+        assert _rel(db, (b if b is not None else dY.float()).sum(1)) < 1e-4
+    again = bin_mp.wgrad_group(prods)
+    assert all(torch.equal(a, b) for p, q in zip(got, again) for a, b in zip(p, q))
+    with pytest.raises(ValueError):  # rows not a multiple of 16
+        bin_mp.wgrad_group([(r(24).to(dtype), r(32).to(dtype), None)])
+    with pytest.raises(TypeError):  # mixed dtypes
+        bin_mp.wgrad_group([(r(16).to(dtype), r(16).half(), None)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wgrad_matches_matmul(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     dY = torch.randn(160, 10 * 1024, generator=g, device=dev).to(dtype)
@@ -295,35 +341,42 @@ def _sparse_adj(rng, nb, ab, values):
     return (near * rng.choice(values, (nb, ab, ab))).astype(np.int8)
 
 
+@pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [19, 153])
-def test_layer_kernels_match_plain(dev, D, dtype):
+def test_layer_kernels_match_plain(dev, D, dtype, case):
+    ab, nb, drop, act, n_blocks = case
     rng = np.random.default_rng(D)
-    nb, ab = 5, 256 if D == 153 else 64
+    ab, rate = ab or (256 if D == 153 else 64), 0.1 if drop else 0.0
     A = nb * ab
     adj = torch.from_numpy(_sparse_adj(rng, nb, ab, [1, 2])).to(dev)
-    sw = bin_mp.stack_weights([[torch.from_numpy(w).to(dev) for w in _init_layer(rng, D)]], dtype)
+    sw = bin_mp.stack_weights([[torch.from_numpy(w).to(dev) for w in _init_layer(rng, D, n_blocks)]],
+                              dtype)
     x = torch.from_numpy(rng.normal(size=(D, A)).astype(np.float32)).to(dev, dtype)
     gout = torch.from_numpy(rng.normal(size=(D, A)).astype(np.float32)).to(dev, dtype)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     counters = (bin_mp.mp_layer_fwd, bin_mp.mp_layer_fwd_train, bin_mp.mp_layer_bwd,
                 bin_mp.mp_stack_fwd, bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd)
     before = [c.launches for c in counters]
-    got = bin_mp.binned_mp_layer_t(x, adj, sw, "silu")
-    errs = {"serve": _rel(got, bin_mp.mp_stack_plain(x, adj, sw, "silu"))}
-    spec = bin_mp.StackSpec("silu", 0.1, bin_mp.layer_drop_seed(-98765, 2) & 0xFFFFFFFF, 1)
+    got = bin_mp.binned_mp_layer_t(x, adj, sw, act)
+    errs = {"serve": _rel(got, bin_mp.mp_stack_plain(x, adj, sw, act))}
+    spec = bin_mp.StackSpec(act, rate, bin_mp.layer_drop_seed(-98765, 2) & 0xFFFFFFFF, 1)
     out = bin_mp.mp_layer_fwd_train(x, adj, sw, spec)
     errs["train"] = _rel(out, bin_mp.mp_stack_train_plain(x, adj, sw, spec)[0])
+    w0 = bin_mp.wgrad_group.launches
     g32, lg = bin_mp.mp_layer_bwd(x, adj, sw, spec, gout)
+    assert bin_mp.wgrad_group.launches == w0 + 1  # the layer's weight grads: one contraction
     rg32, rlg = bin_mp.mp_layer_bwd_plain(x, adj, sw, spec, gout)
+    g32b, lgb = bin_mp.mp_layer_bwd(x, adj, sw, spec, gout)
     torch.cuda.synchronize()
     errs["dx"] = _rel(g32, rg32)
     for k, (a, r) in enumerate(zip(lg, rlg)):
         errs[f"grad {k}"] = _rel(a, r)
-    print(f"D={D} {dtype}: worst {max(errs.values()):.2e}", errs)
+    print(f"D={D} {dtype} {case}: worst {max(errs.values()):.2e}", errs)
     assert max(errs.values()) < tol
+    assert torch.equal(g32, g32b) and all(torch.equal(a, b) for a, b in zip(lg, lgb))
     # each form on its own counter, none on kernel 1's
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2, 0, 0, 0]
 
 
 def _c3_case(D, nb, ab, mb, tc, case, seed):

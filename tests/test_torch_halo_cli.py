@@ -102,3 +102,43 @@ def test_graph_shards_checks_start_no_rank(tmp_path, small_csv, monkeypatch):
         cli.main(_argv(small_csv, out))
     with pytest.raises(ValidationError, match="torchrun started 2"):
         cli.main(_argv(small_csv, out, "--graph_shards", "2", "--num_devices", "2"))
+
+
+def test_spawned_ranks_meet_at_a_file_rendezvous(monkeypatch):
+    """The CLI's spawner hands its ranks a ``file://`` rendezvous in its own
+    temporary directory, which it removes after: no TCP port is read and
+    released before rank 0 binds it, so no other process can take it in
+    between."""
+    import argparse
+    import os
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from aimnet_x2d_tpu_torch import runner
+
+    seen = {}
+
+    def spawn(fn, args, nprocs, join):
+        _, address, world, out_dir = args
+        seen.update(address=address, world=world, out_dir=out_dir, nprocs=nprocs)
+        with open(os.path.join(out_dir, "summary.pkl"), "wb") as f:
+            pickle.dump({"rank": 0}, f)
+
+    monkeypatch.setattr(mp, "spawn", spawn)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert runner._launch_ranks(argparse.Namespace(), 4) == {"rank": 0}
+    assert seen["address"] == "file://" + os.path.join(seen["out_dir"], "rendezvous")
+    assert seen["world"] == seen["nprocs"] == 4 and not os.path.exists(seen["out_dir"])
+
+
+def test_multihost_initialize_takes_a_tcp_address_or_a_rendezvous_url(monkeypatch):
+    from aimnet_x2d_tpu_torch.parallel import multihost
+
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, init_method, world_size, rank: calls.append(init_method))
+    multihost.initialize("localhost:1234", 2, 0)
+    multihost.initialize("file:///tmp/ranks/rendezvous", 2, 1)
+    assert calls == ["tcp://localhost:1234", "file:///tmp/ranks/rendezvous"]
