@@ -18,26 +18,31 @@
 // to the compute dtype, then the bias add, the activation and every add round
 // again) and the JAX kernel's dropout: the murmur3 hash of (feature row, the
 // rank's local atom column, block tag i, seed), bit-equal to its mask.  The
-// backward (mp_ext_bwd) recomputes the chain from xa (grad_only: no skip
-// product, no last W2), walks it back with the same cast points as the stack's
-// backward (csrc/mp_stack_bwd.cu) and writes dxa = rnd([W_s^T | W_in^T] [g ; dt])
-// whole -- the caller transposes its aggregation -- and every per-atom
-// operand of the weight gradients to slabs of a work buffer; the split-K
-// contraction of csrc/wgrad.cuh (wgrad, launched by the wrapper) forms the
-// fp32 weight and bias gradients from them, chunk partials summed in a fixed
+// backward recomputes the chain from xa (grad_only: no skip product, no last
+// W2), walks it back with the same cast points as the stack's backward and
+// writes dxa = rnd([W_s^T | W_in^T] [g ; dt]) whole -- the caller transposes
+// its aggregation -- and every per-atom operand of the weight gradients to
+// slabs of a work buffer, in the stack walk's slab order (ops/bin_mp.py::
+// bwd_slabs); the wrapper then forms the fp32 weight and bias gradients of
+// the layer's 2 + 2 n_blocks products in one launch of the grouped split-K
+// contraction (csrc/wgrad_group.cuh), chunk partials summed in a fixed
 // order, so reruns are bit-equal (no atomics).
 //
 // What bounds it on an H100: the products, 2 * A * sum|W| FLOP forward
 // (~2.0 GFLOP at D = 153, 2 blocks, 12k atoms) against ~2 x 2D x A bytes, so
-// tensor-core throughput, not memory.  Design: nothing mixes atoms, so one
-// block per 64-atom column tile; the forward keeps the tile's xa (2Dp x 64),
-// h and v in shared memory (104 KB in bf16, 198 KB in fp32) and reads the
-// weights from L2 (tile-major in bf16, as the stack kernel); the backward
-// streams its operands through L2-resident global slabs, as the stack's
-// first backward does.  Later work: wgmma with weights staged in shared
-// memory, and the weight gradients fused into the walk.
+// tensor-core throughput, not memory.  Nothing mixes atoms, so one block per
+// 64-atom column tile.  The forward keeps the tile's xa (2Dp x 64), h and v
+// in shared memory (104 KB in bf16, 198 KB in fp32) and reads the weights
+// from L2 (tile-major in bf16, as the stack kernel).  The bf16 backward is
+// the stack's walk (csrc/walk.cuh, bwd_walk_kernel in its EXT form: the
+// chain in shared memory, the weights streamed through a cp.async ring in
+// fragment order, mma.sync; no aggregation, no transpose, no cluster) while
+// Dp <= 160 and its buffers fit one block (mp_ext_bwd_walk); fp32, and bf16
+// shapes past that, take ext_bwd_kernel, which streams its operands through
+// L2-resident global slabs (mp_ext_bwd).
 
 #include "common.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -144,8 +149,9 @@ ext_fwd_kernel(const T* __restrict__ xa, T* __restrict__ out, const T* __restric
 }
 
 // One block per 64-atom tile.  wk holds 5 * n_blocks + 4 slabs of (Dp, A):
-// xa (two slabs: the x rows, then the agg rows, padded), t, h_i, u_i, v_i,
-// dh_i (dh_{n-1} = g), du_i, dt.  g (D, A) is the cotangent of out; dxa
+// xa (two slabs: the x rows, then the agg rows, padded), h_i, v_i, dh_i
+// (dh_{n-1} = g), du_i, dt -- the walk's slabs, which the contraction reads
+// -- then t and u_i.  g (D, A) is the cotangent of out; dxa
 // (2D, A) receives the cotangent of xa.  wT: [W_s^T | W_in^T], then W1^T, W2^T
 // of each block.
 template <typename T>
@@ -159,13 +165,13 @@ ext_bwd_kernel(const T* __restrict__ xa, const T* __restrict__ g, T* __restrict_
   const size_t cc = (size_t)blockIdx.x * kTile;
   const size_t S = (size_t)Dp * A;
   T* XA = wk;
-  T* Tb = wk + 2 * S;
-  T* H = Tb + S;
-  T* U = H + n_blocks * S;
-  T* Vs = U + n_blocks * S;
+  T* H = wk + 2 * S;
+  T* Vs = H + n_blocks * S;
   T* DH = Vs + n_blocks * S;
   T* DU = DH + n_blocks * S;
   T* DT = DU + n_blocks * S;
+  T* Tb = DT + S;
+  T* U = Tb + S;
   T* G = DH + (size_t)(n_blocks - 1) * S;
 
   const bool tiled = sizeof(T) == 2;
@@ -291,9 +297,64 @@ int launch_bwd(const void* xa, const void* g, void* dxa, void* wk, const void* w
   return (int)cudaGetLastError();
 }
 
+bool ext_walk_fits(int Dp, int n_blocks) {
+  return Dp % 16 == 0 && Dp <= kWalkMaxDp && n_blocks >= 1 &&
+         walk_smem_bytes(Dp, n_blocks) <= (size_t)kSmemLimit;
+}
+
+bool ext_walk_configured[5][kMaxDevices];
+
+template <int ACT>
+int launch_walk(const void* xa, const void* g, void* dxa, void* wk, const void* wstream, int D,
+                int Dp, int A, int n_blocks, int dropout, unsigned seed, unsigned thresh,
+                float scale, cudaStream_t s) {
+  const int err = configure(bwd_walk_kernel<ACT, true>, ext_walk_configured[ACT]);
+  if (err) return err;
+  bwd_walk_kernel<ACT, true><<<A / kTile, kWalkThreads, walk_smem_bytes(Dp, n_blocks), s>>>(
+      static_cast<const bf16*>(xa), static_cast<bf16*>(wk), nullptr, nullptr,
+      static_cast<const bf16*>(wstream), static_cast<const bf16*>(g), static_cast<bf16*>(dxa), D,
+      Dp, A, kTile, n_blocks, dropout, 0, seed, thresh, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Shared memory of kernel 5's bf16 walk at (Dp, n_blocks), or -1 where the
+// walk does not take the shape (the wrapper then launches mp_ext_bwd).
+long long mp_ext_bwd_walk_smem_bytes(int Dp, int n_blocks) {
+  return ext_walk_fits(Dp, n_blocks) ? (long long)walk_smem_bytes(Dp, n_blocks) : -1;
+}
+
+// Elements of the layer's weight stream and biases (ops/bin_mp.py::
+// walk_weights lays them out).
+long long mp_ext_bwd_walk_stream_elems(int Dp, int n_blocks) {
+  return (long long)walk_stages(Dp, n_blocks) * Dp * kKc + (long long)(1 + 2 * n_blocks) * Dp;
+}
+
+// The bf16 layer backward on the walk: xa (2D, A) and g (D, A) bf16 in,
+// dxa (2D, A) out, the contraction's slabs (3 + 4 n_blocks of (Dp, A)) in
+// wk; wstream the layer's weight stream.  Returns cudaGetLastError().
+int mp_ext_bwd_walk(const void* xa, const void* g, void* dxa, void* wk, const void* wstream, int D,
+                    int Dp, int A, int n_blocks, int act, int dropout, unsigned seed,
+                    unsigned thresh, float scale, void* stream) {
+  if (!ext_walk_fits(Dp, n_blocks) || A % kTile || D > Dp) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {  // activation codes: utils/activation.py ACTIVATION_CODES
+    case 0: return launch_walk<0>(xa, g, dxa, wk, wstream, D, Dp, A, n_blocks, dropout, seed,
+                                  thresh, scale, s);
+    case 1: return launch_walk<1>(xa, g, dxa, wk, wstream, D, Dp, A, n_blocks, dropout, seed,
+                                  thresh, scale, s);
+    case 2: return launch_walk<2>(xa, g, dxa, wk, wstream, D, Dp, A, n_blocks, dropout, seed,
+                                  thresh, scale, s);
+    case 3: return launch_walk<3>(xa, g, dxa, wk, wstream, D, Dp, A, n_blocks, dropout, seed,
+                                  thresh, scale, s);
+    case 4: return launch_walk<4>(xa, g, dxa, wk, wstream, D, Dp, A, n_blocks, dropout, seed,
+                                  thresh, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 long long mp_ext_fwd_smem_bytes(int bf16, int Dp, int n_blocks) {
   return bf16 ? (long long)ext_fwd_smem_bytes<__nv_bfloat16>(Dp, n_blocks)
@@ -311,8 +372,9 @@ int mp_ext_fwd(const void* xa, void* out, const void* w, int bf16, int D, int Dp
                                   scale, s);
 }
 
-// The layer backward's walk: dxa and the weight gradients' operand slabs in
-// wk (see ext_bwd_kernel).  Returns cudaGetLastError().
+// The layer backward on slabs (fp32, and bf16 shapes the walk does not
+// take): dxa and the weight gradients' operand slabs in wk (see
+// ext_bwd_kernel).  Returns cudaGetLastError().
 int mp_ext_bwd(const void* xa, const void* g, void* dxa, void* wk, const void* w, const void* wT,
                int bf16, int D, int Dp, int A, int n_blocks, int act, int dropout, unsigned seed,
                unsigned thresh, float scale, void* stream) {

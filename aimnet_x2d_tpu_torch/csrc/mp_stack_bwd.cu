@@ -27,42 +27,13 @@
 // t0 = rnd(kb^T emb) + bb, forms dt0 = g32 * act'(t0) (kept in fp32 for the
 // bias gradient) and demb = rnd(kb rnd(dt0)).
 //
-// What bounds it on an H100: the products, about 829,000 FLOP per atom
-// column and layer at Dp 160 with two blocks (41 GFLOP a layer at the
-// training batch, 0.04 ms at the bf16 tensor-core rate), so tensor-core
-// throughput, with the slab writes (11 slabs of (Dp, A), 0.05 ms at the HBM
-// rate) second.
-//
-// The bf16 walk (bwd_walk_kernel) is built around that:
-// - one 320-thread block per 64-atom tile, the ab / 64 tiles of a bin one
-//   thread-block cluster (768 blocks at the training batch, about six waves
-//   of one block an SM, where one block a bin gave 1.45 waves);
-// - the chain in shared memory: xa, h_i, v_i and, for the walk back,
-//   rnd(act'(t)) and rnd(act'(u_i)) (formed where t and u_i are, so the walk
-//   back's epilogues evaluate no activation) stay there, and the cotangents
-//   replace them in place once their last reader is done (g and dh_i over
-//   xa, dt over act'(t), du_i over act'(u_i), dA over h); every
-//   product reads its activation operand with ldmatrix from shared memory
-//   and multiplies with mma.sync m16n8k16 (fp32 accumulate), the epilogues
-//   work on the accumulator registers (bias, activation, dropout, casts);
-// - weights ahead of the products: the wrapper lays each layer's matrices
-//   out as one stream, in the order the walk uses them and in mma fragment
-//   order (32-column stages, 16 x 16 tiles k-major), and a 4-stage ring of
-//   16-byte cp.async copies keeps three stages in flight across product
-//   boundaries, so each warp reads its A fragment with one 16-byte load;
-// - the aggregation: each block forms its own columns of agg from the
-//   bin's x (L2-resident), 64 source atoms a chunk, double-buffered; the
-//   transpose reads the cluster's other dA tiles from distributed shared
-//   memory after a cluster barrier, in rank order, so t, u_i and dA never
-//   reach device memory, and the slab writes are 16-byte streaming stores
-//   of the operands the weight gradients read.
-// mma.sync, not wgmma: wgmma takes 64-row tiles, and Dp 160 is 2.5 of
-// them; m16n8k16 tiles cover it exactly with 10 warps of 32 x 32 outputs.
-// The walk takes Dp <= 160 and ab <= 512 (clusters of up to 8) while its
-// buffers fit one block's shared memory (up to 3 MLP blocks at Dp 160);
-// fp32, and bf16 shapes past those limits, take bwd_layer_kernel, the
-// CUDA-core (fp32) or wmma (bf16) walk of one block per bin over slabs
-// (fp32 tiles would take twice the shared memory).
+// The bf16 walk (bwd_walk_kernel, csrc/walk.cuh: one block per 64-atom
+// tile, the tiles of a bin one cluster, the chain in shared memory, weights
+// streamed by cp.async, mma.sync) takes Dp <= 160 and ab <= 512 while its
+// buffers fit one block's shared memory; fp32, and bf16 shapes past those
+// limits, take bwd_layer_kernel, the CUDA-core (fp32) or wmma (bf16) walk of
+// one block per bin over slabs (fp32 tiles would take twice the shared
+// memory).
 //
 // Embedding fold (mp_stack_bwd_proj_vocab, kernel 1c-vocab: the TPU op's
 // vocab_sizes backward, bin_mp.py:726-746).  The walk is unchanged; the
@@ -78,10 +49,9 @@
 // v_i, dh_i (dh_{n-1} = g), du_i, dt -- what the contraction reads; then,
 // for bwd_layer_kernel only, t, u_i and the agg-part cotangent dA.
 
-#include <cooperative_groups.h>
-
 #include "common.cuh"
 #include "vocab.cuh"
+#include "walk.cuh"
 #include "wgrad.cuh"
 #include "wgrad_group.cuh"
 
@@ -257,442 +227,6 @@ bwd_layer_kernel(const T* __restrict__ x_l, T* wk, float* g32, const int8_t* __r
   }
 }
 
-// ---- the bf16 walk: one block per 64-atom tile, a cluster per bin ----
-
-using bf16 = __nv_bfloat16;
-constexpr int kWalkThreads = 320;  // 10 warps: 5 row groups of 32 x 2 column halves of 32
-constexpr int kWalkMaxDp = 160;    // 5 row groups of 32
-constexpr int kWalkMaxCluster = 8;  // portable cluster size: ab <= 512
-constexpr int kKc = 32;            // weight columns per ring stage
-constexpr int kRing = 4;           // ring stages (three in flight)
-
-__host__ __device__ __forceinline__ int kpad(int k) { return (k + kKc - 1) / kKc * kKc; }
-
-// Tile-buffer rows (of kLdT elements): the chain, (5 + n_blocks) Dp; during
-// the aggregation xa, two x chunks and two adjacency blocks; during the
-// transpose the 64-row adjacency block past the first 5 Dp rows.
-__host__ __device__ __forceinline__ int walk_rows(int Dp, int n_blocks) {
-  const int chain = (5 + n_blocks) * Dp, agg = 4 * Dp + 2 * kTile, tr = 5 * Dp + kTile;
-  return chain > agg ? (chain > tr ? chain : tr) : (agg > tr ? agg : tr);
-}
-
-// Ring stages of one layer's weight stream: W_in, W1_0, W2_0, ..., W1_{n-1}
-// (recompute), W2_{n-1}^T, W1_{n-1}^T, ..., W2_0^T, W1_0^T (walk back), then
-// the agg rows and the x rows of [W_s^T | W_in^T] (dxa); each Dp rows, its
-// columns padded to a multiple of kKc.
-__host__ __device__ __forceinline__ int walk_stages(int Dp, int n_blocks) {
-  return (kpad(2 * Dp) + (4 * n_blocks - 1) * kpad(Dp) + 2 * kpad(2 * Dp)) / kKc;
-}
-
-size_t walk_smem_bytes(int Dp, int n_blocks) {
-  return ((size_t)walk_rows(Dp, n_blocks) * kLdT + (size_t)kRing * Dp * kKc +
-          (size_t)(1 + 2 * n_blocks) * Dp) * sizeof(bf16);
-}
-
-// The weight stream through the shared-memory ring.  Every thread takes
-// part in every call, in the same order.  Stage s lands in slot s % kRing;
-// acquire() waits for the next stage, and the barrier in it also ends every
-// read of the slot that the stage it then issues overwrites.  cp.async
-// groups committed elsewhere between calls only make the waits stricter.
-struct Ring {
-  const bf16* src;
-  bf16* buf;
-  int stage_elems, total, next, cur;
-
-  __device__ void issue() {
-    if (next < total) {
-      const bf16* s = src + (size_t)next * stage_elems;
-      bf16* d = buf + (size_t)(next % kRing) * stage_elems;
-      for (int e = threadIdx.x; e < stage_elems / 8; e += kWalkThreads)
-        cp_async16(d + 8 * e, s + 8 * e);
-    }
-    cp_async_commit();
-    ++next;
-  }
-  __device__ void start() {
-    for (int i = 0; i < kRing - 1; ++i) issue();
-  }
-  __device__ const bf16* acquire() {
-    cp_async_wait<kRing - 2>();
-    __syncthreads();
-    const bf16* p = buf + (size_t)(cur % kRing) * stage_elems;
-    ++cur;
-    issue();
-    return p;
-  }
-};
-
-// A warp's 32 x 32 block of a (Dp x 64) product: rows 16 mt0 .., columns n0 ..
-struct WarpTile {
-  int mt0, n0, MT;
-  __device__ WarpTile(int Dp) {
-    const int warp = threadIdx.x / 32;
-    mt0 = (warp >> 1) * 2;
-    n0 = (warp & 1) * 32;
-    MT = Dp / 16;
-  }
-};
-
-__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-}
-
-__device__ __forceinline__ void mma_row(float (&acc)[4][4], const unsigned (&a)[4],
-                                        const unsigned (&b)[2][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    mma16816(acc[j], a, b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
-}
-
-// acc = W (Dp x K, from the ring) * B (K x 64): B's rows k < ksplit from
-// B0, the rest from B1 (row k - ksplit); both [k][n] buffers of stride kLdT.
-// (Loading the fragments a k-step ahead takes 168 registers with spills,
-// against 156 without, and ran slower on an H100.)
-__device__ void ring_product(Ring& ring, int Dp, int K, const bf16* B0, const bf16* B1, int ksplit,
-                             float (&acc)[2][4][4]) {
-  const WarpTile w(Dp);
-  const int lane = threadIdx.x & 31;
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += kKc) {
-    const bf16* st = ring.acquire();
-#pragma unroll
-    for (int kk = 0; kk < kKc / 16; ++kk) {
-      const int k = k0 + 16 * kk;
-      if (k < K && w.mt0 < w.MT) {
-        const bf16* Bp = k < ksplit ? B0 + (size_t)k * kLdT : B1 + (size_t)(k - ksplit) * kLdT;
-        unsigned b[2][4];
-        frag_b_kn(b[0], Bp, kLdT, 0, w.n0);
-        frag_b_kn(b[1], Bp, kLdT, 0, w.n0 + 16);
-        const uint4* ap =
-            reinterpret_cast<const uint4*>(st + ((size_t)kk * w.MT + w.mt0) * 256) + lane;
-        uint4 q = ap[0];
-        unsigned a[4] = {q.x, q.y, q.z, q.w};
-        mma_row(acc[0], a, b);
-        if (w.mt0 + 1 < w.MT) {
-          q = ap[32];
-          unsigned a1[4] = {q.x, q.y, q.z, q.w};
-          mma_row(acc[1], a1, b);
-        }
-      }
-    }
-  }
-}
-
-// acc += A (Dp x 64, an [m][k] buffer) * B (64 x 64), B an [n][k] buffer
-// when nk, else a [k][n] one.
-__device__ void smem_product(const bf16* Abuf, const bf16* Bbuf, bool nk, int Dp,
-                             float (&acc)[2][4][4]) {
-  const WarpTile w(Dp);
-  if (w.mt0 >= w.MT) return;
-#pragma unroll
-  for (int k = 0; k < kTile; k += 16) {
-    unsigned b[2][4], a[4];
-    if (nk) {
-      frag_b_nk(b[0], Bbuf, kLdT, w.n0, k);
-      frag_b_nk(b[1], Bbuf, kLdT, w.n0 + 16, k);
-    } else {
-      frag_b_kn(b[0], Bbuf, kLdT, k, w.n0);
-      frag_b_kn(b[1], Bbuf, kLdT, k, w.n0 + 16);
-    }
-    frag_a(a, Abuf, kLdT, 16 * w.mt0, k);
-    mma_row(acc[0], a, b);
-    if (w.mt0 + 1 < w.MT) {
-      frag_a(a, Abuf, kLdT, 16 * w.mt0 + 16, k);
-      mma_row(acc[1], a, b);
-    }
-  }
-}
-
-// f(row, col, v0, v1) for each pair of neighbouring columns of the warp's
-// accumulators (the thread's own: row g (+8), columns 2t, 2t + 1).
-template <class F>
-__device__ __forceinline__ void epilogue(const float (&acc)[2][4][4], int Dp, F f) {
-  const WarpTile w(Dp);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (w.mt0 + i < w.MT)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f(16 * (w.mt0 + i) + g + 8 * h, w.n0 + 8 * j + 2 * t, acc[i][j][2 * h],
-            acc[i][j][2 * h + 1]);
-}
-
-__device__ __forceinline__ float2 ld2(const bf16* buf, int r, int c) {
-  return unpack_bf16(*reinterpret_cast<const unsigned*>(buf + r * kLdT + c));
-}
-
-__device__ __forceinline__ void st2(bf16* buf, int r, int c, float v0, float v1) {
-  *reinterpret_cast<unsigned*>(buf + r * kLdT + c) = pack_bf16(v0, v1);
-}
-
-// rows x 64 of a tile buffer to a slab's columns cc.., 16-byte streaming
-// stores (evict-first: the slabs are read once, by the contraction, and
-// would otherwise push the weight stream and the bins' x out of L2)
-__device__ void store_slab(bf16* slab, size_t A, size_t cc, const bf16* buf, int rows) {
-  for (int e = threadIdx.x; e < rows * (kTile / 8); e += kWalkThreads) {
-    const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
-    __stcs(reinterpret_cast<int4*>(slab + r * A + cc + c),
-           *reinterpret_cast<const int4*>(buf + r * kLdT + c));
-  }
-}
-
-// 64 x 64 int8 block of adj (rows row0.., columns col0..; row stride ab)
-// as bf16 into a buffer of stride kLdT: one 16-byte load a thread.
-__device__ __forceinline__ int4 adj_load(const int8_t* adj_b, int ab, int row0, int col0) {
-  const int e = threadIdx.x;
-  if (e >= kTile * kTile / 16) return make_int4(0, 0, 0, 0);
-  return *reinterpret_cast<const int4*>(adj_b + (size_t)(row0 + e / 4) * ab + col0 + e % 4 * 16);
-}
-
-__device__ __forceinline__ void adj_store(bf16* buf, int4 v) {
-  const int e = threadIdx.x;
-  if (e >= kTile * kTile / 16) return;
-  const int8_t* m = reinterpret_cast<const int8_t*>(&v);
-  unsigned p[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) p[i] = pack_bf16((float)m[2 * i], (float)m[2 * i + 1]);
-  int4* d = reinterpret_cast<int4*>(buf + (e / 4) * kLdT + e % 4 * 16);
-  d[0] = make_int4(p[0], p[1], p[2], p[3]);
-  d[1] = make_int4(p[4], p[5], p[6], p[7]);
-}
-
-// One layer's walk, bf16 (see the top of this file), for activation code
-// ACT (a template argument: with a runtime switch the epilogues ran
-// markedly slower on an H100).  Grid nb * C blocks, clusters of
-// C = ab / 64 (the tiles of a bin, by cluster rank).  wstream is the
-// layer's weight stream (walk_stages * Dp * kKc elements), then its biases
-// b_in, b1_0, b2_0, b1_1, ... ((1 + 2 n_blocks) Dp).
-template <int ACT>
-__global__ void __launch_bounds__(kWalkThreads, 1)
-bwd_walk_kernel(const bf16* __restrict__ x_l, bf16* __restrict__ wk, float* __restrict__ g32,
-                const int8_t* __restrict__ adj, const bf16* __restrict__ wstream, int D, int Dp,
-                int A, int ab, int n_blocks, int dropout, int layer, unsigned seed,
-                unsigned thresh, float scale) {
-  constexpr int act = ACT;
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = ab / kTile;
-  const int rank = (int)cluster.block_rank();
-  const int bin = blockIdx.x / C;
-  const size_t col0 = (size_t)bin * ab, cc = col0 + (size_t)rank * kTile;
-  const size_t S = (size_t)Dp * A;
-  bf16* XAs = wk;
-  bf16* Hs = wk + 2 * S;
-  bf16* Vs = Hs + n_blocks * S;
-  bf16* DHs = Vs + n_blocks * S;
-  bf16* DUs = DHs + n_blocks * S;
-  bf16* DTs = DUs + n_blocks * S;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem);
-  bf16* XA = tiles;                       // [x ; agg] (2 Dp rows); then G (x rows), DH (agg rows)
-  bf16* G = XA;
-  bf16* DH = XA + (size_t)Dp * kLdT;
-  bf16* TB = XA + (size_t)2 * Dp * kLdT;  // rnd(act'(t)), then dt
-  bf16* HB = TB + (size_t)Dp * kLdT;      // h_i, then dA
-  bf16* VB = HB + (size_t)Dp * kLdT;      // v_i, then a copy of another tile's dA
-  bf16* UB = VB + (size_t)Dp * kLdT;      // rnd(act'(u_i)) (n_blocks), then du_i; then the
-                                          // adjacency block
-  bf16* SC[2] = {TB, HB};                 // x chunks of the aggregation
-  bf16* AB[2] = {tiles + (size_t)4 * Dp * kLdT, tiles + (size_t)(4 * Dp + kTile) * kLdT};
-  bf16* ring_buf = tiles + (size_t)walk_rows(Dp, n_blocks) * kLdT;
-  bf16* bias = ring_buf + (size_t)kRing * Dp * kKc;
-  const int n_stages = walk_stages(Dp, n_blocks);
-  Ring ring{wstream, ring_buf, Dp * kKc, n_stages, 0, 0};
-  ring.start();
-  const bf16* wbias = wstream + (size_t)n_stages * Dp * kKc;
-  for (int e = threadIdx.x; e < (1 + 2 * n_blocks) * Dp; e += kWalkThreads) bias[e] = wbias[e];
-
-  // --- agg[:, i] = sum_j x[:, j] adj[i, j] over the bin, 64 source atoms a chunk
-  const bf16* xbin = x_l + col0;
-  const int8_t* adj_b = adj + (size_t)bin * ab * ab;
-  auto load_x = [&](bf16* dst, int chunk) {  // rows >= D zero-filled
-    for (int e = threadIdx.x; e < Dp * (kTile / 8); e += kWalkThreads) {
-      const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
-      const bool in = r < D;
-      cp_async16(dst + r * kLdT + c, in ? xbin + (size_t)r * A + chunk * kTile + c : x_l,
-                 in ? 16 : 0);
-    }
-  };
-  float acc[2][4][4];
-  zero(acc);
-  load_x(XA, rank);
-  if (rank != 0) load_x(SC[0], 0);
-  cp_async_commit();
-  adj_store(AB[0], adj_load(adj_b, ab, rank * kTile, 0));
-  for (int c = 0; c < C; ++c) {
-    int4 next_adj = make_int4(0, 0, 0, 0);
-    if (c + 1 < C) {
-      if (c + 1 != rank) load_x(SC[(c + 1) & 1], c + 1);
-      next_adj = adj_load(adj_b, ab, rank * kTile, (c + 1) * kTile);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    smem_product(c == rank ? XA : SC[c & 1], AB[c & 1], true, Dp, acc);
-    if (c + 1 < C) adj_store(AB[(c + 1) & 1], next_adj);
-    __syncthreads();
-  }
-  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) { st2(XA, Dp + r, c, v0, v1); });
-  __syncthreads();
-  store_slab(XAs, A, cc, XA, 2 * Dp);
-
-  // --- recompute (grad_only)
-  const bf16* b_in = bias;
-  ring_product(ring, Dp, 2 * Dp, XA, XA, 2 * Dp, acc);
-  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-    const float b = to_f(b_in[r]);
-    const float t0 = rnd<bf16>(rnd<bf16>(v0) + b), t1 = rnd<bf16>(rnd<bf16>(v1) + b);
-    st2(TB, r, c, act_grad(act, t0), act_grad(act, t1));  // kept as rnd(act'(t))
-    st2(HB, r, c, act_fn(act, t0), act_fn(act, t1));
-  });
-  __syncthreads();
-  store_slab(Hs, A, cc, HB, Dp);
-  for (int i = 0; i < n_blocks; ++i) {
-    bf16* Ui = UB + (size_t)i * Dp * kLdT;
-    const bf16* b1 = bias + (size_t)(1 + 2 * i) * Dp;
-    const bf16* b2 = b1 + Dp;
-    const unsigned mix = seed + (unsigned)(layer * n_blocks + i) * 0x9E3779B9u;
-    ring_product(ring, Dp, Dp, HB, HB, Dp, acc);
-    epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-      const float b = to_f(b1[r]);
-      const float u[2] = {rnd<bf16>(rnd<bf16>(v0) + b), rnd<bf16>(rnd<bf16>(v1) + b)};
-      float a[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        a[q] = act_fn(act, u[q]);
-        if (dropout)
-          a[q] = drop_keep(r, (unsigned)(cc + c + q), mix, thresh) ? rnd<bf16>(a[q]) * scale : 0.0f;
-      }
-      st2(Ui, r, c, act_grad(act, u[0]), act_grad(act, u[1]));  // kept as rnd(act'(u_i))
-      st2(VB, r, c, a[0], a[1]);
-    });
-    __syncthreads();
-    store_slab(Vs + i * S, A, cc, VB, Dp);
-    if (i + 1 < n_blocks) {
-      ring_product(ring, Dp, Dp, VB, VB, Dp, acc);
-      epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-        const float b = to_f(b2[r]);
-        const float2 h = ld2(HB, r, c);
-        st2(HB, r, c, rnd<bf16>(rnd<bf16>(v0) + b) + h.x, rnd<bf16>(rnd<bf16>(v1) + b) + h.y);
-      });
-      __syncthreads();
-      store_slab(Hs + (i + 1) * S, A, cc, HB, Dp);
-    }
-  }
-
-  // --- walk back: g = rnd(g32), also the slab of dh_{n-1}
-  for (int e = threadIdx.x; e < Dp * (kTile / 8); e += kWalkThreads) {
-    const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
-    const float4* src = reinterpret_cast<const float4*>(g32 + (size_t)r * A + cc + c);
-    const float4 lo = src[0], hi = src[1];
-    const int4 v = make_int4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
-                             pack_bf16(hi.z, hi.w));
-    *reinterpret_cast<int4*>(G + r * kLdT + c) = v;
-    __stcs(reinterpret_cast<int4*>(DHs + (n_blocks - 1) * S + (size_t)r * A + cc + c), v);
-  }
-  __syncthreads();
-  const bf16* DHcur = G;
-  for (int i = n_blocks - 1; i >= 0; --i) {
-    bf16* Ui = UB + (size_t)i * Dp * kLdT;
-    const unsigned mix = seed + (unsigned)(layer * n_blocks + i) * 0x9E3779B9u;
-    ring_product(ring, Dp, Dp, DHcur, DHcur, Dp, acc);  // W2_i^T dh_{i+1}
-    epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-      const float2 ga = ld2(Ui, r, c);  // rnd(act'(u_i))
-      float dv[2] = {rnd<bf16>(v0), rnd<bf16>(v1)};
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        if (dropout)
-          dv[q] = drop_keep(r, (unsigned)(cc + c + q), mix, thresh) ? rnd<bf16>(dv[q] * scale)
-                                                                    : 0.0f;
-      st2(Ui, r, c, dv[0] * ga.x, dv[1] * ga.y);
-    });
-    __syncthreads();
-    store_slab(DUs + i * S, A, cc, Ui, Dp);
-    ring_product(ring, Dp, Dp, Ui, Ui, Dp, acc);  // W1_i^T du_i
-    if (i > 0) {
-      const bf16* src = DHcur;
-      epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-        const float2 d = ld2(src, r, c);
-        st2(DH, r, c, rnd<bf16>(d.x + v0), rnd<bf16>(d.y + v1));
-      });
-      __syncthreads();
-      store_slab(DHs + (i - 1) * S, A, cc, DH, Dp);
-      DHcur = DH;
-    } else {
-      const bf16* src = DHcur;
-      epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-        const float2 d = ld2(src, r, c), ga = ld2(TB, r, c);  // rnd(act'(t))
-        st2(TB, r, c, rnd<bf16>(d.x + v0) * ga.x, rnd<bf16>(d.y + v1) * ga.y);
-      });
-      __syncthreads();
-      store_slab(DTs, A, cc, TB, Dp);
-    }
-  }
-
-  // --- dxa = [W_s^T | W_in^T] [g ; dt]: the agg rows, rounded, to dA
-  bf16* DA = HB;
-  ring_product(ring, Dp, 2 * Dp, G, TB, Dp, acc);
-  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) { st2(DA, r, c, v0, v1); });
-  cluster.sync();
-  // the x rows, kept in fp32; then + sum_i dA[:, i] adj[i, j] over the bin
-  ring_product(ring, Dp, 2 * Dp, G, TB, Dp, acc);
-  // source tile s: its dA (another block's, through distributed shared
-  // memory, into VB) and adj's block (its atoms' rows, this tile's
-  // columns, into ADJ); the next tile's are loaded into registers while
-  // the current one's product runs
-  bf16* ADJ = UB;
-  constexpr int kPer = (kWalkMaxDp * (kTile / 8) + kWalkThreads - 1) / kWalkThreads;
-  int4 rem_v[kPer], adj_v;
-  auto fetch = [&](int s) {
-    if (s != rank) {
-      const bf16* rem = cluster.map_shared_rank(DA, s);
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int e = threadIdx.x + q * kWalkThreads;
-        if (e < Dp * (kTile / 8))
-          rem_v[q] =
-              *reinterpret_cast<const int4*>(rem + (e / (kTile / 8)) * kLdT + e % (kTile / 8) * 8);
-      }
-    }
-    adj_v = adj_load(adj_b, ab, s * kTile, rank * kTile);
-  };
-  auto put = [&](int s) {
-    if (s != rank) {
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int e = threadIdx.x + q * kWalkThreads;
-        if (e < Dp * (kTile / 8))
-          *reinterpret_cast<int4*>(VB + (e / (kTile / 8)) * kLdT + e % (kTile / 8) * 8) = rem_v[q];
-      }
-    }
-    adj_store(ADJ, adj_v);
-  };
-  fetch(0);
-  put(0);
-  for (int s = 0; s < C; ++s) {
-    __syncthreads();
-    if (s + 1 < C) fetch(s + 1);
-    smem_product(s == rank ? DA : VB, ADJ, false, Dp, acc);
-    __syncthreads();
-    if (s + 1 < C) put(s + 1);
-  }
-  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
-    float2* p = reinterpret_cast<float2*>(g32 + (size_t)r * A + cc + c);
-    const float2 o = *p;
-    *p = make_float2(o.x + v0, o.y + v1);
-  });
-  cluster.sync();  // the other tiles' reads of this block's dA are done
-}
-
 // The fold's backward, one block per bin: t0 = rnd(rnd(kb^T emb) + bb);
 // g32 <- dt0 = g32 * rnd(act'(t0)) (fp32, for the bias gradient);
 // dtc <- rnd(dt0); demb = rnd(kb dtc).  pw = [kb^T (Dp x E), bb], pwT = kb
@@ -788,22 +322,6 @@ int launch_proj_vocab(const void* codes, const void* bd, const Vocab& voc, void*
   return (int)cudaGetLastError();
 }
 
-constexpr int kMaxDevices = 64;
-
-// Sets a kernel's dynamic shared-memory ceiling once per device.
-template <typename K> int configure(K kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (err != cudaSuccess) return (int)err;
-    done[dev] = true;
-  }
-  return 0;
-}
-
 bool layer_configured[2][kMaxDevices], walk_configured[5][kMaxDevices],
     group_configured[kMaxDevices];
 
@@ -833,7 +351,7 @@ template <int ACT>
 int launch_walk(const void* x_l, void* wk, void* g32, const void* adj, const void* wstream, int D,
                 int Dp, int A, int nb, int ab, int n_blocks, int dropout, int layer,
                 unsigned seed, unsigned thresh, float scale, cudaStream_t s) {
-  const int err = configure(bwd_walk_kernel<ACT>, walk_configured[ACT]);
+  const int err = configure(bwd_walk_kernel<ACT, false>, walk_configured[ACT]);
   if (err) return err;
   const int C = ab / kTile;
   cudaLaunchConfig_t cfg = {};
@@ -849,10 +367,10 @@ int launch_walk(const void* x_l, void* wk, void* g32, const void* adj, const voi
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, bwd_walk_kernel<ACT>, static_cast<const bf16*>(x_l), static_cast<bf16*>(wk),
+      &cfg, bwd_walk_kernel<ACT, false>, static_cast<const bf16*>(x_l), static_cast<bf16*>(wk),
       static_cast<float*>(g32), static_cast<const int8_t*>(adj),
-      static_cast<const bf16*>(wstream), D, Dp, A, ab, n_blocks, dropout, layer, seed, thresh,
-      scale);
+      static_cast<const bf16*>(wstream), static_cast<const bf16*>(nullptr),
+      static_cast<bf16*>(nullptr), D, Dp, A, ab, n_blocks, dropout, layer, seed, thresh, scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

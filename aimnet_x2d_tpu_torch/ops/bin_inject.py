@@ -22,17 +22,21 @@ dx with fp32 gradients of kb, b and the layer's weights.
 
 On CUDA tensors the forward launches ``csrc/inject.cu`` (``inject_fwd``, x',
 cct, tet and ``pre`` in one block per bin) and then kernel 1d; the backward
-launches kernel 1d's backward, ``inject_bwd`` (dx) and the split-K
-contraction of ``csrc/wgrad.cuh`` for kb and b.  On CPU tensors the plain
-versions here run the same arithmetic.  Nothing falls back.
+launches kernel 1d's backward, whose one grouped contraction
+(``csrc/wgrad_group.cuh``) also forms kb's and b's gradients, and then
+``inject_bwd`` (dx): in bf16 the tiled kernel (a cluster of 64-atom tiles per
+bin, the cotangents on chip), in fp32 and past its shapes the kernel of one
+block per bin, chosen by shape.  On CPU tensors the plain versions here run
+the same arithmetic.  Nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import bin_attnpool, bin_mp, cuda_build
@@ -239,13 +243,22 @@ def inject_bwd_plain(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights, xc
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("inject")
+    return type_lib(cuda_build.load("inject"))
+
+
+def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the inject library's entry
+    points (once)."""
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.inject_fwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
         lib.inject_fwd.restype = i
         lib.inject_bwd.argtypes = [vp] * 13 + [i] * 8 + [vp]
         lib.inject_bwd.restype = i
+        lib.inject_bwd_tiles.argtypes = [vp] * 11 + [i] * 7 + [vp]
+        lib.inject_bwd_tiles.restype = i
+        lib.inject_bwd_tiles_smem_bytes.argtypes = [i] * 4
+        lib.inject_bwd_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.inject_smem_bytes.argtypes = [i] * 5
         lib.inject_smem_bytes.restype = ctypes.c_longlong
         lib.inject_error_string.argtypes = [i]
@@ -305,6 +318,37 @@ def inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights):
 inject_fwd.launches = 0
 
 
+_KB_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def kb_stream(iw: InjectWeights) -> torch.Tensor:
+    """kb (3Dp, Dp) as the tiled backward's weight ring reads it: its x',
+    cct and tet parts (Dp, Dp) one after another, each in the walk's
+    fragment order (``bin_mp.frag_stream``); one gather by an index cached
+    per shape and device."""
+    Dp, dev = iw.sw.Dp, iw.kbT.device
+    idx = _KB_INDEX.get((Dp, dev))
+    if idx is None:
+        n = 3 * Dp * Dp
+        rows = np.arange(n).reshape(3 * Dp, Dp)
+        idx = _KB_INDEX[(Dp, dev)] = torch.from_numpy(np.concatenate(
+            [bin_mp.frag_stream(rows[j * Dp : (j + 1) * Dp], n) for j in range(3)])).to(dev)
+    kb = iw.kbT.T.contiguous().reshape(-1)
+    return torch.cat([kb, kb.new_zeros(1)])[idx]
+
+
+_BWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dp, mb, ab, Tc) -> the tiled backward takes it
+
+
+def _takes_tiles(lib, bf16: int, Dp: int, mb: int, ab: int, tc: int) -> bool:
+    """Whether the tiled bf16 backward takes the shape (else the kernel of
+    one block per bin runs it); asked of the library once per shape."""
+    key = (bf16, Dp, mb, ab, tc)
+    if key not in _BWD_TILES:
+        _BWD_TILES[key] = bool(bf16) and lib.inject_bwd_tiles_smem_bytes(Dp, mb, ab, tc) >= 0
+    return _BWD_TILES[key]
+
+
 def inject_bwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights, xct, dpre):
     """Launch the inject backward kernel: dx (D, A), as
     :func:`inject_bwd_plain`."""
@@ -316,18 +360,25 @@ def inject_bwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights, xct, dpr
         raise ValueError(f"{what}: xct {tuple(xct.shape)}, dpre {tuple(dpre.shape)}")
     cuda_build.check_cuda(what, dev, ("xct", xct, 16), ("dpre", dpre, 16))
     dx = torch.empty(D, A, dtype=dt, device=dev)
-    w32 = torch.empty(3 * Dp, A, dtype=torch.float32, device=dev)
-    dcct = torch.empty(Dp, A, dtype=dt, device=dev)
     ch = torch.empty(nb * 4 * tc * Dp, dtype=torch.float32, device=dev)
-    if nb:
-        status = lib.inject_bwd(
-            x.data_ptr(), tca.data_ptr(), pool.data_ptr(), tet_bin.data_ptr(), any_tet.data_ptr(),
-            sadj.data_ptr(), iw.flat_t.data_ptr(), xct.data_ptr(), dpre.data_ptr(),
-            w32.data_ptr(), dcct.data_ptr(), ch.data_ptr(), dx.data_ptr(),
-            int(dt == torch.bfloat16), D, Dp, A, nb, mb, ab, tc, bin_mp._stream(dev))
-        if status != 0:
-            raise RuntimeError(f"{what}: {lib.inject_error_string(status).decode()}")
-        inject_bwd.launches += 1
+    if not nb:
+        return dx
+    args = (x.data_ptr(), tca.data_ptr(), pool.data_ptr(), tet_bin.data_ptr(), any_tet.data_ptr(),
+            sadj.data_ptr())
+    if _takes_tiles(lib, int(dt == torch.bfloat16), Dp, mb, ab, tc):
+        status = lib.inject_bwd_tiles(*args, kb_stream(iw).data_ptr(), xct.data_ptr(),
+                                      dpre.data_ptr(), ch.data_ptr(), dx.data_ptr(), D, Dp, A, nb,
+                                      mb, ab, tc, bin_mp._stream(dev))
+    else:
+        w32 = torch.empty(3 * Dp, A, dtype=torch.float32, device=dev)
+        dcct = torch.empty(Dp, A, dtype=dt, device=dev)
+        status = lib.inject_bwd(*args, iw.flat_t.data_ptr(), xct.data_ptr(), dpre.data_ptr(),
+                                w32.data_ptr(), dcct.data_ptr(), ch.data_ptr(), dx.data_ptr(),
+                                int(dt == torch.bfloat16), D, Dp, A, nb, mb, ab, tc,
+                                bin_mp._stream(dev))
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.inject_error_string(status).decode()}")
+    inject_bwd.launches += 1
     return dx
 
 
@@ -364,10 +415,15 @@ def inject_layer_bwd(x, tca, pool, tet_bin, any_tet, sadj, adj, iw: InjectWeight
     pre, xct = saved
     g = g.to(iw.dtype).contiguous()
     if x.device.type == "cuda":
-        g32, lg = bin_mp.mp_layer_bwd(pre, adj, iw.sw, spec, g)
-        dpre = g32.to(iw.dtype)
-        dx = inject_bwd(x, tca, pool, tet_bin, any_tet, sadj, iw, xct, dpre)
-        dkbT, db = bin_mp.wgrad(dpre, xct, bias_src=g32)
+        dpre = []
+
+        def inject_product(g32):  # d_kb, d_b: in the layer's one contraction launch
+            dpre.append(g32.to(iw.dtype))
+            return [(dpre[0], xct, g32)]
+
+        g32, lg = bin_mp.mp_layer_bwd(pre, adj, iw.sw, spec, g, extra=inject_product)
+        lg, (dkbT, db) = lg[:-2], lg[-2:]
+        dx = inject_bwd(x, tca, pool, tet_bin, any_tet, sadj, iw, xct, dpre[0])
     else:
         g32, lg = bin_mp.mp_layer_bwd_plain(pre, adj, iw.sw, spec, g)
         dpre = g32.to(iw.dtype)

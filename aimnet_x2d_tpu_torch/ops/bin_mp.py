@@ -754,7 +754,11 @@ def wgrad(dY: torch.Tensor, X: torch.Tensor, bias_src: Optional[torch.Tensor] = 
     if status != 0:
         raise RuntimeError(f"wgrad: {lib.mp_stack_bwd_error_string(status).decode()}")
     out = sum_partials(part)
+    wgrad.launches += 1
     return out[: M * N].view(M, N), out[M * N :]
+
+
+wgrad.launches = 0
 
 
 def wgrad_vocab(dY: torch.Tensor, codes: torch.Tensor, vt: VocabTable,
@@ -832,6 +836,24 @@ def bwd_slabs_plain(x, adj, ws, spec: StackSpec, n_blocks: int, l: int, g32):
     _chain_bwd_plain(xa, t, hs, us, vs, ws, spec, n_blocks, l, g32.to(dt), ops)
     slabs = [xa[:Dp], xa[Dp:], *hs, *vs, *(ops["dh"][i] for i in range(n_blocks)),
              *(ops["du"][i] for i in range(n_blocks)), ops["dt"]]
+    return torch.stack([a.to(dt) for a in slabs])
+
+
+def ext_slabs_plain(xa, sw: StackWeights, spec: StackSpec, g, legacy: bool = False):
+    """Kernel 5's work slabs (:func:`bwd_slabs`' first ``n``: the walk's
+    form), formed from :func:`mp_ext_bwd_plain`'s own operands: from xa
+    (2D, A) and the cotangent g (D, A) of the layer's output.  ``legacy``
+    appends t and u_i, as ``ext_bwd_kernel`` (the slab route) keeps them."""
+    dt, nblk = sw.dtype, sw.n_blocks
+    ws = sw.layers[0]
+    xp = _pad_xa(xa, sw.D, sw.Dp)
+    t, _, hs, us, vs = _chain_plain(xp, ws, spec.act, nblk, spec, 0)
+    ops: dict = {}
+    _chain_bwd_plain(xp, t, hs, us, vs, ws, spec, nblk, 0, _pad_rows(g.to(dt), sw.Dp), ops)
+    slabs = [xp[: sw.Dp], xp[sw.Dp :], *hs, *vs, *(ops["dh"][i] for i in range(nblk)),
+             *(ops["du"][i] for i in range(nblk)), ops["dt"]]
+    if legacy:
+        slabs += [t, *us]
     return torch.stack([a.to(dt) for a in slabs])
 
 
@@ -1048,14 +1070,17 @@ def _takes_walk(lib, bf16: int, Dp: int, ab: int, nblk: int) -> bool:
 
 
 def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, first: int,
-                E: Optional[int] = None):
+                E: Optional[int] = None, extra=None):
     """Per layer, last to first, the walk (recompute from the saved input,
     walk back, fold the aggregation transpose; ``csrc/mp_stack_bwd.cu``),
     then the layer's weight gradients: one grouped contraction of its
     products and one fixed-order sum (:func:`wgrad_group`).  Layer ``l``
-    reads ``saved[l - first]``, or ``x`` for ``l < first``.  Returns (g32:
-    the fp32 cotangent (Dp, A) of the first layer's input, residual path
-    included; the per-layer weight grads; the work slabs, :func:`bwd_slabs`)."""
+    reads ``saved[l - first]``, or ``x`` for ``l < first``.  ``extra``, a
+    function of the finished g32 returning more ``(dY, X, bias_src)``
+    products, joins the first layer's contraction launch; their (dW, db)
+    follow that layer's grads.  Returns (g32: the fp32 cotangent (Dp, A) of
+    the first layer's input, residual path included; the per-layer weight
+    grads; the work slabs, :func:`bwd_slabs`)."""
     dt = sw.dtype
     if g.dtype != dt or x.dtype != dt:
         raise TypeError(f"{what}: cotangent {g.dtype}, input {x.dtype}, weights {dt}")
@@ -1081,9 +1106,10 @@ def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, 
     drop = (spec.seed & _M32, drop_threshold(spec.rate),
             drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0, _stream(dev))
     prods = layer_products(wk, nblk)
-    contract = _group_launcher(prods)
-    part = torch.empty(*_group_plan(prods)[1:], dtype=torch.float32, device=dev)
-    flat_grads = torch.empty(L, part.shape[1], dtype=torch.float32, device=dev)
+    if L > 1 or extra is None:
+        contract = _group_launcher(prods)
+        part = torch.empty(*_group_plan(prods)[1:], dtype=torch.float32, device=dev)
+        flat_grads = torch.empty(L, part.shape[1], dtype=torch.float32, device=dev)
     layer_grads = [None] * L
     for l in range(L - 1, -1, -1):
         xl = saved[l - first] if l >= first else x
@@ -1098,7 +1124,9 @@ def _launch_bwd(what: str, x, adj, sw: StackWeights, spec: StackSpec, saved, g, 
                 bf16, D, Dp, A, nb, ab, nblk, *args, l, *drop)
         if status != 0:
             raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
-        layer_grads[l] = [t for pair in contract(part, flat_grads[l]) for t in pair]
+        pairs = (contract(part, flat_grads[l]) if l or extra is None
+                 else _group_launcher(prods + extra(g32))())
+        layer_grads[l] = [t for pair in pairs for t in pair]
     return g32, layer_grads, wk
 
 
@@ -1188,14 +1216,16 @@ def mp_stack_bwd_vocab(codes, g32, pw: ProjWeights, vt: VocabTable, act: str, ab
 mp_stack_bwd_vocab.launches = 0
 
 
-def mp_layer_bwd(x, adj, sw: StackWeights, spec: StackSpec, g):
+def mp_layer_bwd(x, adj, sw: StackWeights, spec: StackSpec, g, extra=None):
     """Kernel 1d backward (kernel 1b launched for one layer): from the
     layer's input ``x`` and the cotangent ``g`` of ``layer(x) + x``, return
     (the fp32 cotangent (Dp, A) of x, residual path included; the layer's
-    weight grads, prepped orientation)."""
+    weight grads, prepped orientation).  ``extra`` (see :func:`_launch_bwd`)
+    adds the caller's products to the layer's one contraction launch; their
+    (dW, db) pairs follow the layer's grads."""
     if len(sw.layers) != 1:
         raise ValueError(f"mp_layer_bwd: one layer's weights, got {len(sw.layers)}")
-    g32, layer_grads, _ = _launch_bwd("mp_layer_bwd", x, adj, sw, spec, [], g, 1)
+    g32, layer_grads, _ = _launch_bwd("mp_layer_bwd", x, adj, sw, spec, [], g, 1, extra=extra)
     mp_layer_bwd.launches += 1
     return g32, layer_grads[0]
 
@@ -1385,6 +1415,12 @@ def _lib_ext() -> ctypes.CDLL:
         lib.mp_ext_bwd.restype = i
         lib.mp_ext_fwd_smem_bytes.argtypes = [i, i, i]
         lib.mp_ext_fwd_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_ext_bwd_walk.argtypes = [vp] * 5 + [i] * 6 + [u, u, f, vp]
+        lib.mp_ext_bwd_walk.restype = i
+        lib.mp_ext_bwd_walk_smem_bytes.argtypes = [i, i]
+        lib.mp_ext_bwd_walk_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_ext_bwd_walk_stream_elems.argtypes = [i, i]
+        lib.mp_ext_bwd_walk_stream_elems.restype = ctypes.c_longlong
         lib.mp_ext_error_string.argtypes = [i]
         lib.mp_ext_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -1431,10 +1467,29 @@ def mp_ext_fwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec) -> torch.Ten
 mp_ext_fwd.launches = 0
 
 
+_EXT_WALK: Dict[Tuple, bool] = {}  # (bf16, Dp, n_blocks) -> kernel 5's walk takes it
+
+
+def _ext_takes_walk(lib, bf16: int, Dp: int, nblk: int) -> bool:
+    """Whether kernel 5's backward runs on the stack's bf16 walk
+    (``bwd_walk_kernel`` without aggregation, transpose or cluster); else on
+    ``ext_bwd_kernel``'s slabs.  Asked of the library once per shape."""
+    key = (bf16, Dp, nblk)
+    if key not in _EXT_WALK:
+        walk = bool(bf16) and lib.mp_ext_bwd_walk_smem_bytes(Dp, nblk) >= 0
+        if walk and lib.mp_ext_bwd_walk_stream_elems(Dp, nblk) != walk_stream_elems(Dp, nblk):
+            raise RuntimeError("mp_ext_bwd: the walk's weight-stream length disagrees")
+        _EXT_WALK[key] = walk
+    return _EXT_WALK[key]
+
+
 def mp_ext_bwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec, g: torch.Tensor):
-    """Kernel 5's backward: the walk kernel (recompute, walk back, dxa and
-    the gradient operands), then the weight-gradient contractions
-    (:func:`wgrad`).  Same returns as :func:`mp_ext_bwd_plain`."""
+    """Kernel 5's backward: the walk (recompute, walk back, dxa and the
+    gradient operands in the work slabs of :func:`bwd_slabs`) -- in bf16 the
+    stack's walk kernel with the layer's weight stream (:func:`walk_weights`),
+    in fp32 and past the walk's shapes ``ext_bwd_kernel`` -- then the layer's
+    weight gradients in one grouped contraction (:func:`wgrad_group`).  The
+    route is chosen by shape.  Same returns as :func:`mp_ext_bwd_plain`."""
     what = "mp_ext_bwd"
     g = g.to(sw.dtype).contiguous()
     if g.shape != (sw.D, xa.shape[1]):
@@ -1442,26 +1497,30 @@ def mp_ext_bwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec, g: torch.Ten
     drop = _check_ext(what, xa, sw, spec, ("g", g, 16))
     lib = _lib_ext()
     dt, D, Dp, nblk = sw.dtype, sw.D, sw.Dp, sw.n_blocks
+    bf16 = int(dt == torch.bfloat16)
+    walk = _ext_takes_walk(lib, bf16, Dp, nblk)
     A = xa.shape[1]
     dev = xa.device
-    wT = stack_weights_t(sw)
-    wk = torch.empty(5 * nblk + 4, Dp, A, dtype=dt, device=dev)
+    k = bwd_slabs(nblk)
+    # the slab route also keeps t and u_i, past the walk's slabs
+    wk = torch.empty(k["n"] + (0 if walk else 1 + nblk), Dp, A, dtype=dt, device=dev)
     dxa = torch.empty(2 * D, A, dtype=dt, device=dev)
-    if A:
+    act = ACTIVATION_CODES[spec.act.lower()]
+    prods = layer_products(wk, nblk)
+    if not A:
+        return dxa, [t for pair in wgrad_group_plain(prods) for t in pair]
+    if walk:
+        status = lib.mp_ext_bwd_walk(xa.data_ptr(), g.data_ptr(), dxa.data_ptr(), wk.data_ptr(),
+                                     walk_weights(sw).data_ptr(), D, Dp, A, nblk, act, *drop,
+                                     _stream(dev))
+    else:
         status = lib.mp_ext_bwd(xa.data_ptr(), g.data_ptr(), dxa.data_ptr(), wk.data_ptr(),
-                                sw.flat.data_ptr(), wT.data_ptr(), int(dt == torch.bfloat16), D, Dp,
-                                A, nblk, ACTIVATION_CODES[spec.act.lower()], *drop, _stream(dev))
-        if status != 0:
-            raise RuntimeError(f"{what}: {lib.mp_ext_error_string(status).decode()}")
-        mp_ext_bwd.launches += 1
-    H0, V0, DH0, DU0, DT = 3, 3 + 2 * nblk, 3 + 3 * nblk, 3 + 4 * nblk, 3 + 5 * nblk
-    xs = wk[0:2].reshape(2 * Dp, A)
-    dwin, dbin = wgrad(wk[DT], xs)
-    dws, dbs = wgrad(wk[DH0 + nblk - 1], xs)
-    grads = [dwin, dbin, dws, dbs]
-    for i in range(nblk):
-        grads += [*wgrad(wk[DU0 + i], wk[H0 + i]), *wgrad(wk[DH0 + i], wk[V0 + i])]
-    return dxa, grads
+                                sw.flat.data_ptr(), stack_weights_t(sw).data_ptr(), bf16, D, Dp,
+                                A, nblk, act, *drop, _stream(dev))
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_ext_error_string(status).decode()}")
+    mp_ext_bwd.launches += 1
+    return dxa, [t for pair in wgrad_group(prods) for t in pair]
 
 
 mp_ext_bwd.launches = 0

@@ -42,7 +42,12 @@ Phases, each of which fails the run when it fails:
      and kernel 1d (serving form, training form, backward) against their
      plain versions at the config-3 training shape, bf16, timed, with
      bounds (1d's backward as 1b's in phase 5, fp32 form included); the
-     batch must hold tetrahedral centres and cis/trans pairs;
+     inject backward (the cast of its cotangent, the kernel -- the tiled
+     one -- and d_kb, d_b from the grouped contraction) rerun bit-equal and
+     timed as profiler device time split by kernel name, and both inject
+     backward kernels split by phase by an instrumented build of
+     ``csrc/inject.cu`` (``-DINJECT_MARKS``, built beside the kernels in
+     phase 2); the batch must hold tetrahedral centres and cis/trans pairs;
    - ``[c3-serve]``: phase 4 for a config-3 artifact (counters of the
      inject kernel, kernel 1d and the pool; the multi-layer stack must
      not run);
@@ -129,7 +134,10 @@ Phases, each of which fails the run when it fails:
    - ``[halo-kernel]``: kernel 5 (``mp_ext_fwd`` serving and training
      forms, ``mp_ext_bwd``) against its plain version on one graph rank's
      share of a 2048-molecule training batch (G 2), fp32 and bf16, the
-     backward twice (bit-equal), timed with bounds;
+     backward twice (bit-equal), timed with bounds, the backward as
+     profiler device time split by kernel name: bf16 launches the stack's
+     walk, fp32 the slab kernel, each one grouped contraction and one
+     partial sum a call and no split-K ``wgrad``;
    - ``[halo-step]``: one train step of 4 ranks (data 2 x graph 2) on
      halo shards of the flat SMILES (their large molecules chunked, so
      ``halo_adj`` carries cross-bin rows), bf16 and fp32: loss and
@@ -139,14 +147,14 @@ Phases, each of which fails the run when it fails:
      (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
-14. print the ``[bwd-record]`` line (the stack backward's forms: device
-   time, split, host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
+14. print the ``[bwd-record]`` line (the backward forms of kernels 1b, 1d,
+   4 and 5: device time, split, host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
    and ``[fold-train]`` steps' device times), the ``kernels`` JSON line, the
    card line and, last, the result line ``{"ok": true, "device": {...}}``.
    Each row of the kernels line names how its times were taken in
    ``timing``: "events" (CUDA events around back-to-back calls from
    Python, host gaps included), "profiler" (the kernels' device time from
-   ``torch.profiler``; kernels 2, 2b, 1b and 1d backward) or
+   ``torch.profiler``; kernels 2, 2b and the backwards of 1b, 1d, 4 and 5) or
    "profiler+graph" (some of them from a CUDA-graph replay where the
    profiler saw no device events).
 
@@ -293,30 +301,57 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: the self device time of every
-    kernel it launches, summed by ``torch.profiler`` over ``iters``
-    back-to-back calls; where the profiler records no device events, CUDA
-    events around the replay of a CUDA graph of ``iters`` calls (no launch
-    gaps), which is said on a line of its own and counted in
-    ``device_ms.graph_timed``, so that a row of the kernels line names its
-    method (``timing_of``)."""
+PROFILE_TRIES = 5
+
+
+def kernel_profile(fn, iters: int, tries: int = PROFILE_TRIES):
+    """{kernel name: (launches a call, mean self device µs a launch)} of
+    ``fn``, from ``torch.profiler`` sessions of ``iters`` back-to-back
+    calls.  A session in which every kernel's launch count is a multiple of
+    ``iters`` is taken as it is.  The profiler at times loses kernel records
+    (on an H100 under torch 2.11: a small kernel's record in one call of
+    ten, and late in a long run up to half of all records), so after
+    ``tries`` sessions without a whole one (1 where ``fn`` meets other
+    processes in collectives, which must all call it alike), each kernel's
+    launches a call are the most any session showed, rounded up (every
+    kernel of the functions timed here launches a fixed number of times a
+    call), and its time a launch the mean over all its records, which is
+    said on a line of its own.  None when no session recorded device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total > 0:
-        return total / 1e3 / iters
-    device_ms.graph_timed += 1
-    print("[timing] the profiler recorded no device events: timing a CUDA-graph replay with "
-          "events instead", flush=True)
+    sessions = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                n, us = kernels.get(e.key, (0, 0.0))
+                kernels[e.key] = (n + e.count, us + e.self_device_time_total)
+        if not kernels:
+            return None
+        if all(n % iters == 0 for n, _ in kernels.values()):
+            return {k: (n // iters, us / n) for k, (n, us) in kernels.items()}
+        sessions.append(kernels)
+    merged: dict = {}
+    for kernels in sessions:
+        for k, (n, us) in kernels.items():
+            n0, us0, most = merged.get(k, (0, 0, 0))
+            merged[k] = (n0 + n, us0 + us, max(most, -(-n // iters)))
+    short = sum(most * iters * len(sessions) - n for n, _, most in merged.values())
+    print(f"[timing] the profiler lost kernel records in all {len(sessions)} sessions "
+          f"({short} of {sum(most for _, _, most in merged.values()) * iters * len(sessions)}): "
+          "launches a call from the fullest session, time a launch the mean of the records kept",
+          flush=True)
+    return {k: (most, us / n) for k, (n, us, most) in merged.items()}
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` from CUDA events around the replay
+    of a CUDA graph of ``iters`` calls (no launch gaps between calls)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -334,6 +369,24 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the self device time of every
+    kernel it launches, from ``torch.profiler`` (``kernel_profile``); where
+    the profiler records no device time, ``graph_ms``, which is said on a
+    line of its own and counted in ``device_ms.graph_timed``, so that a row
+    of the kernels line names its method (``timing_of``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    kernels = kernel_profile(fn, iters)
+    if kernels:
+        return sum(n * us for n, us in kernels.values()) / 1e3
+    device_ms.graph_timed += 1
+    print("[timing] the profiler recorded no device time: timing a CUDA-graph replay with events "
+          "instead", flush=True)
+    return graph_ms(fn, iters)
 
 
 device_ms.graph_timed = 0
@@ -360,54 +413,63 @@ def host_us(fn, calls: int = 100) -> float:
     return 1e6 * elapsed / calls
 
 
-# the stack backward's parts, by the profiler's kernel names
-BWD_PARTS = (("walk", ("bwd_walk_kernel", "bwd_layer_kernel")),
-             ("contraction", ("wgrad_group", "wgrad_kernel")),
-             ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)))
+# the backward forms' parts, by the profiler's kernel names: the walk (the
+# stack's and kernel 5's), kernel 4's inject kernels, the weight-gradient
+# contraction, its partial sums, the fold's kernel, the casts to the compute
+# dtype (and other copies) and the gathers of the weight streams
+BWD_PARTS = (("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
+             ("inject", ("inject_bwd",)), ("contraction", ("wgrad_group", "wgrad_kernel")),
+             ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
+             ("casts and copies", ("copy_kernel",)),
+             ("weight stream", ("index", "gather", "CatArray")))
 BWD_RECORD: dict = {}  # [bwd-record]: the backward's device times and splits, by form
 STEP_DEVICE_MS: dict = {}  # profile_step's one-step device time, by phase tag
 
 
 def device_parts(fn, parts=BWD_PARTS, iters: int = 10, warmup: int = 3):
     """``device_ms`` of ``fn`` with its split by part: (total ms, {part: ms}
-    per call), each profiler kernel counted in the first part one of whose
-    name fragments it holds, else in "other"; the split is None where the
-    profiler records no device events (``device_ms`` then times a graph)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    per call, {kernel name: launches per call}), each profiler kernel
+    counted in the first part one of whose name fragments it holds, else in
+    "other"; the split and the names are None where the profiler records no
+    device time (``device_ms`` then times a graph)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    kernels = kernel_profile(fn, iters)
+    if not kernels:
+        return device_ms(fn, iters, warmup), None, None
     split = {name: 0.0 for name, _ in parts}
     split["other"] = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        part = next((name for name, keys in parts if any(k in e.key for k in keys)), "other")
-        split[part] += e.self_device_time_total / 1e3 / iters
-    total = sum(split.values())
-    if total > 0:
-        return total, split
-    return device_ms(fn, iters, warmup), None
+    for key, (n, us) in kernels.items():
+        part = next((name for name, keys in parts if any(k in key for k in keys)), "other")
+        split[part] += n * us / 1e3
+    return sum(split.values()), split, {key: n for key, (n, _) in kernels.items()}
 
 
 def bwd_record(tag: str, name: str, dt, fn, ms_plain: float):
-    """Time one form of the stack backward for the record: device time and
-    its split (``device_parts``), the wrapper's host time a call; printed,
-    and kept in BWD_RECORD.  Returns (device ms, timing)."""
+    """Time one backward form for the record: device time and its split
+    (``device_parts``), the wrapper's host time a call; printed, and kept in
+    BWD_RECORD.  Returns (device ms, timing, {kernel name: launches a call}
+    or None)."""
     graph_timed = device_ms.graph_timed
-    ms, split = device_parts(fn)
+    ms, split, names = device_parts(fn)
+    gms = graph_ms(fn)
     hus = host_us(fn, calls=10)
     dname = "bf16" if dt == torch.bfloat16 else "fp32"
     parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else "not measured"
-    print(f"[{tag}] {name} {dname}: device {ms:.4f} ms a call ({parts}); host {hus:.1f} us a "
-          f"call; plain {ms_plain:.4f} ms", flush=True)
-    BWD_RECORD[f"{name} {dname}"] = dict(device_ms=ms, split=split, host_us=hus, plain_ms=ms_plain)
-    return ms, timing_of(graph_timed)
+    print(f"[{tag}] {name} {dname}: device {ms:.4f} ms a call ({parts}); a CUDA-graph replay "
+          f"{gms:.4f} ms a call; host {hus:.1f} us a call; plain {ms_plain:.4f} ms", flush=True)
+    if names:
+        print(f"[{tag}] {name} {dname} kernels a call: "
+              + "; ".join(f"{k[:90]} x{v}" for k, v in sorted(names.items())), flush=True)
+    BWD_RECORD[f"{name} {dname}"] = dict(device_ms=ms, split=split, graph_ms=gms, host_us=hus,
+                                         plain_ms=ms_plain)
+    return ms, timing_of(graph_timed), names
+
+
+def launches_named(names, fragment: str) -> float:
+    """Launches a call of the profiler kernels whose names hold ``fragment``."""
+    return sum(v for k, v in (names or {}).items() if fragment in k)
 
 
 def in_turns(fns: dict) -> dict:
@@ -611,26 +673,21 @@ def check_wpool_fwd(cfg, batch, seed: int) -> dict:
 
 
 def profile_forward(model, batch, top: int = 8) -> None:
-    """Device time of one forward, by kernel (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of one forward, by kernel (torch.profiler, two forwards
+    profiled, ``kernel_profile``)."""
     model(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        model(batch)
-        torch.cuda.synchronize()
-    # device-side entries only (the kernels), so no time is counted twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events)
-    if total <= 0:
-        print("[profile] device time not measured (no CUDA events in the trace)", flush=True)
-        return
-    print(f"[profile] one forward, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"{100 * e.self_device_time_total / total:5.1f}%  x{e.count:<3d} {e.key[:90]}",
+    kernels = kernel_profile(lambda: model(batch), 2)
+    if not kernels:
+        print("[profile] device time not measured (no device time in the profiler trace)",
               flush=True)
+        return
+    per = {key: n * us for key, (n, us) in kernels.items()}  # µs a forward
+    total = sum(per.values())
+    print(f"[profile] one forward, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
+    for key in sorted(per, key=lambda k: -per[k])[:top]:
+        print(f"[profile]   {per[key] / 1e3:8.3f} ms {100 * per[key] / total:5.1f}%  "
+              f"x{kernels[key][0]:<3d} {key[:90]}", flush=True)
 
 
 def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
@@ -818,7 +875,7 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
         raise AssertionError("mp_stack_bwd: a rerun is not bit-equal")
     plain_ms = time_ms(lambda: bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, g, pw),
                        iters=3)
-    ms, timing = bwd_record("train-kernel", "mp_stack_bwd", dt,
+    ms, timing, _ = bwd_record("train-kernel", "mp_stack_bwd", dt,
                             lambda: bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, g, pw), plain_ms)
     record("mp_stack_bwd", pairs, ms, plain_ms, ops, nbytes)
     res["mp_stack_bwd"]["timing"] = timing
@@ -1146,11 +1203,99 @@ def config3(cfg):
     return dataclasses.replace(cfg, use_partial_charges=True, use_stereochemistry=True)
 
 
-def check_c3_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+INJECT_PHASES = {
+    "inject_bwd_kernel (one block a bin)": (
+        "the bin's tables", "kb dpre into the fp32 scratch", "transpose (scratch read-modify-write)",
+        "centres", "dx pass (reads the scratch)", "equilibration"),
+    "inject_bwd_tile_kernel (a cluster of 64-atom tiles a bin)": (
+        "the bin's tables, the dpre tile", "kb dpre (three ring products)",
+        "transpose (distributed shared memory)", "centres, cluster barrier", "dx pass",
+        "equilibration"),
+}
+
+
+def start_marks_build():
+    """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS`` beside the
+    kernels' own build: kernel 4's backward kernels then record a
+    ``%globaltimer`` mark per block, after a block barrier, at every phase
+    boundary.  Returns (the nvcc process, the library's path)."""
+    from aimnet_x2d_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = cuda_build.BUILD_DIR / "inject_marks.so"
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DINJECT_MARKS", "-o", str(out),
+           str(cuda_build.CSRC / "inject.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE), out
+
+
+def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
+    """Kernel 4's backward split by phase (``[c3-kernel]``): both backward
+    kernels of the marked build -- the tiled one where the source has it --
+    launched twice on these inputs; per kernel, the mean time a block spends
+    in each phase, its share of a block's time, and the span from the first
+    mark to the last (the marks' barriers included)."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
+
+    proc, path = marks_build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"inject.cu with -DINJECT_MARKS: nvcc exit {proc.returncode}\n"
+                           f"{err.decode()}")
+    lib = bin_inject.type_lib(ctypes.CDLL(str(path)))
+    if not hasattr(lib, "inject_bwd_marks"):
+        print("[c3-kernel] inject_bwd phases: not measured (this inject.cu has no marks)",
+              flush=True)
+        return
+    lib.inject_bwd_marks.argtypes = [ctypes.c_void_p]
+    lib.inject_bwd_marks.restype = ctypes.c_int
+    dev, dt = x.device, x.dtype
+    D, A = x.shape
+    nb, ab, _ = tables[4].shape
+    mb, tc, Dp = tables[1].shape[1], tables[2].shape[2], iw.sw.Dp
+    ptrs = [t.data_ptr() for t in (x, *tables)]
+    dx = torch.empty(D, A, dtype=dt, device=dev)
+    ch = torch.empty(nb * 4 * tc * Dp, dtype=torch.float32, device=dev)
+    w32 = torch.empty(3 * Dp, A, dtype=torch.float32, device=dev)
+    dcct = torch.empty(Dp, A, dtype=dt, device=dev)
+    stream, bf16 = bin_mp._stream(dev), int(dt == torch.bfloat16)
+    launches = {"inject_bwd_kernel (one block a bin)": (nb, lambda: lib.inject_bwd(
+        *ptrs, iw.flat_t.data_ptr(), xct.data_ptr(), dpre.data_ptr(), w32.data_ptr(),
+        dcct.data_ptr(), ch.data_ptr(), dx.data_ptr(), bf16, D, Dp, A, nb, mb, ab, tc, stream))}
+    if hasattr(lib, "inject_bwd_tiles") and bf16:
+        kbs = bin_inject.kb_stream(iw)
+        launches["inject_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
+            nb * ab // 64, lambda: lib.inject_bwd_tiles(
+                *ptrs, kbs.data_ptr(), xct.data_ptr(), dpre.data_ptr(), ch.data_ptr(),
+                dx.data_ptr(), D, Dp, A, nb, mb, ab, tc, stream))
+    for name, (blocks, launch) in launches.items():
+        marks = torch.zeros(blocks, 8, dtype=torch.int64, device=dev)
+        if lib.inject_bwd_marks(marks.data_ptr()) != 0:
+            raise RuntimeError("inject_bwd_marks failed")
+        for _ in range(2):  # a warm-up launch, then the one read
+            marks.zero_()
+            status = launch()
+            if status != 0:
+                raise RuntimeError(f"{name}: {lib.inject_error_string(status).decode()}")
+            torch.cuda.synchronize()
+        m = marks.cpu().numpy()[:, :7].astype(np.float64)
+        if not (m > 0).all():
+            raise AssertionError(f"{name}: a block recorded no mark")
+        per = np.diff(m, axis=1).mean(0) / 1e3
+        parts = "; ".join(f"{p} {v:.2f} us ({100 * v / per.sum():.1f}%)"
+                          for p, v in zip(INJECT_PHASES[name], per))
+        print(f"[c3-kernel] inject_bwd phases, {name}: {blocks} blocks, span "
+              f"{(m[:, 6].max() - m[:, 0].min()) / 1e6:.4f} ms (marked build), a block "
+              f"{per.sum():.2f} us: {parts}", flush=True)
+
+
+def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     """``[c3-kernel]``: kernel 4 (the inject kernels, forward and backward)
     and kernel 1d (one layer: serving form, training form, backward)
     against their plain versions at the config-3 training shape (a
-    size-sorted batch of 2048, bf16), with times and bounds."""
+    size-sorted batch of 2048, bf16), with times and bounds, and kernel
+    4's backward split by phase (``inject_phases`` on ``marks_build``)."""
     from aimnet_x2d_tpu_torch.models.gnn import atom_total_charge, stereo_context
     from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
     from aimnet_x2d_tpu_torch.ops.embed import embed_concat_onehot_t
@@ -1241,7 +1386,7 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     if not (torch.equal(g32, g32b) and all(torch.equal(a, b_) for a, b_ in zip(lg, lgb))):
         raise AssertionError("mp_layer_bwd: a rerun is not bit-equal")
     plain_ms = time_ms(lambda: bin_mp.mp_layer_bwd_plain(rpre, adj, sw, spec, g), iters=3)
-    ms, timing = bwd_record("c3-kernel", "mp_layer_bwd", dt,
+    ms, timing, _ = bwd_record("c3-kernel", "mp_layer_bwd", dt,
                             lambda: bin_mp.mp_layer_bwd(rpre, adj, sw, spec, g), plain_ms)
     record("mp_layer_bwd", [(g32, rg32, None)] + [(a, r, None) for a, r in zip(lg, rlg)],
            ms, plain_ms, ops, nbytes)
@@ -1264,24 +1409,45 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int) -> dict:
                time_ms(lambda: bin_mp.mp_layer_bwd_plain(x32, adj, sw32, spec, gf), iters=3))
 
     # --- kernel 4, inject backward: dx through the projection, the
-    # polynomial and the equilibration, and d_kb, d_b (split-K contraction)
-    dpre, rdpre = g32.to(dt), rg32.to(dt)
+    # polynomial and the equilibration, and d_kb, d_b: the cast of kernel
+    # 1d's cotangent, the kernel and the contraction, in the package's own
+    # form (this tree: the product in the grouped contraction, which the
+    # round launches with kernel 1d's products; before it, the split-K wgrad)
+    import inspect
+
+    grouped = "extra" in inspect.signature(bin_mp.mp_layer_bwd).parameters
 
     def bwd():
-        return (bin_inject.inject_bwd(x, *tables, iw, rxct, rdpre),
-                *bin_mp.wgrad(rdpre, rxct, bias_src=rg32))
+        dp = rg32.to(dt)
+        dx = bin_inject.inject_bwd(x, *tables, iw, rxct, dp)
+        if grouped:
+            ((dkbT, db),) = bin_mp.wgrad_group([(dp, rxct, rg32)])
+        else:
+            dkbT, db = bin_mp.wgrad(dp, rxct, bias_src=rg32)
+        return dx, dkbT, db
 
     def bwd_plain():
-        return (bin_inject.inject_bwd_plain(x, *tables, iw, rxct, rdpre),
-                rdpre.float() @ rxct.float().T, rg32.sum(1))
+        dp = rg32.to(dt)
+        return (bin_inject.inject_bwd_plain(x, *tables, iw, rxct, dp),
+                dp.float() @ rxct.float().T, rg32.sum(1))
 
-    got, want = bwd(), bwd_plain()
+    got, again, want = bwd(), bwd(), bwd_plain()
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError("inject_bwd: a rerun is not bit-equal")
     ops = 2 * n * 2 * w_proj + 2 * snz * D + 30 * tet_ops
     nbytes = (D * A + 3 * D * A + D * A + D * A) * isz + 4 * D * A + table_bytes + 4 * (w_proj + D)
-    record("inject_bwd", list(zip(got, want, [None] * 3)), time_ms(bwd, iters=10),
-           time_ms(bwd_plain, iters=3), ops, nbytes)
-    del dpre
+    plain_ms = time_ms(bwd_plain, iters=3)
+    ms, timing, names = bwd_record("c3-kernel", "inject_bwd", dt, bwd, plain_ms)
+    print(f"[c3-kernel] inject_bwd: rerun bit-equal=True; "
+          f"{'the tiled kernel' if launches_named(names, 'inject_bwd_tile') else 'one block a bin'}"
+          f", contraction {'wgrad_group' if grouped else 'wgrad'}", flush=True)
+    if grouped and not (launches_named(names, "inject_bwd_tile_kernel") == 1
+                        and launches_named(names, "wgrad_kernel") == 0):
+        raise AssertionError(f"inject_bwd: kernels {names}")
+    record("inject_bwd", list(zip(got, want, [None] * 3)), ms, plain_ms, ops, nbytes)
+    res["inject_bwd"]["timing"] = timing
+    inject_phases(marks_build, x, tables, iw, rxct, rg32.to(dt))
     return res
 
 
@@ -1342,28 +1508,24 @@ def synthetic_targets(ds, T: int, seed: int) -> np.ndarray:
     return (counts @ mix + rng.normal(size=(len(ds), T)) * 0.1).astype(np.float32)
 
 
-def profile_step(step, tag: str = "train", top: int = 12):
-    """Device time of one train step, by kernel (torch.profiler); returns
-    the total in ms, or None when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_step(step, tag: str = "train", top: int = 12, tries: int = PROFILE_TRIES):
+    """Device time of one train step, by kernel (torch.profiler, two steps
+    profiled, ``kernel_profile``); returns the total in ms, or None when
+    the profiler records no device time."""
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        step()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events)
-    if total <= 0:
-        print(f"[{tag}] device time not measured (no CUDA events in the trace)", flush=True)
+    kernels = kernel_profile(step, 2, tries)
+    if not kernels:
+        print(f"[{tag}] device time not measured (no device time in the profiler trace)",
+              flush=True)
         return None
+    per = {key: n * us for key, (n, us) in kernels.items()}  # µs a step
+    total = sum(per.values())
     STEP_DEVICE_MS[tag] = total / 1e3
     print(f"[{tag}] one step, device time {total / 1e3:.3f} ms summed over kernels:", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"{100 * e.self_device_time_total / total:5.1f}%  x{e.count:<3d} {e.key[:90]}",
-              flush=True)
+    for key in sorted(per, key=lambda k: -per[k])[:top]:
+        print(f"[{tag}]   {per[key] / 1e3:8.3f} ms {100 * per[key] / total:5.1f}%  "
+              f"x{kernels[key][0]:<3d} {key[:90]}", flush=True)
     return total / 1e3
 
 
@@ -2086,8 +2248,20 @@ def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
             torch.equal(a, b) for a, b in zip(got[1], again[1]))
         abs_err, rel = _max_rel([(got[0], want[0], None)]
                                 + [(a, r, None) for a, r in zip(got[1], want[1])])
-        ms = time_ms(lambda: bin_mp.mp_ext_bwd(xa, sw, spec, gy), iters=10)
         plain_ms = time_ms(lambda: bin_mp.mp_ext_bwd_plain(xa, sw, spec, gy), iters=3)
+        ms, timing, names = bwd_record("halo-kernel", "mp_ext_bwd", dt,
+                                       lambda: bin_mp.mp_ext_bwd(xa, sw, spec, gy), plain_ms)
+        # this tree's routes: bf16 on the stack's walk, fp32 on the slab
+        # kernel, each with one grouped contraction and one partial sum
+        if hasattr(bin_mp, "_ext_takes_walk") and names is not None:
+            walk = dt == torch.bfloat16
+            seen = {k: launches_named(names, k) for k in (
+                "bwd_walk_kernel", "ext_bwd_kernel", "wgrad_group", "wgrad_kernel", "sum_partials")}
+            want_seen = {"bwd_walk_kernel": int(walk), "ext_bwd_kernel": int(not walk),
+                         "wgrad_group": 1, "wgrad_kernel": 0, "sum_partials": 1}
+            print(f"[halo-kernel] mp_ext_bwd {str(dt)[6:]} launches a call: {seen}", flush=True)
+            if seen != want_seen:
+                raise AssertionError(f"mp_ext_bwd {dt}: launches {seen}, want {want_seen}")
         nbytes = (2 * D + D + 2 * D) * A * isz + w_mat * isz + 4 * w_mat
         t_ops, t_bytes = bwd_ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
         bound_ms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -2098,7 +2272,8 @@ def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
         if not rel <= tol or not same:
             raise AssertionError(f"mp_ext_bwd: rel err {rel:.3e} (tol {tol:g}), bit-equal {same}")
         res[("mp_ext_bwd", dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=by, library_ms=None)
+                                       bound_ms=bound_ms, bound_by=by, library_ms=None,
+                                       timing=timing)
     return res
 
 
@@ -2335,8 +2510,9 @@ def _halo_train_rank(rank: int, argv: list, ports: tuple, job_path: str, out_dir
             losses.append(float(loss))
         out.update(step_ms=ms, losses=losses, a_loc=int(batches[0].atom_type.shape[0]),
                    per_step={c.__name__: c.launches / len(batches) for c in counters})
+        # one session only: the ranks' steps meet in collectives
         out["device_ms"] = profile_step(lambda: step(batches[0], 5e-4, 7, gen),
-                                        f"halo-train rank {rank}", top=6)
+                                        f"halo-train rank {rank}", top=6, tries=1)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
         multihost.sync()
@@ -2471,6 +2647,7 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
 
     t0 = time.perf_counter()
+    marks_build = start_marks_build()
     cuda_build.build_all(verbose=True)
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2548,7 +2725,8 @@ def main() -> int:
     c3_model.load_state_dict(params_from_flax(init_params(c3_tcfg, args.seed)))
     c3_model.to("cuda")
     c3_tbatch = next(iter(BatchLoader(c3_ds, 2048, shuffle=True, seed=args.seed))).to("cuda")
-    for name, r in check_c3_kernels(pkg, c3_tcfg, c3_model, c3_tbatch, args.seed).items():
+    for name, r in check_c3_kernels(pkg, c3_tcfg, c3_model, c3_tbatch, args.seed,
+                                    marks_build).items():
         res[(name, torch.bfloat16)] = r
     del c3_model, c3_tbatch
     c3_loader = BatchLoader(c3_ds, 2048)
@@ -2759,9 +2937,9 @@ def main() -> int:
         })
     steps = {k: round(v, 3) for k, v in STEP_DEVICE_MS.items()
              if k in ("train", "c3-train", "c1-train", "fold-train on", "fold-train off")}
-    print(f"[bwd-record] {card}: the stack backward by form (device ms, split, host us a "
-          f"call) {json.dumps(BWD_RECORD)}; train steps' device ms {json.dumps(steps)}",
-          flush=True)
+    print(f"[bwd-record] {card}: the backward forms of kernels 1b, 1d, 4 and 5 (device ms, "
+          f"split, host us a call) {json.dumps(BWD_RECORD)}; train steps' device ms "
+          f"{json.dumps(steps)}", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

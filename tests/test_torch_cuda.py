@@ -384,7 +384,9 @@ def _c3_case(D, nb, ab, mb, tc, case, seed):
     atoms per bin (padding at each bin's end), up to ``tc`` tetrahedral
     centres per bin on four atoms of one molecule (none for ``no_tet``),
     sparse bond and signed cis/trans adjacencies, integer total charges,
-    and f = x[1] below the 1e-6 clip on some atoms for ``clip``."""
+    and f = x[1] below the 1e-6 clip on some atoms for ``clip``.  Where a
+    molecule spans atoms 63 and 64 (two 64-atom tiles of the tiled
+    backward), the last centre slot of the bin is a centre on both."""
     rng = np.random.default_rng(seed)
     A = nb * ab
     owner = np.full((nb, ab), -1)
@@ -400,6 +402,9 @@ def _c3_case(D, nb, ab, mb, tc, case, seed):
                 tet[b, :, t] = a + rng.choice(n, 4, replace=False)
                 t += 1
             a += n
+        if case != "no_tet" and ab > 64 and owner[b, 63] >= 0 and owner[b, 63] == owner[b, 64]:
+            rest = [i for i in np.flatnonzero(owner[b] == owner[b, 63]) if i not in (63, 64)]
+            tet[b, :, tc - 1] = [63, 64, *rng.choice(rest, 2, replace=False)]
     q = rng.integers(-1, 2, (nb, mb)).astype(np.float32)
     x = rng.normal(size=(D, A)).astype(np.float32)
     x[1] = np.abs(x[1]) + 0.05
@@ -427,10 +432,20 @@ def _c3_case(D, nb, ab, mb, tc, case, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [13, 153])
 def test_inject_kernels_match_plain(dev, D, dtype, case):
+    """Kernel 4 against its plain versions: the inject kernels alone, then
+    the whole round (inject + kernel 1d) forward and backward against the
+    same function on the CPU.  bf16 backs up on the tiled kernel (bins of 2
+    and 4 tiles, molecules and centres across tile borders), fp32 on the
+    kernel of one block per bin; d_kb and d_b join kernel 1d's one grouped
+    contraction.  The backward alone and the round's backward twice,
+    bit-equal."""
     from aimnet_x2d_tpu_torch.ops import bin_inject
 
-    nb, ab, mb, tc = (6, 256, 16, 24) if D == 153 else (3, 64, 8, 8)
+    nb, ab, mb, tc = (6, 256, 16, 24) if D == 153 else (3, 128, 12, 8)
     c = _c3_case(D, nb, ab, mb, tc, case, D + len(case))
+    if case != "no_tet":  # a centre whose neighbours lie in two tiles
+        tiles = np.where(c["tet_bin"] >= 0, c["tet_bin"] // 64, -1)
+        assert ((tiles.max(1) > tiles.min(1)) & (c["tet_bin"].min(1) >= 0)).any()
     t = {k: [torch.from_numpy(w).to(dev) for w in v] if k == "lws" else torch.from_numpy(v).to(dev)
          for k, v in c.items()}
     x = t["x"].to(dtype)
@@ -438,33 +453,43 @@ def test_inject_kernels_match_plain(dev, D, dtype, case):
     iw = bin_inject.prep_inject(t["kb"], t["b"], t["lws"], dtype)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     counters = (bin_inject.inject_fwd, bin_inject.inject_bwd, bin_mp.mp_layer_fwd_train,
-                bin_mp.mp_layer_bwd, bin_mp.mp_layer_fwd)
+                bin_mp.mp_layer_bwd, bin_mp.mp_layer_fwd, bin_mp.wgrad_group, bin_mp.wgrad)
     before = [k.launches for k in counters]
     # the inject kernels alone
     pre, xct = bin_inject.inject_fwd(x, *tables, iw)
     rpre, rxct = bin_inject.inject_fwd_plain(x, *tables, iw)
     dpre = bin_mp._pad_rows(t["dpre"], iw.sw.Dp).to(dtype)
     dx = bin_inject.inject_bwd(x, *tables, iw, rxct, dpre)
+    dx2 = bin_inject.inject_bwd(x, *tables, iw, rxct, dpre)
     rdx = bin_inject.inject_bwd_plain(x, *tables, iw, rxct, dpre)
     torch.cuda.synchronize()
+    tiled = bin_inject._BWD_TILES[(int(dtype == torch.bfloat16), iw.sw.Dp, mb, ab, tc)]
+    assert tiled == (dtype == torch.bfloat16)
+    assert torch.equal(dx, dx2)
     errs = {"pre": _rel(pre, rpre), "xct": _rel(xct, rxct), "dx": _rel(dx, rdx)}
     # the whole round (inject + kernel 1d), training form with dropout and
     # its backward, against the same function on CPU copies (plain versions)
     outs = {}
-    for where in ("cuda", "cpu"):
+    for where in ("cuda", "cuda", "cpu"):
         xin = x.detach().to(where).requires_grad_(True)
         ws = [w.detach().to(where).requires_grad_(True) for w in [t["kb"], t["b"], *t["lws"]]]
         out = bin_inject.binned_inject_mp_layer_train_t(
             xin, *[a.to(where) for a in tables], t["adj"].to(where), ws[0], ws[1], ws[2:], dtype,
             "silu", 0.05, -424242)
         out.backward(t["g"].to(where, dtype))
-        outs[where] = [out.detach(), xin.grad] + [w.grad for w in ws]
+        got = [out.detach(), xin.grad] + [w.grad for w in ws]
+        if where in outs:  # the second card run: the same bits
+            assert all(torch.equal(a, b) for a, b in zip(got, outs[where]))
+        outs[where] = got
     names = ["out", "round dx", "d_kb", "d_b"] + [f"layer grad {k}" for k in range(len(t["lws"]))]
     for n, a, r in zip(names, outs["cuda"], outs["cpu"]):
         errs[n] = _rel(a, r.to(dev))
     print(f"D={D} {dtype} {case}: worst {max(errs.values()):.2e}", errs)
     assert max(errs.values()) < tol
-    assert [k.launches - b for k, b in zip(counters, before)] == [2, 2, 1, 1, 0]
+    # two card rounds: each one inject forward and backward, one layer
+    # forward and backward, one grouped contraction (the layer's products
+    # and the inject's), no split-K wgrad
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 4, 2, 2, 0, 2, 0]
     # serving form without dropout: the training form's result, bit for bit
     out0 = bin_inject.binned_inject_mp_layer_train_t(
         x, *tables, t["adj"], t["kb"], t["b"], t["lws"], dtype, "silu")
@@ -813,7 +838,10 @@ def _ext_layer(dev, D, g, n_blocks=2):
 def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
     """Kernel 5 (csrc/mp_ext.cu): the forward and the backward (dxa and every
     weight gradient) against the plain versions, with a padding bin (xa 0)
-    and dropout off and on; the backward twice, bit-equal; one launch each."""
+    and dropout off and on; the backward twice, bit-equal; one launch each.
+    bf16 backs up on the stack's walk (csrc/walk.cuh), fp32 on the slab
+    kernel; both take the layer's weight gradients from one grouped
+    contraction a call and none from ``wgrad``."""
     g = torch.Generator(device=dev).manual_seed(D + int(100 * rate))
     A = 6 * 256
     sw = bin_mp.stack_weights([_ext_layer(dev, D, g)], dtype)
@@ -823,10 +851,14 @@ def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
     xa = xa.to(dtype)
     gy = (torch.randn(D, A, generator=g, device=dev) * 0.1).to(dtype)
     f0, b0 = bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches
+    w0, g0 = bin_mp.wgrad.launches, bin_mp.wgrad_group.launches
     out = bin_mp.mp_ext_fwd(xa, sw, spec)
     dxa, grads = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
     dxa2, grads2 = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
     assert (bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches) == (f0 + 1, b0 + 2)
+    assert (bin_mp.wgrad.launches, bin_mp.wgrad_group.launches) == (w0, g0 + 2)
+    walk = bin_mp._EXT_WALK[(int(dtype == torch.bfloat16), sw.Dp, sw.n_blocks)]
+    assert walk == (dtype == torch.bfloat16)
     ref = bin_mp.mp_ext_plain(xa, sw, spec)
     rdxa, rgrads = bin_mp.mp_ext_bwd_plain(xa, sw, spec, gy)
     torch.cuda.synchronize()
@@ -834,6 +866,7 @@ def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
     assert out.shape == (D, A) and dxa.shape == (2 * D, A)
     assert _rel(out, ref) < tol
     assert _rel(dxa, rdxa) < tol
+    assert len(grads) == len(rgrads)
     for a, r in zip(grads, rgrads):
         assert float((a - r).abs().max()) <= tol * max(float(r.abs().max()), 1e-6)
     assert torch.equal(dxa, dxa2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
