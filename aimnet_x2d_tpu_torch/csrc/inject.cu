@@ -19,8 +19,8 @@
 //             [dx'; dcct; dtet] = kb dpre (fp32), then
 //             dx' += dcct + rnd(dcct) S + m dtet + the polynomial's backward,
 //             then the equilibration's backward (rows 0/1; zero where the
-//             1e-6 clip binds).  kb and b's gradients come from the split-K
-//             contraction of csrc/wgrad.cuh over [x'; cct; tet] and dpre.
+//             1e-6 clip binds).  kb and b's gradients come from the grouped
+//             contraction (csrc/wgrad_group.cuh) over [x'; cct; tet] and dpre.
 //
 // Each atom belongs to at most one molecule of its bin (the loaders' pool
 // matrix), so each block looks every atom's molecule up once and the
@@ -64,10 +64,33 @@
 // scratch.  The kernel's d_kb and d_b come from the grouped contraction
 // (csrc/wgrad_group.cuh), launched with kernel 1d's own products.
 //
-// Built with -DINJECT_MARKS, both backward kernels record a %globaltimer
-// mark per block at each phase boundary (inject_bwd_marks; chip_smoke.py's
-// [c3-kernel] phase reads them): the instrumented build that splits the
-// backward's time by phase.
+// The bf16 forward (inject_fwd_tile_kernel) keeps a tile's x', cct and tet
+// in shared memory instead of writing the (3Dp, A) xct and reading it back
+// for the projection: one 320-thread block per 64-atom tile, no cluster.
+// What a tile needs from the rest of its bin it forms from x: each block
+// forms the bin's per-molecule sums itself (setup_bin), so
+// - the cis/trans product x' S^T reads the bin's x' 64 source atoms a chunk,
+//   each chunk's rows >= 2 copied from x by cp.async and rows 0/1
+//   equilibrated in place, on mma.sync (the walk's aggregation);
+// - each centre that touches the tile's columns (a centre across a tile
+//   border is formed by both tiles, identically) is one warp, lanes over
+//   the features, x' read along each feature row (the tile's own from
+//   shared memory, a neighbour in another tile from x): its four norms,
+//   then its polynomial added into the tile's fp32 column sums in passes by
+//   each entry's place in its column, so that no two warps add to one
+//   column at once and every column sums in col_sum's order;
+// - pre = kb^T [x'; cct; tet] is one ring_product of K = 3Dp, kb^T streamed
+//   in fragment order (ops/bin_inject.py::kbT_stream);
+// xct is written by 16-byte stores only where the caller keeps it (the
+// backward reads it; serving passes null).  No atomics and no global
+// scratch: reruns are bit-equal, x' is the old kernel's bit for bit and
+// tet's sums keep its terms and order.  fp32 and bf16 shapes past it
+// (Dp > 160, ab > 512, shared memory) take inject_fwd_kernel.
+//
+// Built with -DINJECT_MARKS, the backward and forward kernels record a
+// %globaltimer mark per block at each phase boundary (inject_bwd_marks;
+// chip_smoke.py's [c3-kernel] phase reads them): the instrumented build that
+// splits each kernel's time by phase.
 
 #include "common.cuh"
 #include "walk.cuh"
@@ -335,7 +358,9 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
   T* TET = xct + 2 * S;
   float* chb = ch + (size_t)bin * 4 * Tc * Dp;
   const float anyt = *anyt_p;
+  MARK(0);
   setup_bin(s, x, pool, tbin, w + (size_t)Dp * 3 * Dp, Dp, A, mb, ab, Tc, bin);
+  MARK(1);
 
   // x': rows 0/1 equilibrated, the others copied, padded rows zero
   for (int e = threadIdx.x; e < Dp * ab; e += kThreads) {
@@ -351,6 +376,7 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
     XP[o] = v;
   }
   __syncthreads();
+  MARK(2);
 
   // cct = x' + rnd(x' S^T), one 64-atom chunk of columns at a time
   const int8_t* adj_b = sadj + (size_t)bin * ab * ab;
@@ -363,6 +389,7 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
               });
     __syncthreads();
   }
+  MARK(3);
 
   // each centre's chir_k = P_k * tanh(sum_k |e_k| / 12) * any_tet
   for (int t = warp; t < Tc; t += kWarps) {
@@ -379,6 +406,7 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
     }
   }
   __syncthreads();
+  MARK(4);
 
   // tet = m (x' + rnd(delta)), delta the column's entries summed
   for (int e = threadIdx.x; e < Dp * ab; e += kThreads) {
@@ -392,6 +420,7 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
     TET[o] = from_f<T>(v);
   }
   __syncthreads();
+  MARK(5);
 
   // pre = rnd(rnd(kb^T [x'; cct; tet]) + b)
   const bool tiled = sizeof(T) == 2;
@@ -401,6 +430,7 @@ inject_fwd_kernel(const T* __restrict__ x, const float* __restrict__ tca,
                 if (r < D) pre[(size_t)r * A + col0 + c0 + c] = from_f<T>(rnd<T>(rnd<T>(v) + s.bias[r]));
               });
   }
+  MARK(6);
 }
 
 // wt = kb (3Dp x Dp); xct the forward's; dpre (Dp, A) the rounded cotangent
@@ -843,6 +873,246 @@ inject_bwd_tile_kernel(const bf16* __restrict__ x, const float* __restrict__ tca
   cluster.sync();  // the other tiles' reads of this block's partials are done
 }
 
+// ---- the bf16 forward on tiles: one block per 64-atom tile, no cluster ----
+
+struct FwdTileSmem {
+  bf16* xct;     // 3 Dp x kLdT: the tile's x', cct and tet (the projection's B operand)
+  bf16* xs[2];   // Dp x kLdT each: x' chunks of the cis/trans product; then pre
+  bf16* adjb[2];  // kTile x kLdT each: blocks of the cis/trans adjacency
+  bf16* ring;    // kRing x Dp x kKc: kb^T
+  float* delta;  // kTile x (Dp + 1): each column's sum of its entries' polynomials
+  float* cen;    // 5 Tc: each centre's clipped norms (4) and scale
+  int* rank;     // 4 Tc: an entry's place in its column's sum (col_sum's order), -1 off the tile
+  InjSmem s;     // the bin's tables and sums, the bias
+};
+
+size_t fwd_tile_smem_bytes(int Dp, int mb, int ab, int Tc) {
+  return ((size_t)5 * Dp * kLdT + 2 * kTile * kLdT + (size_t)kRing * Dp * kKc) * sizeof(bf16) +
+         ((size_t)kTile * (Dp + 1) + 5 * (size_t)Tc + 2 * (size_t)mb + Dp) * sizeof(float) +
+         (2 * (size_t)ab + 12 * (size_t)Tc + 1) * sizeof(int);
+}
+
+__device__ FwdTileSmem carve_fwd_tiles(unsigned char* base, int Dp, int mb, int ab, int Tc) {
+  FwdTileSmem t;
+  bf16* h = reinterpret_cast<bf16*>(base);
+  t.xct = h; h += (size_t)3 * Dp * kLdT;
+  t.xs[0] = h; h += (size_t)Dp * kLdT;
+  t.xs[1] = h; h += (size_t)Dp * kLdT;
+  t.adjb[0] = h; h += (size_t)kTile * kLdT;
+  t.adjb[1] = h; h += (size_t)kTile * kLdT;
+  t.ring = h; h += (size_t)kRing * Dp * kKc;
+  float* f = reinterpret_cast<float*>(h);
+  t.delta = f; f += (size_t)kTile * (Dp + 1);
+  t.cen = f; f += 5 * Tc;
+  t.s.stage = nullptr;
+  t.s.row0 = nullptr;
+  t.s.row1 = nullptr;
+  t.s.scratch = nullptr;
+  t.s.msum = f; f += 2 * mb;
+  t.s.bias = f; f += Dp;
+  int* q = reinterpret_cast<int*>(f);
+  t.s.molof = q; q += ab;
+  t.s.head = q; q += ab;
+  t.s.next = q; q += 4 * Tc;
+  t.s.cols = q; q += 4 * Tc;
+  t.rank = q;  // then the passes' count
+  return t;
+}
+
+// As inject_fwd_kernel (bf16), one block per 64-atom tile, grid nb * ab / 64:
+// kbs is kb^T (Dp x 3Dp) in the walk's stream order
+// (ops/bin_inject.py::kbT_stream), bias b (Dp); xct receives the tile's
+// [x'; cct; tet] columns unless it is null.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+inject_fwd_tile_kernel(const bf16* __restrict__ x, const float* __restrict__ tca,
+                       const int8_t* __restrict__ pool, const int* __restrict__ tbin,
+                       const float* __restrict__ anyt_p, const int8_t* __restrict__ sadj,
+                       const bf16* __restrict__ kbs, const bf16* __restrict__ bias,
+                       bf16* __restrict__ pre, bf16* __restrict__ xct, int D, int Dp, int A,
+                       int mb, int ab, int Tc) {
+  const int C = ab / kTile, bin = blockIdx.x / C, rank = blockIdx.x % C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t col0 = (size_t)bin * ab, cc = col0 + (size_t)rank * kTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdTileSmem t = carve_fwd_tiles(smem, Dp, mb, ab, Tc);
+  const InjSmem& s = t.s;
+  bf16* XP = t.xct;
+  bf16* CCT = XP + (size_t)Dp * kLdT;
+  bf16* TET = CCT + (size_t)Dp * kLdT;
+  const float anyt = *anyt_p;
+  MARK(0);
+
+  // kb^T through the ring; the bin's tables, its per-molecule sums, b
+  Ring ring{kbs, t.ring, Dp * kKc, kpad(3 * Dp) / kKc, 0, 0};
+  ring.start();
+  setup_bin<bf16>(s, x, pool, tbin, bias, Dp, A, mb, ab, Tc, bin);
+  MARK(1);
+
+  // x' of source chunk `chunk` into dst: rows >= 2 from x by cp.async
+  // (rows past D zero-filled), rows 0/1 equilibrated
+  auto load_xp = [&](bf16* dst, int chunk) {
+    const bf16* xc = x + col0 + (size_t)chunk * kTile;
+    for (int e = threadIdx.x; e < (Dp - 2) * (kTile / 8); e += kWalkThreads) {
+      const int r = 2 + e / (kTile / 8), c = e % (kTile / 8) * 8;
+      const bool in = r < D;
+      cp_async16(dst + r * kLdT + c, in ? xc + (size_t)r * A + c : x, in ? 16 : 0);
+    }
+    for (int c = threadIdx.x; c < kTile; c += kWalkThreads) {
+      const Charge cg = charge_at(s, x, tca, A, mb, col0, chunk * kTile + c);
+      dst[c] = from_f<bf16>(cg.qnew);
+      dst[kLdT + c] = from_f<bf16>(cg.fnew);
+    }
+  };
+
+  // cct = x' + rnd(x' S^T): the bin's x' 64 source atoms a chunk (the tile's
+  // own chunk is XP), double-buffered, as the walk's aggregation
+  const int8_t* adj_b = sadj + (size_t)bin * ab * ab;
+  float acc[2][4][4];
+  zero(acc);
+  load_xp(XP, rank);
+  if (rank != 0) load_xp(t.xs[0], 0);
+  cp_async_commit();
+  adj_store(t.adjb[0], adj_load(adj_b, ab, rank * kTile, 0));
+  for (int c = 0; c < C; ++c) {
+    int4 next_adj = make_int4(0, 0, 0, 0);
+    if (c + 1 < C) {
+      if (c + 1 != rank) load_xp(t.xs[(c + 1) & 1], c + 1);
+      next_adj = adj_load(adj_b, ab, rank * kTile, (c + 1) * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (c == 0) MARK(2);
+    smem_product(c == rank ? XP : t.xs[c & 1], t.adjb[c & 1], true, Dp, acc);
+    if (c + 1 < C) adj_store(t.adjb[(c + 1) & 1], next_adj);
+    __syncthreads();
+  }
+  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
+    const float2 xp = ld2(XP, r, c);
+    st2(CCT, r, c, xp.x + rnd<bf16>(v0), xp.y + rnd<bf16>(v1));
+  });
+  MARK(3);
+
+  // x' at row d < D of bin column col: the tile's own from shared memory,
+  // another tile's from x (rows 0/1 equilibrated and rounded, as XP holds them)
+  auto xp_at = [&](int d, int col) -> float {
+    const int l = col - rank * kTile;
+    if ((unsigned)l < (unsigned)kTile) return to_f(XP[d * kLdT + l]);
+    if (d >= 2) return to_f(x[(size_t)d * A + col0 + col]);
+    const Charge cg = charge_at(s, x, tca, A, mb, col0, col);
+    return rnd<bf16>(d == 0 ? cg.qnew : cg.fnew);
+  };
+
+  // each entry naming one of the tile's columns: its place in the column's
+  // sum (col_sum's order: the last entry first), the number of passes
+  int* n_pass = t.rank + 4 * Tc;
+  if (threadIdx.x == 0) *n_pass = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < 4 * Tc; e += kWalkThreads) {
+    const int c = s.cols[e];
+    int place = -1;
+    if (c >= 0 && c / kTile == rank) {  // e's place in its column's list, from the head
+      place = 0;
+      for (int j = s.head[c]; j != e; j = s.next[j]) ++place;
+      atomicMax(n_pass, place + 1);
+    }
+    t.rank[e] = place;
+  }
+  for (int e = threadIdx.x; e < kTile * (Dp + 1); e += kWalkThreads) t.delta[e] = 0.0f;
+  __syncthreads();
+
+  // the clipped norms and the scale of every centre that touches the tile's
+  // columns, one warp a centre (centre()'s sums, in its order)
+  for (int ct = warp; ct < Tc; ct += kWarps) {
+    int col[4];
+    bool mine = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      col[k] = s.cols[k * Tc + ct];
+      mine |= t.rank[k * Tc + ct] >= 0;
+    }
+    if (!mine) continue;
+    float ss[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d = lane; d < D; d += 32)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float e = col[k] >= 0 ? xp_at(d, col[k]) : 0.0f;
+        ss[k] += e * e;
+      }
+    float mags[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mags[k] = sqrtf(warp_sum(ss[k]));
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t.cen[5 * ct + k] = fmaxf(mags[k], 1e-8f);
+      t.cen[5 * ct + 4] =
+          tanhf((mags[0] + mags[1] + mags[2] + mags[3]) * (1.0f / 12.0f)) * anyt;
+    }
+  }
+  __syncthreads();
+
+  // each entry's polynomial, one warp a centre, lanes over the features,
+  // added into its column's delta pass by pass: in pass p the entries of
+  // place p, so that no two warps add to one column at once and each column
+  // sums its entries in col_sum's order
+  const int passes = *n_pass;
+  for (int p = 0; p < passes; ++p) {
+    for (int ct = warp; ct < Tc; ct += kWarps) {
+      int col[4];
+      bool now = false;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        col[k] = s.cols[k * Tc + ct];
+        now |= t.rank[k * Tc + ct] == p;
+      }
+      if (!now) continue;
+      const float* cn = t.cen + 5 * ct;
+      for (int d = lane; d < D; d += 32) {
+        float eN[4], sq[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          eN[k] = (col[k] >= 0 ? xp_at(d, col[k]) : 0.0f) / cn[k];
+          sq[k] = eN[k] * eN[k];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (t.rank[k * Tc + ct] == p)
+            t.delta[(col[k] - rank * kTile) * (Dp + 1) + d] += poly(eN, sq, k) * cn[4];
+      }
+    }
+    __syncthreads();
+  }
+  MARK(4);
+
+  // tet = m (x' + rnd(delta))
+  for (int e = threadIdx.x; e < Dp * kTile; e += kWalkThreads) {
+    const int r = e / kTile, c = e % kTile;
+    float v = 0.0f;
+    if (r < D)
+      v = rnd<bf16>(to_f(XP[r * kLdT + c]) + rnd<bf16>(t.delta[c * (Dp + 1) + r])) *
+          rnd<bf16>(col_mask(s, anyt, rank * kTile + c));
+    TET[r * kLdT + c] = from_f<bf16>(v);
+  }
+  __syncthreads();
+  MARK(5);
+  if (xct) store_slab(xct, A, cc, XP, 3 * Dp);
+
+  // pre = rnd(rnd(kb^T [x'; cct; tet]) + b), staged in xs[0] for 16-byte stores
+  ring_product(ring, Dp, 3 * Dp, XP, XP, 3 * Dp, acc);
+  bf16* PRE = t.xs[0];
+  epilogue(acc, Dp, [&](int r, int c, float v0, float v1) {
+    const float b = s.bias[r];
+    st2(PRE, r, c, rnd<bf16>(rnd<bf16>(v0) + b), rnd<bf16>(rnd<bf16>(v1) + b));
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < D * (kTile / 8); e += kWalkThreads) {
+    const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
+    *reinterpret_cast<int4*>(pre + (size_t)r * A + cc + c) =
+        *reinterpret_cast<const int4*>(PRE + r * kLdT + c);
+  }
+  MARK(6);
+}
+
 template <typename K>
 int prepare(K kernel, size_t bytes) {
   if (bytes > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -919,9 +1189,52 @@ int launch_tiles(const void* x, const void* tca, const void* pool, const void* t
   return (int)cudaGetLastError();
 }
 
+bool fwd_tiles_fit(int Dp, int mb, int ab, int Tc) {
+  return Dp % 16 == 0 && Dp <= kWalkMaxDp && ab % kTile == 0 && ab / kTile >= 1 &&
+         ab / kTile <= kWalkMaxCluster &&
+         fwd_tile_smem_bytes(Dp, mb, ab, Tc) <= (size_t)kSmemLimit;
+}
+
+bool fwd_tiles_configured[kMaxDevices];
+
+int launch_fwd_tiles(const void* x, const void* tca, const void* pool, const void* tbin,
+                     const void* anyt, const void* sadj, const void* kbs, const void* bias,
+                     void* pre, void* xct, int D, int Dp, int A, int nb, int mb, int ab, int Tc,
+                     cudaStream_t st) {
+  if (!fwd_tiles_fit(Dp, mb, ab, Tc) || D < 2 || D > Dp || A != nb * ab)
+    return (int)cudaErrorInvalidValue;
+  const int err = configure(inject_fwd_tile_kernel, fwd_tiles_configured);
+  if (err) return err;
+  inject_fwd_tile_kernel<<<nb * (ab / kTile), kWalkThreads, fwd_tile_smem_bytes(Dp, mb, ab, Tc),
+                           st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(tca),
+      static_cast<const int8_t*>(pool), static_cast<const int*>(tbin),
+      static_cast<const float*>(anyt), static_cast<const int8_t*>(sadj),
+      static_cast<const bf16*>(kbs), static_cast<const bf16*>(bias), static_cast<bf16*>(pre),
+      static_cast<bf16*>(xct), D, Dp, A, mb, ab, Tc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Shared memory of the tiled bf16 forward at these shapes, or -1 where it
+// does not take them (the wrapper then launches inject_fwd).
+long long inject_fwd_tiles_smem_bytes(int Dp, int mb, int ab, int Tc) {
+  return fwd_tiles_fit(Dp, mb, ab, Tc) ? (long long)fwd_tile_smem_bytes(Dp, mb, ab, Tc) : -1;
+}
+
+// The tiled bf16 forward (inject_fwd_tile_kernel): pre (D, A) from x, kb^T's
+// stream kbs and the bias b (Dp); xct (3Dp, A) receives [x'; cct; tet]
+// unless it is null.  Returns cudaGetLastError() after the launch.
+int inject_fwd_tiles(const void* x, const void* tca, const void* pool, const void* tbin,
+                     const void* anyt, const void* sadj, const void* kbs, const void* bias,
+                     void* pre, void* xct, int D, int Dp, int A, int nb, int mb, int ab, int Tc,
+                     void* stream) {
+  return launch_fwd_tiles(x, tca, pool, tbin, anyt, sadj, kbs, bias, pre, xct, D, Dp, A, nb, mb,
+                          ab, Tc, static_cast<cudaStream_t>(stream));
+}
 
 // Shared memory of the tiled bf16 backward at these shapes, or -1 where it
 // does not take them (the wrapper then launches inject_bwd).
@@ -941,7 +1254,7 @@ int inject_bwd_tiles(const void* x, const void* tca, const void* pool, const voi
 }
 
 #ifdef INJECT_MARKS
-// Points both backward kernels' phase marks at marks ((blocks, 8) uint64).
+// Points the kernels' phase marks at marks ((blocks, 8) uint64).
 int inject_bwd_marks(void* marks) {
   return (int)cudaMemcpyToSymbol(g_marks, &marks, sizeof(marks));
 }

@@ -42,8 +42,8 @@
 // rnd(dt0) as above, then rnd(kb rnd(dt0)) into the same shared tile
 // instead of a global demb, and one thread per table row adds each atom's
 // value at its code into the bin's compact d_bd partial, atoms in order.
-// There is no dx (codes have no cotangent).  d_kb is the gathered split-K
-// contraction (wgrad_vocab); the bin partials are summed in bin order.
+// There is no dx (codes have no cotangent).  d_kb is a gathered product of
+// the grouped contraction; the bin partials are summed in bin order.
 //
 // Work slabs (Dp, A) of wk, in order: xa (two: x rows, agg rows), h_i,
 // v_i, dh_i (dh_{n-1} = g), du_i, dt -- what the contraction reads; then,
@@ -432,9 +432,18 @@ int mp_stack_bwd_walk(const void* x_l, void* wk, void* g32, const void* adj, con
 // The grouped weight-gradient contraction (csrc/wgrad_group.cuh) of n
 // products: arrays of their dY, X and bias-source pointers (null: the row
 // sums of dY), M, N and output offsets; part (ceil(A / chunk), stride) fp32.
+// A product with a null X is gathered from the code rows codes (F, A) int32
+// and the table bd (E = its N, sum of sizes) in the compute dtype.
 int wgrad_group(int n, const void* const* dY, const void* const* X, const void* const* bsrc,
                 const int* M, const int* N, const long long* off, void* part, long long stride,
-                int bf16, int A, int chunk, void* stream) {
+                int bf16, int A, int chunk, const void* codes, const void* bd, const int* sizes,
+                int F, void* stream) {
+  Vocab voc{};
+  for (int p = 0; p < n && codes; ++p)
+    if (X[p] == nullptr) {
+      if (!make_vocab(sizes, F, N[p], &voc)) return (int)cudaErrorInvalidValue;
+      break;
+    }
   if (bf16) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -448,6 +457,7 @@ int wgrad_group(int n, const void* const* dY, const void* const* X, const void* 
     }
   }
   return launch_wgrad_group(n, dY, X, bsrc, M, N, off, part, stride, bf16, A, chunk,
+                            static_cast<const int*>(codes), bd, voc,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -491,22 +501,6 @@ int mp_stack_bwd_proj_vocab(const void* codes, const void* bd, const int* sizes,
                                                  A, nb, ab, act, s)
               : launch_proj_vocab<float>(codes, bd, voc, g32, pw, pwT, dtc, part, Dp, E, A, nb, ab,
                                          act, s);
-}
-
-// part: (ceil(A / chunk), M * N + M) fp32 partials (see wgrad.cuh).
-int wgrad(const void* dY, const void* X, const void* bsrc, void* part, int bf16, int M, int N,
-          int A, int chunk, void* stream) {
-  return launch_wgrad(dY, X, bsrc, part, bf16, M, N, A, chunk, static_cast<cudaStream_t>(stream));
-}
-
-// wgrad with X the (N = E, A) embeddings looked up from codes and bd.
-int wgrad_vocab(const void* dY, const void* codes, const void* bd, const int* sizes, int F,
-                const void* bsrc, void* part, int bf16, int M, int N, int A, int chunk,
-                void* stream) {
-  Vocab voc;
-  if (!make_vocab(sizes, F, N, &voc)) return (int)cudaErrorInvalidValue;
-  return launch_wgrad_vocab(dY, codes, bd, voc, bsrc, part, bf16, M, N, A, chunk,
-                            static_cast<cudaStream_t>(stream));
 }
 
 int sum_partials(const void* part, void* out, int n, long long size, void* stream) {

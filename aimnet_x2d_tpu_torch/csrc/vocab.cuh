@@ -1,7 +1,8 @@
 // The embedding fold (kernel 1c-vocab): the lookup and the table cotangent
 // shared by the stack's training kernels (csrc/mp_stack.cu,
 // csrc/mp_stack_bwd.cu), the attention pool's (csrc/attnpool.cu) and the
-// gathered weight-gradient contraction (csrc/wgrad.cuh).
+// gathered products of the grouped weight-gradient contraction
+// (csrc/wgrad_group.cuh).
 //
 // Replaces the one-hot products of aimnet_x2d_tpu/ops/embed.py::onehot_rows
 // inside the TPU kernels (bin_mp.py:605-626, :736-742; bin_attnpool.py:

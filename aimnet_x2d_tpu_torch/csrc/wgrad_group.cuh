@@ -8,7 +8,10 @@
 // row stride A; bsrc_p, when given, an fp32 (M_p, A) array.  One layer's six
 // products (dt xa^T, g xa^T, du_i h_i^T, dh_i v_i^T) go in one launch, the
 // fold's dt0 emb^T in another; sum_partials (csrc/wgrad.cuh) then adds the
-// chunks in a fixed order, so reruns are bit-equal (no atomics).
+// chunks in a fixed order, so reruns are bit-equal (no atomics).  A product
+// whose X is null is gathered: X is the embeddings looked up from the group's
+// code rows and table (csrc/vocab.cuh, the embedding fold), formed stage by
+// stage in shared memory, so the (E, A) array is never written.
 //
 // What bounds it on an H100: one layer at the training shapes is 20 GFLOP
 // and 170 MB of slab reads, 0.02 ms of tensor-core time against 0.05 ms of
@@ -53,6 +56,9 @@ struct WgProduct {
 struct WgGroup {
   WgProduct p[kGroupMax];
   int n;
+  const int* codes;  // the gathered products' code rows (F, A) and table
+  const void* bd;
+  Vocab voc;
 };
 
 __device__ __forceinline__ const WgProduct& find_product(const WgGroup& grp, int tile) {
@@ -90,11 +96,51 @@ wgrad_group_bf16(const __grid_constant__ WgGroup grp, float* __restrict__ part,
   const bf16* dY = static_cast<const bf16*>(P.dY);
   const bf16* X = static_cast<const bf16*>(P.X);
 
+  // a gathered product's X rows of a stage: looked up into registers (8
+  // atoms of a row a chunk) ahead of the products of the stage before, and
+  // stored into the stage's slot after them
+  const bool gathered = X == nullptr;
+  constexpr int kGather = (kWgbTileN * (kWgbK / 8) + kWgbThreads - 1) / kWgbThreads;
+  int4 gv[kGather];
+  auto gather = [&](int s) {  // vocab_emb for 8 atoms of one row
+    const size_t a = (size_t)a0 + (size_t)s * kWgbK;
+#pragma unroll
+    for (int q = 0; q < kGather; ++q) {
+      const int e = threadIdx.x + q * kWgbThreads;
+      const int r = e / (kWgbK / 8), c = e % (kWgbK / 8) * 8, row = n0 + r;
+      __align__(16) bf16 v[8];
+      if (e < kWgbTileN * (kWgbK / 8) && row < N) {
+        const Vocab& vc = grp.voc;
+        const int f = row / vc.Df, V = vc.off[f + 1] - vc.off[f];
+        const int4* cp = reinterpret_cast<const int4*>(grp.codes + (size_t)f * A + a + c);
+        const int4 k0 = cp[0], k1 = cp[1];
+        const int k[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+        const bf16* tab = static_cast<const bf16*>(grp.bd) + (size_t)row * vc.SV + vc.off[f];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = k[i] >= 0 && k[i] < V ? tab[k[i]] : __float2bfloat16(0.0f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = __float2bfloat16(0.0f);
+      }
+      gv[q] = *reinterpret_cast<const int4*>(v);
+    }
+  };
+  auto gstore = [&](int s) {
+    bf16* xs = ring + (s % kWgbStages) * kWgbStage + kWgbTileM * kWgbLd;
+#pragma unroll
+    for (int q = 0; q < kGather; ++q) {
+      const int e = threadIdx.x + q * kWgbThreads;
+      if (e < kWgbTileN * (kWgbK / 8))
+        *reinterpret_cast<int4*>(xs + (e / (kWgbK / 8)) * kWgbLd + e % (kWgbK / 8) * 8) = gv[q];
+    }
+  };
   auto issue = [&](int s) {
     if (s < nk) {
       bf16* st = ring + (s % kWgbStages) * kWgbStage;
       const size_t a = (size_t)a0 + (size_t)s * kWgbK;
-      for (int e = threadIdx.x; e < kWgbRows * (kWgbK / 8); e += kWgbThreads) {
+      const int rows = gathered ? kWgbTileM : kWgbRows;
+      for (int e = threadIdx.x; e < rows * (kWgbK / 8); e += kWgbThreads) {
         const int r = e / (kWgbK / 8), c = e % (kWgbK / 8) * 8;
         const int row = r < kWgbTileM ? m0 + r : n0 + r - kWgbTileM;
         const bool in = row < (r < kWgbTileM ? M : N);
@@ -105,7 +151,13 @@ wgrad_group_bf16(const __grid_constant__ WgGroup grp, float* __restrict__ part,
     cp_async_commit();
   };
 #pragma unroll
-  for (int s = 0; s < kWgbStages - 1; ++s) issue(s);
+  for (int s = 0; s < kWgbStages - 1; ++s) {
+    issue(s);
+    if (gathered && s < nk) {
+      gather(s);
+      gstore(s);
+    }
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
@@ -125,6 +177,8 @@ wgrad_group_bf16(const __grid_constant__ WgGroup grp, float* __restrict__ part,
     cp_async_wait<kWgbStages - 2>();
     __syncthreads();
     issue(s + kWgbStages - 1);
+    const bool ahead = gathered && s + kWgbStages - 1 < nk;
+    if (ahead) gather(s + kWgbStages - 1);
     const bf16* Ys = ring + (s % kWgbStages) * kWgbStage;
     const bf16* Xs = Ys + kWgbTileM * kWgbLd;
 #pragma unroll
@@ -154,6 +208,7 @@ wgrad_group_bf16(const __grid_constant__ WgGroup grp, float* __restrict__ part,
         }
       }
     }
+    if (ahead) gstore(s + kWgbStages - 1);
   }
 
   float* out = part + (size_t)blockIdx.y * stride + P.off;
@@ -192,7 +247,13 @@ wgrad_group_f32(const __grid_constant__ WgGroup grp, float* __restrict__ part, l
   const int a0 = blockIdx.y * chunk, a1 = min(A, a0 + chunk);
   float* out = part + (size_t)blockIdx.y * stride + P.off;
   const float* dY = static_cast<const float*>(P.dY);
-  wgrad_tile_f32(dY, DenseX{static_cast<const float*>(P.X)}, out, P.M, P.N, A, m0, n0, a0, a1);
+  __shared__ WgTilesF32 sh;
+  if (P.X)
+    wgrad_tile_f32(dY, DenseX{static_cast<const float*>(P.X)}, out, P.M, P.N, A, m0, n0, a0,
+                   a1, sh);
+  else
+    wgrad_tile_f32(dY, VocabX{grp.codes, static_cast<const float*>(grp.bd), grp.voc}, out,
+                   P.M, P.N, A, m0, n0, a0, a1, sh);
   if (n0 == 0) wgrad_bias(dY, P.bsrc, out + (size_t)P.M * P.N, m0, A, a0, a1);
 }
 
@@ -200,18 +261,24 @@ int group_smem_bytes() { return kWgbStages * kWgbStage * (int)sizeof(__nv_bfloat
 
 // Launches the contraction of n products over (ceil(A / chunk)) chunks.
 // part holds (chunks, stride) fp32; product p writes columns [off_p,
-// off_p + M_p N_p + M_p).  Returns cudaGetLastError().
+// off_p + M_p N_p + M_p).  Products with a null X are gathered from codes
+// and bd (voc's layout, N_p = E).  Returns cudaGetLastError().
 int launch_wgrad_group(int n, const void* const* dY, const void* const* X,
                        const void* const* bsrc, const int* M, const int* N, const long long* off,
-                       void* part, long long stride, int bf16, int A, int chunk, cudaStream_t s) {
+                       void* part, long long stride, int bf16, int A, int chunk, const int* codes,
+                       const void* bd, const Vocab& voc, cudaStream_t s) {
   if (n < 1 || n > kGroupMax || chunk <= 0 || chunk % (bf16 ? kWgbK : 32) ||
       A % (bf16 ? kWgbK : 16))
     return (int)cudaErrorInvalidValue;
   WgGroup grp;
   grp.n = n;
+  grp.codes = codes;
+  grp.bd = bd;
+  grp.voc = voc;
   int tiles = 0;
   for (int p = 0; p < n; ++p) {
-    if (M[p] % 16 || N[p] % 16 || off[p] < 0 || off[p] + (long long)M[p] * N[p] + M[p] > stride)
+    if (M[p] % 16 || N[p] % 16 || off[p] < 0 || off[p] + (long long)M[p] * N[p] + M[p] > stride ||
+        (X[p] == nullptr && (codes == nullptr || bd == nullptr || N[p] != voc.F * voc.Df)))
       return (int)cudaErrorInvalidValue;
     const int tm = bf16 ? (M[p] + kWgbTileM - 1) / kWgbTileM : M[p] / 16;
     const int tn = (N[p] + 63) / 64;

@@ -30,10 +30,13 @@ one-hot^T (its diagonal blocks) instead of demb (``attnpool_fwd_vocab``,
 ``attnpool_bwd_vocab``).
 
 On CUDA tensors :func:`binned_attnpool_proj_t` launches the hand-written
-kernels (``csrc/attnpool.cu``); on CPU tensors it runs the plain versions
-here.  The kernels take any (nb, mb) with ab a multiple of 64 and never
-fall back; they assume what the loaders build: each atom belongs to at
-most one molecule of its bin (one 1 per column of ``pool_mat``).
+kernels (``csrc/attnpool.cu``: the backward in bf16 on a cluster of 64-atom
+tiles per bin with t and dt on chip, in fp32 and past its shapes one block
+per bin, chosen by shape; d_kb from the grouped contraction,
+``bin_mp.wgrad_group``); on CPU tensors it runs the plain versions here.
+The kernels take any (nb, mb) with ab a multiple of 64 and never fall
+back; they assume what the loaders build: each atom belongs to at most one
+molecule of its bin (one 1 per column of ``pool_mat``).
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.activation import ACTIVATION_CODES, activation_grad, get_activation_function
@@ -213,6 +217,12 @@ def _lib() -> ctypes.CDLL:
         lib.attnpool_bwd_vocab.restype = i
         lib.attnpool_vocab_smem_bytes.argtypes = [i] * 7
         lib.attnpool_vocab_smem_bytes.restype = ctypes.c_longlong
+        lib.attnpool_bwd_tiles.argtypes = [vp, vp, vp, vp, i] + [vp] * 13 + [i] * 9 + [vp]
+        lib.attnpool_bwd_tiles.restype = i
+        lib.attnpool_bwd_tiles_smem_bytes.argtypes = [i] * 8
+        lib.attnpool_bwd_tiles_smem_bytes.restype = ctypes.c_longlong
+        lib.attnpool_bwd_tiles_stream_elems.argtypes = [i, i]
+        lib.attnpool_bwd_tiles_stream_elems.restype = ctypes.c_longlong
         lib.attnpool_error_string.argtypes = [i]
         lib.attnpool_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -307,12 +317,66 @@ def attnpool_fwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, vt: VocabTab
 attnpool_fwd_vocab.launches = 0
 
 
+_POOL_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def pool_stream_index(Dsp: int, E: int) -> np.ndarray:
+    """Positions in kb^T (Dsp, E) flattened of every element of the tiled
+    backward's weight stream (``pos == Dsp * E`` marks a zero): kb^T in row
+    blocks of at most 160 (the recompute, K = E), then kb = (kb^T)^T the same
+    way (demb, K = Dsp), each block in the walk's fragment order
+    (``bin_mp.frag_stream``, K padded to a multiple of 32) and each of its
+    32-column stages padded to 160 rows' worth (``csrc/attnpool.cu``
+    pool_stages)."""
+    n = Dsp * E
+    pos = np.arange(n).reshape(Dsp, E)
+    parts = []
+    for mat in (pos, pos.T):
+        for r0 in range(0, mat.shape[0], 160):
+            R = min(160, mat.shape[0] - r0)
+            st = bin_mp.frag_stream(mat[r0 : r0 + R], n).reshape(-1, R * 32)
+            parts.append(np.concatenate([st, np.full((st.shape[0], (160 - R) * 32), n)], 1))
+    return np.concatenate(parts).reshape(-1)
+
+
+def pool_stream(w: AttnPoolWeights) -> torch.Tensor:
+    """kb^T and kb as the tiled backward's weight ring reads them
+    (:func:`pool_stream_index`); one gather by an index cached per shape and
+    device."""
+    Dsp, E = w.kbT.shape
+    dev = w.kbT.device
+    idx = _POOL_INDEX.get((Dsp, E, dev))
+    if idx is None:
+        idx = _POOL_INDEX[(Dsp, E, dev)] = torch.from_numpy(pool_stream_index(Dsp, E)).to(dev)
+    return torch.cat([w.kbT.reshape(-1), w.kbT.new_zeros(1)])[idx]
+
+
+_BWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dsp, E, H, Ds, Do, mb, ab, n_acc) -> tiles take it
+
+
+def _takes_tiles(lib, bf16: int, Dsp: int, E: int, H: int, Ds: int, Do: int, mb: int, ab: int,
+                 n_acc: int) -> bool:
+    """Whether the tiled bf16 backward takes the shape (else the kernel of
+    one block per bin runs it); asked of the library once per shape."""
+    key = (bf16, Dsp, E, H, Ds, Do, mb, ab, n_acc)
+    if key not in _BWD_TILES:
+        tiles = bool(bf16) and lib.attnpool_bwd_tiles_smem_bytes(
+            Dsp, E, H, Ds, Do, mb, ab, n_acc) >= 0
+        if tiles and lib.attnpool_bwd_tiles_stream_elems(Dsp, E) != pool_stream_index(Dsp, E).size:
+            raise RuntimeError("attnpool_bwd: the tiled kernel's weight-stream length disagrees")
+        _BWD_TILES[key] = tiles
+    return _BWD_TILES[key]
+
+
 def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
                 vt: Optional[VocabTable]):
-    """The backward kernel (one block per bin), the fixed-order sum of its
-    per-bin partials and the d_kb contraction, on emb or under the fold on
-    the code rows.  Returns (demb, or d_bd under the fold; dx_other; the
-    fp32 weight grads)."""
+    """The backward kernel, the fixed-order sum of its per-bin partials and
+    the d_kb contraction (``bin_mp.wgrad_group``: (dt, emb), or under the fold
+    dt and the embeddings gathered from the code rows), on emb or under the
+    fold on the code rows.  bf16 runs the tiled kernel (a cluster of 64-atom
+    tiles per bin, t and dt on chip), fp32 and shapes past it the kernel of
+    one block per bin, chosen by shape.  Returns (demb, or d_bd under the
+    fold; dx_other; the fp32 weight grads)."""
     n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
     lib, nb, mb, ab, E, A, H, bf16 = _check(what, emb, xo, pm, w, act, vt, n_acc)
     dev = emb.device
@@ -321,24 +385,35 @@ def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo,
     cuda_build.check_cuda(what, dev, ("attn", attn, 4), ("g_self", gps, 4),
                           ("g_other", gpo, 4), ("g_cov", gcov, 4))
     Dsp, Do, Ds = w.kbT.shape[0], xo.shape[0], w.Ds
-    work = torch.empty(3, Dsp, A, dtype=w.dtype, device=dev)  # t, x_self, dt
     dxo = torch.empty(Do, A, dtype=w.dtype, device=dev)
+    demb = torch.empty(E, A, dtype=w.dtype, device=dev) if vt is None else None
     # per-bin fp32 partials: dbb (Dsp), dks (Ds*H), dko (Do*H), dsb (H), then
     # under the fold the diagonal blocks of d_bd (n_acc)
     head = Dsp + Ds * H + Do * H + H
     part = torch.empty(nb, head + n_acc, dtype=torch.float32, device=dev)
-    mid = (pm.data_ptr(), w.flat.data_ptr(), w.flat_t.data_ptr(), w.score.data_ptr(),
-           attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr(), work.data_ptr(),
-           part.data_ptr())
-    tail = (bf16, Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()],
-            bin_mp._stream(dev))
-    if vt is None:
-        demb = torch.empty(E, A, dtype=w.dtype, device=dev)
-        status = lib.attnpool_bwd(emb.data_ptr(), xo.data_ptr(), *mid, demb.data_ptr(),
-                                  dxo.data_ptr(), *tail)
+    mid = (w.score.data_ptr(), attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr())
+    dims = (Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
+    demb_p = demb.data_ptr() if demb is not None else None
+    if _takes_tiles(lib, bf16, Dsp, E, H, Ds, Do, mb, ab, n_acc):
+        dtc = torch.empty(Dsp, A, dtype=w.dtype, device=dev)  # dt for the contraction
+        table = ((None, None, None, 0) if vt is None else
+                 (emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt), len(vt.sizes)))
+        status = lib.attnpool_bwd_tiles(
+            emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
+            w.flat.data_ptr(), pool_stream(w).data_ptr(), *mid, dtc.data_ptr(), part.data_ptr(),
+            demb_p, dxo.data_ptr(), *dims)
     else:
-        status = lib.attnpool_bwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt),
-                                        len(vt.sizes), xo.data_ptr(), *mid, dxo.data_ptr(), *tail)
+        work = torch.empty(3, Dsp, A, dtype=w.dtype, device=dev)  # t, x_self, dt
+        dtc = work[2]
+        operands = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.flat_t.data_ptr(), *mid,
+                    work.data_ptr(), part.data_ptr())
+        if vt is None:
+            status = lib.attnpool_bwd(emb.data_ptr(), *operands, demb_p, dxo.data_ptr(), bf16,
+                                      *dims)
+        else:
+            status = lib.attnpool_bwd_vocab(emb.data_ptr(), vt.bd.data_ptr(),
+                                            bin_mp._sizes_arg(vt), len(vt.sizes), *operands,
+                                            dxo.data_ptr(), bf16, *dims)
     if status != 0:
         raise RuntimeError(f"{what}: {lib.attnpool_error_string(status).decode()}")
     red = bin_mp.sum_partials(part)
@@ -346,11 +421,10 @@ def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo,
     dks = red[Dsp : Dsp + Ds * H].view(Ds, H)
     dko = red[Dsp + Ds * H : Dsp + Ds * H + Do * H].view(Do, H)
     dsb = red[Dsp + Ds * H + Do * H : head]
-    if vt is None:
-        dkbT, _ = bin_mp.wgrad(work[2], emb)
-        return demb, dxo, (dkbT, dbb, dks, dko, dsb)
-    dkbT, _ = bin_mp.wgrad_vocab(work[2], emb, vt)
-    return expand_diag(red[head:], vt), dxo, (dkbT, dbb, dks, dko, dsb)
+    X = emb if vt is None else bin_mp.GatheredX(emb, vt)
+    ((dkbT, _),) = bin_mp.wgrad_group([(dtc, X, None)])
+    d_emb = demb if vt is None else expand_diag(red[head:], vt)
+    return d_emb, dxo, (dkbT, dbb, dks, dko, dsb)
 
 
 def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov):

@@ -21,7 +21,9 @@ included), the projection, the polynomial and the equilibration, and returns
 dx with fp32 gradients of kb, b and the layer's weights.
 
 On CUDA tensors the forward launches ``csrc/inject.cu`` (``inject_fwd``, x',
-cct, tet and ``pre`` in one block per bin) and then kernel 1d; the backward
+cct, tet and ``pre``: in bf16 one block per 64-atom tile with the three on
+chip, in fp32 and past its shapes one block per bin, chosen by shape) and
+then kernel 1d; the backward
 launches kernel 1d's backward, whose one grouped contraction
 (``csrc/wgrad_group.cuh``) also forms kb's and b's gradients, and then
 ``inject_bwd`` (dx): in bf16 the tiled kernel (a cluster of 64-atom tiles per
@@ -259,6 +261,10 @@ def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.inject_bwd_tiles.restype = i
         lib.inject_bwd_tiles_smem_bytes.argtypes = [i] * 4
         lib.inject_bwd_tiles_smem_bytes.restype = ctypes.c_longlong
+        lib.inject_fwd_tiles.argtypes = [vp] * 10 + [i] * 7 + [vp]
+        lib.inject_fwd_tiles.restype = i
+        lib.inject_fwd_tiles_smem_bytes.argtypes = [i] * 4
+        lib.inject_fwd_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.inject_smem_bytes.argtypes = [i] * 5
         lib.inject_smem_bytes.restype = ctypes.c_longlong
         lib.inject_error_string.argtypes = [i]
@@ -294,21 +300,33 @@ def _check(what, x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights):
     return lib, nb, mb, ab, tc
 
 
-def inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights):
+def inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights, keep_xct: bool = True):
     """Launch the inject kernel: (pre (D, A), xct (3Dp, A)), as
-    :func:`inject_fwd_plain`."""
+    :func:`inject_fwd_plain`: in bf16 the tiled kernel (one block per
+    64-atom tile, x', cct and tet on chip), in fp32 and past its shapes the
+    kernel of one block per bin, chosen by shape.  ``keep_xct`` False (a
+    caller that saves nothing for a backward) lets the tiled kernel skip
+    writing xct, which is then None."""
     what = "inject_fwd"
     lib, nb, mb, ab, tc = _check(what, x, tca, pool, tet_bin, any_tet, sadj, iw)
     D, A = x.shape
     Dp, dev = iw.sw.Dp, x.device
     pre = torch.empty(D, A, dtype=x.dtype, device=dev)
-    xct = torch.empty(3 * Dp, A, dtype=x.dtype, device=dev)
-    ch = torch.empty(nb * 4 * tc * Dp, dtype=torch.float32, device=dev)
+    tiled = _takes_fwd_tiles(lib, int(x.dtype == torch.bfloat16), Dp, mb, ab, tc)
+    xct = torch.empty(3 * Dp, A, dtype=x.dtype, device=dev) if keep_xct or not tiled else None
     if nb:
-        status = lib.inject_fwd(
-            x.data_ptr(), tca.data_ptr(), pool.data_ptr(), tet_bin.data_ptr(), any_tet.data_ptr(),
-            sadj.data_ptr(), iw.flat.data_ptr(), pre.data_ptr(), xct.data_ptr(), ch.data_ptr(),
-            int(x.dtype == torch.bfloat16), D, Dp, A, nb, mb, ab, tc, bin_mp._stream(dev))
+        args = (x.data_ptr(), tca.data_ptr(), pool.data_ptr(), tet_bin.data_ptr(),
+                any_tet.data_ptr(), sadj.data_ptr())
+        if tiled:
+            status = lib.inject_fwd_tiles(
+                *args, kbT_stream(iw).data_ptr(), iw.b.data_ptr(), pre.data_ptr(),
+                xct.data_ptr() if xct is not None else None, D, Dp, A, nb, mb, ab, tc,
+                bin_mp._stream(dev))
+        else:
+            ch = torch.empty(nb * 4 * tc * Dp, dtype=torch.float32, device=dev)
+            status = lib.inject_fwd(*args, iw.flat.data_ptr(), pre.data_ptr(), xct.data_ptr(),
+                                    ch.data_ptr(), int(x.dtype == torch.bfloat16), D, Dp, A, nb,
+                                    mb, ab, tc, bin_mp._stream(dev))
         if status != 0:
             raise RuntimeError(f"{what}: {lib.inject_error_string(status).decode()}")
         inject_fwd.launches += 1
@@ -316,6 +334,35 @@ def inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw: InjectWeights):
 
 
 inject_fwd.launches = 0
+
+
+_KBT_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def kbT_stream(iw: InjectWeights) -> torch.Tensor:
+    """kb^T (Dp, 3Dp) as the tiled forward's weight ring reads it: the
+    walk's fragment order (``bin_mp.frag_stream``, K = 3Dp padded to a
+    multiple of 32 with zeros); one gather by an index cached per shape and
+    device."""
+    Dp, dev = iw.sw.Dp, iw.kbT.device
+    idx = _KBT_INDEX.get((Dp, dev))
+    if idx is None:
+        n = 3 * Dp * Dp
+        idx = _KBT_INDEX[(Dp, dev)] = torch.from_numpy(
+            bin_mp.frag_stream(np.arange(n).reshape(Dp, 3 * Dp), n)).to(dev)
+    return torch.cat([iw.kbT.reshape(-1), iw.kbT.new_zeros(1)])[idx]
+
+
+_FWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dp, mb, ab, Tc) -> the tiled forward takes it
+
+
+def _takes_fwd_tiles(lib, bf16: int, Dp: int, mb: int, ab: int, tc: int) -> bool:
+    """Whether the tiled bf16 forward takes the shape (else the kernel of
+    one block per bin runs it); asked of the library once per shape."""
+    key = (bf16, Dp, mb, ab, tc)
+    if key not in _FWD_TILES:
+        _FWD_TILES[key] = bool(bf16) and lib.inject_fwd_tiles_smem_bytes(Dp, mb, ab, tc) >= 0
+    return _FWD_TILES[key]
 
 
 _KB_INDEX: Dict[Tuple, torch.Tensor] = {}
@@ -394,7 +441,7 @@ def inject_layer_fwd(x, tca, pool, tet_bin, any_tet, sadj, adj, iw: InjectWeight
     backward).  ``train`` takes the layer's training form (dropout per
     ``spec``); serving takes its serving form."""
     if x.device.type == "cuda":
-        pre, xct = inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw)
+        pre, xct = inject_fwd(x, tca, pool, tet_bin, any_tet, sadj, iw, keep_xct=train)
         if train:
             out = bin_mp.mp_layer_fwd_train(pre, adj, iw.sw, spec)
         else:

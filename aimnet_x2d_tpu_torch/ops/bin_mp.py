@@ -597,10 +597,6 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.mp_stack_bwd_layer.restype = i
         lib.mp_stack_bwd_proj.argtypes = [vp] * 6 + [i] * 7 + [vp]
         lib.mp_stack_bwd_proj.restype = i
-        lib.wgrad.argtypes = [vp] * 4 + [i] * 5 + [vp]
-        lib.wgrad.restype = i
-        lib.wgrad_vocab.argtypes = [vp] * 4 + [i] + [vp] * 2 + [i] * 5 + [vp]
-        lib.wgrad_vocab.restype = i
         lib.mp_stack_bwd_proj_vocab.argtypes = [vp] * 4 + [i] + [vp] * 4 + [i] * 7 + [vp]
         lib.mp_stack_bwd_proj_vocab.restype = i
         lib.sum_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
@@ -613,7 +609,8 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.mp_stack_bwd_walk_smem_bytes.restype = ctypes.c_longlong
         lib.mp_stack_bwd_walk_stream_elems.argtypes = [i, i]
         lib.mp_stack_bwd_walk_stream_elems.restype = ctypes.c_longlong
-        lib.wgrad_group.argtypes = [i] + [vp] * 7 + [ctypes.c_longlong] + [i] * 3 + [vp]
+        lib.wgrad_group.argtypes = ([i] + [vp] * 7 + [ctypes.c_longlong] + [i] * 3 + [vp] * 3
+                                    + [i, vp])
         lib.wgrad_group.restype = i
         lib.mp_stack_bwd_error_string.argtypes = [i]
         lib.mp_stack_bwd_error_string.restype = ctypes.c_char_p
@@ -736,52 +733,6 @@ mp_layer_fwd_train.launches = 0
 WGRAD_CHUNK = 4096  # atoms per split of the weight-gradient contraction
 
 
-def wgrad(dY: torch.Tensor, X: torch.Tensor, bias_src: Optional[torch.Tensor] = None):
-    """``dY @ X^T`` (M, N) fp32 and the row sums of ``bias_src`` (or dY),
-    contracted over the atom axis by the hand-written split-K kernel
-    (``csrc/wgrad.cuh``): fp32 partials per chunk of atoms, then a fixed-order
-    sum, so the result is the same from run to run."""
-    lib = _lib_bwd()
-    M, A = dY.shape
-    N = X.shape[0]
-    nch = max(1, -(-A // WGRAD_CHUNK))
-    dev = dY.device
-    part = torch.empty(nch, M * N + M, dtype=torch.float32, device=dev)
-    status = lib.wgrad(dY.data_ptr(), X.data_ptr(),
-                       bias_src.data_ptr() if bias_src is not None else None,
-                       part.data_ptr(), int(dY.dtype == torch.bfloat16), M, N, A,
-                       WGRAD_CHUNK, _stream(dev))
-    if status != 0:
-        raise RuntimeError(f"wgrad: {lib.mp_stack_bwd_error_string(status).decode()}")
-    out = sum_partials(part)
-    wgrad.launches += 1
-    return out[: M * N].view(M, N), out[M * N :]
-
-
-wgrad.launches = 0
-
-
-def wgrad_vocab(dY: torch.Tensor, codes: torch.Tensor, vt: VocabTable,
-                bias_src: Optional[torch.Tensor] = None):
-    """:func:`wgrad` with X the embeddings (E, A) looked up from the code
-    rows and the table inside the contraction (the fold's d_kb): the (E, A)
-    array is never formed."""
-    lib = _lib_bwd()
-    M, A = dY.shape
-    N = vt.E
-    nch = max(1, -(-A // WGRAD_CHUNK))
-    dev = dY.device
-    part = torch.empty(nch, M * N + M, dtype=torch.float32, device=dev)
-    status = lib.wgrad_vocab(dY.data_ptr(), codes.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt),
-                             len(vt.sizes), bias_src.data_ptr() if bias_src is not None else None,
-                             part.data_ptr(), int(dY.dtype == torch.bfloat16), M, N, A,
-                             WGRAD_CHUNK, _stream(dev))
-    if status != 0:
-        raise RuntimeError(f"wgrad_vocab: {lib.mp_stack_bwd_error_string(status).decode()}")
-    out = sum_partials(part)
-    return out[: M * N].view(M, N), out[M * N :]
-
-
 def sum_partials(part: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Column sums of a (n, size) fp32 partials array, in a fixed order
     (into ``out``, a contiguous (size,) fp32 array, when given)."""
@@ -857,10 +808,28 @@ def ext_slabs_plain(xa, sw: StackWeights, spec: StackSpec, g, legacy: bool = Fal
     return torch.stack([a.to(dt) for a in slabs])
 
 
+@dataclasses.dataclass
+class GatheredX:
+    """The X of a gathered product of :func:`wgrad_group`: the embeddings
+    (E, A) looked up from the code rows (F, A) int32 and the table (the
+    embedding fold), never formed on the card."""
+
+    codes: torch.Tensor
+    vt: VocabTable
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.vt.E, self.codes.shape[1])
+
+
+def _x_plain(X) -> torch.Tensor:
+    return embed_from_codes(X.codes, X.vt) if isinstance(X, GatheredX) else X
+
+
 def wgrad_group_plain(products):
     """Plain PyTorch version of :func:`wgrad_group`: per product
     ``(dY, X, bias_src)``, ``(dY @ X^T, rowsum(bias_src or dY))`` in fp32."""
-    return [(dY.float() @ X.float().T, (b if b is not None else dY).float().sum(1))
+    return [(dY.float() @ _x_plain(X).float().T, (b if b is not None else dY).float().sum(1))
             for dY, X, b in products]
 
 
@@ -901,19 +870,30 @@ def _group_launcher(products):
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"wgrad_group: unsupported dtype {dt}")
     named = []
+    gathered = [X for _, X, _ in products if isinstance(X, GatheredX)]
     for p, (dY, X, b) in enumerate(products):
-        if dY.dtype != dt or X.dtype != dt or (b is not None and b.dtype != torch.float32):
-            raise TypeError(f"wgrad_group: product {p}: {dY.dtype}, {X.dtype}, bias source "
+        xdt = X.vt.bd.dtype if isinstance(X, GatheredX) else X.dtype
+        if dY.dtype != dt or xdt != dt or (b is not None and b.dtype != torch.float32):
+            raise TypeError(f"wgrad_group: product {p}: {dY.dtype}, {xdt}, bias source "
                             f"{None if b is None else b.dtype}; want {dt} and fp32")
-        if (dY.dim() != 2 or X.dim() != 2 or dY.shape[1] != A or X.shape[1] != A
+        if (dY.dim() != 2 or len(X.shape) != 2 or dY.shape[1] != A or X.shape[1] != A
                 or dY.shape[0] % 16 or X.shape[0] % 16 or A % 64
                 or (b is not None and b.shape != dY.shape)):
             raise ValueError(f"wgrad_group: product {p}: dY {tuple(dY.shape)}, X "
                              f"{tuple(X.shape)}: need rows multiples of 16, A = {A} a multiple "
                              "of 64, the bias source shaped as dY")
-        named += [(f"dY[{p}]", dY, 16), (f"X[{p}]", X, 16)]
+        named.append((f"dY[{p}]", dY, 16))
+        if not isinstance(X, GatheredX):
+            named.append((f"X[{p}]", X, 16))
         if b is not None:
             named.append((f"bias_src[{p}]", b, 16))
+    if any(X.codes is not gathered[0].codes or X.vt is not gathered[0].vt for X in gathered):
+        raise ValueError("wgrad_group: the gathered products must share one table and code rows")
+    if gathered:  # the contraction reads 8 codes at a time
+        gx = gathered[0]
+        if gx.codes.dtype != torch.int32 or gx.codes.shape[0] != len(gx.vt.sizes):
+            raise TypeError(f"wgrad_group: code rows {gx.codes.dtype} {tuple(gx.codes.shape)}")
+        named += [("codes", gx.codes, 16), ("table", gx.vt.bd, 4)]
     cuda_build.check_cuda("wgrad_group", dev, *named)
     bf16 = int(dt == torch.bfloat16)
     chunk, nch, total = _group_plan(products)
@@ -926,12 +906,16 @@ def _group_launcher(products):
         sub = products[g0 : g0 + GROUP_MAX]
         n = len(sub)
         launches.append((n, (vp * n)(*[dY.data_ptr() for dY, _, _ in sub]),
-                         (vp * n)(*[X.data_ptr() for _, X, _ in sub]),
+                         (vp * n)(*[None if isinstance(X, GatheredX) else X.data_ptr()
+                                    for _, X, _ in sub]),
                          (vp * n)(*[b.data_ptr() if b is not None else None for _, _, b in sub]),
                          (i * n)(*[M for M, _ in shapes[g0 : g0 + n]]),
                          (i * n)(*[N for _, N in shapes[g0 : g0 + n]]),
                          (ll * n)(*offs[g0 : g0 + n])))
     stream = _stream(dev)
+    table = ((gathered[0].codes.data_ptr(), gathered[0].vt.bd.data_ptr(),
+              _sizes_arg(gathered[0].vt), len(gathered[0].vt.sizes)) if gathered
+             else (None, None, None, 0))
 
     def run(part: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None):
         if part is None:
@@ -939,7 +923,8 @@ def _group_launcher(products):
         if part.shape != (nch, total) or part.dtype != torch.float32 or not part.is_contiguous():
             raise ValueError(f"wgrad_group: partials {tuple(part.shape)}, want ({nch}, {total})")
         for args in launches:
-            status = lib.wgrad_group(*args, part.data_ptr(), total, bf16, A, chunk, stream)
+            status = lib.wgrad_group(*args, part.data_ptr(), total, bf16, A, chunk, *table,
+                                     stream)
             if status != 0:
                 raise RuntimeError(f"wgrad_group: {lib.mp_stack_bwd_error_string(status).decode()}")
         out = sum_partials(part, out)
@@ -953,11 +938,12 @@ def _group_launcher(products):
 def wgrad_group(products, part: Optional[torch.Tensor] = None,
                 out: Optional[torch.Tensor] = None):
     """The weight gradients of several products at once: per ``(dY (M, A),
-    X (N, A), bias_src (M, A) fp32 or None)``, ``(dY @ X^T (M, N), the row
-    sums of bias_src or dY (M,))`` in fp32.  On CUDA tensors one launch of
-    the grouped split-K contraction (``csrc/wgrad_group.cuh``) per
-    GROUP_MAX products, then one fixed-order sum of the chunk partials
-    (``sum_partials``), so reruns are bit-equal; ``part`` (the (chunks,
+    X (N, A) or a :class:`GatheredX`, bias_src (M, A) fp32 or None)``,
+    ``(dY @ X^T (M, N), the row sums of bias_src or dY (M,))`` in fp32.  On
+    CUDA tensors one launch of the grouped split-K contraction
+    (``csrc/wgrad_group.cuh``) per GROUP_MAX products, then one fixed-order
+    sum of the chunk partials (``sum_partials``), so reruns are bit-equal;
+    ``part`` (the (chunks,
     columns) partials of :func:`_group_plan`) and ``out`` (the flat
     results) may be given to reuse buffers.  On CPU tensors the plain
     version."""
@@ -1208,7 +1194,7 @@ def mp_stack_bwd_vocab(codes, g32, pw: ProjWeights, vt: VocabTable, act: str, ab
     if status != 0:
         raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
     d_bd = expand_diag(sum_partials(part), vt)
-    dkbT, dbb = wgrad_vocab(dtc, codes, vt, bias_src=g32)
+    ((dkbT, dbb),) = wgrad_group([(dtc, GatheredX(codes, vt), g32)])
     mp_stack_bwd_vocab.launches += 1
     return d_bd, dkbT, dbb
 

@@ -25,9 +25,13 @@ Phases, each of which fails the run when it fails:
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
    (a size-sorted batch of 2048), bf16, and time kernel and plain version;
-   the stack backward (kernel 1b) also rerun bit-equal, timed as profiler
-   device time split by part (walk, contraction, partial sums, fold) with
-   the wrapper's host time, and its fp32 form checked and timed;
+   the stack backward (kernel 1b) and the attention pool's backward (kernel
+   3) also rerun bit-equal, timed as profiler device time split by part
+   (walk or pool kernel, contraction, partial sums, fold) with the wrapper's
+   host time and a CUDA-graph replay; 1b's fp32 form checked and timed; the
+   pool's backward kernels split by phase by an instrumented build of
+   ``csrc/attnpool.cu`` (``-DATTNPOOL_MARKS``, built beside the kernels in
+   phase 2); bf16 must run the tiled kernel with one grouped contraction;
 6. ``[train]``: train the flagship model (bf16, dropout 0.05, 12 synthetic
    targets from the seed) through the port's CLI at batch 2048 with the
    launch counters reset just before; then 24 steps of the train step on
@@ -42,12 +46,14 @@ Phases, each of which fails the run when it fails:
      and kernel 1d (serving form, training form, backward) against their
      plain versions at the config-3 training shape, bf16, timed, with
      bounds (1d's backward as 1b's in phase 5, fp32 form included); the
-     inject backward (the cast of its cotangent, the kernel -- the tiled
-     one -- and d_kb, d_b from the grouped contraction) rerun bit-equal and
-     timed as profiler device time split by kernel name, and both inject
-     backward kernels split by phase by an instrumented build of
-     ``csrc/inject.cu`` (``-DINJECT_MARKS``, built beside the kernels in
-     phase 2); the batch must hold tetrahedral centres and cis/trans pairs;
+     inject forward (the tiled kernel, x' rows equal to the plain
+     version's) and the inject backward (the cast of its cotangent, the
+     kernel -- the tiled one -- and d_kb, d_b from the grouped contraction)
+     rerun bit-equal and timed as profiler device time split by kernel name,
+     and kernel 4's forward and backward kernels, old and tiled, split by
+     phase by an instrumented build of ``csrc/inject.cu``
+     (``-DINJECT_MARKS``, built beside the kernels in phase 2); the batch
+     must hold tetrahedral centres and cis/trans pairs;
    - ``[c3-serve]``: phase 4 for a config-3 artifact (counters of the
      inject kernel, kernel 1d and the pool; the multi-layer stack must
      not run);
@@ -120,7 +126,8 @@ Phases, each of which fails the run when it fails:
      (``mp_stack_fwd_train_vocab``, ``mp_stack_bwd_vocab``,
      ``attnpool_fwd_vocab``, ``attnpool_bwd_vocab``) against their plain
      versions at the flagship training shapes on the batch's own codes,
-     fp32 and bf16, timed with bounds; each backward twice, bit-equal;
+     fp32 and bf16, timed with bounds; each backward twice, bit-equal; the
+     pool's backward timed as in phase 5 and, in bf16, split by phase;
    - ``[fold-train]`` (after phase 6): phase 6 with the switch set in the
      CLI's environment: the folded kernels launch once a step and the
      stack's and pool's emb forms never; then, on one batch, the training
@@ -148,13 +155,15 @@ Phases, each of which fails the run when it fails:
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
 14. print the ``[bwd-record]`` line (the backward forms of kernels 1b, 1d,
-   4 and 5: device time, split, host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
+   3, 1c-vocab's pool, 4 and 5 and kernel 4's forward: device time, split,
+   host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
    and ``[fold-train]`` steps' device times), the ``kernels`` JSON line, the
    card line and, last, the result line ``{"ok": true, "device": {...}}``.
    Each row of the kernels line names how its times were taken in
    ``timing``: "events" (CUDA events around back-to-back calls from
    Python, host gaps included), "profiler" (the kernels' device time from
-   ``torch.profiler``; kernels 2, 2b and the backwards of 1b, 1d, 4 and 5) or
+   ``torch.profiler``; kernels 2, 2b, 4's forward and the backwards of 1b,
+   1d, 3, 1c-vocab's pool, 4 and 5) or
    "profiler+graph" (some of them from a CUDA-graph replay where the
    profiler saw no device events).
 
@@ -413,12 +422,14 @@ def host_us(fn, calls: int = 100) -> float:
     return 1e6 * elapsed / calls
 
 
-# the backward forms' parts, by the profiler's kernel names: the walk (the
-# stack's and kernel 5's), kernel 4's inject kernels, the weight-gradient
-# contraction, its partial sums, the fold's kernel, the casts to the compute
-# dtype (and other copies) and the gathers of the weight streams
+# the timed forms' parts, by the profiler's kernel names: the walk (the
+# stack's and kernel 5's), kernel 4's inject kernels, the attention pool's
+# backward kernels, the weight-gradient contraction, its partial sums, the
+# fold's kernel, the casts to the compute dtype (and other copies) and the
+# gathers of the weight streams
 BWD_PARTS = (("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
-             ("inject", ("inject_bwd",)), ("contraction", ("wgrad_group", "wgrad_kernel")),
+             ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd",)),
+             ("contraction", ("wgrad_group", "wgrad_kernel", "wgrad_vocab")),
              ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
              ("casts and copies", ("copy_kernel",)),
              ("weight stream", ("index", "gather", "CatArray")))
@@ -806,9 +817,10 @@ def recorder(tag: str, res: dict):
     return record
 
 
-def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     """Phase 5: each training kernel against its plain version at the
-    flagship training shapes (bf16), with times and bounds."""
+    flagship training shapes (bf16), with times and bounds; the attention
+    pool's backward split by phase (``attnpool_phases`` on ``marks_build``)."""
     from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
     from aimnet_x2d_tpu_torch.ops.embed import embed_concat_onehot_t
 
@@ -918,17 +930,42 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int) -> dict:
     gcov = torch.randn(B, generator=gen, device=dev) * 1e-3
     args = (emb, xo, pm, aw, act, fref[3], gps, gpo, gcov)
     bg = bin_attnpool.attnpool_bwd(*args)
+    again = bin_attnpool.attnpool_bwd(*args)
     br = bin_attnpool.attnpool_bwd_plain(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip((bg[0], bg[1], *bg[2]),
+                                                   (again[0], again[1], *again[2]))):
+        raise AssertionError("attnpool_bwd: a rerun is not bit-equal")
     dks_scale = float(br[2][2].abs().max())  # d_sb's exact value is 0: held to d_ks's scale
     pairs = [(bg[0], br[0], None), (bg[1], br[1], None)]
     pairs += [(a, r, dks_scale if i == 4 else None) for i, (a, r) in enumerate(zip(bg[2], br[2]))]
     ops = 3 * 2 * n * E * Ds + 4 * 2 * n * H * (Ds + D) + 2 * npm * (Ds + D)
     nbytes = (2 * E + 2 * D) * A * isz + nb * mb * ab + 4 * (H * A + (Ds + D + 1) * B) + 4 * (E * Ds)
-    record("attnpool_bwd", pairs,
-           time_ms(lambda: bin_attnpool.attnpool_bwd(*args), iters=10),
-           time_ms(lambda: bin_attnpool.attnpool_bwd_plain(*args), iters=5), ops, nbytes)
+    plain_ms = time_ms(lambda: bin_attnpool.attnpool_bwd_plain(*args), iters=5)
+    ms, timing, names = bwd_record("train-kernel", "attnpool_bwd", dt,
+                                   lambda: bin_attnpool.attnpool_bwd(*args), plain_ms)
+    check_pool_route("train-kernel", "attnpool_bwd", names)
+    record("attnpool_bwd", pairs, ms, plain_ms, ops, nbytes)
+    res["attnpool_bwd"]["timing"] = timing
+    attnpool_phases(marks_build, "train-kernel", *args)
     return res
+
+
+def check_pool_route(tag: str, name: str, names) -> None:
+    """Print which backward kernel and contraction a pool call launched (the
+    profiler's kernel names); where the package has the tiled backward, fail
+    unless a bf16 call launched it once, with one grouped contraction and no
+    split-K ``wgrad``."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    tiled = launches_named(names, "attnpool_bwd_tile_kernel")
+    group = launches_named(names, "wgrad_group")
+    split = launches_named(names, "wgrad_kernel") + launches_named(names, "wgrad_vocab")
+    print(f"[{tag}] {name}: rerun bit-equal=True; "
+          f"{'the tiled kernel' if tiled else 'one block a bin'}; wgrad_group x{group:g}, "
+          f"split-K wgrad x{split:g}", flush=True)
+    if hasattr(bin_attnpool, "pool_stream") and not (tiled == 1 and group == 1 and split == 0):
+        raise AssertionError(f"{name}: kernels {names}")
 
 
 def time_ms_reset(fn, reset, iters: int = 10, warmup: int = 2) -> float:
@@ -961,11 +998,12 @@ def fold_inputs(model, batch, dt):
     return codes, vt
 
 
-def check_fold_kernels(pkg, cfg, model, batch, seed: int) -> dict:
+def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     """[fold-kernel]: kernel 1c-vocab at both sites (stack forward, the
     projection's backward, attention pool forward and backward) against
     their plain versions at the flagship training shapes, fp32 and bf16,
-    timed, with bounds; each backward twice, bit-equal."""
+    timed, with bounds; each backward twice, bit-equal; the pool's backward
+    (bf16) split by phase (``attnpool_phases`` on ``marks_build``)."""
     from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
 
     dev = torch.device("cuda")
@@ -1067,6 +1105,8 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int) -> dict:
         again = bin_attnpool.attnpool_bwd_vocab(*args)
         br = bin_attnpool.attnpool_bwd_vocab_plain(*args)
         torch.cuda.synchronize()
+        if not f32:
+            attnpool_phases(marks_build, "fold-kernel", *args[:9], vt=vt)
         same = all(torch.equal(a, b_) for a, b_ in zip((bg[0], bg[1], *bg[2]),
                                                       (again[0], again[1], *again[2])))
         dks_scale = float(br[2][2].abs().max())  # d_sb's exact value is 0: held to d_ks's scale
@@ -1076,10 +1116,14 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int) -> dict:
         ops = 3 * 2 * n * E * Ds + 4 * 2 * n * H * (Ds + D) + 2 * npm * (Ds + D)
         nbytes = (lookup + 2 * D * A * isz + nb * mb * ab + 4 * (H * A + (Ds + D + 1) * B)
                   + 4 * (E * Ds + E * SV))
-        record("attnpool_bwd_vocab", pairs,
-               time_ms(lambda: bin_attnpool.attnpool_bwd_vocab(*args), iters=10),
-               time_ms(lambda: bin_attnpool.attnpool_bwd_vocab_plain(*args), iters=5),
-               ops, nbytes, 1e-4 if f32 else TRAIN_TOL, same)
+        plain_ms = time_ms(lambda: bin_attnpool.attnpool_bwd_vocab_plain(*args), iters=5)
+        ms, timing, names = bwd_record("fold-kernel", "attnpool_bwd_vocab", dt,
+                                       lambda: bin_attnpool.attnpool_bwd_vocab(*args), plain_ms)
+        if not f32:
+            check_pool_route("fold-kernel", "attnpool_bwd_vocab", names)
+        record("attnpool_bwd_vocab", pairs, ms, plain_ms, ops, nbytes,
+               1e-4 if f32 else TRAIN_TOL, same)
+        res[("attnpool_bwd_vocab", dt)]["timing"] = timing
     return res
 
 
@@ -1211,39 +1255,101 @@ INJECT_PHASES = {
         "the bin's tables, the dpre tile", "kb dpre (three ring products)",
         "transpose (distributed shared memory)", "centres, cluster barrier", "dx pass",
         "equilibration"),
+    "inject_fwd_kernel (one block a bin)": (
+        "the bin's tables and sums", "x' pass (to xct)", "cis/trans product (reads xct)",
+        "centres (to the fp32 scratch)", "tet pass (reads the scratch)",
+        "projection (reads xct)"),
+    "inject_fwd_tile_kernel (one block a 64-atom tile)": (
+        "the bin's tables and sums, the ring", "x' tile and the first source chunk",
+        "cis/trans product (the bin's x' by chunks)", "centres' norms", "tet pass",
+        "xct stores, projection, pre"),
+}
+ATTNPOOL_PHASES = {
+    "attnpool_bwd_kernel (one block a bin)": (
+        "setup", "recompute of t and v (to slabs)", "dw", "softmax backward",
+        "x_self rows (dt to a slab)", "x_other rows", "demb or d_bd (reads the dt slab)"),
+    "attnpool_bwd_tile_kernel (a cluster of 64-atom tiles a bin)": (
+        "setup, the emb tile", "recompute of t (ring products)", "dw",
+        "softmax backward (t_mol over the cluster)", "x_self rows (dt over t)", "x_other rows",
+        "dt slab, demb or d_bd (ring products)", "partials over the cluster"),
 }
 
 
 def start_marks_build():
-    """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS`` beside the
-    kernels' own build: kernel 4's backward kernels then record a
-    ``%globaltimer`` mark per block, after a block barrier, at every phase
-    boundary.  Returns (the nvcc process, the library's path)."""
+    """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS`` and on
+    ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS`` beside the kernels' own
+    build: kernel 4's kernels and the attention pool's backward kernels then
+    record a ``%globaltimer`` mark per block, after a block barrier, at every
+    phase boundary.  Returns {source: (the nvcc process, the library's path)}."""
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = cuda_build.BUILD_DIR / "inject_marks.so"
-    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DINJECT_MARKS", "-o", str(out),
-           str(cuda_build.CSRC / "inject.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE), out
+    builds = {}
+    for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS")):
+        out = cuda_build.BUILD_DIR / f"{name}_marks.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, flag, "-o", str(out),
+               str(cuda_build.CSRC / f"{name}.cu")]
+        builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE), out)
+    return builds
+
+
+_MARKS_LIBS: dict = {}
+
+
+def marks_lib(marks_build, name: str):
+    """The loaded marked build of ``csrc/<name>.cu`` (waiting for its nvcc
+    once)."""
+    import ctypes
+
+    if name not in _MARKS_LIBS:
+        proc, path = marks_build[name]
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}.cu with marks: nvcc exit {proc.returncode}\n"
+                               f"{err.decode()}")
+        _MARKS_LIBS[name] = ctypes.CDLL(str(path))
+    return _MARKS_LIBS[name]
+
+
+def print_phases(tag: str, what: str, phases: dict, launches: dict, n_marks: int, set_marks,
+                 error_string) -> None:
+    """Launch each kernel of ``launches`` ({name: (blocks, launch)}) of a
+    marked build twice with its marks at a (blocks, n_marks) buffer; print,
+    per kernel, the mean time a block spends in each phase, its share of a
+    block's time, and the span from the first mark to the last (the marks'
+    barriers included)."""
+    dev = torch.device("cuda")
+    for name, (blocks, launch) in launches.items():
+        n = len(phases[name]) + 1
+        marks = torch.zeros(blocks, n_marks, dtype=torch.int64, device=dev)
+        if set_marks(marks.data_ptr()) != 0:
+            raise RuntimeError(f"{what}: setting the marks failed")
+        for _ in range(2):  # a warm-up launch, then the one read
+            marks.zero_()
+            status = launch()
+            if status != 0:
+                raise RuntimeError(f"{name}: {error_string(status).decode()}")
+            torch.cuda.synchronize()
+        m = marks.cpu().numpy()[:, :n].astype(np.float64)
+        if not (m > 0).all():
+            raise AssertionError(f"{name}: a block recorded no mark")
+        per = np.diff(m, axis=1).mean(0) / 1e3
+        parts = "; ".join(f"{p} {v:.2f} us ({100 * v / per.sum():.1f}%)"
+                          for p, v in zip(phases[name], per))
+        print(f"[{tag}] {what} phases, {name}: {blocks} blocks, span "
+              f"{(m[:, -1].max() - m[:, 0].min()) / 1e6:.4f} ms (marked build), a block "
+              f"{per.sum():.2f} us: {parts}", flush=True)
 
 
 def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
-    """Kernel 4's backward split by phase (``[c3-kernel]``): both backward
-    kernels of the marked build -- the tiled one where the source has it --
-    launched twice on these inputs; per kernel, the mean time a block spends
-    in each phase, its share of a block's time, and the span from the first
-    mark to the last (the marks' barriers included)."""
+    """Kernel 4 split by phase (``[c3-kernel]``): the backward and forward
+    kernels of the marked build -- the tiled ones where the source has them
+    -- launched twice on these inputs (``print_phases``)."""
     import ctypes
 
     from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
 
-    proc, path = marks_build
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"inject.cu with -DINJECT_MARKS: nvcc exit {proc.returncode}\n"
-                           f"{err.decode()}")
-    lib = bin_inject.type_lib(ctypes.CDLL(str(path)))
+    lib = bin_inject.type_lib(marks_lib(marks_build, "inject"))
     if not hasattr(lib, "inject_bwd_marks"):
         print("[c3-kernel] inject_bwd phases: not measured (this inject.cu has no marks)",
               flush=True)
@@ -1259,35 +1365,93 @@ def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
     ch = torch.empty(nb * 4 * tc * Dp, dtype=torch.float32, device=dev)
     w32 = torch.empty(3 * Dp, A, dtype=torch.float32, device=dev)
     dcct = torch.empty(Dp, A, dtype=dt, device=dev)
+    pre = torch.empty(D, A, dtype=dt, device=dev)
+    xct2 = torch.empty_like(xct)
     stream, bf16 = bin_mp._stream(dev), int(dt == torch.bfloat16)
-    launches = {"inject_bwd_kernel (one block a bin)": (nb, lambda: lib.inject_bwd(
+    bwd = {"inject_bwd_kernel (one block a bin)": (nb, lambda: lib.inject_bwd(
         *ptrs, iw.flat_t.data_ptr(), xct.data_ptr(), dpre.data_ptr(), w32.data_ptr(),
         dcct.data_ptr(), ch.data_ptr(), dx.data_ptr(), bf16, D, Dp, A, nb, mb, ab, tc, stream))}
     if hasattr(lib, "inject_bwd_tiles") and bf16:
         kbs = bin_inject.kb_stream(iw)
-        launches["inject_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
+        bwd["inject_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
             nb * ab // 64, lambda: lib.inject_bwd_tiles(
                 *ptrs, kbs.data_ptr(), xct.data_ptr(), dpre.data_ptr(), ch.data_ptr(),
                 dx.data_ptr(), D, Dp, A, nb, mb, ab, tc, stream))
-    for name, (blocks, launch) in launches.items():
-        marks = torch.zeros(blocks, 8, dtype=torch.int64, device=dev)
-        if lib.inject_bwd_marks(marks.data_ptr()) != 0:
-            raise RuntimeError("inject_bwd_marks failed")
-        for _ in range(2):  # a warm-up launch, then the one read
-            marks.zero_()
-            status = launch()
-            if status != 0:
-                raise RuntimeError(f"{name}: {lib.inject_error_string(status).decode()}")
-            torch.cuda.synchronize()
-        m = marks.cpu().numpy()[:, :7].astype(np.float64)
-        if not (m > 0).all():
-            raise AssertionError(f"{name}: a block recorded no mark")
-        per = np.diff(m, axis=1).mean(0) / 1e3
-        parts = "; ".join(f"{p} {v:.2f} us ({100 * v / per.sum():.1f}%)"
-                          for p, v in zip(INJECT_PHASES[name], per))
-        print(f"[c3-kernel] inject_bwd phases, {name}: {blocks} blocks, span "
-              f"{(m[:, 6].max() - m[:, 0].min()) / 1e6:.4f} ms (marked build), a block "
-              f"{per.sum():.2f} us: {parts}", flush=True)
+    print_phases("c3-kernel", "inject_bwd", INJECT_PHASES, bwd, 8, lib.inject_bwd_marks,
+                 lib.inject_error_string)
+    if not hasattr(lib, "inject_fwd_tiles"):
+        print("[c3-kernel] inject_fwd phases: not measured (this inject.cu has no forward marks)",
+              flush=True)
+        return
+    kbT = bin_inject.kbT_stream(iw)
+    fwd = {"inject_fwd_kernel (one block a bin)": (nb, lambda: lib.inject_fwd(
+        *ptrs, iw.flat.data_ptr(), pre.data_ptr(), xct2.data_ptr(), ch.data_ptr(), bf16, D, Dp,
+        A, nb, mb, ab, tc, stream))}
+    if bf16:
+        fwd["inject_fwd_tile_kernel (one block a 64-atom tile)"] = (
+            nb * ab // 64, lambda: lib.inject_fwd_tiles(
+                *ptrs, kbT.data_ptr(), iw.b.data_ptr(), pre.data_ptr(), xct2.data_ptr(), D, Dp,
+                A, nb, mb, ab, tc, stream))
+    print_phases("c3-kernel", "inject_fwd", INJECT_PHASES, fwd, 8, lib.inject_bwd_marks,
+                 lib.inject_error_string)
+
+
+def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov, vt=None) -> None:
+    """The attention pool's backward split by phase (``[train-kernel]``,
+    ``[fold-kernel]`` with ``vt``): both backward kernels of the marked
+    build -- the tiled one where the source has it -- launched twice on these
+    inputs (``print_phases``); ``emb`` is the code rows under the fold."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
+
+    name = "attnpool_bwd" if vt is None else "attnpool_bwd_vocab"
+    lib = marks_lib(marks_build, "attnpool")
+    if not hasattr(lib, "attnpool_bwd_marks"):
+        print(f"[{tag}] {name} phases: not measured (this attnpool.cu has no marks)", flush=True)
+        return
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.attnpool_bwd_marks.argtypes = [vp]
+    lib.attnpool_bwd_marks.restype = i
+    lib.attnpool_bwd.argtypes = [vp] * 14 + [i] * 10 + [vp]
+    lib.attnpool_bwd_vocab.argtypes = [vp, vp, vp] + [i] + [vp] * 12 + [i] * 10 + [vp]
+    lib.attnpool_bwd_tiles.argtypes = [vp, vp, vp, vp, i] + [vp] * 13 + [i] * 9 + [vp]
+    lib.attnpool_error_string.argtypes = [i]
+    lib.attnpool_error_string.restype = ctypes.c_char_p
+    dev, dt = xo.device, w.dtype
+    nb, mb, ab = pm.shape
+    (Dsp, E), H, Ds, (Do, A) = w.kbT.shape, attn.shape[0], w.Ds, xo.shape
+    n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
+    part = torch.empty(nb, Dsp + (Ds + Do) * H + H + n_acc, dtype=torch.float32, device=dev)
+    work = torch.empty(3, Dsp, A, dtype=dt, device=dev)
+    demb = torch.empty(E, A, dtype=dt, device=dev)
+    dxo = torch.empty(Do, A, dtype=dt, device=dev)
+    mid = (w.score.data_ptr(), attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr())
+    dims = (Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
+    bf16 = int(dt == torch.bfloat16)
+    operands = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.flat_t.data_ptr(), *mid,
+                work.data_ptr(), part.data_ptr())
+    if vt is None:
+        old = lambda: lib.attnpool_bwd(emb.data_ptr(), *operands, demb.data_ptr(),  # noqa: E731
+                                       dxo.data_ptr(), bf16, *dims)
+        table = (None, None, None, 0)
+    else:
+        sizes = bin_mp._sizes_arg(vt)
+        old = lambda: lib.attnpool_bwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), sizes,  # noqa: E731
+                                             len(vt.sizes), *operands, dxo.data_ptr(), bf16,
+                                             *dims)
+        table = (emb.data_ptr(), vt.bd.data_ptr(), sizes, len(vt.sizes))
+    launches = {"attnpool_bwd_kernel (one block a bin)": (nb, old)}
+    if hasattr(lib, "attnpool_bwd_tiles") and bf16:
+        ws = bin_attnpool.pool_stream(w)
+        launches["attnpool_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
+            nb * ab // 64, lambda: lib.attnpool_bwd_tiles(
+                emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
+                w.flat.data_ptr(), ws.data_ptr(), *mid, work.data_ptr(), part.data_ptr(),
+                demb.data_ptr() if vt is None else None, dxo.data_ptr(), *dims))
+    print_phases(tag, name, ATTNPOOL_PHASES, launches, 10, lib.attnpool_bwd_marks,
+                 lib.attnpool_error_string)
 
 
 def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
@@ -1348,13 +1512,25 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     table_bytes = 4 * A + nb * pm.shape[1] * ab + batch.tet_bin.numel() * 4 + nb * ab * ab
     # --- kernel 4, inject forward: x', cct, tet and pre; xct kept for training
     pre, xct = bin_inject.inject_fwd(x, *tables, iw)
+    pre2, xct2 = bin_inject.inject_fwd(x, *tables, iw)
     rpre, rxct = bin_inject.inject_fwd_plain(x, *tables, iw)
     torch.cuda.synchronize()
+    if not (torch.equal(pre, pre2) and torch.equal(xct, xct2)):
+        raise AssertionError("inject_fwd: a rerun is not bit-equal")
+    Dp = iw.sw.Dp
+    same_xp = torch.equal(xct[:Dp], rxct[:Dp])
     ops = 2 * snz * D + n * 2 * w_proj + 10 * tet_ops
     nbytes = (D * A + D * A + 3 * D * A) * isz + table_bytes + w_proj * isz
-    record("inject_fwd", [(pre, rpre, None), (xct, rxct, None)],
-           time_ms(lambda: bin_inject.inject_fwd(x, *tables, iw)),
-           time_ms(lambda: bin_inject.inject_fwd_plain(x, *tables, iw), iters=5), ops, nbytes)
+    plain_ms = time_ms(lambda: bin_inject.inject_fwd_plain(x, *tables, iw), iters=5)
+    ms, timing, names = bwd_record("c3-kernel", "inject_fwd", dt,
+                                   lambda: bin_inject.inject_fwd(x, *tables, iw), plain_ms)
+    tiled = bool(launches_named(names, "inject_fwd_tile_kernel"))
+    print(f"[c3-kernel] inject_fwd: rerun bit-equal=True; x' rows equal to the plain "
+          f"version's={same_xp}; {'the tiled kernel' if tiled else 'one block a bin'}", flush=True)
+    if hasattr(bin_inject, "kbT_stream") and not (tiled and same_xp):
+        raise AssertionError(f"inject_fwd: kernels {names}, x' equal {same_xp}")
+    record("inject_fwd", [(pre, rpre, None), (xct, rxct, None)], ms, plain_ms, ops, nbytes)
+    res["inject_fwd"]["timing"] = timing
 
     # --- kernel 1d, serving form and training form: layer(pre) + pre
     w_layer = 2 * D * 2 * D + nblk * 2 * D * D
@@ -1410,20 +1586,12 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
 
     # --- kernel 4, inject backward: dx through the projection, the
     # polynomial and the equilibration, and d_kb, d_b: the cast of kernel
-    # 1d's cotangent, the kernel and the contraction, in the package's own
-    # form (this tree: the product in the grouped contraction, which the
-    # round launches with kernel 1d's products; before it, the split-K wgrad)
-    import inspect
-
-    grouped = "extra" in inspect.signature(bin_mp.mp_layer_bwd).parameters
-
+    # 1d's cotangent, the kernel and its product in the grouped contraction
+    # (which the round launches with kernel 1d's products)
     def bwd():
         dp = rg32.to(dt)
         dx = bin_inject.inject_bwd(x, *tables, iw, rxct, dp)
-        if grouped:
-            ((dkbT, db),) = bin_mp.wgrad_group([(dp, rxct, rg32)])
-        else:
-            dkbT, db = bin_mp.wgrad(dp, rxct, bias_src=rg32)
+        ((dkbT, db),) = bin_mp.wgrad_group([(dp, rxct, rg32)])
         return dx, dkbT, db
 
     def bwd_plain():
@@ -1441,9 +1609,9 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     ms, timing, names = bwd_record("c3-kernel", "inject_bwd", dt, bwd, plain_ms)
     print(f"[c3-kernel] inject_bwd: rerun bit-equal=True; "
           f"{'the tiled kernel' if launches_named(names, 'inject_bwd_tile') else 'one block a bin'}"
-          f", contraction {'wgrad_group' if grouped else 'wgrad'}", flush=True)
-    if grouped and not (launches_named(names, "inject_bwd_tile_kernel") == 1
-                        and launches_named(names, "wgrad_kernel") == 0):
+          f", contraction wgrad_group", flush=True)
+    if not (launches_named(names, "inject_bwd_tile_kernel") == 1
+            and launches_named(names, "wgrad_kernel") == 0):
         raise AssertionError(f"inject_bwd: kernels {names}")
     record("inject_bwd", list(zip(got, want, [None] * 3)), ms, plain_ms, ops, nbytes)
     res["inject_bwd"]["timing"] = timing
@@ -2681,9 +2849,9 @@ def main() -> int:
     tmodel = pkg.models.gnn.GNN(tcfg)
     tmodel.load_state_dict(params_from_flax(init_params(tcfg, args.seed)))
     tmodel.to("cuda")
-    for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed).items():
+    for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build).items():
         res[(name, torch.bfloat16)] = r
-    res.update(check_fold_kernels(pkg, tcfg, tmodel, tbatch, args.seed))
+    res.update(check_fold_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build))
     full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
                                        cfg.num_shells)
     launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
@@ -2937,8 +3105,9 @@ def main() -> int:
         })
     steps = {k: round(v, 3) for k, v in STEP_DEVICE_MS.items()
              if k in ("train", "c3-train", "c1-train", "fold-train on", "fold-train off")}
-    print(f"[bwd-record] {card}: the backward forms of kernels 1b, 1d, 4 and 5 (device ms, "
-          f"split, host us a call) {json.dumps(BWD_RECORD)}; train steps' device ms "
+    print(f"[bwd-record] {card}: the backward forms of kernels 1b, 1d, 3, 1c-vocab's pool, 4 "
+          f"and 5 and kernel 4's forward (device ms, split, host us a call) "
+          f"{json.dumps(BWD_RECORD)}; train steps' device ms "
           f"{json.dumps(steps)}", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -248,6 +248,10 @@ def test_stack_serving_unchanged_by_training_form(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(359, 153, 256, 16, 256), (21, 13, 32, 12, 64)])
 def test_attnpool_kernels_match_plain(dev, dtype, shape):
+    """Kernel 3 against its plain versions; molecules scattered over each
+    bin, so across its 64-atom tiles.  bf16 runs the tiled backward, fp32
+    the kernel of one block per bin; both take d_kb from one grouped
+    contraction a call; the backward twice, bit-equal."""
     from aimnet_x2d_tpu_torch.ops import bin_attnpool
 
     Ds, Do, E, mb, ab = shape
@@ -269,34 +273,50 @@ def test_attnpool_kernels_match_plain(dev, dtype, shape):
     gps = torch.randn(Ds, nb * mb, generator=g, device=dev)
     gpo = torch.randn(Do, nb * mb, generator=g, device=dev)
     gcov = torch.randn(nb * mb, generator=g, device=dev)
-    demb, dxo, grads = bin_attnpool.attnpool_bwd(emb, xo, pm, w, "silu", ref[3], gps, gpo, gcov)
-    rdemb, rdxo, rgrads = bin_attnpool.attnpool_bwd_plain(emb, xo, pm, w, "silu", ref[3], gps,
-                                                          gpo, gcov)
+    args = (emb, xo, pm, w, "silu", ref[3], gps, gpo, gcov)
+    b0, g0 = bin_attnpool.attnpool_bwd.launches, bin_mp.wgrad_group.launches
+    demb, dxo, grads = bin_attnpool.attnpool_bwd(*args)
+    again = bin_attnpool.attnpool_bwd(*args)
+    assert (bin_attnpool.attnpool_bwd.launches, bin_mp.wgrad_group.launches) == (b0 + 2, g0 + 2)
+    rdemb, rdxo, rgrads = bin_attnpool.attnpool_bwd_plain(*args)
     torch.cuda.synchronize()
+    Dsp = w.kbT.shape[0]
+    key = (int(dtype == torch.bfloat16), Dsp, E, H, Ds, Do, mb, ab, 0)
+    assert bin_attnpool._BWD_TILES[key] == (dtype == torch.bfloat16)
     assert _rel(demb, rdemb) < tol and _rel(dxo, rdxo) < tol
     # d_sb is a sum of terms that cancel to 0: held to the scale of d_ks
     for i, (a, b) in enumerate(zip(grads, rgrads)):
         scale = float(rgrads[2].abs().max()) if i == 4 else float(b.abs().max())
         assert float((a - b).abs().max()) / scale < tol
+    for a, b in zip((demb, dxo, *grads), (again[0], again[1], *again[2])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wgrad_group_matches_matmul(dev, dtype):
     """The grouped contraction against fp32 matmuls and row sums: the walk's
     shapes (M 160 by N 320 and 160), a product whose M is not a multiple of
-    64, one past GROUP_MAX products (two launches), a bias source."""
+    64, one past GROUP_MAX products (two launches), a bias source, and two
+    gathered products (X looked up from code rows and a table: the attention
+    pool's M 368 and the stack fold's M 160 with a bias source)."""
+    from aimnet_x2d_tpu_torch.ops import embed
+
     g = torch.Generator(device=dev).manual_seed(1)
     A = 10 * 1024
     r = lambda m: torch.randn(m, A, generator=g, device=dev)  # noqa: E731
+    codes, vt, _ = _vocab_case(dev, 256, 40, 256, dtype, 3)
+    gx = bin_mp.GatheredX(codes, vt)
     shapes = [(160, 320), (160, 320), (160, 160), (160, 160), (48, 16), (32, 64)]
     prods = [(r(m).to(dtype), r(n).to(dtype), None) for m, n in shapes]
     prods.append((r(160).to(dtype), r(256).to(dtype), r(160)))
+    prods += [(r(368).to(dtype), gx, None), (r(160).to(dtype), gx, r(160))]
     prods += [(r(16).to(dtype), r(16).to(dtype), None)] * (bin_mp.GROUP_MAX - len(prods) + 1)
     before = bin_mp.wgrad_group.launches
     got = bin_mp.wgrad_group(prods)
     assert bin_mp.wgrad_group.launches == before + 1
     for (dw, db), (dY, X, b) in zip(got, prods):
-        assert _rel(dw, dY.float() @ X.float().T) < 1e-4
+        Xd = embed.embed_from_codes(X.codes, X.vt) if isinstance(X, bin_mp.GatheredX) else X
+        assert _rel(dw, dY.float() @ Xd.float().T) < 1e-4
         assert _rel(db, (b if b is not None else dY.float()).sum(1)) < 1e-4
     again = bin_mp.wgrad_group(prods)
     assert all(torch.equal(a, b) for p, q in zip(got, again) for a, b in zip(p, q))
@@ -304,18 +324,6 @@ def test_wgrad_group_matches_matmul(dev, dtype):
         bin_mp.wgrad_group([(r(24).to(dtype), r(32).to(dtype), None)])
     with pytest.raises(TypeError):  # mixed dtypes
         bin_mp.wgrad_group([(r(16).to(dtype), r(16).half(), None)])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wgrad_matches_matmul(dev, dtype):
-    g = torch.Generator(device=dev).manual_seed(0)
-    dY = torch.randn(160, 10 * 1024, generator=g, device=dev).to(dtype)
-    X = torch.randn(320, 10 * 1024, generator=g, device=dev).to(dtype)
-    dw, db = bin_mp.wgrad(dY, X)
-    assert _rel(dw, dY.float() @ X.float().T) < 1e-4
-    assert _rel(db, dY.float().sum(1)) < 1e-4
-    dw2, _ = bin_mp.wgrad(dY, X)
-    assert torch.equal(dw, dw2)  # fixed-order sums: the same bits every run
 
 
 # ---- config 3: kernel 1d (the stack kernels launched for one layer:
@@ -434,11 +442,12 @@ def _c3_case(D, nb, ab, mb, tc, case, seed):
 def test_inject_kernels_match_plain(dev, D, dtype, case):
     """Kernel 4 against its plain versions: the inject kernels alone, then
     the whole round (inject + kernel 1d) forward and backward against the
-    same function on the CPU.  bf16 backs up on the tiled kernel (bins of 2
-    and 4 tiles, molecules and centres across tile borders), fp32 on the
-    kernel of one block per bin; d_kb and d_b join kernel 1d's one grouped
-    contraction.  The backward alone and the round's backward twice,
-    bit-equal."""
+    same function on the CPU.  bf16 runs the tiled kernels, forward and
+    backward (bins of 2 and 4 tiles, molecules and centres across tile
+    borders), fp32 the kernels of one block per bin; d_kb and d_b join
+    kernel 1d's one grouped contraction.  The forward, the backward alone and
+    the round's backward twice, bit-equal; the tiled forward's x' rows equal
+    the plain version's."""
     from aimnet_x2d_tpu_torch.ops import bin_inject
 
     nb, ab, mb, tc = (6, 256, 16, 24) if D == 153 else (3, 128, 12, 8)
@@ -453,19 +462,22 @@ def test_inject_kernels_match_plain(dev, D, dtype, case):
     iw = bin_inject.prep_inject(t["kb"], t["b"], t["lws"], dtype)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     counters = (bin_inject.inject_fwd, bin_inject.inject_bwd, bin_mp.mp_layer_fwd_train,
-                bin_mp.mp_layer_bwd, bin_mp.mp_layer_fwd, bin_mp.wgrad_group, bin_mp.wgrad)
+                bin_mp.mp_layer_bwd, bin_mp.mp_layer_fwd, bin_mp.wgrad_group)
     before = [k.launches for k in counters]
     # the inject kernels alone
     pre, xct = bin_inject.inject_fwd(x, *tables, iw)
+    pre2, xct2 = bin_inject.inject_fwd(x, *tables, iw)
     rpre, rxct = bin_inject.inject_fwd_plain(x, *tables, iw)
     dpre = bin_mp._pad_rows(t["dpre"], iw.sw.Dp).to(dtype)
     dx = bin_inject.inject_bwd(x, *tables, iw, rxct, dpre)
     dx2 = bin_inject.inject_bwd(x, *tables, iw, rxct, dpre)
     rdx = bin_inject.inject_bwd_plain(x, *tables, iw, rxct, dpre)
     torch.cuda.synchronize()
-    tiled = bin_inject._BWD_TILES[(int(dtype == torch.bfloat16), iw.sw.Dp, mb, ab, tc)]
-    assert tiled == (dtype == torch.bfloat16)
-    assert torch.equal(dx, dx2)
+    key = (int(dtype == torch.bfloat16), iw.sw.Dp, mb, ab, tc)
+    assert bin_inject._FWD_TILES[key] == bin_inject._BWD_TILES[key] == (dtype == torch.bfloat16)
+    assert torch.equal(pre, pre2) and torch.equal(xct, xct2) and torch.equal(dx, dx2)
+    if dtype == torch.bfloat16:  # x' is formed by the same fp32 sums, rounded once
+        assert torch.equal(xct[: iw.sw.Dp], rxct[: iw.sw.Dp])
     errs = {"pre": _rel(pre, rpre), "xct": _rel(xct, rxct), "dx": _rel(dx, rdx)}
     # the whole round (inject + kernel 1d), training form with dropout and
     # its backward, against the same function on CPU copies (plain versions)
@@ -488,8 +500,8 @@ def test_inject_kernels_match_plain(dev, D, dtype, case):
     assert max(errs.values()) < tol
     # two card rounds: each one inject forward and backward, one layer
     # forward and backward, one grouped contraction (the layer's products
-    # and the inject's), no split-K wgrad
-    assert [k.launches - b for k, b in zip(counters, before)] == [3, 4, 2, 2, 0, 2, 0]
+    # and the inject's)
+    assert [k.launches - b for k, b in zip(counters, before)] == [4, 4, 2, 2, 0, 2]
     # serving form without dropout: the training form's result, bit for bit
     out0 = bin_inject.binned_inject_mp_layer_train_t(
         x, *tables, t["adj"], t["kb"], t["b"], t["lws"], dtype, "silu")
@@ -748,6 +760,11 @@ def test_stack_vocab_kernels_match_plain(dev, D, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(359, 153, 256, 256), (21, 13, 32, 64)])
 def test_attnpool_vocab_kernels_match_plain(dev, dtype, shape, mb):
+    """1c-vocab at the pool's site against its plain versions and the emb
+    form; molecules scattered over each bin.  bf16 runs the tiled backward,
+    fp32 the kernel of one block per bin; both take d_kb from one grouped
+    contraction a call (the embeddings gathered); the backward twice,
+    bit-equal."""
     from aimnet_x2d_tpu_torch.ops import bin_attnpool
 
     Ds, Do, E, ab = shape
@@ -773,12 +790,16 @@ def test_attnpool_vocab_kernels_match_plain(dev, dtype, shape, mb):
     gpo = torch.randn(Do, nb * mb, generator=g, device=dev)
     gcov = torch.randn(nb * mb, generator=g, device=dev)
     args = (codes, xo, pm, w, "silu", ref[3], gps, gpo, gcov, vt)
-    b0 = bin_attnpool.attnpool_bwd_vocab.launches
+    b0, g0 = bin_attnpool.attnpool_bwd_vocab.launches, bin_mp.wgrad_group.launches
     d_bd, dxo, grads = bin_attnpool.attnpool_bwd_vocab(*args)
     assert bin_attnpool.attnpool_bwd_vocab.launches == b0 + 1
     rd_bd, rdxo, rgrads = bin_attnpool.attnpool_bwd_vocab_plain(*args)
     again = bin_attnpool.attnpool_bwd_vocab(*args)
+    assert bin_mp.wgrad_group.launches == g0 + 2
     torch.cuda.synchronize()
+    key = (int(dtype == torch.bfloat16), w.kbT.shape[0], E, H, Ds, Do, mb, ab,
+           vt.Df * vt.offsets[-1])
+    assert bin_attnpool._BWD_TILES[key] == (dtype == torch.bfloat16)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     errs = {"d_bd": _rel(d_bd, rd_bd), "dxo": _rel(dxo, rdxo)}
     # d_sb is a sum of terms that cancel to 0: held to the scale of d_ks
@@ -841,7 +862,7 @@ def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
     and dropout off and on; the backward twice, bit-equal; one launch each.
     bf16 backs up on the stack's walk (csrc/walk.cuh), fp32 on the slab
     kernel; both take the layer's weight gradients from one grouped
-    contraction a call and none from ``wgrad``."""
+    contraction a call."""
     g = torch.Generator(device=dev).manual_seed(D + int(100 * rate))
     A = 6 * 256
     sw = bin_mp.stack_weights([_ext_layer(dev, D, g)], dtype)
@@ -851,12 +872,12 @@ def test_ext_layer_kernels_match_plain(dev, D, dtype, rate):
     xa = xa.to(dtype)
     gy = (torch.randn(D, A, generator=g, device=dev) * 0.1).to(dtype)
     f0, b0 = bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches
-    w0, g0 = bin_mp.wgrad.launches, bin_mp.wgrad_group.launches
+    g0 = bin_mp.wgrad_group.launches
     out = bin_mp.mp_ext_fwd(xa, sw, spec)
     dxa, grads = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
     dxa2, grads2 = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
     assert (bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches) == (f0 + 1, b0 + 2)
-    assert (bin_mp.wgrad.launches, bin_mp.wgrad_group.launches) == (w0, g0 + 2)
+    assert bin_mp.wgrad_group.launches == g0 + 2
     walk = bin_mp._EXT_WALK[(int(dtype == torch.bfloat16), sw.Dp, sw.n_blocks)]
     assert walk == (dtype == torch.bfloat16)
     ref = bin_mp.mp_ext_plain(xa, sw, spec)
