@@ -39,7 +39,9 @@
 //
 // Its device pieces (the weight ring, the warp tiles, ring_product,
 // smem_product, epilogue, the adjacency blocks) are also the building
-// blocks of kernel 4's tiled backward (csrc/inject.cu).
+// blocks of kernel 4's tiled kernels (csrc/inject.cu), the attention pool's
+// tiled backward (csrc/attnpool.cu) and the stack's tiled forward
+// (csrc/mp_stack.cu).
 #pragma once
 
 #include <cooperative_groups.h>

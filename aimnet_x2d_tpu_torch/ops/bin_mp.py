@@ -13,7 +13,12 @@ in the feature-major layout: x is (D, A) with A = nb * ab.  On a CUDA tensor
 :func:`binned_mp_stack_t` launches the hand-written kernel
 (``csrc/mp_stack.cu``); on a CPU tensor it runs :func:`mp_stack_plain`, the
 plain PyTorch version of the same arithmetic.  Both take the weights
-prepped once per model load (:func:`stack_weights`).
+prepped once per model load (:func:`stack_weights`).  In bf16, every form
+of the forward runs on 64-atom tiles (``stack_fwd_tile_kernel``, a cluster
+of tiles a bin, its weights in one stream, :func:`fwd_weights`) where the
+shape fits them (:func:`_takes_tiles`); fp32 and the other shapes launch
+the kernel of one block a bin.  ``_launch_tiles`` and ``_launch_bins``
+count the launches of each.
 
 Cast points (as the JAX kernel): fp32 accumulation -> cast to the compute
 dtype -> bias add in the compute dtype -> activation; the residual adds
@@ -166,7 +171,12 @@ def mp_stack_plain(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, ac
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("mp_stack")
+    return type_lib(cuda_build.load("mp_stack"))
+
+
+def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the stack forward library's
+    entry points (once); also for its marked build (chip_smoke.py)."""
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.mp_stack_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, vp]
@@ -177,8 +187,125 @@ def _lib() -> ctypes.CDLL:
         lib.mp_stack_smem_limit.restype = ctypes.c_longlong
         lib.mp_stack_error_string.argtypes = [i]
         lib.mp_stack_error_string.restype = ctypes.c_char_p
+        u, f = ctypes.c_uint, ctypes.c_float
+        lib.mp_stack_tiles.argtypes = [vp] * 4 + [i] + [vp] * 4 + [i] * 11 + [u, u, f, vp]
+        lib.mp_stack_tiles.restype = i
+        lib.mp_stack_tiles_smem_bytes.argtypes = [i] * 4
+        lib.mp_stack_tiles_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_stack_tiles_stream_elems.argtypes = [i] * 4
+        lib.mp_stack_tiles_stream_elems.restype = ctypes.c_longlong
+        lib.mp_stack_fwd_train.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [i] * 13 + [u, u, f, vp]
+        lib.mp_stack_fwd_train.restype = i
+        lib.mp_stack_fwd_train_vocab.argtypes = [vp, vp, vp, i] + [vp] * 6 + [i] * 12 + [u, u, f, vp]
+        lib.mp_stack_fwd_train_vocab.restype = i
         lib._typed = True
     return lib
+
+
+# ---- the bf16 forward on tiles: its weight stream and launch ------------- #
+
+def fwd_stream_elems(Dp: int, n_blocks: int, n_layers: int, E: int = 0) -> int:
+    """Elements of the forward's weight stream (the C entry
+    ``mp_stack_tiles_stream_elems``): the stages, then the biases."""
+    kp = lambda k: -(-k // 32) * 32  # noqa: E731
+    stages = ((kp(E) if E else 0) + n_layers * (2 * kp(2 * Dp) + 2 * n_blocks * kp(Dp))) // 32
+    return stages * Dp * 32 + (Dp if E else 0) + n_layers * (2 + 2 * n_blocks) * Dp
+
+
+def _tile_index(R: int, C: int, base: int) -> np.ndarray:
+    """Positions of a tile-major (R, C) matrix's elements that starts at
+    ``base`` (:func:`tile_major`), as an (R, C) array."""
+    r, c = np.arange(R)[:, None], np.arange(C)[None, :]
+    return base + ((r // 16) * (C // 16) + c // 16) * 256 + (r % 16) * 16 + c % 16
+
+
+def fwd_stream_index(Dp: int, n_blocks: int, n_layers: int, E: int = 0) -> np.ndarray:
+    """Positions in ``cat([sw.flat, pw.flat])`` (bf16, tile-major matrices;
+    ``pw`` only under the fold, E > 0) of every element of the forward's
+    weight stream, in the order the tile kernel uses them: the fold's kb^T,
+    then per layer W_in, W1_0, W2_0, ..., W1_{n-1}, W2_{n-1}, W_s, each in
+    :func:`frag_stream` order, then the biases: bb (fold), then per layer
+    b_in, b1_0, b2_0, ..., b_s; the length of the concatenation marks a zero."""
+    layer_sz = 2 * (2 * Dp * Dp + Dp) + n_blocks * 2 * (Dp * Dp + Dp)
+    pbase = n_layers * layer_sz
+    zero = pbase + (E * Dp + Dp if E else 0)
+    mats, biases = [], []
+    if E:
+        mats.append(_tile_index(Dp, E, pbase))
+        biases.append(pbase + E * Dp + np.arange(Dp))
+    for l in range(n_layers):
+        o = l * layer_sz
+        mats.append(_tile_index(Dp, 2 * Dp, o))
+        biases.append(o + 2 * Dp * Dp + np.arange(Dp))
+        w_s = _tile_index(Dp, 2 * Dp, o + 2 * Dp * Dp + Dp)
+        b_s = o + 4 * Dp * Dp + Dp + np.arange(Dp)
+        o += 2 * (2 * Dp * Dp + Dp)
+        for _ in range(n_blocks):
+            mats += [_tile_index(Dp, Dp, o), _tile_index(Dp, Dp, o + Dp * Dp + Dp)]
+            biases += [o + Dp * Dp + np.arange(Dp), o + 2 * Dp * Dp + Dp + np.arange(Dp)]
+            o += 2 * (Dp * Dp + Dp)
+        mats.append(w_s)
+        biases.append(b_s)
+    return np.concatenate([frag_stream(m, zero) for m in mats] + biases)
+
+
+_FWD_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def fwd_weights(sw: StackWeights, pw: Optional["ProjWeights"] = None) -> torch.Tensor:
+    """The forward's weight stream (bf16): one gather from ``sw.flat`` and,
+    under the fold, ``pw.flat`` by :func:`fwd_stream_index` (the index
+    cached per shape and device)."""
+    E = pw.E if pw is not None else 0
+    key = (sw.Dp, sw.n_blocks, len(sw.layers), E, sw.flat.device)
+    idx = _FWD_INDEX.get(key)
+    if idx is None:
+        idx = _FWD_INDEX[key] = torch.from_numpy(
+            fwd_stream_index(sw.Dp, sw.n_blocks, len(sw.layers), E)).to(sw.flat.device)
+    parts = [sw.flat] + ([pw.flat] if pw is not None else []) + [sw.flat.new_zeros(1)]
+    return torch.cat(parts)[idx]
+
+
+_FWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dp, ab, n_blocks, n_layers, E) -> the tiles take it
+
+
+def _takes_tiles(lib, bf16: int, Dp: int, ab: int, nblk: int, L: int, E: int) -> bool:
+    """Whether the bf16 forward on tiles (``stack_fwd_tile_kernel``) takes
+    the shape; else ``mp_stack_kernel`` runs it.  Asked of the library once
+    per shape, which also checks the weight stream's length."""
+    key = (bf16, Dp, ab, nblk, L, E)
+    if key not in _FWD_TILES:
+        tiles = bool(bf16) and lib.mp_stack_tiles_smem_bytes(Dp, ab, nblk, E) >= 0
+        if tiles and lib.mp_stack_tiles_stream_elems(Dp, nblk, L, E) != fwd_stream_elems(
+                Dp, nblk, L, E):
+            raise RuntimeError("mp_stack_tiles: the weight stream's length disagrees")
+        _FWD_TILES[key] = tiles
+    return _FWD_TILES[key]
+
+
+def _launch_tiles(what: str, lib, x: torch.Tensor, adj: torch.Tensor, sw: StackWeights, act: str,
+                  out: torch.Tensor, xs: Optional[torch.Tensor] = None, xs_first: int = 0,
+                  drop=(0, 0, 0, 1.0), pw: Optional["ProjWeights"] = None,
+                  vt: Optional[VocabTable] = None) -> None:
+    """One launch of the bf16 forward on tiles (every form: x the input, or
+    under the fold emb, or with ``vt`` the code rows); ``xs`` (n, D, A), if
+    given, receives the inputs of layers ``xs_first``..; ``drop`` is
+    (on, seed, threshold, scale).  Raises on a launch error."""
+    nb, ab, _ = adj.shape
+    table = ((x.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), len(vt.sizes)) if vt is not None
+             else (None, None, None, 0))
+    ws = fwd_weights(sw, pw)
+    status = lib.mp_stack_tiles(
+        None if vt is not None else x.data_ptr(), *table, out.data_ptr(),
+        xs.data_ptr() if xs is not None and xs.numel() else None, adj.data_ptr(), ws.data_ptr(),
+        sw.D, sw.Dp, pw.E if pw is not None else 0, nb * ab, nb, ab, len(sw.layers), sw.n_blocks,
+        ACTIVATION_CODES[act.lower()], xs_first, *drop, _stream(x.device))
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+    _launch_tiles.launches += 1
+
+
+_launch_tiles.launches = 0
 
 
 def _check_shapes(what: str, x, adj, sw, E=None, want=None):
@@ -214,6 +341,11 @@ def _launch_fwd(what: str, xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWei
     lib = _lib()
     bf16 = int(xT.dtype == torch.bfloat16)
     Dp = sw.Dp
+    if _takes_tiles(lib, bf16, Dp, ab, sw.n_blocks, len(sw.layers), 0):
+        out = torch.empty(D, A, dtype=xT.dtype, device=xT.device)
+        if nb:
+            _launch_tiles(what, lib, xT, bin_adj, sw, act, out)
+        return out
     limit = lib.mp_stack_smem_limit()
     global_mode = int(lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, 0) > limit)
     if lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, global_mode) > limit:
@@ -226,14 +358,23 @@ def _launch_fwd(what: str, xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWei
         agg = out  # unused in shared-memory mode
     n_layers = len(sw.layers)
     if nb:
-        status = lib.mp_stack_fwd(
-            xT.data_ptr(), out.data_ptr(), agg.data_ptr(), bin_adj.data_ptr(), sw.flat.data_ptr(),
-            bf16, D, Dp, A, nb, ab, n_layers, sw.n_blocks, ACTIVATION_CODES[act.lower()], global_mode,
-            torch.cuda.current_stream(xT.device).cuda_stream,
-        )
-        if status != 0:
-            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+        _launch_bins(what, lib, lib.mp_stack_fwd, xT.data_ptr(), out.data_ptr(), agg.data_ptr(),
+                     bin_adj.data_ptr(), sw.flat.data_ptr(), bf16, D, Dp, A, nb, ab, n_layers,
+                     sw.n_blocks, ACTIVATION_CODES[act.lower()], global_mode, _stream(xT.device))
     return out[:D] if global_mode else out
+
+
+def _launch_bins(what: str, lib, entry, *args) -> None:
+    """One launch of ``mp_stack_kernel`` (one block a bin: fp32 and the bf16
+    shapes the tiles do not take) through the C ``entry``; raises on a
+    launch error."""
+    status = entry(*args)
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+    _launch_bins.launches += 1
+
+
+_launch_bins.launches = 0
 
 
 def mp_stack_fwd(xT: torch.Tensor, bin_adj: torch.Tensor, sw: StackWeights, act: str) -> torch.Tensor:
@@ -387,6 +528,12 @@ class StackSpec:
         if self.rate <= 0.0:
             return None
         return self.rate, self.seed, l * n_blocks + i
+
+    def kernel_drop(self, dt: torch.dtype):
+        """The forward kernels' dropout arguments: (on, seed bits, mask
+        threshold, scale rounded to ``dt``)."""
+        return (int(self.rate > 0), self.seed & _M32, drop_threshold(self.rate),
+                drop_scale(self.rate, dt) if self.rate > 0 else 1.0)
 
 
 def _apply_drop(v: torch.Tensor, drop, col0: int = 0) -> torch.Tensor:
@@ -577,18 +724,6 @@ def unprep_layer_grads(sw: StackWeights, lg: Sequence[torch.Tensor]) -> List[tor
 # ---- CUDA wrappers of the training kernels -------------------------------- #
 
 
-def _lib_train() -> ctypes.CDLL:
-    lib = _lib()
-    if not getattr(lib, "_typed_train", False):
-        vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        lib.mp_stack_fwd_train.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [i] * 13 + [u, u, f, vp]
-        lib.mp_stack_fwd_train.restype = i
-        lib.mp_stack_fwd_train_vocab.argtypes = [vp, vp, vp, i] + [vp] * 6 + [i] * 12 + [u, u, f, vp]
-        lib.mp_stack_fwd_train_vocab.restype = i
-        lib._typed_train = True
-    return lib
-
-
 def _lib_bwd() -> ctypes.CDLL:
     lib = cuda_build.load("mp_stack_bwd")
     if not getattr(lib, "_typed", False):
@@ -650,10 +785,19 @@ def _launch_fwd_train(what: str, x: torch.Tensor, adj: torch.Tensor, sw: StackWe
     cuda_build.check_cuda(what, x.device, *named)
     if spec.act.lower() not in ACTIVATION_CODES:
         raise ValueError(f"{what}: unsupported activation {spec.act!r}")
-    lib = _lib_train()
+    lib = _lib()
     dt = sw.dtype
     bf16 = int(dt == torch.bfloat16)
     D, Dp, L = sw.D, sw.Dp, len(sw.layers)
+    dev = x.device
+    first = 0 if pw is not None else 1
+    drop = spec.kernel_drop(dt)
+    if _takes_tiles(lib, bf16, Dp, ab, sw.n_blocks, L, E or 0):
+        out = torch.empty(D, A, dtype=dt, device=dev)
+        xs = torch.empty(L - first, D, A, dtype=dt, device=dev)
+        if nb:
+            _launch_tiles(what, lib, x, adj, sw, spec.act, out, xs, first, drop, pw, vt)
+        return out, list(xs.unbind(0))
     limit = lib.mp_stack_smem_limit()
     global_mode = int(lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, 0) > limit)
     if lib.mp_stack_smem_bytes(bf16, Dp, ab, sw.n_blocks, global_mode) > limit:
@@ -661,31 +805,21 @@ def _launch_fwd_train(what: str, x: torch.Tensor, adj: torch.Tensor, sw: StackWe
     if vt is not None and E > max(ab, 2 * Dp):
         # the looked-up tile borrows the block's adjacency scratch
         raise ValueError(f"{what}: E={E} exceeds the scratch rows max(ab, 2 Dp)")
-    dev = x.device
     out = torch.empty(Dp if global_mode else D, A, dtype=dt, device=dev)
     agg = torch.empty(Dp, A, dtype=dt, device=dev) if global_mode else out
-    first = 0 if pw is not None else 1
     xs = torch.empty(L - first, D, A, dtype=dt, device=dev)
-    drop = (int(spec.rate > 0), spec.seed & _M32, drop_threshold(spec.rate),
-            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0)
     if nb and vt is not None:
-        status = lib.mp_stack_fwd_train_vocab(
-            x.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), len(vt.sizes), out.data_ptr(),
-            agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(), pw.flat.data_ptr(), xs.data_ptr(),
-            bf16, D, Dp, E, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
-            global_mode, *drop, _stream(dev),
-        )
-        if status != 0:
-            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+        _launch_bins(what, lib, lib.mp_stack_fwd_train_vocab, x.data_ptr(), vt.bd.data_ptr(),
+                     _sizes_arg(vt), len(vt.sizes), out.data_ptr(), agg.data_ptr(),
+                     adj.data_ptr(), sw.flat.data_ptr(), pw.flat.data_ptr(), xs.data_ptr(), bf16,
+                     D, Dp, E, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
+                     global_mode, *drop, _stream(dev))
     elif nb:
-        status = lib.mp_stack_fwd_train(
-            x.data_ptr(), out.data_ptr(), agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
-            pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(),
-            bf16, D, Dp, E or 0, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
-            global_mode, first, *drop, _stream(dev),
-        )
-        if status != 0:
-            raise RuntimeError(f"{what}: {lib.mp_stack_error_string(status).decode()}")
+        _launch_bins(what, lib, lib.mp_stack_fwd_train, x.data_ptr(), out.data_ptr(),
+                     agg.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
+                     pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(), bf16, D, Dp,
+                     E or 0, A, nb, ab, L, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()],
+                     global_mode, first, *drop, _stream(dev))
     return (out[:D] if global_mode else out), list(xs.unbind(0))
 
 
@@ -987,24 +1121,20 @@ def walk_stream_index(Dp: int, n_blocks: int, n_layers: int) -> np.ndarray:
     W1_0^T (the walk back), the agg rows and then the x rows of
     [W_s^T | W_in^T] (dxa), each in :func:`frag_stream` order, then the
     biases b_in, b1_0, b2_0, b1_1, ...; ``len(flat)`` marks a zero."""
-    def tiles(R, C, base):
-        r, c = np.arange(R)[:, None], np.arange(C)[None, :]
-        return base + ((r // 16) * (C // 16) + c // 16) * 256 + (r % 16) * 16 + c % 16
-
     layer_sz = 2 * (2 * Dp * Dp + Dp) + n_blocks * 2 * (Dp * Dp + Dp)
     zero = n_layers * layer_sz
     out = []
     for l in range(n_layers):
         o = l * layer_sz
-        w_in = tiles(Dp, 2 * Dp, o)
+        w_in = _tile_index(Dp, 2 * Dp, o)
         b_in = o + 2 * Dp * Dp + np.arange(Dp)
-        w_s = tiles(Dp, 2 * Dp, o + 2 * Dp * Dp + Dp)
+        w_s = _tile_index(Dp, 2 * Dp, o + 2 * Dp * Dp + Dp)
         o += 2 * (2 * Dp * Dp + Dp)
         w1, b1, w2, b2 = [], [], [], []
         for _ in range(n_blocks):
-            w1.append(tiles(Dp, Dp, o))
+            w1.append(_tile_index(Dp, Dp, o))
             b1.append(o + Dp * Dp + np.arange(Dp))
-            w2.append(tiles(Dp, Dp, o + Dp * Dp + Dp))
+            w2.append(_tile_index(Dp, Dp, o + Dp * Dp + Dp))
             b2.append(o + 2 * Dp * Dp + Dp + np.arange(Dp))
             o += 2 * (Dp * Dp + Dp)
         mats = [w_in]
@@ -1424,8 +1554,7 @@ def _check_ext(what: str, xa: torch.Tensor, sw: StackWeights, spec: StackSpec, *
     if spec.act.lower() not in ACTIVATION_CODES:
         raise ValueError(f"{what}: unsupported activation {spec.act!r}")
     cuda_build.check_cuda(what, xa.device, ("xa", xa, 16), ("weights", sw.flat, 32), *named)
-    return (int(spec.rate > 0), spec.seed & _M32, drop_threshold(spec.rate),
-            drop_scale(spec.rate, dt) if spec.rate > 0 else 1.0)
+    return spec.kernel_drop(dt)
 
 
 def mp_ext_fwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec) -> torch.Tensor:

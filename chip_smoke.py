@@ -11,7 +11,10 @@ Phases, each of which fails the run when it fails:
 3. ``[kernel]``: hold each serving kernel against its plain PyTorch version
    at the flagship serving shapes (a batch of 2048 molecules of the
    script's SMILES), in fp32 and bf16, and time kernel, plain version and
-   library yardstick; the weighted pool (kernel 2) also on a pool matrix
+   library yardstick; the stack (kernel 1) reruns bit-equal, is timed as
+   profiler device time by kernel name beside a CUDA-graph replay, and
+   must run the tile kernel in bf16 and the kernel of one block a bin in
+   fp32; the weighted pool (kernel 2) also on a pool matrix
    that is not one-hot, bit-equal on a rerun, timed as device time from
    ``torch.profiler`` in turns with its library call (an einsum that
    weights inside the call), beside the event time of back-to-back calls
@@ -25,6 +28,12 @@ Phases, each of which fails the run when it fails:
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
    (a size-sorted batch of 2048), bf16, and time kernel and plain version;
+   the stack forward reruns bit-equal, is timed as in phase 3 (the tile
+   kernel's route asserted), equals the serving form bit for bit without
+   dropout, and is split by phase (the kernel of one block a bin and the
+   tile kernel) by an instrumented build of ``csrc/mp_stack.cu``
+   (``-DMP_STACK_MARKS``, built beside the kernels in phase 2), with the
+   tile kernel's waits on its weight ring;
    the stack backward (kernel 1b) and the attention pool's backward (kernel
    3) also rerun bit-equal, timed as profiler device time split by part
    (walk or pool kernel, contraction, partial sums, fold) with the wrapper's
@@ -45,7 +54,8 @@ Phases, each of which fails the run when it fails:
    - ``[c3-kernel]``: the inject kernels (kernel 4, forward and backward)
      and kernel 1d (serving form, training form, backward) against their
      plain versions at the config-3 training shape, bf16, timed, with
-     bounds (1d's backward as 1b's in phase 5, fp32 form included); the
+     bounds (1d's forwards rerun bit-equal and are timed as the stack's in
+     phase 3; 1d's backward as 1b's in phase 5, fp32 form included); the
      inject forward (the tiled kernel, x' rows equal to the plain
      version's) and the inject backward (the cast of its cotangent, the
      kernel -- the tiled one -- and d_kb, d_b from the grouped contraction)
@@ -127,7 +137,9 @@ Phases, each of which fails the run when it fails:
      ``attnpool_fwd_vocab``, ``attnpool_bwd_vocab``) against their plain
      versions at the flagship training shapes on the batch's own codes,
      fp32 and bf16, timed with bounds; each backward twice, bit-equal; the
-     pool's backward timed as in phase 5 and, in bf16, split by phase;
+     stack's forward equal to the emb form's bit for bit and timed as in
+     phase 3; the pool's backward timed as in phase 5 and, in bf16, split
+     by phase;
    - ``[fold-train]`` (after phase 6): phase 6 with the switch set in the
      CLI's environment: the folded kernels launch once a step and the
      stack's and pool's emb forms never; then, on one batch, the training
@@ -155,15 +167,17 @@ Phases, each of which fails the run when it fails:
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
 14. print the ``[bwd-record]`` line (the backward forms of kernels 1b, 1d,
-   3, 1c-vocab's pool, 4 and 5 and kernel 4's forward: device time, split,
+   3, 1c-vocab's pool, 4 and 5, kernel 4's forward and the stack's forward
+   forms -- kernels 1, 1d and 1c-vocab's stack site: device time, split,
    host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
    and ``[fold-train]`` steps' device times), the ``kernels`` JSON line, the
    card line and, last, the result line ``{"ok": true, "device": {...}}``.
    Each row of the kernels line names how its times were taken in
    ``timing``: "events" (CUDA events around back-to-back calls from
    Python, host gaps included), "profiler" (the kernels' device time from
-   ``torch.profiler``; kernels 2, 2b, 4's forward and the backwards of 1b,
-   1d, 3, 1c-vocab's pool, 4 and 5) or
+   ``torch.profiler``; kernels 2, 2b, 4's forward, the stack's forwards
+   (1, 1d, 1c-vocab's stack site) and the backwards of 1b, 1d, 3,
+   1c-vocab's pool, 4 and 5) or
    "profiler+graph" (some of them from a CUDA-graph replay where the
    profiler saw no device events).
 
@@ -422,12 +436,15 @@ def host_us(fn, calls: int = 100) -> float:
     return 1e6 * elapsed / calls
 
 
-# the timed forms' parts, by the profiler's kernel names: the walk (the
-# stack's and kernel 5's), kernel 4's inject kernels, the attention pool's
+# the timed forms' parts, by the profiler's kernel names: the stack
+# forward (kernels 1, 1c-vocab's stack site, 1d; the tile kernel or the one
+# of a block a bin), the walk (the stack's and kernel 5's), kernel 4's
+# inject kernels, the attention pool's
 # backward kernels, the weight-gradient contraction, its partial sums, the
 # fold's kernel, the casts to the compute dtype (and other copies) and the
 # gathers of the weight streams
-BWD_PARTS = (("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
+BWD_PARTS = (("stack forward", ("stack_fwd_tile_kernel", "mp_stack_kernel")),
+             ("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
              ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd",)),
              ("contraction", ("wgrad_group", "wgrad_kernel", "wgrad_vocab")),
              ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
@@ -481,6 +498,25 @@ def bwd_record(tag: str, name: str, dt, fn, ms_plain: float):
 def launches_named(names, fragment: str) -> float:
     """Launches a call of the profiler kernels whose names hold ``fragment``."""
     return sum(v for k, v in (names or {}).items() if fragment in k)
+
+
+def check_stack_route(tag: str, name: str, names, dt) -> None:
+    """Print which kernel a stack forward call launched (the profiler's
+    names of one call): bf16 must run the tile kernel where the port has
+    it, fp32 the kernel of one block a bin; one launch a call."""
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+
+    if names is None:
+        print(f"[{tag}] {name}: route not measured (no profiler records)", flush=True)
+        return
+    tiles = launches_named(names, "stack_fwd_tile_kernel")
+    bins = launches_named(names, "mp_stack_kernel")
+    print(f"[{tag}] {name} {str(dt)[6:]}: "
+          f"{'the tile kernel' if tiles else 'the kernel of one block a bin'} ({tiles} + {bins} "
+          "launches a call)", flush=True)
+    want = dt == torch.bfloat16 and hasattr(bin_mp, "fwd_weights")
+    if bool(tiles) != want or tiles + bins != 1:
+        raise AssertionError(f"{name} {dt}: kernels {names}")
 
 
 def in_turns(fns: dict) -> dict:
@@ -580,12 +616,17 @@ def check_kernels(pkg, cfg, batch, seed: int) -> dict:
             sw = bin_mp.stack_weights(layers_ws, dt)
         x = torch.randn(D, A, generator=gen, device=dev).to(dt)
         got = bin_mp.mp_stack_fwd(x, adj, sw, cfg.activation_type)
+        again = bin_mp.mp_stack_fwd(x, adj, sw, cfg.activation_type)
         ref = bin_mp.mp_stack_plain(x, adj, sw, cfg.activation_type)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"mp_stack_fwd {dt}: a rerun is not bit-equal")
         abs_err, rel = rel_err(got, ref)
         tol = TOL[("mp_stack_fwd", dt)]
-        ms = time_ms(lambda: bin_mp.mp_stack_fwd(x, adj, sw, cfg.activation_type))
         plain_ms = time_ms(lambda: bin_mp.mp_stack_plain(x, adj, sw, cfg.activation_type), iters=5)
+        ms, timing, names = bwd_record("kernel", "mp_stack_fwd", dt, lambda: bin_mp.mp_stack_fwd(
+            x, adj, sw, cfg.activation_type), plain_ms)
+        check_stack_route("kernel", "mp_stack_fwd", names, dt)
         isz = torch.tensor([], dtype=dt).element_size()
         w_bytes = L * (2 * D * 2 * D + 2 * D + nblk * (2 * D * D + 2 * D)) * isz
         nbytes = 2 * D * A * isz + nb * ab * ab + w_bytes
@@ -600,7 +641,7 @@ def check_kernels(pkg, cfg, batch, seed: int) -> dict:
             raise AssertionError(f"mp_stack_fwd {dt}: rel err {rel:.3e} > {tol:g}")
         res[("mp_stack_fwd", dt)] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None,
+            bound_by=bound_by, library_ms=None, timing=timing,
         )
 
     res.update(check_wpool_fwd(cfg, batch, seed))
@@ -858,14 +899,30 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     w_mat = L * w_layer
     # --- kernel 1 (training form) + 1c: forward with dropout and the fold
     out, saved = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
+    out2, saved2 = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
     ref, ref_saved = bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw)
     torch.cuda.synchronize()
+    if not (torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(saved, saved2))):
+        raise AssertionError("mp_stack_fwd_train: a rerun is not bit-equal")
+    del out2, saved2
     ops = 2 * n * E * D + L * (2 * nnz * D + n * 2 * w_layer)
     nbytes = (E * A + D * A + L * D * A) * isz + nb * ab * ab + (w_mat + E * D) * isz
+    plain_ms = time_ms(lambda: bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw), iters=5)
+    ms, timing, names = bwd_record("train-kernel", "mp_stack_fwd_train", dt,
+                                   lambda: bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw),
+                                   plain_ms)
+    check_stack_route("train-kernel", "mp_stack_fwd_train", names, dt)
     record("mp_stack_fwd_train", [(out, ref, None)] + [(a, r, None) for a, r in zip(saved, ref_saved)],
-           time_ms(lambda: bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)),
-           time_ms(lambda: bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw), iters=5),
-           ops, nbytes)
+           ms, plain_ms, ops, nbytes)
+    res["mp_stack_fwd_train"]["timing"] = timing
+    # without dropout and the fold, the training form is the serving form bit for bit
+    same = torch.equal(bin_mp.mp_stack_fwd_train(out, adj, sw, bin_mp.StackSpec(act))[0],
+                       bin_mp.mp_stack_fwd(out, adj, sw, act))
+    print(f"[train-kernel] mp_stack_fwd_train without dropout equals mp_stack_fwd: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("mp_stack_fwd_train without dropout differs from mp_stack_fwd")
+    stack_phases(marks_build, "train-kernel", emb, adj, sw, spec, pw)
 
     # --- kernel 1b (+ 1c backward)
     g = (torch.randn(D, A, generator=gen, device=dev) * 0.05).to(dt)
@@ -1005,6 +1062,7 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     timed, with bounds; each backward twice, bit-equal; the pool's backward
     (bf16) split by phase (``attnpool_phases`` on ``marks_build``)."""
     from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.ops.embed import embed_from_codes
 
     dev = torch.device("cuda")
     adj, pm = batch.bin_adj, batch.pool_mat
@@ -1059,14 +1117,27 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
         # --- the stack's training forward, the fold's input looked up
         out, saved = bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt)
         ref, ref_saved = bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt)
+        # the lookup is exact: the emb form computes the same bits
+        out_e, saved_e = bin_mp.mp_stack_fwd_train(embed_from_codes(codes, vt), adj, sw, spec, pw)
         torch.cuda.synchronize()
+        same = torch.equal(out, out_e) and all(torch.equal(a, b) for a, b in zip(saved, saved_e))
+        print(f"[fold-kernel] mp_stack_fwd_train_vocab {str(dt)[6:]}: equal to the emb form "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"mp_stack_fwd_train_vocab {dt}: differs from the emb form")
+        del out_e, saved_e
         ops = 2 * n * E * D + L * (2 * nnz * D + n * 2 * w_layer)
         nbytes = lookup + (D * A + L * D * A) * isz + nb * ab * ab + (L * w_layer + E * D) * isz
+        plain_ms = time_ms(lambda: bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt),
+                           iters=5)
+        ms, timing, names = bwd_record(
+            "fold-kernel", "mp_stack_fwd_train_vocab", dt,
+            lambda: bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt), plain_ms)
+        check_stack_route("fold-kernel", "mp_stack_fwd_train_vocab", names, dt)
         record("mp_stack_fwd_train_vocab",
                [(out, ref, None)] + [(a, r, None) for a, r in zip(saved, ref_saved)],
-               time_ms(lambda: bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt)),
-               time_ms(lambda: bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt), iters=5),
-               ops, nbytes, 1e-4 if f32 else TRAIN_TOL)
+               ms, plain_ms, ops, nbytes, 1e-4 if f32 else TRAIN_TOL)
+        res[("mp_stack_fwd_train_vocab", dt)]["timing"] = timing
         # --- the projection's backward under the fold, from the walk's
         # fp32 cotangent of x0 (which the kernel overwrites: reset per call)
         g_src = torch.randn(sw.Dp, A, generator=gen, device=dev) * 0.05
@@ -1275,17 +1346,25 @@ ATTNPOOL_PHASES = {
 }
 
 
+STACK_PHASES = ("prologue (copy or fold)", "saved inputs and biases", "cluster barrier",
+                "aggregation", "W_in, the MLP blocks and W_s", "residual", "output store")
+
+
 def start_marks_build():
-    """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS`` and on
-    ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS`` beside the kernels' own
-    build: kernel 4's kernels and the attention pool's backward kernels then
-    record a ``%globaltimer`` mark per block, after a block barrier, at every
-    phase boundary.  Returns {source: (the nvcc process, the library's path)}."""
+    """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS``, on
+    ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS`` and on ``csrc/mp_stack.cu``
+    with ``-DMP_STACK_MARKS`` beside the kernels' own build: kernel 4's
+    kernels and the attention pool's backward kernels then record a
+    ``%globaltimer`` mark per block, after a block barrier, at every phase
+    boundary, and the stack forward's kernels each phase's time summed over
+    the layers, as cumulative marks.  Returns {source: (the nvcc process,
+    the library's path)}."""
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS")):
+    for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS"),
+                       ("mp_stack", "-DMP_STACK_MARKS")):
         out = cuda_build.BUILD_DIR / f"{name}_marks.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, flag, "-o", str(out),
                str(cuda_build.CSRC / f"{name}.cu")]
@@ -1312,13 +1391,14 @@ def marks_lib(marks_build, name: str):
 
 
 def print_phases(tag: str, what: str, phases: dict, launches: dict, n_marks: int, set_marks,
-                 error_string) -> None:
+                 error_string) -> dict:
     """Launch each kernel of ``launches`` ({name: (blocks, launch)}) of a
     marked build twice with its marks at a (blocks, n_marks) buffer; print,
     per kernel, the mean time a block spends in each phase, its share of a
     block's time, and the span from the first mark to the last (the marks'
-    barriers included)."""
+    barriers included).  Returns each kernel's marks, (blocks, n_marks)."""
     dev = torch.device("cuda")
+    out = {}
     for name, (blocks, launch) in launches.items():
         n = len(phases[name]) + 1
         marks = torch.zeros(blocks, n_marks, dtype=torch.int64, device=dev)
@@ -1339,6 +1419,8 @@ def print_phases(tag: str, what: str, phases: dict, launches: dict, n_marks: int
         print(f"[{tag}] {what} phases, {name}: {blocks} blocks, span "
               f"{(m[:, -1].max() - m[:, 0].min()) / 1e6:.4f} ms (marked build), a block "
               f"{per.sum():.2f} us: {parts}", flush=True)
+        out[name] = marks.cpu().numpy()
+    return out
 
 
 def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
@@ -1454,6 +1536,54 @@ def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov,
                  lib.attnpool_error_string)
 
 
+def stack_phases(marks_build, tag, x, adj, sw, spec, pw=None) -> None:
+    """The stack forward's training form split by phase (``[train-kernel]``):
+    the kernel of one block a bin and, where the source has it, the tile
+    kernel, of the marked build of ``csrc/mp_stack.cu``, launched twice on
+    these inputs (``print_phases``; each phase summed over the layers)."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+    from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
+
+    lib = marks_lib(marks_build, "mp_stack")
+    if not hasattr(lib, "mp_stack_marks"):
+        print(f"[{tag}] mp_stack_fwd_train phases: not measured (this mp_stack.cu has no marks)",
+              flush=True)
+        return
+    bin_mp.type_lib(lib)
+    lib.mp_stack_marks.argtypes = [ctypes.c_void_p]
+    lib.mp_stack_marks.restype = ctypes.c_int
+    dev, dt = x.device, sw.dtype
+    nb, ab, _ = adj.shape
+    A, D, Dp, L = nb * ab, sw.D, sw.Dp, len(sw.layers)
+    E = pw.E if pw is not None else 0
+    first = 0 if pw is not None else 1
+    out = torch.empty(D, A, dtype=dt, device=dev)
+    xs = torch.empty(L - first, D, A, dtype=dt, device=dev)
+    drop = spec.kernel_drop(dt)
+    act, stream = ACTIVATION_CODES[spec.act.lower()], bin_mp._stream(dev)
+    bf16 = int(dt == torch.bfloat16)
+    launches = {"mp_stack_kernel (one block a bin)": (nb, lambda: lib.mp_stack_fwd_train(
+        x.data_ptr(), out.data_ptr(), out.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
+        pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(), bf16, D, Dp, E, A, nb, ab,
+        L, sw.n_blocks, act, 0, first, *drop, stream))}
+    if hasattr(lib, "mp_stack_tiles") and bf16:
+        ws = bin_mp.fwd_weights(sw, pw)
+        launches["stack_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
+            nb * ab // 64, lambda: lib.mp_stack_tiles(
+                x.data_ptr(), None, None, None, 0, out.data_ptr(), xs.data_ptr(), adj.data_ptr(),
+                ws.data_ptr(), D, Dp, E, A, nb, ab, L, sw.n_blocks, act, first, *drop, stream))
+    marks = print_phases(tag, "mp_stack_fwd_train", {k: STACK_PHASES for k in launches},
+                         launches, 11, lib.mp_stack_marks, lib.mp_stack_error_string)
+    for name, m in marks.items():
+        if "tile" in name:  # marks 8-10: the ring's waits, in the SM's clocks
+            full, refills, clocks = m[:, 8:11].astype(np.float64).mean(0)
+            print(f"[{tag}] mp_stack_fwd_train ring, {name}: a warp waits on landed weight "
+                  f"stages {100 * full / 10 / clocks:.1f}% of its block's clocks; {refills:.0f} "
+                  f"refills, {clocks:.0f} clocks a block", flush=True)
+
+
 def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     """``[c3-kernel]``: kernel 4 (the inject kernels, forward and backward)
     and kernel 1d (one layer: serving form, training form, backward)
@@ -1536,18 +1666,20 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     w_layer = 2 * D * 2 * D + nblk * 2 * D * D
     ops = 2 * nnz * D + n * 2 * w_layer
     nbytes = 2 * D * A * isz + nb * ab * ab + w_layer * isz
-    got = bin_mp.mp_layer_fwd(rpre, adj, sw, act)
-    ref = bin_mp.mp_stack_plain(rpre, adj, sw, act)
-    torch.cuda.synchronize()
-    record("mp_layer_fwd", [(got, ref, None)],
-           time_ms(lambda: bin_mp.mp_layer_fwd(rpre, adj, sw, act)),
-           time_ms(lambda: bin_mp.mp_stack_plain(rpre, adj, sw, act), iters=5), ops, nbytes)
-    got = bin_mp.mp_layer_fwd_train(rpre, adj, sw, spec)
-    ref = bin_mp.mp_stack_train_plain(rpre, adj, sw, spec)[0]
-    torch.cuda.synchronize()
-    record("mp_layer_fwd_train", [(got, ref, None)],
-           time_ms(lambda: bin_mp.mp_layer_fwd_train(rpre, adj, sw, spec)),
-           time_ms(lambda: bin_mp.mp_stack_train_plain(rpre, adj, sw, spec), iters=5), ops, nbytes)
+    for name, fn, plain in (
+            ("mp_layer_fwd", lambda: bin_mp.mp_layer_fwd(rpre, adj, sw, act),
+             lambda: bin_mp.mp_stack_plain(rpre, adj, sw, act)),
+            ("mp_layer_fwd_train", lambda: bin_mp.mp_layer_fwd_train(rpre, adj, sw, spec),
+             lambda: bin_mp.mp_stack_train_plain(rpre, adj, sw, spec)[0])):
+        got, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: a rerun is not bit-equal")
+        plain_ms = time_ms(plain, iters=5)
+        ms, timing, names = bwd_record("c3-kernel", name, dt, fn, plain_ms)
+        check_stack_route("c3-kernel", name, names, dt)
+        record(name, [(got, ref, None)], ms, plain_ms, ops, nbytes)
+        res[name]["timing"] = timing
 
     # --- kernel 1d backward (1b for one layer): dpre (residual included) and
     # the layer's weight gradients
@@ -3106,7 +3238,8 @@ def main() -> int:
     steps = {k: round(v, 3) for k, v in STEP_DEVICE_MS.items()
              if k in ("train", "c3-train", "c1-train", "fold-train on", "fold-train off")}
     print(f"[bwd-record] {card}: the backward forms of kernels 1b, 1d, 3, 1c-vocab's pool, 4 "
-          f"and 5 and kernel 4's forward (device ms, split, host us a call) "
+          f"and 5, kernel 4's forward and the stack's forwards (kernels 1, 1d, 1c-vocab's "
+          f"stack site; device ms, split, host us a call) "
           f"{json.dumps(BWD_RECORD)}; train steps' device ms "
           f"{json.dumps(steps)}", flush=True)
     print(card)

@@ -917,3 +917,106 @@ def test_ext_layer_autograd_launches_kernel_5(dev, dtype):
     for a, r in zip(grads["cuda"], grads["cpu"]):
         assert float((a.cpu().float() - r.float()).abs().max()) <= tol * max(
             float(r.float().abs().max()), 1e-6)
+
+
+# ---- the stack forward on tiles (stack_fwd_tile_kernel, bf16): serving,
+# training with the projection fold, the embedding fold and one layer
+# (kernel 1d, both forms), at a small shape and at the flagship's widths
+# (D 153, E 256, ab 256).  Same tolerances.  The route shows on the launch
+# counters of the two forward kernels (_launch_tiles, _launch_bins).
+
+TILE_SHAPES = {"small": (19, 32, 3, 128), "flagship": (153, 256, 6, 256)}
+TILE_FORMS = ["serve", "train", "vocab", "layer", "layer_train"]
+
+
+def _flat_out(r):
+    return [r[0], *r[1]] if isinstance(r, tuple) else [r]
+
+
+def _tile_forms(dev, shape):
+    """The five bf16 forward forms at ``shape``: name -> (kernel call, its
+    plain version), plus the operands."""
+    D, E, nb, ab = TILE_SHAPES[shape]
+    adj, sw, pw, emb, x, gout = _stack_train_case(dev, D, E, nb, ab, torch.bfloat16, D + ab)
+    codes, vt, emb_v = _vocab_case(dev, E, nb, ab, torch.bfloat16, D)
+    sw1 = bin_mp.stack_weights([[torch.from_numpy(w).to(dev) for w in
+                                 _init_layer(np.random.default_rng(D), D)]], torch.bfloat16)
+    spec = bin_mp.StackSpec("silu", 0.05, 0xDEADBEEF)
+    spec1 = bin_mp.StackSpec("silu", 0.05, bin_mp.layer_drop_seed(-98765, 2) & 0xFFFFFFFF, 1)
+    forms = {
+        "serve": (lambda: bin_mp.binned_mp_stack_t(x, adj, sw, "silu"),
+                  lambda: bin_mp.mp_stack_plain(x, adj, sw, "silu")),
+        "train": (lambda: bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw),
+                  lambda: bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw)),
+        "vocab": (lambda: bin_mp.mp_stack_fwd_train_vocab(codes, adj, sw, spec, pw, vt),
+                  lambda: bin_mp.mp_stack_train_plain(codes, adj, sw, spec, pw, vt)),
+        "layer": (lambda: bin_mp.binned_mp_layer_t(x, adj, sw1, "silu"),
+                  lambda: bin_mp.mp_stack_plain(x, adj, sw1, "silu")),
+        "layer_train": (lambda: bin_mp.mp_layer_fwd_train(x, adj, sw1, spec1),
+                        lambda: bin_mp.mp_stack_train_plain(x, adj, sw1, spec1)[0]),
+    }
+    return forms, dict(adj=adj, sw=sw, pw=pw, emb=emb, x=x, gout=gout, codes=codes, vt=vt,
+                       emb_v=emb_v, sw1=sw1, spec=spec, spec1=spec1)
+
+
+@pytest.mark.parametrize("form", TILE_FORMS)
+@pytest.mark.parametrize("shape", list(TILE_SHAPES))
+def test_stack_fwd_tiles_match_plain(dev, shape, form):
+    run, plain = _tile_forms(dev, shape)[0][form]
+    t0, b0 = bin_mp._launch_tiles.launches, bin_mp._launch_bins.launches
+    got, again = _flat_out(run()), _flat_out(run())
+    assert (bin_mp._launch_tiles.launches - t0, bin_mp._launch_bins.launches - b0) == (2, 0)
+    want = _flat_out(plain())
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits
+    errs = [_rel(a, r) for a, r in zip(got, want)]
+    print(f"{shape} {form}: {errs}")
+    assert max(errs) < 5e-2
+
+
+@pytest.mark.parametrize("shape", list(TILE_SHAPES))
+def test_stack_fwd_tiles_forms_agree_and_feed_the_backward(dev, shape):
+    """The training form without dropout is the serving form, and the
+    embedding fold the emb form, bit for bit; 1b's walk on the tile
+    forward's saved inputs, and 1d's backward, match their plain versions."""
+    _, o = _tile_forms(dev, shape)
+    adj, sw, pw, x, gout = o["adj"], o["sw"], o["pw"], o["x"], o["gout"]
+    out, _ = bin_mp.mp_stack_fwd_train(x, adj, sw, bin_mp.StackSpec("silu"))
+    assert torch.equal(out, bin_mp.mp_stack_fwd(x, adj, sw, "silu"))
+    out_v, saved_v = bin_mp.mp_stack_fwd_train_vocab(o["codes"], adj, sw, o["spec"], pw, o["vt"])
+    out_e, saved_e = bin_mp.mp_stack_fwd_train(o["emb_v"], adj, sw, o["spec"], pw)
+    assert torch.equal(out_v, out_e) and all(torch.equal(a, b) for a, b in zip(saved_v, saved_e))
+    emb, spec = o["emb"], o["spec"]
+    _, saved = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
+    _, ref_saved = bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw)
+    dx, lg, pg = bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, gout, pw)
+    rdx, rlg, rpg = bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, gout, pw)
+    g32, lg1 = bin_mp.mp_layer_bwd(x, adj, o["sw1"], o["spec1"], gout)
+    rg32, rlg1 = bin_mp.mp_layer_bwd_plain(x, adj, o["sw1"], o["spec1"], gout)
+    torch.cuda.synchronize()
+    errs = {"1b dx": _rel(dx, rdx), "1d dx": _rel(g32, rg32)}
+    errs.update({f"1b layer {l} grad {k}": _rel(a, r) for l, (gl, rl) in enumerate(zip(lg, rlg))
+                 for k, (a, r) in enumerate(zip(gl, rl))})
+    errs.update({f"1b proj grad {k}": _rel(a, r) for k, (a, r) in enumerate(zip(pg, rpg))})
+    errs.update({f"1d grad {k}": _rel(a, r) for k, (a, r) in enumerate(zip(lg1, rlg1))})
+    print(f"{shape}: worst {max(errs.values()):.2e}", errs)
+    assert max(errs.values()) < 5e-2
+
+
+@pytest.mark.parametrize("case", ["fp32", "wide"])
+def test_stack_fwd_old_kernel_takes_what_the_tiles_do_not(dev, case):
+    """fp32, and bf16 past the tiles' widths (Dp 208 > 160), run the kernel
+    of one block a bin, serving and training forms alike."""
+    D, dtype = (19, torch.float32) if case == "fp32" else (200, torch.bfloat16)
+    adj, sw, pw, emb, x, _ = _stack_train_case(dev, D, 32, 3, 64, dtype, D)
+    spec = bin_mp.StackSpec("relu", 0.05, 0xDEADBEEF)
+    t0, b0 = bin_mp._launch_tiles.launches, bin_mp._launch_bins.launches
+    got = [bin_mp.mp_stack_fwd(x, adj, sw, "relu"), *_flat_out(
+        bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw))]
+    assert (bin_mp._launch_tiles.launches - t0, bin_mp._launch_bins.launches - b0) == (0, 2)
+    want = [bin_mp.mp_stack_plain(x, adj, sw, "relu"), *_flat_out(
+        bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw))]
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert max(_rel(a, r) for a, r in zip(got, want)) < tol
