@@ -27,9 +27,11 @@
 // What bounds it on an H100: the x_self projection (E x Ds per atom) is
 // most of the operations; the rest is a few passes over (Ds + Do) x A
 // elements, so at the flagship shape it is bound by memory traffic.  The
-// forward, and the backward in fp32, write v (and in the backward t and dt)
-// to global work slabs that stay in L2 while the bin is worked on, and do
-// the per-atom work with one warp per feature row (coalesced over atoms).
+// kernels of one block a bin (fp32, and bf16 shapes past the tiles) write v
+// (and in the backward t and dt) to global work slabs that stay in L2 while
+// the bin is worked on, and do the per-atom work with one warp per feature
+// row (coalesced over atoms); in bf16 the tile kernels below keep them on
+// chip.
 //
 // Embedding fold (attnpool_fwd_vocab / attnpool_bwd_vocab, kernel 1c-vocab:
 // the TPU op's vocab_sizes, bin_attnpool.py:187-200, :301-322).  emb is
@@ -75,9 +77,34 @@
 // No atomics: reruns are bit-equal.  fp32, and bf16 shapes past it (H > 8,
 // Do > E, ab > 512, shared memory), take attnpool_bwd_kernel.
 //
-// Built with -DATTNPOOL_MARKS, both backward kernels record a %globaltimer
-// mark per block at each phase boundary (attnpool_bwd_marks; chip_smoke.py's
-// [train-kernel] and [fold-kernel] phases read them).
+// The bf16 forward on tiles (attnpool_fwd_tile_kernel, both forms): one
+// 320-thread block per 64-atom tile, the ab / 64 tiles of a bin one
+// thread-block cluster (768 blocks at the training batch against the
+// one-block-a-bin kernel's 192 on 132 SMs).  That kernel writes v to a
+// (Dsp, A) slab and reads it back twice, forms the scores with one thread
+// an atom, and the pools with one thread a (row, molecule) walking all the
+// bin's atoms; the tile keeps its operands on chip:
+// - v = rnd(act(rnd(rnd(kb^T emb) + bb))) on mma.sync from the walk's ring
+//   (kb^T's row blocks of <= 160, the head of pool_stream), the emb tile
+//   (cp.async, or looked up under the fold) the B operand, into a shared
+//   tile; the x_other tile arrives by cp.async while the products run;
+// - the scores, (sb + ks^T v) + ko^T x_other in fp32, on all 320 threads:
+//   each column's rows in five row groups, added in order;
+// - the masked softmax over molecules that cross tiles: per-tile partial
+//   maxima and denominators per (head, molecule), each exchanged through
+//   distributed shared memory after a cluster barrier and combined in rank
+//   order; each tile writes its attn columns;
+// - the pools as JAX forms them, one membership product: rnd(x rnd(wbar))
+//   (bf16x2 products in the A fragments) times the tile's one-hot on
+//   mma.sync with fp32 sums, coverage an fp32 sum of wbar per molecule;
+//   the (Ds + Do + 1) x mb partials summed over the cluster in rank order.
+// No atomics: reruns are bit-equal.  fp32, and bf16 shapes past it (H > 8,
+// ab > 512, shared memory), take attnpool_fwd_kernel.
+//
+// Built with -DATTNPOOL_MARKS, the forward and backward kernels record a
+// %globaltimer mark per block at each phase boundary (one buffer for both,
+// set by attnpool_marks; chip_smoke.py's [train-kernel] and [fold-kernel]
+// phases read them).
 
 #include "vocab.cuh"
 #include "walk.cuh"
@@ -91,7 +118,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 #ifdef ATTNPOOL_MARKS
 constexpr int kMarks = 10;  // marks a block may record
-__device__ unsigned long long* g_marks;  // (blocks, kMarks), set by attnpool_bwd_marks
+__device__ unsigned long long* g_marks;  // (blocks, kMarks), set by attnpool_marks
 #define MARK(i)                                                                     \
   do {                                                                              \
     __syncthreads();                                                                \
@@ -240,8 +267,11 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
   const float* ks = score;
   const float* ko = score + (size_t)Ds * H;
   const float* sb = ko + (size_t)Do * H;
+  MARK(0);
   setup_bin(s, w, pm, Dsp, E, mb, ab);
+  MARK(1);
   proj_bin<T, kVocab>(s, emb, w, nullptr, vbuf, Dsp, E, A, ab, act, codes, bd, voc);
+  MARK(2);
 
   // scores, one thread per atom
   for (int a = threadIdx.x; a < ab; a += kThreads) {
@@ -265,6 +295,7 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
       if (h < H) s.S[h * ab + a] = (sb[h] + sv[h]) + so[h];
   }
   __syncthreads();
+  MARK(3);
 
   // per-molecule masked softmax: max, then the denominator
   for (int p = warp; p < H * mb; p += kWarps) {
@@ -291,6 +322,7 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
     attn_out[(size_t)h * A + col0 + a] = at;
   }
   __syncthreads();
+  MARK(4);
   for (int a = threadIdx.x; a < ab; a += kThreads) {
     float acc = 0.0f;
     for (int h = 0; h < H; ++h) acc += s.S[h * ab + a];
@@ -303,6 +335,7 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
       if (s.molof[a] == m) acc += s.wbar[a];
     cov[(size_t)b * mb + m] = acc;
   }
+  MARK(5);
 
   // pools: stage 32 rows of rnd(x * rnd(w)), then per-molecule sums
   for (int part = 0; part < 2; ++part) {
@@ -327,6 +360,7 @@ attnpool_fwd_kernel(const T* __restrict__ emb, const T* __restrict__ xo,
       }
       __syncthreads();
     }
+    MARK(6 + part);
   }
 }
 
@@ -498,6 +532,64 @@ __host__ __device__ inline size_t pool_head(int Dsp, int Ds, int Do, int H) {
   return (size_t)Dsp + (size_t)(Ds + Do) * H + H;
 }
 
+// The tile kernels' emb tile (E x kTile, atoms from column cc): dense, by
+// cp.async (the caller commits); under the fold looked up from the code rows
+// and the table, 8 atoms of a row a thread (the caller synchronises).
+template <bool kVocab>
+__device__ void load_emb_tile(bf16* et, const bf16* __restrict__ emb,
+                              const int* __restrict__ codes, const bf16* __restrict__ bd,
+                              const Vocab& voc, int E, int A, size_t cc) {
+  if constexpr (kVocab) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < E * (kTile / 8); e += kWalkThreads) {
+      const int r = e / (kTile / 8), c = e % (kTile / 8) * 8, f = r / voc.Df;
+      const int V = voc.off[f + 1] - voc.off[f];
+      const int4* cp = reinterpret_cast<const int4*>(codes + (size_t)f * A + cc + c);
+      const int4 k0 = cp[0], k1 = cp[1];
+      const int k[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      const bf16* row = bd + (size_t)r * voc.SV + voc.off[f];
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = (k[q] >= 0 && k[q] < V) ? row[k[q]] : from_f<bf16>(0.0f);
+      *reinterpret_cast<int4*>(et + r * kLdT + c) = *reinterpret_cast<const int4*>(v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < E * (kTile / 8); e += kWalkThreads) {
+      const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
+      cp_async16(et + r * kLdT + c, emb + (size_t)r * A + cc + c);
+    }
+  }
+}
+
+// molof[c]: the molecule of the tile's atom c (the first slot of pm_t, the
+// tile's columns of the bin's (mb, ab) matrix, that holds it; -1 for none):
+// independent loads, no early exit
+__device__ void tile_molecules(int* molof, const int8_t* __restrict__ pm_t, int mb, int ab) {
+  for (int c = threadIdx.x; c < kTile; c += kWalkThreads) {
+    int m = -1;
+#pragma unroll 16
+    for (int mm = mb - 1; mm >= 0; --mm)
+      if (pm_t[(size_t)mm * ab + c] != 0) m = mm;
+    molof[c] = m;
+  }
+}
+
+// The sum over the cluster's C blocks, in rank order, of the float at p (the
+// same offset in each block's shared memory): every rank's value is loaded
+// first, so the remote loads are in flight together.
+__device__ __forceinline__ float rank_sum(cooperative_groups::cluster_group& cluster,
+                                          const float* p, int C) {
+  float part[kWalkMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kWalkMaxCluster; ++r)
+    part[r] = r < C ? *cluster.map_shared_rank(p, r) : 0.0f;
+  float v = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kWalkMaxCluster; ++r)
+    if (r < C) v += part[r];
+  return v;
+}
+
 struct PoolTileSmem {
   bf16* tb;     // Dsp x kLdT: t, then dt in place
   bf16* et;     // E x kLdT: the emb tile, then rnd(kb dt)
@@ -592,38 +684,12 @@ attnpool_bwd_tile_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ 
   }
   for (int e = threadIdx.x; e < H * kTile; e += kWalkThreads)
     cp_async4(t.at + e, attn_in + (size_t)(e / kTile) * A + cc + e % kTile);
-  if constexpr (kVocab) {
-#pragma unroll 4
-    for (int e = threadIdx.x; e < E * (kTile / 8); e += kWalkThreads) {
-      const int r = e / (kTile / 8), c = e % (kTile / 8) * 8, f = r / voc.Df;
-      const int V = voc.off[f + 1] - voc.off[f];
-      const int4* cp = reinterpret_cast<const int4*>(codes + (size_t)f * A + cc + c);
-      const int4 k0 = cp[0], k1 = cp[1];
-      const int k[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-      const bf16* row = bd + (size_t)r * voc.SV + voc.off[f];
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = (k[q] >= 0 && k[q] < V) ? row[k[q]] : from_f<bf16>(0.0f);
-      *reinterpret_cast<int4*>(t.et + r * kLdT + c) = *reinterpret_cast<const int4*>(v);
-    }
-  } else {
-    for (int e = threadIdx.x; e < E * (kTile / 8); e += kWalkThreads) {
-      const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
-      cp_async16(t.et + r * kLdT + c, emb + (size_t)r * A + cc + c);
-    }
-    cp_async_commit();
-  }
+  load_emb_tile<kVocab>(t.et, emb, codes, bd, voc, E, A, cc);
+  if constexpr (!kVocab) cp_async_commit();
   Ring ring{ws, t.ring, kWalkMaxDp * kKc, pool_stages(Dsp, E), 0, 0};
   ring.start();
   for (int e = threadIdx.x; e < Dsp; e += kWalkThreads) t.bb[e] = to_f(w[(size_t)Dsp * E + e]);
-  const int8_t* pmb = pm + (size_t)bin * mb * ab + (size_t)rank * kTile;
-  for (int c = threadIdx.x; c < kTile; c += kWalkThreads) {
-    int m = -1;  // the first slot holding the atom: independent loads, no early exit
-#pragma unroll 16
-    for (int mm = mb - 1; mm >= 0; --mm)
-      if (pmb[(size_t)mm * ab + c] != 0) m = mm;
-    t.molof[c] = m;
-  }
+  tile_molecules(t.molof, pm + (size_t)bin * mb * ab + (size_t)rank * kTile, mb, ab);
   if constexpr (kVocab)
     for (long long i = threadIdx.x; i < vocab_acc_size(voc); i += kWalkThreads) t.acc[i] = 0.0f;
   MARK(1);
@@ -698,9 +764,7 @@ attnpool_bwd_tile_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ 
   }
   cluster.sync();
   for (int p = threadIdx.x; p < H * mb; p += kWalkThreads) {
-    float v = 0.0f;
-    for (int r = 0; r < C; ++r) v += cluster.map_shared_rank(t.tmp, r)[p];
-    t.tm[p] = v;
+    t.tm[p] = rank_sum(cluster, t.tmp + p, C);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < H * kTile; e += kWalkThreads) {
@@ -860,16 +924,7 @@ attnpool_bwd_tile_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ 
 #pragma unroll 2
   for (long long i = (long long)rank * kWalkThreads + threadIdx.x; i < n;
        i += (long long)C * kWalkThreads) {
-    const float* src = i < nh ? t.head + i : t.acc + (i - nh);
-    float part_r[kWalkMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kWalkMaxCluster; ++r)
-      part_r[r] = r < C ? *cluster.map_shared_rank(src, r) : 0.0f;
-    float v = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kWalkMaxCluster; ++r)
-      if (r < C) v += part_r[r];
-    pb[i] = v;
+    pb[i] = rank_sum(cluster, i < nh ? t.head + i : t.acc + (i - nh), C);
   }
   cluster.sync();  // the other tiles' reads of this block's partials are done
   MARK(8);
@@ -940,6 +995,373 @@ int launch_bwd_tiles_act(int act, const void* emb, const void* xo, const void* p
     default: return (int)cudaErrorInvalidValue;
   }
 #undef POOL_TILES
+}
+
+// ---- the bf16 forward on tiles: one block per 64-atom tile, a cluster per bin ----
+
+// Ring stages of the forward: kb^T's row blocks (K = E), the head of the
+// backward's stream (pool_stages), which the forward reads alone.
+__host__ __device__ inline int pool_fwd_stages(int Dsp, int E) {
+  return (Dsp + kWalkMaxDp - 1) / kWalkMaxDp * (kpad(E) / kKc);
+}
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// The scores' row-group partials (2 kPoolGroups x H x kTile) and, once they
+// are summed, the tile's pool partials ((Ds + Do + 1) x mb: x_self, x_other,
+// coverage) share one buffer.
+__host__ __device__ inline size_t pool_fwd_part(int H, int Ds, int Do, int mb) {
+  const size_t red = (size_t)2 * kPoolGroups * H * kTile, pools = (size_t)(Ds + Do + 1) * mb;
+  return red > pools ? red : pools;
+}
+
+struct PoolFwdSmem {
+  bf16* vb;     // Dsp x kLdT: v = rnd(act(t))
+  bf16* et;     // E x kLdT: the emb tile
+  bf16* xs;     // pad16(Do) x kLdT: the x_other tile, rows past Do zero
+  bf16* ring;   // kRing x 160 x kKc: kb^T
+  bf16* oh;     // pad16(mb) x kLdT: the one-hot of the tile's atoms' molecules, [m][atom]
+  int* molof;   // kTile: the tile's atoms' molecules, -1 for none
+  float* bb;    // Dsp
+  float* ksm;   // Ds x H, then ko: Do x H (the score weights)
+  float* sc;    // H x kTile: scores, then exp(s - max), then attn
+  float* wbar;  // kTile
+  float* pmax;  // H x mb: this tile's partial max
+  float* pden;  // H x mb: this tile's partial denominator
+  float* gmax;  // H x mb: the bin's max
+  float* gden;  // H x mb: the bin's denominator
+  float* part;  // pool_fwd_part floats
+};
+
+size_t pool_fwd_smem_bytes(int Dsp, int E, int H, int Ds, int Do, int mb) {
+  return ((size_t)(Dsp + E + pad16(Do) + pad16(mb)) * kLdT + (size_t)kRing * kWalkMaxDp * kKc) *
+             sizeof(bf16) +
+         kTile * sizeof(int) +
+         ((size_t)Dsp + (size_t)(Ds + Do) * H + (size_t)H * kTile + kTile + 4 * (size_t)H * mb +
+          pool_fwd_part(H, Ds, Do, mb)) * sizeof(float);
+}
+
+__device__ PoolFwdSmem carve_pool_fwd(unsigned char* base, int Dsp, int E, int H, int Ds, int Do,
+                                      int mb) {
+  PoolFwdSmem t;
+  bf16* h = reinterpret_cast<bf16*>(base);
+  t.vb = h; h += (size_t)Dsp * kLdT;
+  t.et = h; h += (size_t)E * kLdT;
+  t.xs = h; h += (size_t)pad16(Do) * kLdT;
+  t.ring = h; h += (size_t)kRing * kWalkMaxDp * kKc;
+  t.oh = h; h += (size_t)pad16(mb) * kLdT;
+  t.molof = reinterpret_cast<int*>(h);
+  float* f = reinterpret_cast<float*>(t.molof + kTile);
+  t.bb = f; f += Dsp;
+  t.ksm = f; f += (size_t)(Ds + Do) * H;
+  t.sc = f; f += (size_t)H * kTile;
+  t.wbar = f; f += kTile;
+  t.pmax = f; f += (size_t)H * mb;
+  t.pden = f; f += (size_t)H * mb;
+  t.gmax = f; f += (size_t)H * mb;
+  t.gden = f; f += (size_t)H * mb;
+  t.part = f;
+  return t;
+}
+
+// bf16x2 product, rounded to bf16 (the JAX op's rnd(x * rnd(w)))
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<unsigned*>(&r);
+}
+
+// As attnpool_fwd_kernel (bf16), one block per 64-atom tile, grid nb * C,
+// clusters of C = ab / 64: ws is kb^T's and kb's stream (ops/bin_attnpool.py::
+// pool_stream), of which it reads kb^T's head; w the weights (for bb); ps,
+// po, cov and attn as the one-block kernel's.
+template <int ACT, bool kVocab>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+attnpool_fwd_tile_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ xo,
+                         const int8_t* __restrict__ pm, const bf16* __restrict__ w,
+                         const bf16* __restrict__ ws, const float* __restrict__ score,
+                         float* __restrict__ ps, float* __restrict__ po, float* __restrict__ cov,
+                         float* __restrict__ attn_out, int Ds, int Dsp, int Do, int E, int H,
+                         int A, int mb, int ab, const int* __restrict__ codes,
+                         const bf16* __restrict__ bd, Vocab voc) {
+  constexpr int act = ACT;
+  namespace cgr = cooperative_groups;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int C = ab / kTile, rank = (int)cluster.block_rank();
+  const int bin = blockIdx.x / C, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t cc = (size_t)bin * ab + (size_t)rank * kTile;
+  const size_t B = (size_t)(gridDim.x / C) * mb, mc0 = (size_t)bin * mb;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const PoolFwdSmem t = carve_pool_fwd(smem, Dsp, E, H, Ds, Do, mb);
+  const float* ks = t.ksm;
+  const float* ko = t.ksm + (size_t)Ds * H;
+  const float* sb = score + (size_t)(Ds + Do) * H;
+  const int Dop = pad16(Do), mbp = pad16(mb);
+  MARK(0);
+
+  // the score weights and the emb tile (dense: cp.async; the fold: looked
+  // up, 8 atoms of a row a thread) ahead of the ring's stages, so that the
+  // first stage's wait covers them; the x_other tile's copies, issued after
+  // the ring's first stages, join its next stage's group and land while the
+  // products run; bb, the tile's molecules and their one-hot
+  for (int e = threadIdx.x; e < (Ds + Do) * H; e += kWalkThreads) cp_async4(t.ksm + e, score + e);
+  load_emb_tile<kVocab>(t.et, emb, codes, bd, voc, E, A, cc);
+  cp_async_commit();
+  Ring ring{ws, t.ring, kWalkMaxDp * kKc, pool_fwd_stages(Dsp, E), 0, 0};
+  ring.start();
+  for (int e = threadIdx.x; e < Dop * (kTile / 8); e += kWalkThreads) {
+    const int r = e / (kTile / 8), c = e % (kTile / 8) * 8;
+    const bool in = r < Do;
+    cp_async16(t.xs + r * kLdT + c, in ? xo + (size_t)r * A + cc + c : xo, in ? 16 : 0);
+  }
+  for (int e = threadIdx.x; e < Dsp; e += kWalkThreads) t.bb[e] = to_f(w[(size_t)Dsp * E + e]);
+  tile_molecules(t.molof, pm + (size_t)bin * mb * ab + (size_t)rank * kTile, mb, ab);
+  __syncthreads();
+  for (int e = threadIdx.x; e < mbp * kTile; e += kWalkThreads) {
+    const int m = e / kTile, c = e % kTile;
+    t.oh[m * kLdT + c] = from_f<bf16>(t.molof[c] == m ? 1.0f : 0.0f);
+  }
+  MARK(1);
+
+  // v = rnd(act(rnd(rnd(kb^T emb) + bb))), row blocks of <= 160
+  float acc[2][4][4];
+  for (int r0 = 0; r0 < Dsp; r0 += kWalkMaxDp) {
+    const int R = min(kWalkMaxDp, Dsp - r0);
+    ring_product(ring, R, E, t.et, t.et, E, acc);
+    epilogue(acc, R, [&](int r, int c, float v0, float v1) {
+      const float b = t.bb[r0 + r];
+      st2(t.vb, r0 + r, c, act_fn(act, rnd<bf16>(rnd<bf16>(v0) + b)),
+          act_fn(act, rnd<bf16>(rnd<bf16>(v1) + b)));
+    });
+  }
+  cp_async_wait<0>();  // the x_other tile
+  __syncthreads();
+  MARK(2);
+
+  // s = (sb + ks^T v) + ko^T x_other in fp32: each column's rows in
+  // kPoolGroups ranges for every head, the ranges added in order
+  {
+    const int c = threadIdx.x % kTile, g = threadIdx.x / kTile;
+    const int n1 = (Ds + kPoolGroups - 1) / kPoolGroups, n2 = (Do + kPoolGroups - 1) / kPoolGroups;
+    float sv[kMaxH], so[kMaxH];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) sv[h] = so[h] = 0.0f;
+#pragma unroll 4
+    for (int d = g * n1; d < min(Ds, (g + 1) * n1); ++d) {
+      const float x = to_f(t.vb[d * kLdT + c]);
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        if (h < H) sv[h] = fmaf(ks[d * H + h], x, sv[h]);
+    }
+#pragma unroll 4
+    for (int d = g * n2; d < min(Do, (g + 1) * n2); ++d) {
+      const float x = to_f(t.xs[d * kLdT + c]);
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h)
+        if (h < H) so[h] = fmaf(ko[d * H + h], x, so[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h)
+      if (h < H) {
+        t.part[(g * H + h) * kTile + c] = sv[h];
+        t.part[((kPoolGroups + g) * H + h) * kTile + c] = so[h];
+      }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * kTile; e += kWalkThreads) {
+    const int h = e / kTile, c = e % kTile;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int g = 0; g < kPoolGroups; ++g) {
+      s1 += t.part[(g * H + h) * kTile + c];
+      s2 += t.part[((kPoolGroups + g) * H + h) * kTile + c];
+    }
+    t.sc[e] = (sb[h] + s1) + s2;
+  }
+  __syncthreads();
+  MARK(3);
+
+  // the per-molecule masked softmax over molecules that cross tiles: each
+  // tile's partial max, the bin's max over the cluster's ranks (exact in
+  // any order); exp(s - max) on covered atoms, each tile's partial
+  // denominator, the bin's over the ranks in rank order
+  for (int p = warp; p < H * mb; p += kWarps) {
+    const int h = p / mb, m = p % mb;
+    float mx = -1e30f;
+    for (int c = lane; c < kTile; c += 32)
+      if (t.molof[c] == m) mx = fmaxf(mx, t.sc[h * kTile + c]);
+    mx = warp_max(mx);
+    if (lane == 0) t.pmax[p] = mx;
+  }
+  cluster.sync();
+  for (int p = threadIdx.x; p < H * mb; p += kWalkThreads) {
+    float mx = -1e30f;
+    for (int r = 0; r < C; ++r) mx = fmaxf(mx, cluster.map_shared_rank(t.pmax, r)[p]);
+    t.gmax[p] = mx;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * kTile; e += kWalkThreads) {
+    const int h = e / kTile, m = t.molof[e % kTile];
+    t.sc[e] = m >= 0 ? expf(t.sc[e] - t.gmax[h * mb + m]) : 0.0f;
+  }
+  __syncthreads();
+  for (int p = warp; p < H * mb; p += kWarps) {
+    const int h = p / mb, m = p % mb;
+    float v = 0.0f;
+    for (int c = lane; c < kTile; c += 32)
+      if (t.molof[c] == m) v += t.sc[h * kTile + c];
+    v = warp_sum(v);
+    if (lane == 0) t.pden[p] = v;
+  }
+  cluster.sync();
+  for (int p = threadIdx.x; p < H * mb; p += kWalkThreads) {
+    t.gden[p] = rank_sum(cluster, t.pden + p, C);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * kTile; e += kWalkThreads) {
+    const int h = e / kTile, c = e % kTile, m = t.molof[c];
+    const float at = m >= 0 ? t.sc[e] / fmaxf(t.gden[h * mb + m], 1e-16f) : 0.0f;
+    t.sc[e] = at;
+    attn_out[(size_t)h * A + cc + c] = at;
+  }
+  __syncthreads();
+  MARK(4);
+
+  // wbar = the mean over heads (summed in head order); coverage's partial,
+  // the fp32 sum of wbar over each molecule's atoms of the tile
+  for (int c = threadIdx.x; c < kTile; c += kWalkThreads) {
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s += t.sc[h * kTile + c];
+    t.wbar[c] = s / (float)H;
+  }
+  __syncthreads();
+  float* covp = t.part + (size_t)(Ds + Do) * mb;
+  for (int m = warp; m < mb; m += kWarps) {
+    float v = 0.0f;
+    for (int c = lane; c < kTile; c += 32)
+      if (t.molof[c] == m) v += t.wbar[c];
+    v = warp_sum(v);
+    if (lane == 0) covp[m] = v;
+  }
+  MARK(5);
+
+  // the pools' partials as membership products on mma.sync: A a buffer's
+  // rows, each fragment multiplied by rnd(wbar) and rounded (bf16x2
+  // products), B the one-hot; fp32 sums, one 16-row tile a warp at a time,
+  // to the tile's partial rows
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned wlo[kTile / 16], whi[kTile / 16];  // rnd(wbar) at the fragments' columns
+#pragma unroll
+  for (int k = 0; k < kTile / 16; ++k) {
+    wlo[k] = pack_bf16(t.wbar[16 * k + 2 * tq], t.wbar[16 * k + 2 * tq + 1]);
+    whi[k] = pack_bf16(t.wbar[16 * k + 2 * tq + 8], t.wbar[16 * k + 2 * tq + 9]);
+  }
+  auto pool_rows = [&](const bf16* buf, int rows, float* out) {
+    for (int m0 = 16 * warp; m0 < rows; m0 += 16 * kWarps)
+      for (int n0 = 0; n0 < mbp; n0 += 16) {
+        float pacc[2][4] = {};
+#pragma unroll
+        for (int k = 0; k < kTile / 16; ++k) {
+          unsigned a[4], b[4];
+          frag_a(a, buf, kLdT, m0, 16 * k);
+          a[0] = mul_bf16x2(a[0], wlo[k]);
+          a[1] = mul_bf16x2(a[1], wlo[k]);
+          a[2] = mul_bf16x2(a[2], whi[k]);
+          a[3] = mul_bf16x2(a[3], whi[k]);
+          frag_b_nk(b, t.oh, kLdT, n0, 16 * k);
+          mma16816(pacc[0], a, b[0], b[1]);
+          mma16816(pacc[1], a, b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = m0 + g + 8 * hh, n = n0 + 8 * j + 2 * tq;
+            if (r < rows) {
+              if (n < mb) out[(size_t)r * mb + n] = pacc[j][2 * hh];
+              if (n + 1 < mb) out[(size_t)r * mb + n + 1] = pacc[j][2 * hh + 1];
+            }
+          }
+      }
+  };
+  pool_rows(t.vb, Ds, t.part);
+  MARK(6);
+  pool_rows(t.xs, Do, t.part + (size_t)Ds * mb);
+  MARK(7);
+
+  // the bin's ps, po and cov: the tiles' partials in rank order, the
+  // elements spread over the cluster
+  cluster.sync();
+  const int n = (Ds + Do + 1) * mb;
+#pragma unroll 2
+  for (int i = rank * kWalkThreads + threadIdx.x; i < n; i += C * kWalkThreads) {
+    const float v = rank_sum(cluster, t.part + i, C);
+    const int row = i / mb, m = i % mb;
+    float* dst = row < Ds        ? ps + (size_t)row * B
+                 : row < Ds + Do ? po + (size_t)(row - Ds) * B
+                                 : cov;
+    dst[mc0 + m] = v;
+  }
+  cluster.sync();  // the other tiles' reads of this block's partials are done
+  MARK(8);
+}
+
+bool pool_fwd_tiles_fit(int Dsp, int E, int H, int Ds, int Do, int mb, int ab) {
+  return H >= 1 && H <= kMaxH && Dsp % 16 == 0 && E % 16 == 0 && Ds <= Dsp && Do >= 1 &&
+         mb >= 1 && ab % kTile == 0 && ab / kTile >= 1 && ab / kTile <= kWalkMaxCluster &&
+         pool_fwd_smem_bytes(Dsp, E, H, Ds, Do, mb) <= (size_t)kSmemLimit;
+}
+
+bool pool_fwd_configured[5][2][kMaxDevices];
+
+template <int ACT, bool kVocab>
+int launch_fwd_tiles(const void* emb, const void* xo, const void* pm, const void* w,
+                     const void* ws, const void* score, void* ps, void* po, void* cov, void* attn,
+                     int Ds, int Dsp, int Do, int E, int H, int nb, int mb, int ab,
+                     cudaStream_t st, const void* codes, const void* bd, Vocab voc) {
+  if (!pool_fwd_tiles_fit(Dsp, E, H, Ds, Do, mb, ab)) return (int)cudaErrorInvalidValue;
+  const int err =
+      configure(attnpool_fwd_tile_kernel<ACT, kVocab>, pool_fwd_configured[ACT][kVocab]);
+  if (err) return err;
+  const int C = ab / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb * C);
+  cfg.blockDim = dim3(kWalkThreads);
+  cfg.dynamicSmemBytes = pool_fwd_smem_bytes(Dsp, E, H, Ds, Do, mb);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, attnpool_fwd_tile_kernel<ACT, kVocab>, static_cast<const bf16*>(emb),
+      static_cast<const bf16*>(xo), static_cast<const int8_t*>(pm), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(ws), static_cast<const float*>(score), static_cast<float*>(ps),
+      static_cast<float*>(po), static_cast<float*>(cov), static_cast<float*>(attn), Ds, Dsp, Do, E,
+      H, nb * ab, mb, ab, static_cast<const int*>(codes), static_cast<const bf16*>(bd), voc);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool kVocab>
+int launch_fwd_tiles_act(int act, const void* emb, const void* xo, const void* pm, const void* w,
+                         const void* ws, const void* score, void* ps, void* po, void* cov,
+                         void* attn, int Ds, int Dsp, int Do, int E, int H, int nb, int mb, int ab,
+                         cudaStream_t st, const void* codes, const void* bd, Vocab voc) {
+#define POOL_FWD_TILES(a)                                                                      \
+  launch_fwd_tiles<a, kVocab>(emb, xo, pm, w, ws, score, ps, po, cov, attn, Ds, Dsp, Do, E, H, \
+                              nb, mb, ab, st, codes, bd, voc)
+  switch (act) {  // activation codes: utils/activation.py ACTIVATION_CODES
+    case 0: return POOL_FWD_TILES(0);
+    case 1: return POOL_FWD_TILES(1);
+    case 2: return POOL_FWD_TILES(2);
+    case 3: return POOL_FWD_TILES(3);
+    case 4: return POOL_FWD_TILES(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef POOL_FWD_TILES
 }
 
 template <typename T>
@@ -1097,9 +1519,38 @@ int attnpool_bwd_tiles(const void* emb, const void* codes, const void* bd, const
                                     bd, voc);
 }
 
+// Shared memory of the tiled bf16 forward at these shapes, or -1 where it
+// does not take them (the wrapper then launches attnpool_fwd or
+// attnpool_fwd_vocab).
+long long attnpool_fwd_tiles_smem_bytes(int Dsp, int E, int H, int Ds, int Do, int mb, int ab) {
+  return pool_fwd_tiles_fit(Dsp, E, H, Ds, Do, mb, ab)
+             ? (long long)pool_fwd_smem_bytes(Dsp, E, H, Ds, Do, mb)
+             : -1;
+}
+
+// The tiled bf16 forward (attnpool_fwd_tile_kernel): emb (E, A), or, when
+// codes is not null, the fold (codes (F, A) int32, the table bd, sizes) with
+// emb unused; ws the weight stream (pool_stream); ps, po, cov, attn as
+// attnpool_fwd's.  Returns cudaGetLastError() after the launch.
+int attnpool_fwd_tiles(const void* emb, const void* codes, const void* bd, const int* sizes,
+                       int F, const void* xo, const void* pm, const void* w, const void* ws,
+                       const void* score, void* ps, void* po, void* cov, void* attn, int Ds,
+                       int Dsp, int Do, int E, int H, int nb, int mb, int ab, int act,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!codes)
+    return launch_fwd_tiles_act<false>(act, emb, xo, pm, w, ws, score, ps, po, cov, attn, Ds, Dsp,
+                                       Do, E, H, nb, mb, ab, st, nullptr, nullptr, Vocab{});
+  Vocab voc;
+  if (!make_vocab(sizes, F, E, &voc)) return (int)cudaErrorInvalidValue;
+  return launch_fwd_tiles_act<true>(act, nullptr, xo, pm, w, ws, score, ps, po, cov, attn, Ds,
+                                    Dsp, Do, E, H, nb, mb, ab, st, codes, bd, voc);
+}
+
 #ifdef ATTNPOOL_MARKS
-// Points the backward kernels' phase marks at marks ((blocks, 10) uint64).
-int attnpool_bwd_marks(void* marks) {
+// Points the forward and backward kernels' phase marks at marks
+// ((blocks, 10) uint64).
+int attnpool_marks(void* marks) {
   return (int)cudaMemcpyToSymbol(g_marks, &marks, sizeof(marks));
 }
 #endif

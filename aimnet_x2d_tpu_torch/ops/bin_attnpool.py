@@ -30,10 +30,12 @@ one-hot^T (its diagonal blocks) instead of demb (``attnpool_fwd_vocab``,
 ``attnpool_bwd_vocab``).
 
 On CUDA tensors :func:`binned_attnpool_proj_t` launches the hand-written
-kernels (``csrc/attnpool.cu``: the backward in bf16 on a cluster of 64-atom
-tiles per bin with t and dt on chip, in fp32 and past its shapes one block
-per bin, chosen by shape; d_kb from the grouped contraction,
-``bin_mp.wgrad_group``); on CPU tensors it runs the plain versions here.
+kernels (``csrc/attnpool.cu``: forward and backward in bf16 on a cluster of
+64-atom tiles per bin with v, t and dt on chip, in fp32 and past their
+shapes one block per bin, chosen by shape; d_kb from the grouped
+contraction, ``bin_mp.wgrad_group``; in bf16 the tiled kernels' weight
+stream, :func:`pool_stream`, is gathered once a step for both); on CPU
+tensors it runs the plain versions here.
 The kernels take any (nb, mb) with ab a multiple of 64 and never fall
 back; they assume what the loaders build: each atom belongs to at most one
 molecule of its bin (one 1 per column of ``pool_mat``).
@@ -223,6 +225,10 @@ def _lib() -> ctypes.CDLL:
         lib.attnpool_bwd_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.attnpool_bwd_tiles_stream_elems.argtypes = [i, i]
         lib.attnpool_bwd_tiles_stream_elems.restype = ctypes.c_longlong
+        lib.attnpool_fwd_tiles.argtypes = [vp, vp, vp, vp, i] + [vp] * 9 + [i] * 9 + [vp]
+        lib.attnpool_fwd_tiles.restype = i
+        lib.attnpool_fwd_tiles_smem_bytes.argtypes = [i] * 7
+        lib.attnpool_fwd_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.attnpool_error_string.argtypes = [i]
         lib.attnpool_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -267,37 +273,56 @@ def _check(what, emb, xo, pm, w: AttnPoolWeights, act, vt: Optional[VocabTable] 
     return lib, nb, mb, ab, E, A, H, bf16
 
 
-def _launch_fwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, vt: Optional[VocabTable]):
-    """The forward kernel (one block per bin) on emb, or under the fold
-    (``vt``) on the code rows.  Returns (ps, po, cov, attn) and whether it
-    launched (nothing to do for nb = 0)."""
+def _launch_fwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, vt: Optional[VocabTable],
+                ws: Optional[torch.Tensor]):
+    """The forward kernel on emb, or under the fold (``vt``) on the code
+    rows: bf16 on the tiled kernel (a cluster of 64-atom tiles per bin, v on
+    chip; ``ws`` the weight stream, :func:`pool_stream`, gathered here when
+    not given), fp32 and shapes past it on the kernel of one block per bin,
+    chosen by shape, each route counted in ``_launch_fwd.routes``.  Returns
+    (ps, po, cov, attn) and whether it launched (nothing to do for nb = 0)."""
     lib, nb, mb, ab, E, A, H, bf16 = _check(what, emb, xo, pm, w, act, vt)
     dev = emb.device
-    Dsp, Do = w.kbT.shape[0], xo.shape[0]
-    ps = torch.empty(w.Ds, nb * mb, dtype=torch.float32, device=dev)
+    Dsp, Do, Ds = w.kbT.shape[0], xo.shape[0], w.Ds
+    ps = torch.empty(Ds, nb * mb, dtype=torch.float32, device=dev)
     po = torch.empty(Do, nb * mb, dtype=torch.float32, device=dev)
     cov = torch.empty(nb * mb, dtype=torch.float32, device=dev)
     attn = torch.empty(H, A, dtype=torch.float32, device=dev)
-    vbuf = torch.empty(Dsp, A, dtype=w.dtype, device=dev)
     if not nb:
         return (ps, po, cov, attn), False
-    tail = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.score.data_ptr(), vbuf.data_ptr(),
-            ps.data_ptr(), po.data_ptr(), cov.data_ptr(), attn.data_ptr(), bf16, w.Ds, Dsp, Do, E,
-            H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
-    if vt is None:
-        status = lib.attnpool_fwd(emb.data_ptr(), *tail)
+    outs = (ps.data_ptr(), po.data_ptr(), cov.data_ptr(), attn.data_ptr())
+    dims = (Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
+    tiles = _takes_fwd_tiles(lib, bf16, Dsp, E, H, Ds, Do, mb, ab)
+    if tiles:
+        ws = _stream_arg(what, lib, w, ws)
+        table = ((None, None, None, 0) if vt is None else
+                 (emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt), len(vt.sizes)))
+        status = lib.attnpool_fwd_tiles(
+            emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
+            w.flat.data_ptr(), ws.data_ptr(), w.score.data_ptr(), *outs, *dims)
     else:
-        status = lib.attnpool_fwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt),
-                                        len(vt.sizes), *tail)
+        vbuf = torch.empty(Dsp, A, dtype=w.dtype, device=dev)  # x_self, written and read back
+        tail = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.score.data_ptr(),
+                vbuf.data_ptr(), *outs, bf16, *dims)
+        if vt is None:
+            status = lib.attnpool_fwd(emb.data_ptr(), *tail)
+        else:
+            status = lib.attnpool_fwd_vocab(emb.data_ptr(), vt.bd.data_ptr(),
+                                            bin_mp._sizes_arg(vt), len(vt.sizes), *tail)
     if status != 0:
         raise RuntimeError(f"{what}: {lib.attnpool_error_string(status).decode()}")
+    _launch_fwd.routes["tiles" if tiles else "bins"] += 1
     return (ps, po, cov, attn), True
 
 
-def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str):
-    """Launch the forward kernel (one block per bin).  Same returns as
+_launch_fwd.routes = {"tiles": 0, "bins": 0}  # launches of the tiled kernel, of one block a bin
+
+
+def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str, ws: Optional[torch.Tensor] = None):
+    """Launch the forward kernel (bf16: the tiled one, reading ``ws`` where
+    the caller has gathered :func:`pool_stream`).  Same returns as
     :func:`attnpool_fwd_plain`."""
-    out, launched = _launch_fwd("attnpool_fwd", emb, xo, pm, w, act, None)
+    out, launched = _launch_fwd("attnpool_fwd", emb, xo, pm, w, act, None, ws)
     attnpool_fwd.launches += int(launched)
     return out
 
@@ -305,11 +330,12 @@ def attnpool_fwd(emb, xo, pm, w: AttnPoolWeights, act: str):
 attnpool_fwd.launches = 0
 
 
-def attnpool_fwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, vt: VocabTable):
+def attnpool_fwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, vt: VocabTable,
+                       ws: Optional[torch.Tensor] = None):
     """Launch the folded forward kernel (1c-vocab at the pool's site): the
     forward of :func:`attnpool_fwd` with each atom's embedding looked up
     from the code rows (F, A) int32 and the table.  Same returns."""
-    out, launched = _launch_fwd("attnpool_fwd_vocab", codes, xo, pm, w, act, vt)
+    out, launched = _launch_fwd("attnpool_fwd_vocab", codes, xo, pm, w, act, vt, ws)
     attnpool_fwd_vocab.launches += int(launched)
     return out
 
@@ -340,9 +366,9 @@ def pool_stream_index(Dsp: int, E: int) -> np.ndarray:
 
 
 def pool_stream(w: AttnPoolWeights) -> torch.Tensor:
-    """kb^T and kb as the tiled backward's weight ring reads them
-    (:func:`pool_stream_index`); one gather by an index cached per shape and
-    device."""
+    """kb^T and kb as the tiled kernels' weight ring reads them
+    (:func:`pool_stream_index`; the forward reads kb^T's head); one gather by
+    an index cached per shape and device."""
     Dsp, E = w.kbT.shape
     dev = w.kbT.device
     idx = _POOL_INDEX.get((Dsp, E, dev))
@@ -352,6 +378,29 @@ def pool_stream(w: AttnPoolWeights) -> torch.Tensor:
 
 
 _BWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dsp, E, H, Ds, Do, mb, ab, n_acc) -> tiles take it
+_FWD_TILES: Dict[Tuple, bool] = {}  # (bf16, Dsp, E, H, Ds, Do, mb, ab) -> tiles take it
+
+
+def _takes_fwd_tiles(lib, bf16: int, Dsp: int, E: int, H: int, Ds: int, Do: int, mb: int,
+                     ab: int) -> bool:
+    """Whether the tiled bf16 forward takes the shape (else the kernel of
+    one block per bin runs it); asked of the library once per shape."""
+    key = (bf16, Dsp, E, H, Ds, Do, mb, ab)
+    if key not in _FWD_TILES:
+        _FWD_TILES[key] = (bool(bf16)
+                           and lib.attnpool_fwd_tiles_smem_bytes(Dsp, E, H, Ds, Do, mb, ab) >= 0)
+    return _FWD_TILES[key]
+
+
+def _stream_arg(what, lib, w: AttnPoolWeights, ws: Optional[torch.Tensor]) -> torch.Tensor:
+    """``ws``, checked, or :func:`pool_stream` gathered where it is None."""
+    if ws is None:
+        return pool_stream(w)
+    Dsp, E = w.kbT.shape
+    if ws.dtype != w.dtype or ws.shape != (lib.attnpool_bwd_tiles_stream_elems(Dsp, E),):
+        raise ValueError(f"{what}: the weight stream must be pool_stream(w)")
+    cuda_build.check_cuda(what, w.kbT.device, ("weight stream", ws, 16))
+    return ws
 
 
 def _takes_tiles(lib, bf16: int, Dsp: int, E: int, H: int, Ds: int, Do: int, mb: int, ab: int,
@@ -368,15 +417,29 @@ def _takes_tiles(lib, bf16: int, Dsp: int, E: int, H: int, Ds: int, Do: int, mb:
     return _BWD_TILES[key]
 
 
+def _step_stream(xo, pm, w: AttnPoolWeights, vt: Optional[VocabTable]) -> Optional[torch.Tensor]:
+    """:func:`pool_stream` where a tiled kernel, forward or backward, takes
+    the shape (bf16), else None: the one gather a training step makes."""
+    if w.dtype != torch.bfloat16:
+        return None
+    lib = _lib()
+    (Dsp, E), H, Ds, Do, (_, mb, ab) = w.kbT.shape, w.sb.shape[0], w.Ds, xo.shape[0], pm.shape
+    n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
+    if (_takes_fwd_tiles(lib, 1, Dsp, E, H, Ds, Do, mb, ab)
+            or _takes_tiles(lib, 1, Dsp, E, H, Ds, Do, mb, ab, n_acc)):
+        return pool_stream(w)
+    return None
+
+
 def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
-                vt: Optional[VocabTable]):
+                vt: Optional[VocabTable], ws: Optional[torch.Tensor]):
     """The backward kernel, the fixed-order sum of its per-bin partials and
     the d_kb contraction (``bin_mp.wgrad_group``: (dt, emb), or under the fold
     dt and the embeddings gathered from the code rows), on emb or under the
     fold on the code rows.  bf16 runs the tiled kernel (a cluster of 64-atom
     tiles per bin, t and dt on chip), fp32 and shapes past it the kernel of
     one block per bin, chosen by shape.  Returns (demb, or d_bd under the
-    fold; dx_other; the fp32 weight grads)."""
+    fold; dx_other; the fp32 weight grads).  ``ws`` as :func:`_launch_fwd`'s."""
     n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
     lib, nb, mb, ab, E, A, H, bf16 = _check(what, emb, xo, pm, w, act, vt, n_acc)
     dev = emb.device
@@ -400,7 +463,8 @@ def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo,
                  (emb.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt), len(vt.sizes)))
         status = lib.attnpool_bwd_tiles(
             emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
-            w.flat.data_ptr(), pool_stream(w).data_ptr(), *mid, dtc.data_ptr(), part.data_ptr(),
+            w.flat.data_ptr(), _stream_arg(what, lib, w, ws).data_ptr(), *mid, dtc.data_ptr(),
+            part.data_ptr(),
             demb_p, dxo.data_ptr(), *dims)
     else:
         work = torch.empty(3, Dsp, A, dtype=w.dtype, device=dev)  # t, x_self, dt
@@ -427,10 +491,12 @@ def _launch_bwd(what, emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo,
     return d_emb, dxo, (dkbT, dbb, dks, dko, dsb)
 
 
-def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov):
-    """Launch the backward kernel (one block per bin) and the
-    weight-gradient contractions.  Same returns as :func:`attnpool_bwd_plain`."""
-    out = _launch_bwd("attnpool_bwd", emb, xo, pm, w, act, attn, gps, gpo, gcov, None)
+def attnpool_bwd(emb, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
+                 ws: Optional[torch.Tensor] = None):
+    """Launch the backward kernel (bf16: the tiled one, reading ``ws`` as
+    :func:`attnpool_fwd` does) and the weight-gradient contraction.  Same
+    returns as :func:`attnpool_bwd_plain`."""
+    out = _launch_bwd("attnpool_bwd", emb, xo, pm, w, act, attn, gps, gpo, gcov, None, ws)
     attnpool_bwd.launches += 1
     return out
 
@@ -439,11 +505,11 @@ attnpool_bwd.launches = 0
 
 
 def attnpool_bwd_vocab(codes, xo, pm, w: AttnPoolWeights, act: str, attn, gps, gpo, gcov,
-                       vt: VocabTable):
-    """Launch the folded backward kernel (one block per bin), the gathered
-    d_kb contraction and the fixed-order sum of the per-bin partials.  Same
-    returns as :func:`attnpool_bwd_vocab_plain`."""
-    out = _launch_bwd("attnpool_bwd_vocab", codes, xo, pm, w, act, attn, gps, gpo, gcov, vt)
+                       vt: VocabTable, ws: Optional[torch.Tensor] = None):
+    """Launch the folded backward kernel, the gathered d_kb contraction and
+    the fixed-order sum of the per-bin partials.  Same returns as
+    :func:`attnpool_bwd_vocab_plain`."""
+    out = _launch_bwd("attnpool_bwd_vocab", codes, xo, pm, w, act, attn, gps, gpo, gcov, vt, ws)
     attnpool_bwd_vocab.launches += 1
     return out
 
@@ -462,9 +528,11 @@ class _AttnPoolFn(torch.autograd.Function):
         with torch.no_grad():
             w = prep_weights(kb, bb, ks, ko, sb, dt)
             vt = prep_vocab(bd, vocab, dt) if vocab is not None else None
+        ws = None
         if emb.device.type == "cuda":
-            ps, po, cov, attn = (attnpool_fwd(emb, xo, pm, w, act) if vt is None
-                                 else attnpool_fwd_vocab(emb, xo, pm, w, act, vt))
+            ws = _step_stream(xo, pm, w, vt)  # the tiled kernels' weight stream, once for both
+            ps, po, cov, attn = (attnpool_fwd(emb, xo, pm, w, act, ws) if vt is None
+                                 else attnpool_fwd_vocab(emb, xo, pm, w, act, vt, ws))
         elif emb.device.type == "cpu":
             check_one_owner(pm)  # free here; on the card it would cost a sync per step
             ps, po, cov, attn = (attnpool_fwd_plain(emb, xo, pm, w, act) if vt is None
@@ -472,7 +540,7 @@ class _AttnPoolFn(torch.autograd.Function):
         else:
             raise ValueError(f"binned_attnpool_proj_t: unsupported device {emb.device}")
         ctx.save_for_backward(emb, xo, pm, attn)
-        ctx.w, ctx.act, ctx.vt = w, act, vt
+        ctx.w, ctx.act, ctx.vt, ctx.ws = w, act, vt, ws
         ctx.mark_non_differentiable(attn)
         return ps, po, cov, attn
 
@@ -487,11 +555,14 @@ class _AttnPoolFn(torch.autograd.Function):
         args = (emb, xo, pm, w, ctx.act, attn, gps, gpo, gcov)
         cuda = emb.device.type == "cuda"
         demb = d_bd = None
-        if vt is None:
-            demb, dxo, (dkbT, dbb, dks, dko, dsb) = (attnpool_bwd if cuda else attnpool_bwd_plain)(*args)
+        if vt is None and cuda:
+            demb, dxo, (dkbT, dbb, dks, dko, dsb) = attnpool_bwd(*args, ctx.ws)
+        elif vt is None:
+            demb, dxo, (dkbT, dbb, dks, dko, dsb) = attnpool_bwd_plain(*args)
+        elif cuda:
+            d_bd, dxo, (dkbT, dbb, dks, dko, dsb) = attnpool_bwd_vocab(*args, vt, ctx.ws)
         else:
-            d_bd, dxo, (dkbT, dbb, dks, dko, dsb) = (
-                attnpool_bwd_vocab if cuda else attnpool_bwd_vocab_plain)(*args, vt)
+            d_bd, dxo, (dkbT, dbb, dks, dko, dsb) = attnpool_bwd_vocab_plain(*args, vt)
         Ds = w.Ds
         return (demb, dxo, None, None, None, d_bd, dkbT[:Ds].T.contiguous(),
                 dbb[:Ds].contiguous(), dks, dko, dsb)

@@ -445,7 +445,7 @@ def host_us(fn, calls: int = 100) -> float:
 # gathers of the weight streams
 BWD_PARTS = (("stack forward", ("stack_fwd_tile_kernel", "mp_stack_kernel")),
              ("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
-             ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd",)),
+             ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd", "attnpool_fwd")),
              ("contraction", ("wgrad_group", "wgrad_kernel", "wgrad_vocab")),
              ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
              ("casts and copies", ("copy_kernel",)),
@@ -476,12 +476,22 @@ def device_parts(fn, parts=BWD_PARTS, iters: int = 10, warmup: int = 3):
 
 def bwd_record(tag: str, name: str, dt, fn, ms_plain: float):
     """Time one backward form for the record: device time and its split
-    (``device_parts``), the wrapper's host time a call; printed, and kept in
-    BWD_RECORD.  Returns (device ms, timing, {kernel name: launches a call}
-    or None)."""
+    (``device_parts``), a CUDA-graph replay, the wrapper's host time a call;
+    printed, and kept in BWD_RECORD.  A profile whose total is more than 25%
+    off the replay (on an H100 under torch 2.11 a whole session at times
+    reads every kernel at about half its time) is taken again, up to twice,
+    which is said on a line of its own.  Returns (device
+    ms, timing, {kernel name: launches a call} or None)."""
     graph_timed = device_ms.graph_timed
     ms, split, names = device_parts(fn)
     gms = graph_ms(fn)
+    for _ in range(2):
+        if split is None or abs(ms - gms) <= 0.25 * gms:
+            break
+        print(f"[timing] {name}: the profiler's {ms:.4f} ms and a graph replay's {gms:.4f} ms "
+              "differ by more than 25%: profiling again", flush=True)
+        ms, split, names = device_parts(fn)
+        gms = graph_ms(fn)
     hus = host_us(fn, calls=10)
     dname = "bf16" if dt == torch.bfloat16 else "fp32"
     parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else "not measured"
@@ -978,10 +988,34 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     npm = int((pm != 0).sum())
     ops = 2 * n * E * Ds + 2 * n * H * (Ds + D) + 2 * npm * (Ds + D + 1)
     nbytes = (E + D) * A * isz + nb * mb * ab + 4 * ((Ds + D + 1) * B + H * A)
-    record("attnpool_fwd", list(zip(fwd, fref, [None] * 4)),
-           time_ms(lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)),
-           time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act), iters=5),
-           ops, nbytes)
+    again = bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)
+    if not all(torch.equal(a, b_) for a, b_ in zip(fwd, again)):
+        raise AssertionError("attnpool_fwd: a rerun is not bit-equal")
+    plain_ms = time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act), iters=5)
+    run = lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)  # noqa: E731
+    ms, timing, _ = bwd_record("train-kernel", "attnpool_fwd", dt, run, plain_ms)
+    check_pool_fwd_route("train-kernel", "attnpool_fwd", run, dt)
+    record("attnpool_fwd", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes)
+    res["attnpool_fwd"]["timing"] = timing
+    attnpool_fwd_phases(marks_build, "train-kernel", emb, xo, pm, aw, act)
+    # the fp32 form at the same shapes (the kernel of one block a bin), held to FP32_TOL
+    with torch.no_grad():
+        aw32 = bin_attnpool.prep_weights(W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b,
+                                         torch.float32)
+    emb32, xo32 = emb.float(), xo.float()
+    _, rel = _max_rel(list(zip(bin_attnpool.attnpool_fwd(emb32, xo32, pm, aw32, act),
+                               bin_attnpool.attnpool_fwd_plain(emb32, xo32, pm, aw32, act),
+                               [None] * 4)))
+    print(f"[train-kernel] attnpool_fwd fp32: rel={rel:.3e} (tol {FP32_TOL:g})", flush=True)
+    if not rel <= FP32_TOL:
+        raise AssertionError(f"attnpool_fwd fp32: rel err {rel:.3e} > {FP32_TOL:g}")
+    run = lambda: bin_attnpool.attnpool_fwd(emb32, xo32, pm, aw32, act)  # noqa: E731
+    bwd_record("train-kernel", "attnpool_fwd", torch.float32, run,
+               time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb32, xo32, pm, aw32, act), iters=5))
+    check_pool_fwd_route("train-kernel", "attnpool_fwd", run, torch.float32)
+    del emb32, xo32
+    pool_step_host("train-kernel", emb, xo, pm, act,
+                   (W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b))
     gps = torch.randn(Ds, B, generator=gen, device=dev) * 1e-3
     gpo = torch.randn(D, B, generator=gen, device=dev) * 1e-3
     gcov = torch.randn(B, generator=gen, device=dev) * 1e-3
@@ -1006,6 +1040,58 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     res["attnpool_bwd"]["timing"] = timing
     attnpool_phases(marks_build, "train-kernel", *args)
     return res
+
+
+def check_pool_fwd_route(tag: str, name: str, fn, dt) -> None:
+    """Print which forward kernel one call of ``fn`` launched, by the
+    wrapper's route counts (``_launch_fwd.routes``, set to 0 just before the
+    call); fail unless a bf16 call launched the tiled kernel once and the
+    kernel of one block a bin never, and an fp32 call the other way round.
+    A package without the tiled forward has no route counts: said, and
+    nothing to check."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    routes = getattr(bin_attnpool._launch_fwd, "routes", None)
+    if routes is None:
+        print(f"[{tag}] {name} {str(dt)[6:]}: one block a bin (no tiled forward here)", flush=True)
+        return
+    routes.update(tiles=0, bins=0)
+    fn()
+    torch.cuda.synchronize()
+    tiles, bins = routes["tiles"], routes["bins"]
+    print(f"[{tag}] {name} {str(dt)[6:]}: {'the tiled kernel' if tiles else 'one block a bin'} "
+          f"({tiles} + {bins} launches a call)", flush=True)
+    if (tiles, bins) != ((1, 0) if dt == torch.bfloat16 else (0, 1)):
+        raise AssertionError(f"{name} {dt}: routes {routes}")
+
+
+def pool_step_host(tag, emb, xo, pm, act, weights, spec=None) -> None:
+    """The attention pool through autograd, forward and backward, as a
+    training step runs it: host µs a step (``host_us``) and the gathers of
+    the tiled kernels' weight stream (``pool_stream``) a step."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in weights]
+
+    def step():
+        outs = bin_attnpool.binned_attnpool_proj_t(emb, leaves[0], leaves[1], act, xo, pm,
+                                                    *leaves[2:], embed_spec=spec)
+        torch.autograd.backward(outs[:3], [torch.ones_like(o) for o in outs[:3]])
+
+    real = getattr(bin_attnpool, "pool_stream", None)
+    gathers = []
+    if real is not None:
+        bin_attnpool.pool_stream = lambda w: gathers.append(1) or real(w)
+    try:
+        step()
+        torch.cuda.synchronize()
+        n = len(gathers)
+        hus = host_us(step, calls=20)
+    finally:
+        if real is not None:
+            bin_attnpool.pool_stream = real
+    print(f"[{tag}] attention pool through autograd (forward + backward): host {hus:.1f} us a "
+          f"step; weight-stream gathers a step {n}", flush=True)
 
 
 def check_pool_route(tag: str, name: str, names) -> None:
@@ -1044,15 +1130,16 @@ def time_ms_reset(fn, reset, iters: int = 10, warmup: int = 2) -> float:
 
 
 def fold_inputs(model, batch, dt):
-    """The embedding fold's operands of a batch: the code rows (F, A) int32
-    and the tables' block-diagonal table in the kernels' form."""
+    """The embedding fold's operands of a batch: the code rows (F, A) int32,
+    the tables' block-diagonal table in the kernels' form, and the fp32
+    table (as the model hands it to the ops)."""
     from aimnet_x2d_tpu_torch.ops import embed
 
     names = ("atom_type", "hydrogen_count", "degree", "hybridization")
     tables = [getattr(model, f"{k}_embedding").weight.detach() for k in names]
     codes = embed.code_rows([getattr(batch, k) for k in names])
-    vt = embed.prep_vocab(embed.blockdiag_table_t(tables), tuple(t.shape[0] for t in tables), dt)
-    return codes, vt
+    bd = embed.blockdiag_table_t(tables)
+    return codes, embed.prep_vocab(bd, tuple(t.shape[0] for t in tables), dt), bd
 
 
 def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
@@ -1081,7 +1168,7 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         isz = 2 if dt == torch.bfloat16 else 4
-        codes, vt = fold_inputs(model, batch, dt)
+        codes, vt, bd32 = fold_inputs(model, batch, dt)
         F, SV = codes.shape[0], vt.offsets[-1]
         if dt == torch.float32:
             print(f"[fold-kernel] shapes nb={nb} ab={ab} mb={mb} A={A} real atoms={n} E={E} "
@@ -1163,11 +1250,27 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
         torch.cuda.synchronize()
         ops = 2 * n * E * Ds + 2 * n * H * (Ds + D) + 2 * npm * (Ds + D + 1)
         nbytes = lookup + D * A * isz + nb * mb * ab + 4 * ((Ds + D + 1) * B + H * A)
-        record("attnpool_fwd_vocab", list(zip(fwd, fref, [None] * 4)),
-               time_ms(lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)),
-               time_ms(lambda: bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, aw, act, vt),
-                       iters=5),
-               ops, nbytes, 1e-5 if f32 else TRAIN_TOL)
+        again = bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)
+        emb_form = bin_attnpool.attnpool_fwd(embed_from_codes(codes, vt), xo, pm, aw, act)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b_) for a, b_ in zip(fwd, again))
+                and all(torch.equal(a, b_) for a, b_ in zip(fwd, emb_form)))
+        print(f"[fold-kernel] attnpool_fwd_vocab {str(dt)[6:]}: a rerun and the emb form "
+              f"bit-equal {same}", flush=True)
+        del emb_form
+        plain_ms = time_ms(lambda: bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, aw, act,
+                                                                          vt), iters=5)
+        run = lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)  # noqa: E731
+        ms, timing, _ = bwd_record("fold-kernel", "attnpool_fwd_vocab", dt, run, plain_ms)
+        check_pool_fwd_route("fold-kernel", "attnpool_fwd_vocab", run, dt)
+        record("attnpool_fwd_vocab", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes,
+               1e-5 if f32 else TRAIN_TOL, same)
+        res[("attnpool_fwd_vocab", dt)]["timing"] = timing
+        if not f32:
+            attnpool_fwd_phases(marks_build, "fold-kernel", codes, xo, pm, aw, act, vt=vt)
+            pool_step_host("fold-kernel", None, xo, pm, act,
+                           (W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b),
+                           (codes, bd32, vt.sizes))
         gps = torch.randn(Ds, B, generator=gen, device=dev) * 1e-3
         gpo = torch.randn(D, B, generator=gen, device=dev) * 1e-3
         gcov = torch.randn(B, generator=gen, device=dev) * 1e-3
@@ -1343,6 +1446,14 @@ ATTNPOOL_PHASES = {
         "setup, the emb tile", "recompute of t (ring products)", "dw",
         "softmax backward (t_mol over the cluster)", "x_self rows (dt over t)", "x_other rows",
         "dt slab, demb or d_bd (ring products)", "partials over the cluster"),
+    "attnpool_fwd_kernel (one block a bin)": (
+        "setup (bb, the molecules)", "projection (v to the slab)", "scores", "softmax",
+        "wbar and coverage", "x_self pools", "x_other pools"),
+    "attnpool_fwd_tile_kernel (a cluster of 64-atom tiles a bin)": (
+        "setup (the emb tile, the molecules, the one-hot)", "products (v on chip)", "scores",
+        "softmax (two cluster exchanges), attn", "wbar and coverage",
+        "x_self pools (membership product)", "x_other pools (membership product)",
+        "partials over the cluster"),
 }
 
 
@@ -1490,12 +1601,14 @@ def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov,
 
     name = "attnpool_bwd" if vt is None else "attnpool_bwd_vocab"
     lib = marks_lib(marks_build, "attnpool")
-    if not hasattr(lib, "attnpool_bwd_marks"):
+    # attnpool_marks, named attnpool_bwd_marks in trees before the tiled forward
+    marks = getattr(lib, "attnpool_marks", None) or getattr(lib, "attnpool_bwd_marks", None)
+    if marks is None:
         print(f"[{tag}] {name} phases: not measured (this attnpool.cu has no marks)", flush=True)
         return
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.attnpool_bwd_marks.argtypes = [vp]
-    lib.attnpool_bwd_marks.restype = i
+    marks.argtypes = [vp]
+    marks.restype = i
     lib.attnpool_bwd.argtypes = [vp] * 14 + [i] * 10 + [vp]
     lib.attnpool_bwd_vocab.argtypes = [vp, vp, vp] + [i] + [vp] * 12 + [i] * 10 + [vp]
     lib.attnpool_bwd_tiles.argtypes = [vp, vp, vp, vp, i] + [vp] * 13 + [i] * 9 + [vp]
@@ -1532,7 +1645,60 @@ def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov,
                 emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
                 w.flat.data_ptr(), ws.data_ptr(), *mid, work.data_ptr(), part.data_ptr(),
                 demb.data_ptr() if vt is None else None, dxo.data_ptr(), *dims))
-    print_phases(tag, name, ATTNPOOL_PHASES, launches, 10, lib.attnpool_bwd_marks,
+    print_phases(tag, name, ATTNPOOL_PHASES, launches, 10, marks, lib.attnpool_error_string)
+
+
+def attnpool_fwd_phases(marks_build, tag, emb, xo, pm, w, act, vt=None) -> None:
+    """The attention pool's forward split by phase (``[train-kernel]``,
+    ``[fold-kernel]`` with ``vt``): the kernel of one block a bin and, where
+    the source has it, the tiled one, of the marked build, launched twice on
+    these inputs in bf16 (``print_phases``); ``emb`` is the code rows under
+    the fold."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp
+    from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
+
+    name = "attnpool_fwd" if vt is None else "attnpool_fwd_vocab"
+    lib = marks_lib(marks_build, "attnpool")
+    if not hasattr(lib, "attnpool_fwd_tiles"):  # the forward kernels carry marks with it
+        print(f"[{tag}] {name} phases: not measured (this attnpool.cu has no forward marks)",
+              flush=True)
+        return
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.attnpool_marks.argtypes = [vp]
+    lib.attnpool_marks.restype = i
+    lib.attnpool_fwd.argtypes = [vp] * 10 + [i] * 10 + [vp]
+    lib.attnpool_fwd_vocab.argtypes = [vp, vp, vp] + [i] + [vp] * 9 + [i] * 10 + [vp]
+    lib.attnpool_fwd_tiles.argtypes = [vp, vp, vp, vp, i] + [vp] * 9 + [i] * 9 + [vp]
+    lib.attnpool_error_string.argtypes = [i]
+    lib.attnpool_error_string.restype = ctypes.c_char_p
+    dev, dt = xo.device, w.dtype
+    nb, mb, ab = pm.shape
+    (Dsp, E), H, Ds, (Do, A) = w.kbT.shape, w.sb.shape[0], w.Ds, xo.shape
+    vbuf = torch.empty(Dsp, A, dtype=dt, device=dev)
+    outs = (torch.empty(Ds, nb * mb, device=dev), torch.empty(Do, nb * mb, device=dev),
+            torch.empty(nb * mb, device=dev), torch.empty(H, A, device=dev))
+    outp = [o.data_ptr() for o in outs]
+    dims = (Ds, Dsp, Do, E, H, nb, mb, ab, ACTIVATION_CODES[act.lower()], bin_mp._stream(dev))
+    tail = (xo.data_ptr(), pm.data_ptr(), w.flat.data_ptr(), w.score.data_ptr(), vbuf.data_ptr(),
+            *outp, int(dt == torch.bfloat16), *dims)
+    if vt is None:
+        old = lambda: lib.attnpool_fwd(emb.data_ptr(), *tail)  # noqa: E731
+        table = (None, None, None, 0)
+    else:
+        sizes = bin_mp._sizes_arg(vt)
+        old = lambda: lib.attnpool_fwd_vocab(emb.data_ptr(), vt.bd.data_ptr(), sizes,  # noqa: E731
+                                             len(vt.sizes), *tail)
+        table = (emb.data_ptr(), vt.bd.data_ptr(), sizes, len(vt.sizes))
+    launches = {"attnpool_fwd_kernel (one block a bin)": (nb, old)}
+    if dt == torch.bfloat16:
+        ws = bin_attnpool.pool_stream(w)
+        launches["attnpool_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
+            nb * ab // 64, lambda: lib.attnpool_fwd_tiles(
+                emb.data_ptr() if vt is None else None, *table, xo.data_ptr(), pm.data_ptr(),
+                w.flat.data_ptr(), ws.data_ptr(), w.score.data_ptr(), *outp, *dims))
+    print_phases(tag, name, ATTNPOOL_PHASES, launches, 10, lib.attnpool_marks,
                  lib.attnpool_error_string)
 
 

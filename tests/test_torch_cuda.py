@@ -812,6 +812,196 @@ def test_attnpool_vocab_kernels_match_plain(dev, dtype, shape, mb):
         assert torch.equal(a, b)
 
 
+# The attention pool's bf16 forward on tiles (attnpool_fwd_tile_kernel: a
+# cluster of 64-atom tiles per bin, both forms): (Ds, Do, E, nb, mb, ab),
+# clusters of 1, 2, 4 and 8; molecules scattered over each bin, so across
+# its tiles, and a padding bin.  Same tolerances as the kernel of one block
+# a bin: 5e-2 bf16.
+
+POOL_FWD_SHAPES = [(359, 153, 256, 6, 16, 256), (21, 13, 32, 5, 12, 64), (21, 13, 32, 4, 8, 128),
+                   (40, 24, 32, 3, 20, 512)]
+
+
+def _pool_fwd_case(dev, shape, dtype=torch.bfloat16, H=4):
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    Ds, Do, E, nb, mb, ab = shape
+    g = torch.Generator(device=dev).manual_seed(Ds + ab)
+    owner = torch.randint(-1, mb - 1, (nb, ab), generator=g, device=dev)
+    owner[-1] = -1  # the padding bin: no molecule
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    codes, vt, emb = _vocab_case(dev, E, nb, ab, dtype, Ds + ab)
+    xo = torch.randn(Do, nb * ab, generator=g, device=dev).to(dtype)
+    r = lambda *s: (torch.rand(*s, generator=g, device=dev) - 0.5) * 0.4  # noqa: E731
+    w = bin_attnpool.prep_weights(r(E, Ds), r(Ds), r(Ds, H), r(Do, H), r(H), dtype)
+    return emb, codes, vt, xo, pm, w
+
+
+def _kernel_names(fn):
+    """{profiler kernel name: launches} of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _fwd_routes(fn):
+    """(tiled, one block a bin) forward launches of one call of ``fn``, by
+    the wrapper's route counts."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    routes = bin_attnpool._launch_fwd.routes
+    before = dict(routes)
+    fn()
+    return routes["tiles"] - before["tiles"], routes["bins"] - before["bins"]
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("shape", POOL_FWD_SHAPES)
+def test_attnpool_fwd_tiles_match_plain(dev, shape, fold):
+    """bf16 runs the tiled forward, one launch a call; reruns bit-equal; the
+    vocab form bit-equal to the emb form."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    emb, codes, vt, xo, pm, w = _pool_fwd_case(dev, shape)
+    if fold:
+        run = lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, w, "silu", vt)  # noqa: E731
+        counter = bin_attnpool.attnpool_fwd_vocab
+    else:
+        run = lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu")  # noqa: E731
+        counter = bin_attnpool.attnpool_fwd
+    n0 = counter.launches
+    got, again = run(), run()
+    assert counter.launches == n0 + 2
+    want = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, w, "silu")
+    emb_form = bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu")
+    torch.cuda.synchronize()
+    Ds, Do, E, nb, mb, ab = shape
+    assert bin_attnpool._FWD_TILES[(1, w.kbT.shape[0], E, 4, Ds, Do, mb, ab)]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, emb_form))
+    errs = [_rel(a, r) for a, r in zip(got, want)]
+    print(f"{shape} fold={fold}: {errs}")
+    assert max(errs) < 5e-2
+    names = _kernel_names(run)
+    assert sum(v for k, v in names.items() if "attnpool_fwd_tile_kernel" in k) == 1
+    assert not any("attnpool_fwd_kernel" in k for k in names)
+    assert _fwd_routes(run) == (1, 0)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_attnpool_fwd_tiles_feed_the_backward(dev, fold):
+    """The tiled backward on the tiled forward's attn gives the plain
+    chain's gradients; the weight stream gathered once serves both."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    emb, codes, vt, xo, pm, w = _pool_fwd_case(dev, POOL_FWD_SHAPES[0])
+    g = torch.Generator(device=dev).manual_seed(3)
+    Ds, Do, B = w.Ds, xo.shape[0], pm.shape[0] * pm.shape[1]
+    gs = (torch.randn(Ds, B, generator=g, device=dev), torch.randn(Do, B, generator=g, device=dev),
+          torch.randn(B, generator=g, device=dev))
+    ws = bin_attnpool.pool_stream(w)
+    if fold:
+        attn = bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, w, "silu", vt, ws)[3]
+        got = bin_attnpool.attnpool_bwd_vocab(codes, xo, pm, w, "silu", attn, *gs, vt, ws)
+        ref_attn = bin_attnpool.attnpool_fwd_vocab_plain(codes, xo, pm, w, "silu", vt)[3]
+        want = bin_attnpool.attnpool_bwd_vocab_plain(codes, xo, pm, w, "silu", ref_attn, *gs, vt)
+    else:
+        attn = bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu", ws)[3]
+        got = bin_attnpool.attnpool_bwd(emb, xo, pm, w, "silu", attn, *gs, ws)
+        ref_attn = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, w, "silu")[3]
+        want = bin_attnpool.attnpool_bwd_plain(emb, xo, pm, w, "silu", ref_attn, *gs)
+    torch.cuda.synchronize()
+    errs = {"d_emb": _rel(got[0], want[0]), "dxo": _rel(got[1], want[1])}
+    # d_sb is a sum of terms that cancel to 0: held to the scale of d_ks
+    for i, (a, b) in enumerate(zip(got[2], want[2])):
+        scale = float(want[2][2].abs().max()) if i == 4 else float(b.abs().max())
+        errs[f"grad {i}"] = float((a - b).abs().max()) / scale
+    print(f"fold={fold}: {errs}")
+    assert max(errs.values()) < 5e-2
+
+
+@pytest.mark.parametrize("case", ["fp32", "fp32_fold", "wide", "wide_fold"])
+def test_attnpool_fwd_old_kernel_takes_what_the_tiles_do_not(dev, case):
+    """fp32, and bf16 past the tiles (ab 576: a cluster of 9), run the
+    kernel of one block a bin, by the profiler's kernel names."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    shape = (21, 13, 32, 3, 8, 64 if dtype == torch.float32 else 576)
+    emb, codes, vt, xo, pm, w = _pool_fwd_case(dev, shape, dtype)
+    if case.endswith("fold"):
+        run = lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, w, "relu", vt)  # noqa: E731
+    else:
+        run = lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, w, "relu")  # noqa: E731
+    got = run()
+    want = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, w, "relu")
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert max(_rel(a, r) for a, r in zip(got, want)) < tol
+    names = _kernel_names(run)
+    assert sum(v for k, v in names.items() if "attnpool_fwd_kernel" in k) == 1
+    assert not any("attnpool_fwd_tile_kernel" in k for k in names)
+    assert _fwd_routes(run) == (0, 1)
+
+
+def test_attnpool_autograd_gathers_the_stream_once(dev, monkeypatch):
+    """A bf16 step through binned_attnpool_proj_t gathers kb^T's and kb's
+    stream once, for the tiled forward and backward both."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    emb, _, _, xo, pm, _ = _pool_fwd_case(dev, POOL_FWD_SHAPES[1])
+    g = torch.Generator(device=dev).manual_seed(4)
+    E, Ds, Do, H = emb.shape[0], 21, xo.shape[0], 4
+
+    def r(*shape):
+        return ((torch.rand(*shape, generator=g, device=dev) - 0.5) * 0.4).requires_grad_(True)
+
+    gathers = []
+    real = bin_attnpool.pool_stream
+    monkeypatch.setattr(bin_attnpool, "pool_stream", lambda w: gathers.append(1) or real(w))
+    f0, b0 = bin_attnpool.attnpool_fwd.launches, bin_attnpool.attnpool_bwd.launches
+    kb = r(E, Ds)
+    ps, po, cov, _ = bin_attnpool.binned_attnpool_proj_t(emb, kb, r(Ds), "silu", xo, pm, r(Ds, H),
+                                                         r(Do, H), r(H))
+    (ps.sum() + po.sum() + cov.sum()).backward()
+    torch.cuda.synchronize()
+    assert len(gathers) == 1
+    assert bin_attnpool.attnpool_fwd.launches - f0 == 1
+    assert bin_attnpool.attnpool_bwd.launches - b0 == 1
+    assert torch.isfinite(kb.grad).all()
+
+
+def test_attnpool_autograd_gathers_no_stream_past_the_tiles(dev, monkeypatch):
+    """A bf16 step at a shape neither tiled kernel takes (ab 576: a cluster
+    of 9) gathers no weight stream and runs the kernels of one block a bin."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    emb, _, _, xo, pm, _ = _pool_fwd_case(dev, (21, 13, 32, 3, 8, 576))
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return ((torch.rand(*shape, generator=g, device=dev) - 0.5) * 0.4).requires_grad_(True)
+
+    gathers = []
+    real = bin_attnpool.pool_stream
+    monkeypatch.setattr(bin_attnpool, "pool_stream", lambda w: gathers.append(1) or real(w))
+    kb = r(32, 21)
+    step = lambda: bin_attnpool.binned_attnpool_proj_t(  # noqa: E731
+        emb, kb, r(21), "silu", xo, pm, r(21, 4), r(13, 4), r(4))
+    assert _fwd_routes(step) == (0, 1)
+    ps, po, cov, _ = step()
+    (ps.sum() + po.sum() + cov.sum()).backward()
+    torch.cuda.synchronize()
+    assert not gathers
+    assert torch.isfinite(kb.grad).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vocab_autograd_launches_only_the_folded_kernels(dev, dtype):
     from aimnet_x2d_tpu_torch.ops import bin_attnpool, embed
