@@ -106,6 +106,7 @@
 // set by attnpool_marks; chip_smoke.py's [train-kernel] and [fold-kernel]
 // phases read them).
 
+#include "pool_tiles.cuh"
 #include "vocab.cuh"
 #include "walk.cuh"
 
@@ -181,12 +182,6 @@ __device__ Smem carve(unsigned char* base, int Dsp, int H, int mb, int ab,
   s.etile = q;
   s.acc = reinterpret_cast<float*>(q + tile_bytes);
   return s;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // bb to shared memory and each atom's molecule
@@ -559,35 +554,6 @@ __device__ void load_emb_tile(bf16* et, const bf16* __restrict__ emb,
       cp_async16(et + r * kLdT + c, emb + (size_t)r * A + cc + c);
     }
   }
-}
-
-// molof[c]: the molecule of the tile's atom c (the first slot of pm_t, the
-// tile's columns of the bin's (mb, ab) matrix, that holds it; -1 for none):
-// independent loads, no early exit
-__device__ void tile_molecules(int* molof, const int8_t* __restrict__ pm_t, int mb, int ab) {
-  for (int c = threadIdx.x; c < kTile; c += kWalkThreads) {
-    int m = -1;
-#pragma unroll 16
-    for (int mm = mb - 1; mm >= 0; --mm)
-      if (pm_t[(size_t)mm * ab + c] != 0) m = mm;
-    molof[c] = m;
-  }
-}
-
-// The sum over the cluster's C blocks, in rank order, of the float at p (the
-// same offset in each block's shared memory): every rank's value is loaded
-// first, so the remote loads are in flight together.
-__device__ __forceinline__ float rank_sum(cooperative_groups::cluster_group& cluster,
-                                          const float* p, int C) {
-  float part[kWalkMaxCluster];
-#pragma unroll
-  for (int r = 0; r < kWalkMaxCluster; ++r)
-    part[r] = r < C ? *cluster.map_shared_rank(p, r) : 0.0f;
-  float v = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kWalkMaxCluster; ++r)
-    if (r < C) v += part[r];
-  return v;
 }
 
 struct PoolTileSmem {

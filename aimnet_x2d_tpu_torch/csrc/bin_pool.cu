@@ -28,13 +28,66 @@
 //
 // What bounds it on an H100: every step is a pass over the bin's rows with
 // a few operations per element, so it is bound by memory traffic (xs and
-// xo read twice per direction, the second pass mostly from L2).  This first
-// version reads rows with one warp per atom for the per-atom reductions and
-// one thread per feature column for the pools and the gradients.
+// xo read twice per direction, the second pass mostly from L2).  The
+// kernels of one block a bin read rows with one warp per atom for the
+// per-atom reductions and one thread per feature column for the pools and
+// the gradients; the backward, and the forward where the tiles do not take
+// the shape (H > 8, ab > 512, shared memory), run them.
+//
+// The forward on tiles (bin_pool_fwd_tile_kernel, bf16 and fp32).  The
+// kernel of one block a bin spent, on an H100 at the training shape
+// (-DBIN_POOL_MARKS), two thirds of a block in the scores (a warp an atom,
+// strided 2-byte loads) and a quarter in the pools (a thread a (molecule,
+// column), xs and xo read again), with 192 blocks on 132 SMs.  The design:
+// - one 512-thread block per 64-atom tile, two an SM, the ab / 64 tiles of
+//   a bin one thread-block cluster (768 blocks at the training batch);
+// - the tile's rows of xs and xo, contiguous in the row-major arrays, land
+//   in shared memory by two bulk async copies on one mbarrier (the wrapper
+//   checks their 16-byte alignment), so each input byte crosses HBM once;
+// - each atom's molecule from the tile's columns of the pool matrix
+//   (csrc/pool_tiles.cuh tile_molecules), not a serial scan;
+// - the scores on all threads: eight a tile's atom, each an eighth of the
+//   columns, the eighths added in a fixed order by shuffles;
+// - the masked softmax over molecules that cross tiles in one exchange: per
+//   tile and (head, molecule) a partial maximum and the denominator at it,
+//   combined over the cluster through distributed shared memory -- the
+//   bin's maximum, the partial denominators rescaled to it and added in
+//   rank order; each tile writes its attn columns;
+// - the pools and coverage as per-tile fp32 partials, mb x (Ds + Do + 1),
+//   a thread a column adding each run of one molecule's atoms (the runs
+//   found once a tile by a warp's ballots) to that molecule's partial,
+//   summed over the cluster in rank order (four partials a remote load),
+//   each rank writing its share of the molecule rows.
+// No atomics: reruns are bit-equal.
 
+#include "pool_tiles.cuh"
+#include "ring.cuh"
 #include "wgrad.cuh"
 
 namespace {
+
+// Built with -DBIN_POOL_MARKS, bin_pool_fwd_kernel records a %globaltimer
+// mark per block after a block barrier at each phase boundary (start,
+// membership, scores, softmax, attn write, head mean and coverage, x_self
+// pools, x_other pools; bin_pool_marks; chip_smoke.py's [pool6-kernel]
+// "bin_pool_fwd phases" lines read them).
+#ifdef BIN_POOL_MARKS
+constexpr int kPoolMarks = 10;  // marks a block may record
+__device__ unsigned long long* g_pool_marks;  // (blocks, kPoolMarks), set by bin_pool_marks
+#define POOL_MARK(i)                                                        \
+  do {                                                                      \
+    __syncthreads();                                                        \
+    if (threadIdx.x == 0) {                                                 \
+      unsigned long long t_;                                                \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));               \
+      g_pool_marks[(size_t)blockIdx.x * kPoolMarks + (i)] = t_;            \
+    }                                                                       \
+  } while (0)
+#else
+#define POOL_MARK(i) \
+  do {               \
+  } while (0)
+#endif
 
 constexpr int kPoolThreads = 256;
 constexpr int kPoolWarps = kPoolThreads / 32;
@@ -131,7 +184,9 @@ bin_pool_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
   const float* ks = score;
   const float* ko = score + (size_t)Ds * H;
   const float* sb = ko + (size_t)Do * H;
+  POOL_MARK(0);
   pool_members(s, pm, mb, ab);
+  POOL_MARK(1);
 
   // scores: one warp per atom, lanes over the feature columns
   for (int a = warp; a < ab; a += kPoolWarps) {
@@ -160,6 +215,7 @@ bin_pool_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
       }
   }
   __syncthreads();
+  POOL_MARK(2);
 
   // per-molecule max and denominator, one warp per (head, molecule)
   float* smax = s.red;
@@ -180,6 +236,7 @@ bin_pool_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     }
   }
   __syncthreads();
+  POOL_MARK(3);
   for (int e = threadIdx.x; e < H * ab; e += kPoolThreads) {
     const int h = e / ab, a = e % ab, m = s.molof[a];
     float at = 0.0f;
@@ -188,12 +245,14 @@ bin_pool_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     attn_out[(size_t)h * A + col0 + a] = at;
   }
   __syncthreads();
+  POOL_MARK(4);
   pool_head_mean(s, H, ab);
   for (int m = threadIdx.x; m < mb; m += kPoolThreads) {
     float acc = 0.0f;
     for (int k = s.start[m]; k < s.start[m + 1]; ++k) acc += s.wbar[s.order[k]];
     cov[mol0 + m] = acc;
   }
+  POOL_MARK(5);
 
   // pools: one thread per (molecule, column), the molecule's atoms in order
   for (int part = 0; part < 2; ++part) {
@@ -209,6 +268,7 @@ bin_pool_fwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
       }
       out[(mol0 + m) * D + d] = acc;
     }
+    POOL_MARK(6 + part);
   }
 }
 
@@ -312,6 +372,304 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
   }
 }
 
+// ---- the forward on tiles: one block per 64-atom tile, a cluster per bin ----
+
+constexpr int kTileThreads = 512;  // eight threads an atom for the scores, two blocks an SM
+constexpr int kTileHead = 16;      // bytes of the tile's mbarrier
+
+// Shared memory of a tile: its xs and xo rows (as they lie in the row-major
+// arrays), the score weights, its atoms' molecules, scores and weights, the
+// softmax's per-(head, molecule) partials and the bin's values, and its
+// pool partials (mb x (Ds + Do + 1): x_self, x_other, coverage).
+__host__ __device__ __forceinline__ int pool_hp(int H) { return H <= 4 ? 4 : 8; }
+// the partials' floats, padded to whole float4s
+__host__ __device__ __forceinline__ int pool_part4(int Ds, int Do, int mb) {
+  return (mb * (Ds + Do + 1) + 3) / 4 * 4;
+}
+
+template <typename T>
+size_t pool_tile_smem_bytes(int Ds, int Do, int H, int mb) {
+  return kTileHead + (size_t)kTile * (Ds + Do) * sizeof(T) +
+         ((size_t)(Ds + Do + 1) * pool_hp(H) + (size_t)H * kTile + 2 * kTile +
+          4 * (size_t)H * mb + pool_part4(Ds, Do, mb)) * sizeof(float) +
+         3 * (kTile + 1) * sizeof(int);
+}
+
+template <typename T>
+bool pool_tiles_fit(int Ds, int Do, int H, int mb, int ab) {
+  return H >= 1 && H <= kPoolMaxH && mb >= 1 && Ds >= 1 && Do >= 1 && ab % kTile == 0 &&
+         ab / kTile >= 1 && ab / kTile <= kWalkMaxCluster &&
+         pool_tile_smem_bytes<T>(Ds, Do, H, mb) <= (size_t)kSmemLimit;
+}
+
+// As bin_pool_fwd_kernel, one block per 64-atom tile, grid nb * C, clusters
+// of C = ab / 64.  The tile's rows of xs and xo (contiguous in the
+// row-major arrays) arrive by two bulk async copies on one mbarrier; the
+// scores, softmax and pools read them from shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 2)
+bin_pool_fwd_tile_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
+                         const int8_t* __restrict__ pm, const float* __restrict__ score,
+                         float* __restrict__ ps, float* __restrict__ po, float* __restrict__ cov,
+                         float* __restrict__ attn_out, int Ds, int Do, int H, int A, int mb,
+                         int ab) {
+  namespace cgr = cooperative_groups;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int C = ab / kTile, rank = (int)cluster.block_rank();
+  const int bin = blockIdx.x / C, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t cc = (size_t)bin * ab + (size_t)rank * kTile, mol0 = (size_t)bin * mb;
+  const int K = Ds + Do;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Hp = pool_hp(H), n4 = pool_part4(Ds, Do, mb);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  T* xst = reinterpret_cast<T*>(smem + kTileHead);  // 64 x Ds
+  T* xot = xst + (size_t)kTile * Ds;                // 64 x Do
+  // ks, ko (rows of Hp, zero past H), then b
+  float* ksm = reinterpret_cast<float*>(xot + (size_t)kTile * Do);
+  float* sc = ksm + (size_t)(K + 1) * Hp;  // H x 64: scores, then attn
+  float* wbar = sc + (size_t)H * kTile;
+  float* wr = wbar + kTile;             // rnd(wbar)
+  float* pmax = wr + kTile;             // H x mb: this tile's partial max
+  float* pden = pmax + (size_t)H * mb;  // H x mb: its partial denominator at that max
+  float* gmax = pden + (size_t)H * mb;  // H x mb: the bin's max
+  float* gden = gmax + (size_t)H * mb;  // H x mb: the bin's denominator
+  float* part = gden + (size_t)H * mb;  // mb x (K + 1), padded to n4: the pools' and coverage's partials
+  int* molof = reinterpret_cast<int*>(part + n4);
+  int* rstart = molof + kTile;       // runs of atoms of one molecule: first atoms,
+  int* rmol = rstart + kTile + 1;    // their molecules, and the count at rmol[kTile]
+  POOL_MARK(0);
+
+  // the tile's rows by bulk async copies; meanwhile the score weights, the
+  // molecules of its atoms and zeroed partials
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const unsigned bs = kTile * Ds * sizeof(T), bo = kTile * Do * sizeof(T);
+    mbar_expect(bar, bs + bo);
+    bulk_load(xst, xs + cc * Ds, bs, bar);
+    bulk_load(xot, xo + cc * Do, bo, bar);
+  }
+  for (int e = threadIdx.x; e < (K + 1) * Hp; e += kTileThreads) {
+    const int d = e / Hp, h = e % Hp;
+    ksm[e] = h < H ? score[(size_t)d * H + h] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < n4; e += kTileThreads) part[e] = 0.0f;
+  tile_molecules(molof, pm + (size_t)bin * mb * ab + (size_t)rank * kTile, mb, ab);
+  __syncthreads();
+  if (warp == 0) {  // the runs: an atom opens one where its molecule differs from the last's
+    const int m0 = molof[lane], m1 = molof[lane + 32];
+    const bool o0 = lane == 0 || m0 != molof[lane - 1], o1 = m1 != molof[lane + 31];
+    const unsigned b0 = __ballot_sync(0xffffffffu, o0), b1 = __ballot_sync(0xffffffffu, o1);
+    const unsigned below = (1u << lane) - 1u;
+    if (o0) {
+      rstart[__popc(b0 & below)] = lane;
+      rmol[__popc(b0 & below)] = m0;
+    }
+    if (o1) {
+      rstart[__popc(b0) + __popc(b1 & below)] = lane + 32;
+      rmol[__popc(b0) + __popc(b1 & below)] = m1;
+    }
+    if (lane == 0) {
+      const int n = __popc(b0) + __popc(b1);
+      rstart[n] = kTile;
+      rmol[kTile] = n;
+    }
+  }
+  mbar_wait(bar, 0);
+  __syncthreads();
+  POOL_MARK(1);
+
+  // s = (xs ks + xo ko) + b: eight threads an atom, each an eighth of the
+  // columns (c = p, p + 8, ...); the eighths summed in a fixed order by
+  // shuffles
+  {
+    const int a = threadIdx.x >> 3, p = threadIdx.x & 7;
+    float vs[kPoolMaxH], vo[kPoolMaxH];
+#pragma unroll
+    for (int h = 0; h < kPoolMaxH; ++h) vs[h] = vo[h] = 0.0f;
+    // a row of the score weights as one or two float4 loads
+    auto fma_row = [&](float (&v)[kPoolMaxH], float x, const float* kr) {
+      const float4 k0 = *reinterpret_cast<const float4*>(kr);
+      v[0] = fmaf(x, k0.x, v[0]);
+      v[1] = fmaf(x, k0.y, v[1]);
+      v[2] = fmaf(x, k0.z, v[2]);
+      v[3] = fmaf(x, k0.w, v[3]);
+      if (Hp == 8) {
+        const float4 k1 = *reinterpret_cast<const float4*>(kr + 4);
+        v[4] = fmaf(x, k1.x, v[4]);
+        v[5] = fmaf(x, k1.y, v[5]);
+        v[6] = fmaf(x, k1.z, v[6]);
+        v[7] = fmaf(x, k1.w, v[7]);
+      }
+    };
+    const T* rs = xst + (size_t)a * Ds;
+#pragma unroll 4
+    for (int d = p; d < Ds; d += 8) fma_row(vs, to_f(rs[d]), ksm + (size_t)d * Hp);
+    const T* ro = xot + (size_t)a * Do;
+#pragma unroll 4
+    for (int d = p; d < Do; d += 8) fma_row(vo, to_f(ro[d]), ksm + (size_t)(Ds + d) * Hp);
+#pragma unroll
+    for (int h = 0; h < kPoolMaxH; ++h)
+      if (h < H) {
+        // ((q0 + q1) + (q2 + q3)) + ((q4 + q5) + (q6 + q7)), the same on
+        // the eight lanes
+        float s1 = vs[h], s2 = vo[h];
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+        }
+        if (p == 0) sc[h * kTile + a] = (s1 + s2) + ksm[(size_t)K * Hp + h];
+      }
+  }
+  __syncthreads();
+  POOL_MARK(2);
+
+  // the per-molecule masked softmax over molecules that cross tiles, one
+  // exchange: each tile's partial max per (head, molecule) and its partial
+  // denominator at that max; the bin's max over the ranks (exact in any
+  // order), its denominator the ranks' partials rescaled to it, summed in
+  // rank order
+  for (int q = warp; q < H * mb; q += kTileThreads / 32) {
+    const int h = q / mb, m = q % mb;
+    const float s0 = molof[lane] == m ? sc[h * kTile + lane] : -1e30f;
+    const float s1 = molof[lane + 32] == m ? sc[h * kTile + lane + 32] : -1e30f;
+    const float mx = warp_max(fmaxf(s0, s1));
+    float e = (molof[lane] == m ? expf(s0 - mx) : 0.0f) +
+              (molof[lane + 32] == m ? expf(s1 - mx) : 0.0f);
+    e = warp_sum(e);
+    if (lane == 0) {
+      pmax[q] = mx;
+      pden[q] = e;
+    }
+  }
+  cluster.sync();
+  for (int q = threadIdx.x; q < H * mb; q += kTileThreads) {
+    float pm_r[kWalkMaxCluster], pd_r[kWalkMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) {
+        pm_r[r] = cluster.map_shared_rank(pmax, r)[q];
+        pd_r[r] = cluster.map_shared_rank(pden, r)[q];
+      }
+    float mx = -1e30f;
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) mx = fmaxf(mx, pm_r[r]);
+    float den = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) den += pd_r[r] * expf(pm_r[r] - mx);
+    gmax[q] = mx;
+    gden[q] = den;
+  }
+  __syncthreads();
+  POOL_MARK(3);
+  for (int e = threadIdx.x; e < H * kTile; e += kTileThreads) {
+    const int h = e / kTile, c = e % kTile, m = molof[c];
+    const float at =
+        m >= 0 ? expf(sc[e] - gmax[h * mb + m]) / fmaxf(gden[h * mb + m], 1e-16f) : 0.0f;
+    sc[e] = at;
+    attn_out[(size_t)h * A + cc + c] = at;
+  }
+  __syncthreads();
+  // wbar = the mean over heads (summed in head order)
+  for (int c = threadIdx.x; c < kTile; c += kTileThreads) {
+    float v = 0.0f;
+    for (int h = 0; h < H; ++h) v += sc[h * kTile + c];
+    wbar[c] = v / (float)H;
+    wr[c] = rnd<T>(v / (float)H);
+  }
+  __syncthreads();
+  POOL_MARK(4);
+
+  // the tile's partials: a thread a column of [xs | xo | 1] sums
+  // rnd(x rnd(wbar)) (coverage: wbar) over each run of atoms of one
+  // molecule, in atom order, and adds each run's sum to its molecule's
+  // partial (its own column: no other thread writes it)
+  const int n_runs = rmol[kTile];
+  for (int col = threadIdx.x; col <= K; col += kTileThreads) {
+    const bool self = col < Ds;
+    const T* xc = self ? xst + col : xot + (col - Ds);
+    const int ld = self ? Ds : Do;
+    for (int r = 0; r < n_runs; ++r) {
+      const int m = rmol[r];
+      if (m < 0) continue;
+      float run = 0.0f;
+#pragma unroll 4
+      for (int c = rstart[r]; c < rstart[r + 1]; ++c)
+        run += col < K ? rnd<T>(to_f(xc[(size_t)c * ld]) * wr[c]) : wbar[c];
+      part[(size_t)m * (K + 1) + col] += run;
+    }
+  }
+  POOL_MARK(5);
+
+  // the bin's ps, po and cov: the tiles' partials in rank order, the
+  // elements spread over the cluster
+  cluster.sync();
+  const int n = mb * (K + 1);
+  for (int i4 = rank * kTileThreads + threadIdx.x; i4 < n4 / 4; i4 += C * kTileThreads) {
+    float4 pr[kWalkMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) pr[r] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r) + 4 * i4);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) {
+        v[0] += pr[r].x;
+        v[1] += pr[r].y;
+        v[2] += pr[r].z;
+        v[3] += pr[r].w;
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * i4 + k;
+      if (i >= n) break;
+      const int m = i / (K + 1), col = i % (K + 1);
+      if (col < Ds)
+        ps[(mol0 + m) * Ds + col] = v[k];
+      else if (col < K)
+        po[(mol0 + m) * Do + col - Ds] = v[k];
+      else
+        cov[mol0 + m] = v[k];
+    }
+  }
+  cluster.sync();  // the other tiles' reads of this block's partials are done
+  POOL_MARK(6);
+}
+
+bool pool_tiles_configured[2][kMaxDevices];
+
+template <typename T>
+int launch_pool_fwd_tiles(const void* xs, const void* xo, const void* pm, const void* score,
+                          void* ps, void* po, void* cov, void* attn, int Ds, int Do, int H, int nb,
+                          int mb, int ab, cudaStream_t st) {
+  if (!pool_tiles_fit<T>(Ds, Do, H, mb, ab)) return (int)cudaErrorInvalidValue;
+  const int err = configure(bin_pool_fwd_tile_kernel<T>, pool_tiles_configured[sizeof(T) == 4]);
+  if (err) return err;
+  const int C = ab / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb * C);
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = pool_tile_smem_bytes<T>(Ds, Do, H, mb);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, bin_pool_fwd_tile_kernel<T>, static_cast<const T*>(xs), static_cast<const T*>(xo),
+      static_cast<const int8_t*>(pm), static_cast<const float*>(score), static_cast<float*>(ps),
+      static_cast<float*>(po), static_cast<float*>(cov), static_cast<float*>(attn), Ds, Do, H,
+      nb * ab, mb, ab);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_pool_fwd(const void* xs, const void* xo, const void* pm, const void* score, void* ps,
                     void* po, void* cov, void* attn, int Ds, int Do, int H, int nb, int mb, int ab,
@@ -355,6 +713,28 @@ long long bin_pool_smem_bytes(int H, int mb, int ab) {
   return H > kPoolMaxH ? (long long)kSmemLimit + 1 : (long long)pool_smem_bytes(H, mb, ab);
 }
 
+// Shared memory of the forward on tiles at these shapes, or -1 where it
+// does not take them (the wrapper then launches bin_pool_fwd).
+long long bin_pool_tiles_smem_bytes(int bf16, int Ds, int Do, int H, int mb, int ab) {
+  if (bf16)
+    return pool_tiles_fit<__nv_bfloat16>(Ds, Do, H, mb, ab)
+               ? (long long)pool_tile_smem_bytes<__nv_bfloat16>(Ds, Do, H, mb) : -1;
+  return pool_tiles_fit<float>(Ds, Do, H, mb, ab)
+             ? (long long)pool_tile_smem_bytes<float>(Ds, Do, H, mb) : -1;
+}
+
+// The forward on tiles (bin_pool_fwd_tile_kernel): the arguments and
+// outputs of bin_pool_fwd; xs and xo 16-byte aligned.
+int bin_pool_fwd_tiles(const void* xs, const void* xo, const void* pm, const void* score,
+                       void* ps, void* po, void* cov, void* attn, int bf16, int Ds, int Do, int H,
+                       int nb, int mb, int ab, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_pool_fwd_tiles<__nv_bfloat16>(xs, xo, pm, score, ps, po, cov, attn, Ds,
+                                                     Do, H, nb, mb, ab, st)
+              : launch_pool_fwd_tiles<float>(xs, xo, pm, score, ps, po, cov, attn, Ds, Do, H, nb,
+                                             mb, ab, st);
+}
+
 // Each returns cudaGetLastError() after its launch (0 on success).
 int bin_pool_fwd(const void* xs, const void* xo, const void* pm, const void* score, void* ps,
                  void* po, void* cov, void* attn, int bf16, int Ds, int Do, int H, int nb, int mb,
@@ -381,6 +761,13 @@ int bin_pool_bwd(const void* xs, const void* xo, const void* pm, const void* sco
 int bin_pool_sum_partials(const void* part, void* out, int n, long long size, void* stream) {
   return launch_sum_partials(part, out, n, size, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef BIN_POOL_MARKS
+// Points the forward kernels' phase marks at marks ((blocks, 10) uint64).
+int bin_pool_marks(void* marks) {
+  return (int)cudaMemcpyToSymbol(g_pool_marks, &marks, sizeof(marks));
+}
+#endif
 
 const char* bin_pool_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -1537,6 +1537,12 @@ def _lib_ext() -> ctypes.CDLL:
         lib.mp_ext_bwd_walk_smem_bytes.restype = ctypes.c_longlong
         lib.mp_ext_bwd_walk_stream_elems.argtypes = [i, i]
         lib.mp_ext_bwd_walk_stream_elems.restype = ctypes.c_longlong
+        lib.mp_ext_fwd_wg.argtypes = [vp] * 3 + [i] * 6 + [u, u, f, vp]
+        lib.mp_ext_fwd_wg.restype = i
+        lib.mp_ext_fwd_wg_smem_bytes.argtypes = [i, i]
+        lib.mp_ext_fwd_wg_smem_bytes.restype = ctypes.c_longlong
+        lib.mp_ext_fwd_wg_stream_elems.argtypes = [i, i]
+        lib.mp_ext_fwd_wg_stream_elems.restype = ctypes.c_longlong
         lib.mp_ext_error_string.argtypes = [i]
         lib.mp_ext_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -1557,29 +1563,115 @@ def _check_ext(what: str, xa: torch.Tensor, sw: StackWeights, spec: StackSpec, *
     return spec.kernel_drop(dt)
 
 
+# ---- kernel 5's bf16 forward on wgmma: its weight stream ----------------- #
+#
+# ``ext_fwd_wg_kernel`` multiplies with the atoms as rows: out^T = xa^T W^T.
+# Its B operand, W^T (K x Dp), arrives in stages of 32 K-rows, each stage
+# K-major without swizzle: core matrices of 8 outputs x 8 inputs (64
+# contiguous elements), the stage's four input groups of an output group
+# one after another, then the next output group.
+
+WG_KC = 32  # K of a weight stage
+
+
+def ext_wg_stream_elems(Dp: int, n_blocks: int) -> int:
+    """Elements of the wgmma forward's weight stream (the C entry
+    ``mp_ext_fwd_wg_stream_elems``): the stages, then the biases."""
+    return (4 * Dp + 2 * n_blocks * Dp) * Dp + (2 + 2 * n_blocks) * Dp
+
+
+def wg_stage(idx: np.ndarray) -> np.ndarray:
+    """An (Dp, K) array of positions (a matrix W, rows the outputs) -> its
+    K / 32 stages in the kernel's order, flattened: stage s holds columns
+    32s..32s+31, element (n, k) at (n/8)*256 + (k/8)*64 + (n%8)*8 + k%8."""
+    Dp, K = idx.shape
+    st = idx.reshape(Dp // 8, 8, K // WG_KC, WG_KC // 8, 8)  # (ng, n8, s, kg, k8)
+    return st.transpose(2, 0, 3, 1, 4).reshape(-1)
+
+
+def ext_wg_stream_index(Dp: int, n_blocks: int) -> np.ndarray:
+    """Positions in ``sw.flat`` (bf16, one layer, tile-major matrices) of
+    every element of the wgmma forward's weight stream, in the order the
+    kernel uses it: W_s's stages, W_in's, then W1_i's and W2_i's of each
+    block (:func:`wg_stage`), then the biases b_in, b_s, b1_0, b2_0, ...
+    Dp is a multiple of 32."""
+    w_in = _tile_index(Dp, 2 * Dp, 0)
+    w_s = _tile_index(Dp, 2 * Dp, 2 * Dp * Dp + Dp)
+    parts, biases = [wg_stage(w_s), wg_stage(w_in)], [2 * Dp * Dp + np.arange(Dp),
+                                                      4 * Dp * Dp + Dp + np.arange(Dp)]
+    o = 2 * (2 * Dp * Dp + Dp)
+    for _ in range(n_blocks):
+        parts += [wg_stage(_tile_index(Dp, Dp, o)), wg_stage(_tile_index(Dp, Dp, o + Dp * Dp + Dp))]
+        biases += [o + Dp * Dp + np.arange(Dp), o + 2 * Dp * Dp + Dp + np.arange(Dp)]
+        o += 2 * (Dp * Dp + Dp)
+    return np.concatenate(parts + biases)
+
+
+_WG_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def ext_wg_weights(sw: StackWeights) -> torch.Tensor:
+    """The wgmma forward's weight stream (bf16): one gather from ``sw.flat``
+    by :func:`ext_wg_stream_index`, the index cached per shape and device."""
+    key = (sw.Dp, sw.n_blocks, sw.flat.device)
+    idx = _WG_INDEX.get(key)
+    if idx is None:
+        idx = _WG_INDEX[key] = torch.from_numpy(
+            ext_wg_stream_index(sw.Dp, sw.n_blocks)).to(sw.flat.device)
+    return sw.flat[idx]
+
+
+_EXT_WG: Dict[Tuple, bool] = {}  # (bf16, Dp, n_blocks) -> the wgmma forward takes it
+
+
+def _ext_takes_wg(lib, bf16: int, Dp: int, nblk: int) -> bool:
+    """Whether kernel 5's forward runs on ``ext_fwd_wg_kernel`` (bf16, Dp a
+    multiple of 32 up to 160, at least one block, its buffers in one
+    block's shared memory); else on ``ext_fwd_kernel``.  Asked of the
+    library once per shape, which also checks the stream's length."""
+    key = (bf16, Dp, nblk)
+    if key not in _EXT_WG:
+        wg = bool(bf16) and lib.mp_ext_fwd_wg_smem_bytes(Dp, nblk) >= 0
+        if wg and lib.mp_ext_fwd_wg_stream_elems(Dp, nblk) != ext_wg_stream_elems(Dp, nblk):
+            raise RuntimeError("mp_ext_fwd: the wgmma forward's stream length disagrees")
+        _EXT_WG[key] = wg
+    return _EXT_WG[key]
+
+
 def mp_ext_fwd(xa: torch.Tensor, sw: StackWeights, spec: StackSpec) -> torch.Tensor:
-    """Kernel 5's forward (``csrc/mp_ext.cu``, one block per 64-atom tile):
-    xa (2D, A) -> the layer's output (D, A), with dropout when
-    ``spec.rate`` > 0.  Raises on anything it cannot take."""
+    """Kernel 5's forward (``csrc/mp_ext.cu``): xa (2D, A) -> the layer's
+    output (D, A), with dropout when ``spec.rate`` > 0.  In bf16, where the
+    shape fits it, the warp-specialised wgmma kernel with the layer's weight
+    stream (:func:`ext_wg_weights`); fp32 and the other shapes one block per
+    64-atom tile.  The route is chosen by shape and counted in
+    ``mp_ext_fwd.routes``.  Raises on anything it cannot take."""
     what = "mp_ext_fwd"
     drop = _check_ext(what, xa, sw, spec)
     lib = _lib_ext()
     bf16 = int(sw.dtype == torch.bfloat16)
-    if lib.mp_ext_fwd_smem_bytes(bf16, sw.Dp, sw.n_blocks) > cuda_build.SMEM_LIMIT:
+    wg = _ext_takes_wg(lib, bf16, sw.Dp, sw.n_blocks)
+    if not wg and lib.mp_ext_fwd_smem_bytes(bf16, sw.Dp, sw.n_blocks) > cuda_build.SMEM_LIMIT:
         raise ValueError(f"{what}: D={sw.D} exceeds one block's shared memory")
     A = xa.shape[1]
     out = torch.empty(sw.D, A, dtype=sw.dtype, device=xa.device)
     if A:
-        status = lib.mp_ext_fwd(xa.data_ptr(), out.data_ptr(), sw.flat.data_ptr(), bf16, sw.D,
-                                sw.Dp, A, sw.n_blocks, ACTIVATION_CODES[spec.act.lower()], *drop,
-                                _stream(xa.device))
+        act = ACTIVATION_CODES[spec.act.lower()]
+        if wg:
+            ws = ext_wg_weights(sw)
+            status = lib.mp_ext_fwd_wg(xa.data_ptr(), out.data_ptr(), ws.data_ptr(), sw.D, sw.Dp, A,
+                                       sw.n_blocks, act, *drop, _stream(xa.device))
+        else:
+            status = lib.mp_ext_fwd(xa.data_ptr(), out.data_ptr(), sw.flat.data_ptr(), bf16, sw.D,
+                                    sw.Dp, A, sw.n_blocks, act, *drop, _stream(xa.device))
         if status != 0:
             raise RuntimeError(f"{what}: {lib.mp_ext_error_string(status).decode()}")
         mp_ext_fwd.launches += 1
+        mp_ext_fwd.routes["wgmma" if wg else "tiles"] += 1
     return out
 
 
 mp_ext_fwd.launches = 0
+mp_ext_fwd.routes = {"wgmma": 0, "tiles": 0}  # launches of ext_fwd_wg_kernel, of ext_fwd_kernel
 
 
 _EXT_WALK: Dict[Tuple, bool] = {}  # (bf16, Dp, n_blocks) -> kernel 5's walk takes it

@@ -22,10 +22,13 @@ concat_self_other folds stay outside, in plain autograd (models/pooling.py).
 On CUDA tensors :func:`binned_attention_pool_fused` launches the
 hand-written kernels (``csrc/bin_pool.cu``) through :func:`bin_pool_fwd`
 and :func:`bin_pool_bwd`, each with its launch count; on CPU tensors it
-runs :func:`pool_fwd_plain` and :func:`pool_bwd_plain`.  The kernels take
-any (nb, mb, ab) and never fall back; they assume what the loaders build:
-each atom belongs to at most one molecule of its bin
-(``bin_attnpool.check_one_owner``, which the CPU path runs).
+runs :func:`pool_fwd_plain` and :func:`pool_bwd_plain`.  The forward runs
+on 64-atom tiles, a cluster of tiles a bin, where the shape fits them
+(:func:`takes_tiles`), else one block a bin, chosen by shape and counted in
+``bin_pool_fwd.routes``.  The kernels take any (nb, mb, ab) and never fall
+back; they assume what the loaders build: each atom belongs to at most one
+molecule of its bin (``bin_attnpool.check_one_owner``, which the CPU path
+runs).
 """
 
 from __future__ import annotations
@@ -104,6 +107,10 @@ def _lib() -> ctypes.CDLL:
         lib.bin_pool_bwd.restype = i
         lib.bin_pool_sum_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
         lib.bin_pool_sum_partials.restype = i
+        lib.bin_pool_fwd_tiles.argtypes = [vp] * 8 + [i] * 7 + [vp]
+        lib.bin_pool_fwd_tiles.restype = i
+        lib.bin_pool_tiles_smem_bytes.argtypes = [i] * 6
+        lib.bin_pool_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.bin_pool_smem_bytes.argtypes = [i, i, i]
         lib.bin_pool_smem_bytes.restype = ctypes.c_longlong
         lib.bin_pool_error_string.argtypes = [i]
@@ -141,27 +148,50 @@ def _check(what, xs, xo, pm, ks, ko):
     return lib, nb, mb, ab, A, Ds, Do, H, int(dt == torch.bfloat16)
 
 
+_TILES: dict = {}  # (bf16, Ds, Do, H, mb, ab) -> the forward on tiles takes it
+
+
+def takes_tiles(lib, bf16: int, Ds: int, Do: int, H: int, mb: int, ab: int) -> bool:
+    """Whether the forward runs on 64-atom tiles (``bin_pool_fwd_tile_kernel``,
+    a cluster a bin: H <= 8, ab a multiple of 64 up to 512, the tile's rows
+    in one block's shared memory); else on the kernel of one block a bin.
+    Asked of the library once per shape."""
+    key = (bf16, Ds, Do, H, mb, ab)
+    if key not in _TILES:
+        _TILES[key] = lib.bin_pool_tiles_smem_bytes(*key) >= 0
+    return _TILES[key]
+
+
 def bin_pool_fwd(xs, xo, pm, ks, ko, b):
-    """Launch the forward kernel (one block per bin).  Same arguments and
+    """Launch the forward kernel: on 64-atom tiles where the shape fits them
+    (:func:`takes_tiles`; xs and xo must then start on 16-byte boundaries,
+    for the tiles' bulk copies), else one block per bin; the route chosen
+    by shape and counted in ``bin_pool_fwd.routes``.  Same arguments and
     returns as :func:`pool_fwd_plain`."""
     lib, nb, mb, ab, A, Ds, Do, H, bf16 = _check("bin_pool_fwd", xs, xo, pm, ks, ko)
     dev = xs.device
+    tiles = takes_tiles(lib, bf16, Ds, Do, H, mb, ab)
+    if tiles:
+        cuda_build.check_cuda("bin_pool_fwd", dev, ("x_self", xs, 16), ("x_other", xo, 16))
     ps = torch.empty(nb * mb, Ds, dtype=torch.float32, device=dev)
     po = torch.empty(nb * mb, Do, dtype=torch.float32, device=dev)
     cov = torch.empty(nb * mb, dtype=torch.float32, device=dev)
     attn = torch.empty(H, A, dtype=torch.float32, device=dev)
     if nb:
-        status = lib.bin_pool_fwd(
+        entry = lib.bin_pool_fwd_tiles if tiles else lib.bin_pool_fwd
+        status = entry(
             xs.data_ptr(), xo.data_ptr(), pm.data_ptr(), _score(ks, ko, b).data_ptr(),
             ps.data_ptr(), po.data_ptr(), cov.data_ptr(), attn.data_ptr(), bf16, Ds, Do, H,
             nb, mb, ab, bin_mp._stream(dev))
         if status != 0:
             raise RuntimeError(f"bin_pool_fwd: {lib.bin_pool_error_string(status).decode()}")
         bin_pool_fwd.launches += 1
+        bin_pool_fwd.routes["tiles" if tiles else "bins"] += 1
     return ps, po, cov, attn
 
 
 bin_pool_fwd.launches = 0
+bin_pool_fwd.routes = {"tiles": 0, "bins": 0}  # launches on tiles, of one block a bin
 
 
 def bin_pool_bwd(xs, xo, pm, ks, ko, attn, gps, gpo, gcov):

@@ -118,7 +118,11 @@ Phases, each of which fails the run when it fails:
    - ``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``, ``bin_pool_bwd``: the
      binned attention pool of row-major arrays) against its plain version
      at the flagship training shape on the loader's pool matrix, fp32 and
-     bf16, timed with the byte bound;
+     bf16, timed with the byte bound; the forward reruns bit-equal, is timed
+     as profiler device time beside a CUDA-graph replay, must run on 64-atom
+     tiles (its route counts), and is split by phase, the kernel of one
+     block a bin and the tiles, by an instrumented build of
+     ``csrc/bin_pool.cu`` (``-DBIN_POOL_MARKS``, built beside the kernels);
    - ``[mh-serve]``: phase 4 for the flagship with per-hop aggregation:
      kernel 6 launches, no stack, layer, inject, attention-pool,
      weighted-pool or edge kernel;
@@ -156,7 +160,13 @@ Phases, each of which fails the run when it fails:
      backward twice (bit-equal), timed with bounds, the backward as
      profiler device time split by kernel name: bf16 launches the stack's
      walk, fp32 the slab kernel, each one grouped contraction and one
-     partial sum a call and no split-K ``wgrad``;
+     partial sum a call and no split-K ``wgrad``; the forward's forms rerun
+     bit-equal, are timed as profiler device time beside a CUDA-graph
+     replay, must run the wgmma kernel in bf16 and the kernel of one block a
+     tile in fp32 (the route counts), and the bf16 training form is split by
+     phase -- the old kernel by product and epilogue, the wgmma kernel's
+     warpgroups by waits, products, epilogues and store -- by an
+     instrumented build of ``csrc/mp_ext.cu`` (``-DMP_EXT_MARKS``);
    - ``[halo-step]``: one train step of 4 ranks (data 2 x graph 2) on
      halo shards of the flat SMILES (their large molecules chunked, so
      ``halo_adj`` carries cross-bin rows), bf16 and fp32: loss and
@@ -446,6 +456,7 @@ def host_us(fn, calls: int = 100) -> float:
 BWD_PARTS = (("stack forward", ("stack_fwd_tile_kernel", "mp_stack_kernel")),
              ("walk", ("bwd_walk_kernel", "bwd_layer_kernel", "ext_bwd_kernel")),
              ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd", "attnpool_fwd")),
+             ("ext forward", ("ext_fwd",)), ("pool6", ("bin_pool",)),
              ("contraction", ("wgrad_group", "wgrad_kernel", "wgrad_vocab")),
              ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
              ("casts and copies", ("copy_kernel",)),
@@ -994,7 +1005,8 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     plain_ms = time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb, xo, pm, aw, act), iters=5)
     run = lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)  # noqa: E731
     ms, timing, _ = bwd_record("train-kernel", "attnpool_fwd", dt, run, plain_ms)
-    check_pool_fwd_route("train-kernel", "attnpool_fwd", run, dt)
+    check_route("train-kernel", "attnpool_fwd", run, dt,
+                getattr(bin_attnpool._launch_fwd, "routes", None))
     record("attnpool_fwd", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes)
     res["attnpool_fwd"]["timing"] = timing
     attnpool_fwd_phases(marks_build, "train-kernel", emb, xo, pm, aw, act)
@@ -1012,7 +1024,8 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     run = lambda: bin_attnpool.attnpool_fwd(emb32, xo32, pm, aw32, act)  # noqa: E731
     bwd_record("train-kernel", "attnpool_fwd", torch.float32, run,
                time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb32, xo32, pm, aw32, act), iters=5))
-    check_pool_fwd_route("train-kernel", "attnpool_fwd", run, torch.float32)
+    check_route("train-kernel", "attnpool_fwd", run, torch.float32,
+                getattr(bin_attnpool._launch_fwd, "routes", None))
     del emb32, xo32
     pool_step_host("train-kernel", emb, xo, pm, act,
                    (W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b))
@@ -1042,26 +1055,24 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     return res
 
 
-def check_pool_fwd_route(tag: str, name: str, fn, dt) -> None:
-    """Print which forward kernel one call of ``fn`` launched, by the
-    wrapper's route counts (``_launch_fwd.routes``, set to 0 just before the
-    call); fail unless a bf16 call launched the tiled kernel once and the
-    kernel of one block a bin never, and an fp32 call the other way round.
-    A package without the tiled forward has no route counts: said, and
-    nothing to check."""
-    from aimnet_x2d_tpu_torch.ops import bin_attnpool
-
-    routes = getattr(bin_attnpool._launch_fwd, "routes", None)
+def check_route(tag: str, name: str, fn, dt, routes, new: str = "tiles", old: str = "bins",
+                fp32_new: bool = False) -> None:
+    """Print which kernel one call of ``fn`` launched, by a wrapper's route
+    counts ``routes`` (set to 0 just before the call); fail unless a bf16
+    call launched ``new`` once and ``old`` never, and an fp32 call ``old``
+    once (``new`` once where ``fp32_new``: kernel 6's tiles take fp32 too).
+    A package without the route (routes None) is said, and nothing checked."""
     if routes is None:
-        print(f"[{tag}] {name} {str(dt)[6:]}: one block a bin (no tiled forward here)", flush=True)
+        print(f"[{tag}] {name} {str(dt)[6:]}: {old} (no {new} route here)", flush=True)
         return
-    routes.update(tiles=0, bins=0)
+    for k in routes:
+        routes[k] = 0
     fn()
     torch.cuda.synchronize()
-    tiles, bins = routes["tiles"], routes["bins"]
-    print(f"[{tag}] {name} {str(dt)[6:]}: {'the tiled kernel' if tiles else 'one block a bin'} "
-          f"({tiles} + {bins} launches a call)", flush=True)
-    if (tiles, bins) != ((1, 0) if dt == torch.bfloat16 else (0, 1)):
+    got = (routes[new], routes[old])
+    print(f"[{tag}] {name} {str(dt)[6:]}: {new if got[0] else old} ({got[0]} + {got[1]} "
+          "launches a call)", flush=True)
+    if got != ((1, 0) if dt == torch.bfloat16 or fp32_new else (0, 1)):
         raise AssertionError(f"{name} {dt}: routes {routes}")
 
 
@@ -1262,7 +1273,8 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
                                                                           vt), iters=5)
         run = lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)  # noqa: E731
         ms, timing, _ = bwd_record("fold-kernel", "attnpool_fwd_vocab", dt, run, plain_ms)
-        check_pool_fwd_route("fold-kernel", "attnpool_fwd_vocab", run, dt)
+        check_route("fold-kernel", "attnpool_fwd_vocab", run, dt,
+                    getattr(bin_attnpool._launch_fwd, "routes", None))
         record("attnpool_fwd_vocab", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes,
                1e-5 if f32 else TRAIN_TOL, same)
         res[("attnpool_fwd_vocab", dt)]["timing"] = timing
@@ -1463,19 +1475,21 @@ STACK_PHASES = ("prologue (copy or fold)", "saved inputs and biases", "cluster b
 
 def start_marks_build():
     """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS``, on
-    ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS`` and on ``csrc/mp_stack.cu``
-    with ``-DMP_STACK_MARKS`` beside the kernels' own build: kernel 4's
-    kernels and the attention pool's backward kernels then record a
-    ``%globaltimer`` mark per block, after a block barrier, at every phase
-    boundary, and the stack forward's kernels each phase's time summed over
-    the layers, as cumulative marks.  Returns {source: (the nvcc process,
-    the library's path)}."""
+    ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS``, on ``csrc/mp_stack.cu``
+    with ``-DMP_STACK_MARKS``, on ``csrc/mp_ext.cu`` with ``-DMP_EXT_MARKS``
+    and on ``csrc/bin_pool.cu`` with ``-DBIN_POOL_MARKS`` beside the kernels'
+    own build: kernel 4's kernels, the attention pool's kernels, kernel 5's
+    and kernel 6's forwards then record a ``%globaltimer`` mark per block,
+    after a block barrier, at every phase boundary, and the stack forward's
+    kernels each phase's time summed over the layers, as cumulative marks.
+    Returns {source: (the nvcc process, the library's path)}."""
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = {}
     for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS"),
-                       ("mp_stack", "-DMP_STACK_MARKS")):
+                       ("mp_stack", "-DMP_STACK_MARKS"), ("mp_ext", "-DMP_EXT_MARKS"),
+                       ("bin_pool", "-DBIN_POOL_MARKS")):
         out = cuda_build.BUILD_DIR / f"{name}_marks.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, flag, "-o", str(out),
                str(cuda_build.CSRC / f"{name}.cu")]
@@ -1748,6 +1762,170 @@ def stack_phases(marks_build, tag, x, adj, sw, spec, pw=None) -> None:
             print(f"[{tag}] mp_stack_fwd_train ring, {name}: a warp waits on landed weight "
                   f"stages {100 * full / 10 / clocks:.1f}% of its block's clocks; {refills:.0f} "
                   f"refills, {clocks:.0f} clocks a block", flush=True)
+
+
+def ext_fwd_phases(marks_build, tag, xa, sw, spec) -> None:
+    """Kernel 5's bf16 forward split by phase (``[halo-kernel]``): the old
+    kernel (``ext_fwd_kernel``) of the marked build launched twice on these
+    inputs (``print_phases``), then each product's warp clocks split into
+    the products and their epilogues."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+    from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
+
+    lib = marks_lib(marks_build, "mp_ext")
+    if not hasattr(lib, "mp_ext_marks"):
+        print(f"[{tag}] mp_ext_fwd phases: not measured (this mp_ext.cu has no marks)", flush=True)
+        return
+    vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.mp_ext_marks.argtypes = [vp]
+    lib.mp_ext_marks.restype = i
+    lib.mp_ext_fwd.argtypes = [vp] * 3 + [i] * 7 + [u, u, f, vp]
+    lib.mp_ext_error_string.argtypes = [i]
+    lib.mp_ext_error_string.restype = ctypes.c_char_p
+    D, Dp, nblk, A = sw.D, sw.Dp, sw.n_blocks, xa.shape[1]
+    out = torch.empty(D, A, dtype=sw.dtype, device=xa.device)
+    args = (xa.data_ptr(), out.data_ptr(), sw.flat.data_ptr(), 1, D, Dp, A, nblk,
+            ACTIVATION_CODES[spec.act.lower()], *spec.kernel_drop(sw.dtype),
+            bin_mp._stream(xa.device))
+    products = ["W_in"] + [f"{w}_{b}" for b in range(nblk) for w in ("W1", "W2")] + ["W_s"]
+    phases = ["xa tile load", "biases"] + products[:-1] + ["W_s and the output store"]
+    name = "ext_fwd_kernel (one block a 64-atom tile)"
+    marks = print_phases(tag, "mp_ext_fwd", {name: phases}, {name: (A // 64,
+                         lambda: lib.mp_ext_fwd(*args))}, 40, lib.mp_ext_marks,
+                         lib.mp_ext_error_string)[name]
+    clk = marks[:, 16:16 + 2 * len(products)].astype(np.float64).sum(0).reshape(-1, 2)
+    print(f"[{tag}] mp_ext_fwd phases, {name}: warp clocks in each product (mma.sync) and its "
+          "epilogue: " + "; ".join(
+              f"{p} {100 * c[0] / c.sum():.1f}% products, {100 * c[1] / c.sum():.1f}% epilogue"
+              for p, c in zip(products, clk)), flush=True)
+    if not hasattr(lib, "mp_ext_fwd_wg"):
+        return
+    # the wgmma kernel: each warpgroup's SM clocks by part, summed over its tiles
+    lib.mp_ext_fwd_wg.argtypes = [vp] * 3 + [i] * 6 + [u, u, f, vp]
+    lib.mp_ext_fwd_wg.restype = i
+    ws = bin_mp.ext_wg_weights(sw)
+    grid = min(A // 128 + (A % 128 > 0), torch.cuda.get_device_properties(0).multi_processor_count)
+    marks = torch.zeros(grid, 40, dtype=torch.int64, device=xa.device)
+    if lib.mp_ext_marks(marks.data_ptr()) != 0:
+        raise RuntimeError("mp_ext_fwd_wg: setting the marks failed")
+    for _ in range(2):
+        marks.zero_()
+        status = lib.mp_ext_fwd_wg(xa.data_ptr(), out.data_ptr(), ws.data_ptr(), D, Dp, A, nblk,
+                                   *args[8:])
+        if status != 0:
+            raise RuntimeError(f"mp_ext_fwd_wg: {lib.mp_ext_error_string(status).decode()}")
+        torch.cuda.synchronize()
+    m = marks.cpu().numpy().astype(np.float64)
+    clock_khz = torch.cuda.get_device_properties(0).clock_rate if hasattr(
+        torch.cuda.get_device_properties(0), "clock_rate") else None
+    parts = ("xa waits", "weight waits", "products", "epilogues", "output store")
+    for w in range(2):
+        cw = m[:, 8 * w: 8 * w + 7].sum(0)
+        tiles = cw[5]
+        print(f"[{tag}] mp_ext_fwd phases, ext_fwd_wg_kernel (warp-specialised wgmma), consumer "
+              f"warpgroup {w}: {int(tiles)} tiles, {cw[6] / max(tiles, 1) / 1e3:.2f} kclocks a tile "
+              "(its span over its tiles): " + "; ".join(
+                  f"{p} {100 * v / cw[6]:.1f}%" for p, v in zip(parts, cw[:5])), flush=True)
+    cw, cx = m[:, 16:23].sum(0), m[:, 24:31].sum(0)
+    print(f"[{tag}] mp_ext_fwd phases, ext_fwd_wg_kernel producers: the weights' warp waits "
+          f"for a free slot {100 * cw[0] / max(cw[6], 1):.1f}% of its span, the xa warp for a "
+          f"free buffer {100 * cx[1] / max(cx[6], 1):.1f}%; {grid} blocks"
+          + (f", rated SM clock {clock_khz / 1e3:.0f} MHz" if clock_khz else ""), flush=True)
+
+
+POOL6_PHASES = ("membership (serial)", "scores", "softmax max and denominator", "attn write",
+                "head mean and coverage", "x_self pools", "x_other pools")
+POOL6_TILE_PHASES = ("the tile's rows (bulk copies) and molecules", "scores",
+                     "softmax over the cluster", "attn and wbar", "pool and coverage partials",
+                     "sums over the cluster")
+
+
+def pool6_fwd_phases(marks_build, tag, xs, xo, pm, ks, ko, b) -> None:
+    """Kernel 6's forward split by phase (``[pool6-kernel]``): the kernel of
+    one block a bin and the tile kernel of the marked build launched twice
+    on these inputs (``print_phases``), each one's outputs then held against
+    ``pool_fwd_plain`` at ``POOL6_TOL``."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_pool
+
+    lib = marks_lib(marks_build, "bin_pool")
+    if not hasattr(lib, "bin_pool_marks"):
+        print(f"[{tag}] bin_pool_fwd phases: not measured (this bin_pool.cu has no marks)",
+              flush=True)
+        return
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.bin_pool_marks.argtypes = [vp]
+    lib.bin_pool_marks.restype = i
+    lib.bin_pool_fwd.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    lib.bin_pool_error_string.argtypes = [i]
+    lib.bin_pool_error_string.restype = ctypes.c_char_p
+    nb, mb, ab = pm.shape
+    (A, Ds), Do, H = xs.shape, xo.shape[1], ks.shape[1]
+    dev = xs.device
+    score = bin_pool._score(ks, ko, b)
+
+    def outs_args():
+        outs = (torch.empty(nb * mb, Ds, device=dev), torch.empty(nb * mb, Do, device=dev),
+                torch.empty(nb * mb, device=dev), torch.empty(H, A, device=dev))
+        return outs, (xs.data_ptr(), xo.data_ptr(), pm.data_ptr(), score.data_ptr(),
+                      *[o.data_ptr() for o in outs], int(xs.dtype == torch.bfloat16), Ds, Do, H,
+                      nb, mb, ab, bin_mp._stream(dev))
+
+    name = "bin_pool_fwd_kernel (one block a bin)"
+    outs, args = outs_args()
+    phases, launches = {name: POOL6_PHASES}, {name: (nb, lambda: lib.bin_pool_fwd(*args))}
+    got = {name: outs}
+    if hasattr(lib, "bin_pool_fwd_tiles"):
+        lib.bin_pool_fwd_tiles.argtypes = [vp] * 8 + [i] * 7 + [vp]
+        tiles = "bin_pool_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"
+        t_outs, t_args = outs_args()
+        phases[tiles] = POOL6_TILE_PHASES
+        launches[tiles] = (nb * ab // 64, lambda: lib.bin_pool_fwd_tiles(*t_args))
+        got[tiles] = t_outs
+    print_phases(tag, "bin_pool_fwd", phases, launches, 10, lib.bin_pool_marks,
+                 lib.bin_pool_error_string)
+    ref = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)
+    tol = POOL6_TOL[xs.dtype]
+    for k, outs in got.items():
+        abs_err, rel = _max_rel([(o, r, None) for o, r in zip(outs, ref)])
+        print(f"[{tag}] bin_pool_fwd phases, {k}: marked build's outputs against the plain "
+              f"version max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{k} (marked build) {xs.dtype}: rel err {rel:.3e} > {tol:g}")
+
+
+def check_pool6_bins(xs, xo, pm, ks, ko, b) -> None:
+    """Kernel 6's forward of one block a bin (``bin_pool_fwd_kernel``), the
+    route of the shapes past the tiles (ab > 512, H > 8), against its plain
+    version: three bins of the batch as one bin of 3 ab atoms, through the
+    wrapper; fails unless the route counts read one launch of that kernel
+    and none on tiles (a package without the route counts has only that
+    kernel), and the error is within ``POOL6_TOL``."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    nb, mb, ab = pm.shape
+    n3 = nb // 3
+    pm3 = torch.zeros(n3, 3 * mb, 3 * ab, dtype=pm.dtype, device=pm.device)
+    for k in range(3):  # bin 3j + k at rows k mb and columns k ab of bin j
+        pm3[:, k * mb:(k + 1) * mb, k * ab:(k + 1) * ab] = pm[k:3 * n3:3]
+    args = (xs[:3 * n3 * ab], xo[:3 * n3 * ab], pm3, ks, ko, b)
+    routes = getattr(bin_pool.bin_pool_fwd, "routes", None)
+    for k in routes or ():
+        routes[k] = 0
+    got = bin_pool.bin_pool_fwd(*args)
+    torch.cuda.synchronize()
+    seen = dict(routes) if routes is not None else {"tiles": 0, "bins": 1}
+    abs_err, rel = _max_rel([(o, r, None) for o, r in zip(got, bin_pool.pool_fwd_plain(*args))])
+    tol = POOL6_TOL[xs.dtype]
+    print(f"[pool6-kernel] bin_pool_fwd {str(xs.dtype)[6:]} at nb={n3} mb={3 * mb} ab={3 * ab}: "
+          f"routes {seen}, max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
+    if seen != {"tiles": 0, "bins": 1}:
+        raise AssertionError(f"bin_pool_fwd at ab={3 * ab}: routes {seen}")
+    if not rel <= tol:
+        raise AssertionError(f"bin_pool_fwd_kernel {xs.dtype}: rel err {rel:.3e} > {tol:g}")
 
 
 def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
@@ -2542,7 +2720,7 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
     return res, launches
 
 
-def check_pool6_kernel(cfg, model, batch, seed: int) -> dict:
+def check_pool6_kernel(cfg, model, batch, seed: int, marks_build) -> dict:
     """``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``; ``bin_pool_bwd`` from
     the forward's attention weights, with its fixed-order sum of the per-bin
     weight-gradient partials) against its plain version at the flagship
@@ -2599,8 +2777,15 @@ def check_pool6_kernel(cfg, model, batch, seed: int) -> dict:
         for name, (pairs, args, fn, plain, nbytes, ops) in cases.items():
             abs_err, rel = _max_rel(pairs)
             tol = POOL6_TOL[dt]
-            ms = time_ms(lambda: fn(*args))
             plain_ms = time_ms(lambda: plain(*args), iters=5)
+            timing = "events"
+            if name == "bin_pool_fwd":
+                run = lambda: fn(*args)  # noqa: E731
+                ms, timing, _ = bwd_record("pool6-kernel", name, dt, run, plain_ms)
+                check_route("pool6-kernel", name, run, dt,
+                            getattr(bin_pool.bin_pool_fwd, "routes", None), fp32_new=True)
+            else:
+                ms = time_ms(lambda: fn(*args))
             t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[dt]
             bound_ms = 1e3 * max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -2610,7 +2795,13 @@ def check_pool6_kernel(cfg, model, batch, seed: int) -> dict:
             if not rel <= tol:
                 raise AssertionError(f"{name} {dt}: rel err {rel:.3e} > {tol:g}")
             res[(name, dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                   timing=timing)
+        again = bin_pool.bin_pool_fwd(*fwd)
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            raise AssertionError(f"bin_pool_fwd {dt}: a rerun is not bit-equal")
+        check_pool6_bins(*fwd)
+    pool6_fwd_phases(marks_build, "pool6-kernel", *fwd)
     again = bin_pool.bin_pool_bwd(*bwd)
     same = all(torch.equal(a, r) for a, r in zip((bg[0], bg[1], *bg[2]),
                                                    (again[0], again[1], *again[2])))
@@ -2646,7 +2837,7 @@ def halo_shard(ds, n: int, G: int):
     return parts, stats, b
 
 
-def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
+def check_halo_kernel(cfg, model, ds, seed: int, marks_build) -> dict:
     """``[halo-kernel]``: kernel 5 (``mp_ext_fwd`` serving and training
     forms, ``mp_ext_bwd``) against its plain version at the flagship layer
     (D 153, 2 blocks) on one graph rank's share of a 2048-molecule training
@@ -2692,8 +2883,13 @@ def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
             ref = bin_mp.mp_ext_plain(xa, sw, spec)
             torch.cuda.synchronize()
             abs_err, rel = rel_err(out, ref)
-            ms = time_ms(lambda: bin_mp.mp_ext_fwd(xa, sw, spec))
             plain_ms = time_ms(lambda: bin_mp.mp_ext_plain(xa, sw, spec), iters=5)
+            run = lambda: bin_mp.mp_ext_fwd(xa, sw, spec)  # noqa: E731
+            ms, timing, _ = bwd_record("halo-kernel", name, dt, run, plain_ms)
+            check_route("halo-kernel", name, run, dt, getattr(bin_mp.mp_ext_fwd, "routes", None),
+                        "wgmma", "tiles")
+            if not torch.equal(out, bin_mp.mp_ext_fwd(xa, sw, spec)):
+                raise AssertionError(f"{name} {dt}: a rerun is not bit-equal")
             nbytes = 3 * D * A * isz + w_mat * isz
             t_ops, t_bytes = fwd_ops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_S
             bound_ms, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -2704,7 +2900,10 @@ def check_halo_kernel(cfg, model, ds, seed: int) -> dict:
                 raise AssertionError(f"{name}: rel err {rel:.3e} > {tol:g}")
             if name == "mp_ext_fwd_train":
                 res[("mp_ext_fwd", dt)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                               bound_ms=bound_ms, bound_by=by, library_ms=None)
+                                               bound_ms=bound_ms, bound_by=by, library_ms=None,
+                                               timing=timing)
+                if dt == torch.bfloat16:
+                    ext_fwd_phases(marks_build, "halo-kernel", xa, sw, spec)
         spec = bin_mp.StackSpec(cfg.activation_type, 0.05, 0x5EED5)
         got = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
         again = bin_mp.mp_ext_bwd(xa, sw, spec, gy)
@@ -3075,7 +3274,7 @@ def _free_port() -> int:
 
 
 def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
-                launches: dict) -> None:
+                launches: dict, marks_build) -> None:
     """Halo graph-partitioned training (``--graph_shards``): kernel 5 alone,
     one step of a 2 x 2 rank grid, and the CLI on 2 ranks; on one card the
     ranks share it over gloo, on several each has its own (NCCL)."""
@@ -3084,7 +3283,7 @@ def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
     hmodel = pkg.models.gnn.GNN(tcfg)
     hmodel.load_state_dict(params_from_flax(init_params(tcfg, seed)))
     hmodel.to("cuda")
-    res.update(check_halo_kernel(tcfg, hmodel, ds, seed))
+    res.update(check_halo_kernel(tcfg, hmodel, ds, seed, marks_build))
     del hmodel
     halo_step_phase(pkg, tcfg, fl_full, seed, work)
     launches.update(halo_train_phase(pkg, tcfg, full, seed, work))
@@ -3136,9 +3335,6 @@ def main() -> int:
           f"with H): featurize {t1 - t0:.3f} s, collate + bin-pack {t2 - t1:.3f} s, "
           f"copy to the card {t4 - t3:.4f} s (first copy {t3 - t2:.3f} s; host clock)", flush=True)
 
-    res = check_kernels(pkg, cfg, batch, args.seed)
-    launches = serve(pkg, cfg, smiles, args.seed, work, batch)
-
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
 
     tcfg = train_config(cfg)
@@ -3147,6 +3343,8 @@ def main() -> int:
     tmodel = pkg.models.gnn.GNN(tcfg)
     tmodel.load_state_dict(params_from_flax(init_params(tcfg, args.seed)))
     tmodel.to("cuda")
+    res = check_kernels(pkg, cfg, batch, args.seed)
+    launches = serve(pkg, cfg, smiles, args.seed, work, batch)
     for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build).items():
         res[(name, torch.bfloat16)] = r
     res.update(check_fold_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build))
@@ -3299,7 +3497,7 @@ def main() -> int:
     from aimnet_x2d_tpu_torch.ops import bin_pool
 
     mh = dataclasses.replace(cfg, parity_mode=False)
-    for key, r in check_pool6_kernel(mh, tmodel, tbatch, args.seed).items():
+    for key, r in check_pool6_kernel(mh, tmodel, tbatch, args.seed, marks_build).items():
         res[key] = r
     del tmodel, tbatch
     edge_kernels = (fused_edge.fused_edge_fwd, fused_edge.fused_edge_bwd)
@@ -3346,7 +3544,7 @@ def main() -> int:
                 steps=C3_TRAIN_STEPS, want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
     print(f"[time] config-3 flat phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    halo_phases(pkg, tcfg, ds, full, fl_full, args.seed, work, res, launches)
+    halo_phases(pkg, tcfg, ds, full, fl_full, args.seed, work, res, launches, marks_build)
     print(f"[time] halo phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

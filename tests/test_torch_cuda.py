@@ -1210,3 +1210,168 @@ def test_stack_fwd_old_kernel_takes_what_the_tiles_do_not(dev, case):
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     assert max(_rel(a, r) for a, r in zip(got, want)) < tol
+
+
+# ---- kernel 5's bf16 forward on wgmma (ext_fwd_wg_kernel) and kernel 6's
+# forward on 64-atom tiles (bin_pool_fwd_tile_kernel), at a small shape and
+# at the flagship's (kernel 5: D 153, 2 blocks, a graph rank's 20,480
+# atoms; kernel 6: Ds 359, Do 153, H 4, ab 256, mb 16).  Same tolerances;
+# the routes show on the wrappers' route counts.
+
+EXT_SHAPES = {"small": (19, 6 * 256), "flagship": (153, 20480)}
+
+
+def _ext_routes(fn):
+    routes = bin_mp.mp_ext_fwd.routes
+    before = dict(routes)
+    fn()
+    return routes["wgmma"] - before["wgmma"], routes["tiles"] - before["tiles"]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.05])
+@pytest.mark.parametrize("shape", list(EXT_SHAPES))
+def test_ext_fwd_wgmma_matches_plain(dev, shape, rate):
+    """bf16 runs the wgmma kernel, one launch a call, within the bf16 bar of
+    the plain version; reruns bit-equal; the padding bin's columns finite;
+    fp32 stays on the kernel of one block a tile."""
+    D, A = EXT_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(D + int(100 * rate))
+    layer = _ext_layer(dev, D, g)
+    spec = bin_mp.StackSpec("silu", rate, 0x5EED, 1)
+    xa = torch.randn(2 * D, A, generator=g, device=dev)
+    xa[:, -256:] = 0.0
+    for dtype, want in ((torch.bfloat16, (1, 0)), (torch.float32, (0, 1))):
+        sw = bin_mp.stack_weights([layer], dtype)
+        x = xa.to(dtype)
+        outs = []
+        assert _ext_routes(lambda: outs.append(bin_mp.mp_ext_fwd(x, sw, spec))) == want
+        again = bin_mp.mp_ext_fwd(x, sw, spec)
+        ref = bin_mp.mp_ext_plain(x, sw, spec)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        assert outs[0].shape == (D, A) and _rel(outs[0], ref) < tol
+        assert torch.equal(outs[0], again)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("case", [(40, 1), (64, 3), (153, 1)])
+def test_ext_fwd_wgmma_takes_its_shapes(dev, case, act):
+    """Dp 48 (D 40: not a multiple of 32) stays on ext_fwd_kernel; Dp 64
+    with 3 blocks and Dp 160 with 1 take the wgmma kernel; both match the
+    plain version under other activations."""
+    D, nblk = case
+    g = torch.Generator(device=dev).manual_seed(D + nblk)
+    sw = bin_mp.stack_weights([_ext_layer(dev, D, g, nblk)], torch.bfloat16)
+    spec = bin_mp.StackSpec(act, 0.1, 77, 1)
+    xa = torch.randn(2 * D, 3 * 64 + 128, generator=g, device=dev).to(torch.bfloat16)
+    outs = []
+    routes = _ext_routes(lambda: outs.append(bin_mp.mp_ext_fwd(xa, sw, spec)))
+    assert routes == ((0, 1) if D == 40 else (1, 0))
+    assert _rel(outs[0], bin_mp.mp_ext_plain(xa, sw, spec)) < 5e-2
+
+
+def test_ext_layer_autograd_runs_the_wgmma_forward(dev):
+    """binned_mp_layer_ext_t on bf16 CUDA tensors: the forward on wgmma, the
+    backward on the walk; the gradients within the bf16 bar of the CPU's."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    D, A = 153, 1024
+    ws = _ext_layer(dev, D, g)
+    xa = torch.randn(2 * D, A, generator=g, device=dev).to(torch.bfloat16)
+    gy = (torch.randn(D, A, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        x = xa.detach().to(where).clone().requires_grad_(True)
+        w = [t.detach().to(where).clone().requires_grad_(True) for t in ws]
+        before = dict(bin_mp.mp_ext_fwd.routes)
+        y = bin_mp.binned_mp_layer_ext_t(x, w, torch.bfloat16, "silu", 0.05, 99)
+        y.backward(gy.to(where))
+        if where == "cuda":
+            assert bin_mp.mp_ext_fwd.routes["wgmma"] == before["wgmma"] + 1
+        grads[where] = [y.detach(), x.grad] + [t.grad for t in w]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert float((a.cpu().float() - r.float()).abs().max()) <= 5e-2 * max(
+            float(r.float().abs().max()), 1e-6)
+
+
+def _pool6_routes(fn):
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    routes = bin_pool.bin_pool_fwd.routes
+    before = dict(routes)
+    fn()
+    return routes["tiles"] - before["tiles"], routes["bins"] - before["bins"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(359, 153), (64, 32)])
+def test_bin_pool_fwd_tiles_match_plain(dev, widths, dtype):
+    """The forward runs on tiles, one launch a call, reruns bit-equal, within
+    POOL6_TOL of the plain version; the backward passes on its attn."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    Ds, Do = widths
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, Ds, Do, 16, dtype, Ds + 7)
+    outs = []
+    assert _pool6_routes(lambda: outs.append(bin_pool.bin_pool_fwd(xs, xo, pm, ks, ko, b))) == (1, 0)
+    got = outs[0]
+    again = bin_pool.bin_pool_fwd(xs, xo, pm, ks, ko, b)
+    ref = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for a, r, a2 in zip(got, ref, again):
+        assert a.shape == r.shape and _rel(a, r) < tol and torch.equal(a, a2)
+    args = (xs, xo, pm, ks, ko, got[3], *cot)
+    dxs, dxo, grads = bin_pool.bin_pool_bwd(*args)
+    rdxs, rdxo, rgrads = bin_pool.pool_bwd_plain(xs, xo, pm, ks, ko, ref[3], *cot)
+    torch.cuda.synchronize()
+    assert _rel(dxs, rdxs) < tol and _rel(dxo, rdxo) < tol
+    for i, (a, r) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[0].abs().max()) if i == 2 else float(r.abs().max())
+        assert float((a - r).abs().max()) / scale < tol
+
+
+@pytest.mark.parametrize("ab", [64, 128, 512, 768])
+def test_bin_pool_fwd_tiles_take_bins_up_to_512(dev, ab):
+    """Bins of up to 512 atoms (clusters of up to 8 tiles) run on tiles, a
+    bin of 768 on the kernel of one block a bin; random owners (molecules
+    in many runs) within POOL6_TOL."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    g = torch.Generator(device=dev).manual_seed(ab)
+    nb, mb, Ds, Do, H = 5, 12, 40, 24, 4
+    pm = rand_pm(nb, mb, ab, g)
+    xs = torch.randn(nb * ab, Ds, generator=g, device=dev).to(torch.bfloat16)
+    xo = torch.randn(nb * ab, Do, generator=g, device=dev).to(torch.bfloat16)
+    ks = (torch.randn(Ds, H, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    ko = (torch.randn(Do, H, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    b = torch.randn(H, generator=g, device=dev)
+    outs = []
+    routes = _pool6_routes(lambda: outs.append(bin_pool.bin_pool_fwd(xs, xo, pm, ks, ko, b)))
+    assert routes == ((1, 0) if ab <= 512 else (0, 1))
+    for a, r in zip(outs[0], bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)):
+        assert _rel(a, r) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bin_pool_autograd_runs_the_tiles(dev, dtype):
+    """binned_attention_pool_fused on CUDA tensors: the forward on tiles,
+    the backward kernel on its attn; the gradients match the CPU's."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, 359, 153, 16, dtype, 5)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        x = xs.detach().to(where).clone().requires_grad_(True)
+        sk = torch.cat([ks, ko]).float().to(where).requires_grad_(True)
+        sb = b.to(where).clone().requires_grad_(True)
+        before = dict(bin_pool.bin_pool_fwd.routes)
+        out = bin_pool.binned_attention_pool_fused(x, xo.to(where), pm.to(where), sk, sb)
+        torch.autograd.backward(out[:3], [c.to(where) for c in cot])
+        if where == "cuda":
+            assert bin_pool.bin_pool_fwd.routes["tiles"] == before["tiles"] + 1
+        grads[where] = [*(o.detach() for o in out), x.grad, sk.grad, sb.grad]
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for i, (a, r) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        scale = float(grads["cpu"][5].abs().max()) if i == 6 else max(float(r.float().abs().max()),
+                                                                       1e-6)
+        assert float((a.cpu().float() - r.float()).abs().max()) <= tol * scale
