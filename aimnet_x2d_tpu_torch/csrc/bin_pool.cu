@@ -31,8 +31,8 @@
 // xo read twice per direction, the second pass mostly from L2).  The
 // kernels of one block a bin read rows with one warp per atom for the
 // per-atom reductions and one thread per feature column for the pools and
-// the gradients; the backward, and the forward where the tiles do not take
-// the shape (H > 8, ab > 512, shared memory), run them.
+// the gradients; they run where the tiles do not take the shape (H > 8,
+// ab > 512, shared memory).
 //
 // The forward on tiles (bin_pool_fwd_tile_kernel, bf16 and fp32).  The
 // kernel of one block a bin spent, on an H100 at the training shape
@@ -58,6 +58,28 @@
 //   found once a tile by a warp's ballots) to that molecule's partial,
 //   summed over the cluster in rank order (four partials a remote load),
 //   each rank writing its share of the molecule rows.
+//
+// The backward on tiles (bin_pool_bwd_tile_kernel, bf16 and fp32).  The
+// kernel of one block a bin spent, on an H100 at the training shape
+// (-DBIN_POOL_MARKS), 84% of a block in dx and the weight partials (a
+// thread a column of [xs | xo] walking the bin's 256 atoms, 2-byte loads
+// one row apart) and 12% in dw (a warp an atom, strided).  The design, as
+// the forward's tiles:
+// - one 512-thread block per 64-atom tile, a bin's tiles one cluster; the
+//   tile's rows by two bulk async copies, so xs and xo cross HBM once;
+// - each atom's molecule by tile_molecules; its molecule's cotangent rows
+//   gps, gpo read from L2 (the tile's rows already fill 65.5 KB bf16, 131 KB
+//   fp32 of shared memory; a row serves each of its molecule's atoms);
+// - dw from the rows, eight threads an atom, the eighths added in a fixed
+//   order by shuffles;
+// - t_mol as per-tile partials per (head, molecule), summed over the
+//   cluster in rank order: one exchange; ds rounded to T;
+// - the tile's d_ks, d_ko (a thread a column, the tile's atoms in order)
+//   and d_b; dx = rnd(g w + ds k^T) from the rows in shared memory, stored
+//   as 16-byte chunks of the tile's contiguous rows;
+// - the weight partials summed over the cluster in rank order, each rank
+//   writing its share of the bin's partial row, which bin_pool_sum_partials
+//   sums in bin order as it does the old kernel's.
 // No atomics: reruns are bit-equal.
 
 #include "pool_tiles.cuh"
@@ -66,11 +88,14 @@
 
 namespace {
 
-// Built with -DBIN_POOL_MARKS, bin_pool_fwd_kernel records a %globaltimer
-// mark per block after a block barrier at each phase boundary (start,
-// membership, scores, softmax, attn write, head mean and coverage, x_self
-// pools, x_other pools; bin_pool_marks; chip_smoke.py's [pool6-kernel]
-// "bin_pool_fwd phases" lines read them).
+// Built with -DBIN_POOL_MARKS, the kernels record a %globaltimer mark per
+// block after a block barrier at each phase boundary: bin_pool_fwd_kernel
+// (start, membership, scores, softmax, attn write, head mean and coverage,
+// x_self pools, x_other pools), bin_pool_bwd_kernel (start, membership, attn
+// and the head mean, dw, t_mol, ds and d_b, dx with the x_self partials, dx
+// with the x_other partials) and the tile kernels (see there);
+// bin_pool_marks; chip_smoke.py's [pool6-kernel] "bin_pool_fwd phases" and
+// "bin_pool_bwd phases" lines read them.
 #ifdef BIN_POOL_MARKS
 constexpr int kPoolMarks = 10;  // marks a block may record
 __device__ unsigned long long* g_pool_marks;  // (blocks, kPoolMarks), set by bin_pool_marks
@@ -288,11 +313,14 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
   const float* ks = score;
   const float* ko = score + (size_t)Ds * H;
   float* pb = part + (size_t)b * ((size_t)(Ds + Do) * H + H);
+  POOL_MARK(0);
   pool_members(s, pm, mb, ab);
+  POOL_MARK(1);
   for (int e = threadIdx.x; e < H * ab; e += kPoolThreads)
     s.S[e] = attn_in[(size_t)(e / ab) * A + col0 + e % ab];
   __syncthreads();
   pool_head_mean(s, H, ab);
+  POOL_MARK(2);
 
   // dw = (g_s . xs + g_o . xo) + g_cov at the atom's molecule, one warp per atom
   for (int a = warp; a < ab; a += kPoolWarps) {
@@ -311,6 +339,7 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     if (lane == 0) s.dwbar[a] = m >= 0 ? (s1 + s2) + gcov[mol0 + m] : 0.0f;
   }
   __syncthreads();
+  POOL_MARK(3);
 
   // softmax backward: t_mol, then ds rounded to T, and d_b's partial
   float* tmol = s.red;
@@ -324,6 +353,7 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     tmol[p] = acc;
   }
   __syncthreads();
+  POOL_MARK(4);
   for (int e = threadIdx.x; e < H * ab; e += kPoolThreads) {
     const int h = e / ab, a = e % ab, m = s.molof[a];
     const float at = s.S[e], dat = s.dwbar[a] / (float)H;
@@ -336,10 +366,11 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     for (int a = 0; a < ab; ++a) acc += s.ds[h * ab + a];
     pb[(size_t)(Ds + Do) * H + h] = acc;
   }
+  POOL_MARK(5);
 
   // dx and the score-weight partials: one thread per column of [xs | xo],
   // walking the bin's atoms in order
-  for (int c = threadIdx.x; c < Ds + Do; c += kPoolThreads) {
+  auto column = [&](int c) {
     const bool self = c < Ds;
     const int d = self ? c : c - Ds, D = self ? Ds : Do;
     const T* x = self ? xs : xo;
@@ -369,7 +400,15 @@ bin_pool_bwd_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
     }
     float* pw = pb + (self ? 0 : (size_t)Ds * H) + (size_t)d * H;
     for (int h = 0; h < H; ++h) pw[h] = acc[h];
-  }
+  };
+#ifdef BIN_POOL_MARKS  // the x_self columns, then the x_other ones, timed apart
+  for (int c = threadIdx.x; c < Ds; c += kPoolThreads) column(c);
+  POOL_MARK(6);
+  for (int c = Ds + threadIdx.x; c < Ds + Do; c += kPoolThreads) column(c);
+  POOL_MARK(7);
+#else
+  for (int c = threadIdx.x; c < Ds + Do; c += kPoolThreads) column(c);
+#endif
 }
 
 // ---- the forward on tiles: one block per 64-atom tile, a cluster per bin ----
@@ -670,6 +709,264 @@ int launch_pool_fwd_tiles(const void* xs, const void* xo, const void* pm, const 
   return (int)cudaGetLastError();
 }
 
+// ---- the backward on tiles: one block per 64-atom tile, a cluster per bin ----
+
+// The tile's weight partials [d_ks (Ds x H) | d_ko (Do x H) | d_b (H)], the
+// bin's partial row's layout, padded to whole float4s.
+__host__ __device__ __forceinline__ int pool_bwd_part4(int Ds, int Do, int H) {
+  return ((Ds + Do) * H + H + 3) / 4 * 4;
+}
+
+// Shared memory of a backward tile: its xs and xo rows, the score weights
+// (rows of Hp, zero past H), its attn columns and ds (H x 64 each), wbar,
+// dw, the weight partials, the t_mol partials and the bin's t_mol (H x mb
+// each), its atoms' molecules.
+template <typename T>
+size_t pool_bwd_tile_smem_bytes(int Ds, int Do, int H, int mb) {
+  return kTileHead + (size_t)kTile * (Ds + Do) * sizeof(T) +
+         ((size_t)(Ds + Do) * pool_hp(H) + 2 * (size_t)H * kTile + 2 * kTile +
+          pool_bwd_part4(Ds, Do, H) + 2 * (size_t)H * mb) * sizeof(float) +
+         kTile * sizeof(int);
+}
+
+template <typename T>
+bool pool_bwd_tiles_fit(int Ds, int Do, int H, int mb, int ab) {
+  return H >= 1 && H <= kPoolMaxH && mb >= 1 && Ds >= 1 && Do >= 1 && ab % kTile == 0 &&
+         ab / kTile >= 1 && ab / kTile <= kWalkMaxCluster &&
+         pool_bwd_tile_smem_bytes<T>(Ds, Do, H, mb) <= (size_t)kSmemLimit;
+}
+
+// As bin_pool_bwd_kernel, one block per 64-atom tile, grid nb * C, clusters
+// of C = ab / 64 (see the top of this file).  The tile's rows of xs and xo
+// arrive by two bulk async copies on one mbarrier; dw (eight threads an
+// atom) and the weight partials with dx (a thread a column, dx written over
+// the rows and stored by two bulk async copies) read them from shared
+// memory, the cotangent rows gps and gpo from L2 (a molecule's row serves
+// each of its atoms).
+// t_mol and the weight partials are summed over the cluster in rank order:
+// each rank writes its share of the bin's partial row, which
+// bin_pool_sum_partials then sums in bin order.  Built with
+// -DBIN_POOL_MARKS, marks at: start, the rows, molecules, attn and wbar,
+// dw, t_mol over the cluster, ds and d_b, the weight partials with dx, the
+// sums over the cluster.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 2)
+bin_pool_bwd_tile_kernel(const T* __restrict__ xs, const T* __restrict__ xo,
+                         const int8_t* __restrict__ pm, const float* __restrict__ score,
+                         const float* __restrict__ attn_in, const float* __restrict__ gps,
+                         const float* __restrict__ gpo, const float* __restrict__ gcov,
+                         T* __restrict__ dxs, T* __restrict__ dxo, float* __restrict__ part,
+                         int Ds, int Do, int H, int A, int mb, int ab) {
+  namespace cgr = cooperative_groups;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int C = ab / kTile, rank = (int)cluster.block_rank();
+  const int bin = blockIdx.x / C, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t cc = (size_t)bin * ab + (size_t)rank * kTile, mol0 = (size_t)bin * mb;
+  const int K = Ds + Do, Hp = pool_hp(H), n4 = pool_bwd_part4(Ds, Do, H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  T* xst = reinterpret_cast<T*>(smem + kTileHead);  // 64 x Ds
+  T* xot = xst + (size_t)kTile * Ds;                // 64 x Do
+  float* ksm = reinterpret_cast<float*>(xot + (size_t)kTile * Do);  // K x Hp
+  float* at = ksm + (size_t)K * Hp;     // H x 64: attn
+  float* dsm = at + (size_t)H * kTile;  // H x 64: ds, rounded
+  float* wbar = dsm + (size_t)H * kTile;
+  float* dw = wbar + kTile;
+  float* tpart = dw + kTile;            // n4: [d_ks | d_ko | d_b]
+  float* tp = tpart + n4;               // H x mb: this tile's t_mol partial
+  float* tmol = tp + (size_t)H * mb;    // H x mb: the bin's t_mol
+  int* molof = reinterpret_cast<int*>(tmol + (size_t)H * mb);
+  POOL_MARK(0);
+
+  // the tile's rows by bulk async copies; meanwhile the score weights, the
+  // attn columns, zeroed partials and the molecules of its atoms
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const unsigned bs = kTile * Ds * sizeof(T), bo = kTile * Do * sizeof(T);
+    mbar_expect(bar, bs + bo);
+    bulk_load(xst, xs + cc * Ds, bs, bar);
+    bulk_load(xot, xo + cc * Do, bo, bar);
+  }
+  for (int e = threadIdx.x; e < K * Hp; e += kTileThreads) {
+    const int d = e / Hp, h = e % Hp;
+    ksm[e] = h < H ? score[(size_t)d * H + h] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < H * kTile; e += kTileThreads)
+    at[e] = attn_in[(size_t)(e / kTile) * A + cc + e % kTile];
+  for (int e = threadIdx.x; e < n4; e += kTileThreads) tpart[e] = 0.0f;
+  tile_molecules(molof, pm + (size_t)bin * mb * ab + (size_t)rank * kTile, mb, ab);
+  __syncthreads();
+  for (int c = threadIdx.x; c < kTile; c += kTileThreads) {  // wbar, heads in order
+    float v = 0.0f;
+    for (int h = 0; h < H; ++h) v += at[h * kTile + c];
+    wbar[c] = v / (float)H;
+  }
+  mbar_wait(bar, 0);
+  __syncthreads();
+  POOL_MARK(1);
+
+  // dw = (g_s . xs + g_o . xo) + g_cov at the atom's molecule: eight threads
+  // an atom, each an eighth of the columns; the eighths summed in a fixed
+  // order by shuffles
+  {
+    const int a = threadIdx.x >> 3, p = threadIdx.x & 7, m = molof[a];
+    float s1 = 0.0f, s2 = 0.0f;
+    if (m >= 0) {
+      const float* gs = gps + (mol0 + m) * Ds;
+      const float* go = gpo + (mol0 + m) * Do;
+      const T* rs = xst + (size_t)a * Ds;
+      const T* ro = xot + (size_t)a * Do;
+#pragma unroll 4
+      for (int d = p; d < Ds; d += 8) s1 = fmaf(__ldg(gs + d), to_f(rs[d]), s1);
+#pragma unroll 4
+      for (int d = p; d < Do; d += 8) s2 = fmaf(__ldg(go + d), to_f(ro[d]), s2);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (p == 0) dw[a] = m >= 0 ? (s1 + s2) + gcov[mol0 + m] : 0.0f;
+  }
+  __syncthreads();
+  POOL_MARK(2);
+
+  // t_mol = the sum over the molecule of attn dw / H: the tile's partial per
+  // (head, molecule), a warp each, then the cluster's, in rank order
+  for (int q = warp; q < H * mb; q += kTileThreads / 32) {
+    const int h = q / mb, m = q % mb;
+    const float v0 = molof[lane] == m ? at[h * kTile + lane] * (dw[lane] / (float)H) : 0.0f;
+    const float v1 =
+        molof[lane + 32] == m ? at[h * kTile + lane + 32] * (dw[lane + 32] / (float)H) : 0.0f;
+    const float v = warp_sum(v0 + v1);
+    if (lane == 0) tp[q] = v;
+  }
+  cluster.sync();
+  for (int q = threadIdx.x; q < H * mb; q += kTileThreads) tmol[q] = rank_sum(cluster, tp + q, C);
+  __syncthreads();
+  POOL_MARK(3);
+
+  // ds = rnd(attn dw / H - attn t_mol), and the tile's d_b, a warp a head
+  for (int e = threadIdx.x; e < H * kTile; e += kTileThreads) {
+    const int h = e / kTile, c = e % kTile, m = molof[c];
+    const float a = at[e], tm = m >= 0 ? tmol[h * mb + m] : 0.0f;
+    dsm[e] = rnd<T>(a * (dw[c] / (float)H) - a * tm);
+  }
+  __syncthreads();
+  for (int h = warp; h < H; h += kTileThreads / 32) {
+    const float v = warp_sum(dsm[h * kTile + lane] + dsm[h * kTile + lane + 32]);
+    if (lane == 0) tpart[(size_t)K * H + h] = v;
+  }
+  POOL_MARK(4);
+
+  // the tile's d_ks and d_ko and dx = rnd(g w + ds k^T): a thread a column
+  // of [xs | xo], the tile's atoms in order; each dx value goes over the x
+  // value it has just read, so the rows become dx's, which two bulk async
+  // copies then store (the tile's rows are contiguous in the row-major
+  // arrays)
+  for (int col = threadIdx.x; col < K; col += kTileThreads) {
+    const bool self = col < Ds;
+    T* xc = self ? xst + col : xot + (col - Ds);
+    const int ld = self ? Ds : Do, d = self ? col : col - Ds;
+    const float* g = (self ? gps : gpo) + d;
+    float kc[kPoolMaxH], acc[kPoolMaxH];
+#pragma unroll
+    for (int h = 0; h < kPoolMaxH; ++h) {
+      kc[h] = h < Hp ? ksm[(size_t)col * Hp + h] : 0.0f;
+      acc[h] = 0.0f;
+    }
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      const int m = molof[c];
+      const float xv = to_f(xc[(size_t)c * ld]);
+      const float gv = m >= 0 ? __ldg(g + (mol0 + m) * ld) : 0.0f;
+      float dsum = 0.0f;
+#pragma unroll
+      for (int h = 0; h < kPoolMaxH; ++h)
+        if (h < H) {
+          const float dsv = dsm[h * kTile + c];
+          dsum = fmaf(dsv, kc[h], dsum);
+          acc[h] = fmaf(xv, dsv, acc[h]);
+        }
+      xc[(size_t)c * ld] = from_f<T>(gv * wbar[c] + dsum);
+    }
+#pragma unroll
+    for (int h = 0; h < kPoolMaxH; ++h)
+      if (h < H) tpart[(size_t)col * H + h] = acc[h];
+  }
+  fence_async_smem();  // the rows' new values, before the bulk copies read them
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bulk_store(dxs + cc * Ds, xst, kTile * Ds * sizeof(T));
+    bulk_store(dxo + cc * Do, xot, kTile * Do * sizeof(T));
+    bulk_commit();
+  }
+  POOL_MARK(5);
+
+  // the bin's partial row: the tiles' partials in rank order, the elements
+  // spread over the cluster
+  cluster.sync();
+  const int n = K * H + H;
+  float* pb = part + (size_t)bin * n;
+  for (int i4 = rank * kTileThreads + threadIdx.x; i4 < n4 / 4; i4 += C * kTileThreads) {
+    float4 pr[kWalkMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C)
+        pr[r] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(tpart, r) + 4 * i4);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < kWalkMaxCluster; ++r)
+      if (r < C) {
+        s[0] += pr[r].x;
+        s[1] += pr[r].y;
+        s[2] += pr[r].z;
+        s[3] += pr[r].w;
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * i4 + k < n) pb[4 * i4 + k] = s[k];
+  }
+  if (threadIdx.x == 0) bulk_wait_read();  // dx's rows have left shared memory
+  cluster.sync();  // the other tiles' reads of this block's partials are done
+  POOL_MARK(6);
+}
+
+bool pool_bwd_tiles_configured[2][kMaxDevices];
+
+template <typename T>
+int launch_pool_bwd_tiles(const void* xs, const void* xo, const void* pm, const void* score,
+                          const void* attn, const void* gps, const void* gpo, const void* gcov,
+                          void* dxs, void* dxo, void* part, int Ds, int Do, int H, int nb, int mb,
+                          int ab, cudaStream_t st) {
+  if (!pool_bwd_tiles_fit<T>(Ds, Do, H, mb, ab)) return (int)cudaErrorInvalidValue;
+  const int err =
+      configure(bin_pool_bwd_tile_kernel<T>, pool_bwd_tiles_configured[sizeof(T) == 4]);
+  if (err) return err;
+  const int C = ab / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb * C);
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = pool_bwd_tile_smem_bytes<T>(Ds, Do, H, mb);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, bin_pool_bwd_tile_kernel<T>, static_cast<const T*>(xs), static_cast<const T*>(xo),
+      static_cast<const int8_t*>(pm), static_cast<const float*>(score),
+      static_cast<const float*>(attn), static_cast<const float*>(gps),
+      static_cast<const float*>(gpo), static_cast<const float*>(gcov), static_cast<T*>(dxs),
+      static_cast<T*>(dxo), static_cast<float*>(part), Ds, Do, H, nb * ab, mb, ab);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_pool_fwd(const void* xs, const void* xo, const void* pm, const void* score, void* ps,
                     void* po, void* cov, void* attn, int Ds, int Do, int H, int nb, int mb, int ab,
@@ -735,6 +1032,29 @@ int bin_pool_fwd_tiles(const void* xs, const void* xo, const void* pm, const voi
                                              mb, ab, st);
 }
 
+// Shared memory of the backward on tiles at these shapes, or -1 where it
+// does not take them (the wrapper then launches bin_pool_bwd).
+long long bin_pool_bwd_tiles_smem_bytes(int bf16, int Ds, int Do, int H, int mb, int ab) {
+  if (bf16)
+    return pool_bwd_tiles_fit<__nv_bfloat16>(Ds, Do, H, mb, ab)
+               ? (long long)pool_bwd_tile_smem_bytes<__nv_bfloat16>(Ds, Do, H, mb) : -1;
+  return pool_bwd_tiles_fit<float>(Ds, Do, H, mb, ab)
+             ? (long long)pool_bwd_tile_smem_bytes<float>(Ds, Do, H, mb) : -1;
+}
+
+// The backward on tiles (bin_pool_bwd_tile_kernel): the arguments and
+// outputs of bin_pool_bwd; xs, xo, dxs and dxo 16-byte aligned.
+int bin_pool_bwd_tiles(const void* xs, const void* xo, const void* pm, const void* score,
+                       const void* attn, const void* gps, const void* gpo, const void* gcov,
+                       void* dxs, void* dxo, void* part, int bf16, int Ds, int Do, int H, int nb,
+                       int mb, int ab, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_pool_bwd_tiles<__nv_bfloat16>(xs, xo, pm, score, attn, gps, gpo, gcov,
+                                                     dxs, dxo, part, Ds, Do, H, nb, mb, ab, st)
+              : launch_pool_bwd_tiles<float>(xs, xo, pm, score, attn, gps, gpo, gcov, dxs, dxo,
+                                             part, Ds, Do, H, nb, mb, ab, st);
+}
+
 // Each returns cudaGetLastError() after its launch (0 on success).
 int bin_pool_fwd(const void* xs, const void* xo, const void* pm, const void* score, void* ps,
                  void* po, void* cov, void* attn, int bf16, int Ds, int Do, int H, int nb, int mb,
@@ -763,7 +1083,7 @@ int bin_pool_sum_partials(const void* part, void* out, int n, long long size, vo
 }
 
 #ifdef BIN_POOL_MARKS
-// Points the forward kernels' phase marks at marks ((blocks, 10) uint64).
+// Points the kernels' phase marks at marks ((blocks, 10) uint64).
 int bin_pool_marks(void* marks) {
   return (int)cudaMemcpyToSymbol(g_pool_marks, &marks, sizeof(marks));
 }

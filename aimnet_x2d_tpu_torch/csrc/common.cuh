@@ -47,8 +47,8 @@ __device__ __forceinline__ float act_fn(int act, float u) {
 // Derivative in fp32 (utils/activation.py activation_grad); callers round.
 __device__ __forceinline__ float act_grad(int act, float u) {
   switch (act) {
-    case 0: {
-      const float s = 1.0f / (1.0f + expf(-u));
+    case 0: {  // the correctly rounded reciprocal: 1 / x to the bit, without a division
+      const float s = __frcp_rn(1.0f + expf(-u));
       return s * (1.0f + u * (1.0f - s));
     }
     case 1: return u > 0.0f ? 1.0f : 0.0f;
@@ -178,6 +178,29 @@ __device__ void gemm_tile(const float* A, int lda, bool /*a_tiled*/, int M, int 
       }
     }
   }
+}
+
+// A bf16 gemm_tile epilogue, clocked for the marks builds: gemm_tile calls
+// it for each 16-row strip first at (m0, 0) and last at (m0 + 14, kTile -
+// 16) in lane 0, so lane 0 of each warp adds the clocks from the strip's
+// start (the product's, or the last strip's end) to its first element to
+// clk[0] (the products, the strip's first staging store with them), and
+// those to its last element to clk[1] (the epilogue); clk is in shared
+// memory.  fp32 products are not clocked.
+template <typename T, class Epi>
+__device__ __forceinline__ auto clocked(unsigned long long* clk, Epi epi) {
+  if constexpr (sizeof(T) != 2) return epi;
+  else return [epi, clk, t0 = clock64(), t1 = 0ll](int r, int c, float v) mutable {
+    const bool lead = (threadIdx.x & 31) == 0;
+    if (lead && c == 0 && r % 16 == 0) t1 = clock64();
+    epi(r, c, v);
+    if (lead && c == kTile - 16 && r % 16 == 14) {
+      const long long t2 = clock64();
+      atomicAdd(&clk[0], (unsigned long long)(t1 - t0));
+      atomicAdd(&clk[1], (unsigned long long)(t2 - t1));
+      t0 = t2;
+    }
+  };
 }
 
 }  // namespace

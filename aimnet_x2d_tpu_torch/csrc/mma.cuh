@@ -26,6 +26,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "r"(src_bytes));
 }
 
+// Orders this thread's shared-memory writes before the async proxy's reads
+// (a wgmma operand written with st.shared or landed by cp.async, or rows a
+// bulk async copy stores).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -99,27 +99,7 @@ constexpr int kExtMarks = 40;   // marks a block may record
 constexpr int kExtClocks = 16;  // the first product's clocks
 __device__ unsigned long long* g_ext_marks;  // (blocks, kExtMarks), set by mp_ext_marks
 __shared__ unsigned long long ext_clk[2];     // the current product's mma and epilogue clocks
-// A bf16 product's epilogue, clocked: the bf16 gemm_tile calls it for each
-// 16-row strip first at (m0, 0) and last at (m0 + 14, kTile - 16) in lane
-// 0, so lane 0 of each warp adds the clocks from the strip's start (the
-// product's, or the last strip's end) to its first element to the products
-// (the strip's first staging store with them), and those to its last
-// element to the epilogue.  fp32 products are not clocked.
-template <typename T, class Epi> __device__ __forceinline__ auto clocked(Epi epi) {
-  if constexpr (!std::is_same_v<T, __nv_bfloat16>) return epi;
-  else return [epi, t0 = clock64(), t1 = 0ll](int r, int c, float v) mutable {
-    const bool lead = (threadIdx.x & 31) == 0;
-    if (lead && c == 0 && r % 16 == 0) t1 = clock64();
-    epi(r, c, v);
-    if (lead && c == kTile - 16 && r % 16 == 14) {
-      const long long t2 = clock64();
-      atomicAdd(&ext_clk[0], (unsigned long long)(t1 - t0));
-      atomicAdd(&ext_clk[1], (unsigned long long)(t2 - t1));
-      t0 = t2;
-    }
-  };
-}
-#define EXT_EPI(...) clocked<T>(__VA_ARGS__)
+#define EXT_EPI(...) clocked<T>(ext_clk, __VA_ARGS__)
 __device__ __forceinline__ void ext_mark(int i) {
   __syncthreads();
   if (threadIdx.x == 0 && i < kExtMarks) {
@@ -449,47 +429,6 @@ bool ext_wg_fits(int Dp, int n_blocks) {
          ext_wg_smem_bytes(Dp, n_blocks) <= (size_t)kSmemLimit;
 }
 
-// The consumers' mbarrier wait: the polling loop inside one asm block, so
-// the compiler sees no data-dependent branch before the wgmma that follow
-// (it serialises wgmma in a path it takes for divergent).  A wait that
-// polls 2^26 times (seconds) is a fault: it traps, as mbar_wait does.
-__device__ __forceinline__ void wg_wait_bar(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 67108864;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One arrival on bar where pred holds, as one predicated instruction (no
-// branch around it).
-__device__ __forceinline__ void wg_arrive_if(unsigned long long* bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
-      "r"((int)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void st_u32(unsigned char* p, unsigned v) {
-  *reinterpret_cast<unsigned*>(p) = v;
-}
-
-__device__ __forceinline__ unsigned ld_u32(const unsigned char* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
 #ifdef MP_EXT_MARKS
 // The new kernel's marks: per consumer warpgroup w, SM clocks summed over its
 // tiles at w * 8 + (0 xa waits, 1 weight waits, 2 products without the
@@ -556,13 +495,6 @@ __device__ __forceinline__ void wg_product(float (&acc)[DP / 2], int nk, ADesc a
   clk.lap(2);
 }
 
-// K-major A (h or v, [atom][feature]) of K-step k16: core matrices of 8
-// atoms x 8 features, 16 DP bytes between atom groups.
-template <int DP> struct KMajor {
-  const unsigned char* p;
-  __device__ uint64_t operator()(int k16) const { return wg_desc(p + k16 * 256, 128, 16 * DP); }
-};
-
 // The activation of the wgmma kernel's epilogues: SiLU by the fast exp and
 // division, the others as act_fn.  Its values round to bf16 at once, and
 // differ from act_fn's by at most a bf16 step where the rounding falls
@@ -574,40 +506,10 @@ template <int ACT> __device__ __forceinline__ float wg_act(float u) {
   return act_fn(ACT, u);
 }
 
-// The epilogues' bf16 pair arithmetic.  rnd(rnd(a0) + b) is one bf16 add
-// of the rounded pair and the bias pair, as are the residual adds (the fp32
-// sum of two bf16 values, rounded to bf16, is their bf16 sum bit for bit);
-// rnd(rnd(a) * scale) one bf16 multiply by the scale, a bf16 value (the
-// product of two bf16 values is exact in fp32).
-__device__ __forceinline__ __nv_bfloat162 pair(unsigned v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 bias_add(float a0, float a1, const bf16* b) {
-  return __hadd2(__floats2bfloat162_rn(a0, a1), *reinterpret_cast<const __nv_bfloat162*>(b));
-}
 template <int ACT> __device__ __forceinline__ __nv_bfloat162 act2(__nv_bfloat162 u) {
   const float2 f = __bfloat1622float2(u);
   return __floats2bfloat162_rn(wg_act<ACT>(f.x), wg_act<ACT>(f.y));
 }
-
-// The accumulator pair (4j + 2h, + 1) of thread (w, g, t) of a warpgroup:
-// atom row 16w + g + 8h, features 8j + 2t, + 1.  Its byte offset in a
-// K-major [atom][feature] tile (core matrices of 8 atoms x 8 features).
-template <int DP>
-__device__ __forceinline__ int kmajor_off(int w, int g, int t, int j, int h) {
-  return (2 * w + h) * 16 * DP + j * 128 + g * 16 + t * 4;
-}
-
-// MN-major A (xa's tile, [feature][atom]) of K-step k16: core matrices of
-// 8 features x 8 atoms, 128 bytes apart along the atoms, 1024 along the
-// features.
-struct MNMajor {
-  const unsigned char* p;
-  __device__ uint64_t operator()(int k16) const { return wg_desc(p + k16 * 2048, 1024, 128); }
-};
 
 // The layer's chain on the consumer warpgroup's tiles (see
 // ext_fwd_wg_kernel).

@@ -57,6 +57,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// One thread: bytes (a multiple of 16) from shared src to global dst by a
+// bulk async copy in this thread's bulk group (after fence_async_smem and a
+// barrier that order the rows' writes before it).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until this thread's committed bulk stores have read their source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // The same, with bar's one arrival of this phase expecting the bytes.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
                                           unsigned long long* bar) {

@@ -725,7 +725,12 @@ def unprep_layer_grads(sw: StackWeights, lg: Sequence[torch.Tensor]) -> List[tor
 
 
 def _lib_bwd() -> ctypes.CDLL:
-    lib = cuda_build.load("mp_stack_bwd")
+    return type_lib_bwd(cuda_build.load("mp_stack_bwd"))
+
+
+def type_lib_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of ``csrc/mp_stack_bwd.cu`` (the
+    kernels' own, or an instrumented one)."""
     if not getattr(lib, "_typed", False):
         vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.mp_stack_bwd_layer.argtypes = [vp] * 6 + [i] * 10 + [u, u, f, vp]
@@ -749,6 +754,13 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.wgrad_group.restype = i
         lib.mp_stack_bwd_error_string.argtypes = [i]
         lib.mp_stack_bwd_error_string.restype = ctypes.c_char_p
+        lib.mp_stack_bwd_proj_wg.argtypes = [vp] * 4 + [i] + [vp] * 5 + [i] * 5 + [vp]
+        lib.mp_stack_bwd_proj_wg.restype = i
+        lib.mp_stack_bwd_proj_wg_smem_bytes.argtypes = [i, i, ctypes.c_longlong]
+        lib.mp_stack_bwd_proj_wg_smem_bytes.restype = ctypes.c_longlong
+        if hasattr(lib, "mp_stack_bwd_marks"):
+            lib.mp_stack_bwd_marks.argtypes = [vp]
+            lib.mp_stack_bwd_marks.restype = i
         lib._typed = True
     return lib
 
@@ -1263,40 +1275,144 @@ def mp_stack_bwd(x, adj, sw: StackWeights, spec: StackSpec, saved, g,
     g32, layer_grads, wk = _launch_bwd(what, x, adj, sw, spec, saved, g,
                                        0 if pw is not None else 1, E)
     mp_stack_bwd.launches += 1
-    dt, D = sw.dtype, sw.D
     if pw is None:
-        return g32[:D].to(dt), layer_grads, None
-    dev = x.device
-    nb, ab, _ = adj.shape
-    A = x.shape[1]
-    cuda_build.check_cuda(what, dev, ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32))
-    lib = _lib_bwd()
-    dtc = wk[dtc_slab]
-    demb = torch.empty(E, A, dtype=dt, device=dev)
-    status = lib.mp_stack_bwd_proj(
-        x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
-        dtc.data_ptr(), demb.data_ptr(), int(dt == torch.bfloat16), sw.Dp, E, A, nb, ab,
-        ACTIVATION_CODES[spec.act.lower()], _stream(dev),
-    )
-    if status != 0:
-        raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
-    # g32 now holds the fp32 cotangent of the projection's pre-activation
-    ((dkbT, dbb),) = wgrad_group([(dtc, x, g32)])
+        return g32[: sw.D].to(sw.dtype), layer_grads, None
+    demb, dkbT, dbb = mp_stack_bwd_proj(x, g32, pw, spec.act, adj.shape[1], wk[dtc_slab])
     return demb, layer_grads, (dkbT, dbb)
 
 
 mp_stack_bwd.launches = 0
 
 
+# ---- the projection fold's backward (kernels 1c, 1c-vocab) --------------- #
+
+
+def proj_wg_index(Dp: int, E: int) -> np.ndarray:
+    """Positions in kbT (Dp, E), row-major, of every element of the wgmma
+    projection backward's resident kb, in the kernel's order: core matrices
+    of 8 rows d by 8 consecutive columns e (128 contiguous bytes, row d % 8
+    at 16 (d % 8) bytes), d / 8 fastest, then e / 8.  One copy serves both
+    products: K-major for kb^T emb (N = d, K = e), MN-major for kb dtc
+    (N = e, K = d)."""
+    d, e = np.meshgrid(np.arange(Dp), np.arange(E), indexing="ij")
+    pos = ((e // 8) * (Dp // 8) + d // 8) * 64 + (d % 8) * 8 + e % 8
+    idx = np.empty(Dp * E, np.int64)
+    idx[pos.ravel()] = (d * E + e).ravel()
+    return idx
+
+
+_PROJ_WG_INDEX: Dict[Tuple, torch.Tensor] = {}
+
+
+def proj_wg_weights(pw: ProjWeights) -> torch.Tensor:
+    """The wgmma projection backward's weights (bf16): kb in the order of
+    :func:`proj_wg_index`, then bb; one gather, the index cached per shape
+    and device."""
+    Dp, E = pw.kbT.shape
+    key = (Dp, E, pw.kbT.device)
+    idx = _PROJ_WG_INDEX.get(key)
+    if idx is None:
+        idx = _PROJ_WG_INDEX[key] = torch.from_numpy(proj_wg_index(Dp, E)).to(pw.kbT.device)
+    return torch.cat([pw.kbT.reshape(-1)[idx], pw.bb])
+
+
+_PROJ_WG: Dict[Tuple, bool] = {}  # (bf16, Dp, E, table floats or -1) -> the wgmma kernel takes it
+
+
+def _proj_takes_wg(lib, bf16: int, Dp: int, E: int, n_acc: int) -> bool:
+    """Whether the projection's backward runs on ``proj_bwd_wg_kernel``
+    (bf16, Dp 64, 128 or 160, E 128 or 256, its buffers -- with
+    the table's partial under the fold, ``n_acc`` floats, -1 without -- in
+    one block's shared memory); else on the kernel of one block a bin.
+    Asked of the library once per shape."""
+    key = (bf16, Dp, E, n_acc)
+    if key not in _PROJ_WG:
+        _PROJ_WG[key] = bool(bf16) and lib.mp_stack_bwd_proj_wg_smem_bytes(Dp, E, n_acc) >= 0
+    return _PROJ_WG[key]
+
+
+def _launch_proj_wg(what, lib, x, vt: Optional[VocabTable], g32, pw: ProjWeights, act: str,
+                    dtc, demb):
+    """One launch of ``proj_bwd_wg_kernel`` (persistent blocks, one an SM,
+    over the 64-atom tiles) and the fixed-order sum of its per-block
+    partials [d_bb | compact d_bd]; returns the sums."""
+    Dp, A = g32.shape
+    dev = g32.device
+    n_acc = vt.Df * vt.offsets[-1] if vt is not None else 0
+    blocks = min(A // 64, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(blocks, Dp + n_acc, dtype=torch.float32, device=dev)
+    table = ((None, x.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), len(vt.sizes))
+             if vt is not None else (x.data_ptr(), None, None, None, 0))
+    status = lib.mp_stack_bwd_proj_wg(
+        *table, g32.data_ptr(), proj_wg_weights(pw).data_ptr(), dtc.data_ptr(),
+        demb.data_ptr() if demb is not None else None, part.data_ptr(), Dp, pw.E, A, blocks,
+        ACTIVATION_CODES[act.lower()], _stream(dev))
+    if status != 0:
+        raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+    return sum_partials(part)
+
+
+def mp_stack_bwd_proj(x, g32, pw: ProjWeights, act: str, ab: int,
+                      dtc: Optional[torch.Tensor] = None):
+    """The projection fold's backward (kernel 1c): from the embeddings x
+    (E, A) and the walk's fp32 cotangent g32 (Dp, A) of x0 = act(kb^T x +
+    bb), recompute t0, form dt0 = g32 act'(t0), rnd(dt0) into ``dtc`` (a
+    (Dp, A) compute-dtype scratch) and demb = rnd(kb rnd(dt0)); then d_kb by
+    the grouped contraction.  In bf16, where the shape fits it, the
+    warp-specialised wgmma kernel (``proj_bwd_wg_kernel``: d_bb from
+    per-block partials of the fp32 dt0, g32 left as it was); fp32 and the
+    other shapes the kernel of one block per bin of ``ab`` atoms (dt0
+    written over ``g32`` for the contraction's bias sums).  The route is
+    chosen by shape and counted in ``mp_stack_bwd_proj.routes``.  Returns
+    (demb (E, A) in the compute dtype, dkbT (Dp, E), dbb (Dp,)), as
+    :func:`_proj_bwd_plain`."""
+    what = "mp_stack_bwd_proj"
+    dt = pw.kbT.dtype
+    Dp, A = g32.shape
+    E = pw.E
+    if x.dtype != dt or x.shape != (E, A) or g32.dtype != torch.float32 or ab % 64 or A % ab:
+        raise TypeError(f"{what}: embeddings {x.dtype} {tuple(x.shape)}, cotangent {g32.dtype} "
+                        f"{tuple(g32.shape)}, weights {dt} (E {E}), bins of {ab}")
+    dev = x.device
+    if dtc is None:
+        dtc = torch.empty(Dp, A, dtype=dt, device=dev)
+    cuda_build.check_cuda(what, dev, ("emb", x, 16), ("g32", g32, 16), ("proj", pw.flat, 32),
+                          ("proj_t", pw.flat_t, 32), ("dtc", dtc, 16))
+    lib = _lib_bwd()
+    bf16 = int(dt == torch.bfloat16)
+    wg = _proj_takes_wg(lib, bf16, Dp, E, -1)
+    demb = torch.empty(E, A, dtype=dt, device=dev)
+    if wg:
+        dbb = _launch_proj_wg(what, lib, x, None, g32, pw, act, dtc, demb)
+        ((dkbT, _),) = wgrad_group([(dtc, x, None)])
+    else:
+        status = lib.mp_stack_bwd_proj(
+            x.data_ptr(), g32.data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
+            dtc.data_ptr(), demb.data_ptr(), bf16, Dp, E, A, A // ab, ab,
+            ACTIVATION_CODES[act.lower()], _stream(dev))
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+        # g32 now holds the fp32 cotangent of the projection's pre-activation
+        ((dkbT, dbb),) = wgrad_group([(dtc, x, g32)])
+    mp_stack_bwd_proj.launches += 1
+    mp_stack_bwd_proj.routes["wgmma" if wg else "bins"] += 1
+    return demb, dkbT, dbb
+
+
+mp_stack_bwd_proj.launches = 0
+# launches of proj_bwd_wg_kernel, of the kernel of one block a bin
+mp_stack_bwd_proj.routes = {"wgmma": 0, "bins": 0}
+
+
 def mp_stack_bwd_vocab(codes, g32, pw: ProjWeights, vt: VocabTable, act: str, ab: int,
                        dtc: Optional[torch.Tensor] = None):
     """The projection fold's backward under the embedding fold (1c-vocab):
-    one block per bin of ``ab`` atoms recomputes t0 from the looked-up embeddings, forms
-    dt0 = g32 act'(t0) (written over ``g32``, the walk's fp32 cotangent
-    (Dp, A) of x0), rnd(dt0) into ``dtc`` (a (Dp, A) compute-dtype scratch)
-    and per-bin partials of d_bd; then d_kb by the gathered contraction.
-    Returns (d_bd (E, sum of V) fp32, zero off the diagonal blocks, dkbT
-    (Dp, E), dbb (Dp,))."""
+    as :func:`mp_stack_bwd_proj` with the embeddings looked up from the code
+    rows per tile, and per-block (wgmma) or per-bin partials of d_bd in
+    place of demb, summed in a fixed order; then d_kb by the gathered
+    contraction.  The route is chosen by shape and counted in
+    ``mp_stack_bwd_vocab.routes``.  Returns (d_bd (E, sum of V) fp32, zero
+    off the diagonal blocks, dkbT (Dp, E), dbb (Dp,))."""
     what = "mp_stack_bwd_vocab"
     dt = pw.kbT.dtype
     Dp, A = g32.shape
@@ -1312,24 +1428,34 @@ def mp_stack_bwd_vocab(codes, g32, pw: ProjWeights, vt: VocabTable, act: str, ab
     cuda_build.check_cuda(what, dev, ("codes", codes, 16), ("g32", g32, 16),
                           ("proj", pw.flat, 32), ("proj_t", pw.flat_t, 32), ("table", vt.bd, 4),
                           ("dtc", dtc, 16))
-    nb = A // ab
     n_acc = vt.Df * vt.offsets[-1]
-    part = torch.empty(nb, n_acc, dtype=torch.float32, device=dev)
     lib = _lib_bwd()
-    status = lib.mp_stack_bwd_proj_vocab(
-        codes.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), g32.data_ptr(), len(vt.sizes),
-        pw.flat.data_ptr(), pw.flat_t.data_ptr(), dtc.data_ptr(), part.data_ptr(),
-        int(dt == torch.bfloat16), Dp, E, A, nb, ab, ACTIVATION_CODES[act.lower()], _stream(dev),
-    )
-    if status != 0:
-        raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
-    d_bd = expand_diag(sum_partials(part), vt)
-    ((dkbT, dbb),) = wgrad_group([(dtc, GatheredX(codes, vt), g32)])
+    bf16 = int(dt == torch.bfloat16)
+    wg = _proj_takes_wg(lib, bf16, Dp, E, n_acc)
+    if wg:
+        red = _launch_proj_wg(what, lib, codes, vt, g32, pw, act, dtc, None)
+        d_bd, dbb = expand_diag(red[Dp:], vt), red[:Dp]
+        ((dkbT, _),) = wgrad_group([(dtc, GatheredX(codes, vt), None)])
+    else:
+        nb = A // ab
+        part = torch.empty(nb, n_acc, dtype=torch.float32, device=dev)
+        status = lib.mp_stack_bwd_proj_vocab(
+            codes.data_ptr(), vt.bd.data_ptr(), _sizes_arg(vt), g32.data_ptr(), len(vt.sizes),
+            pw.flat.data_ptr(), pw.flat_t.data_ptr(), dtc.data_ptr(), part.data_ptr(), bf16, Dp,
+            E, A, nb, ab, ACTIVATION_CODES[act.lower()], _stream(dev))
+        if status != 0:
+            raise RuntimeError(f"{what}: {lib.mp_stack_bwd_error_string(status).decode()}")
+        d_bd = expand_diag(sum_partials(part), vt)
+        # g32 now holds the fp32 cotangent of the projection's pre-activation
+        ((dkbT, dbb),) = wgrad_group([(dtc, GatheredX(codes, vt), g32)])
     mp_stack_bwd_vocab.launches += 1
+    mp_stack_bwd_vocab.routes["wgmma" if wg else "bins"] += 1
     return d_bd, dkbT, dbb
 
 
 mp_stack_bwd_vocab.launches = 0
+# launches of proj_bwd_wg_kernel<.., true>, of the kernel of one block a bin
+mp_stack_bwd_vocab.routes = {"wgmma": 0, "bins": 0}
 
 
 def mp_layer_bwd(x, adj, sw: StackWeights, spec: StackSpec, g, extra=None):

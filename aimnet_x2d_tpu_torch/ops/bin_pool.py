@@ -22,10 +22,11 @@ concat_self_other folds stay outside, in plain autograd (models/pooling.py).
 On CUDA tensors :func:`binned_attention_pool_fused` launches the
 hand-written kernels (``csrc/bin_pool.cu``) through :func:`bin_pool_fwd`
 and :func:`bin_pool_bwd`, each with its launch count; on CPU tensors it
-runs :func:`pool_fwd_plain` and :func:`pool_bwd_plain`.  The forward runs
-on 64-atom tiles, a cluster of tiles a bin, where the shape fits them
-(:func:`takes_tiles`), else one block a bin, chosen by shape and counted in
-``bin_pool_fwd.routes``.  The kernels take any (nb, mb, ab) and never fall
+runs :func:`pool_fwd_plain` and :func:`pool_bwd_plain`.  Both directions
+run on 64-atom tiles, a cluster of tiles a bin, where the shape fits them
+(:func:`takes_tiles`, :func:`takes_bwd_tiles`), else one block a bin,
+chosen by shape and counted in ``bin_pool_fwd.routes`` and
+``bin_pool_bwd.routes``.  The kernels take any (nb, mb, ab) and never fall
 back; they assume what the loaders build: each atom belongs to at most one
 molecule of its bin (``bin_attnpool.check_one_owner``, which the CPU path
 runs).
@@ -111,6 +112,10 @@ def _lib() -> ctypes.CDLL:
         lib.bin_pool_fwd_tiles.restype = i
         lib.bin_pool_tiles_smem_bytes.argtypes = [i] * 6
         lib.bin_pool_tiles_smem_bytes.restype = ctypes.c_longlong
+        lib.bin_pool_bwd_tiles.argtypes = [vp] * 11 + [i] * 7 + [vp]
+        lib.bin_pool_bwd_tiles.restype = i
+        lib.bin_pool_bwd_tiles_smem_bytes.argtypes = [i] * 6
+        lib.bin_pool_bwd_tiles_smem_bytes.restype = ctypes.c_longlong
         lib.bin_pool_smem_bytes.argtypes = [i, i, i]
         lib.bin_pool_smem_bytes.restype = ctypes.c_longlong
         lib.bin_pool_error_string.argtypes = [i]
@@ -194,16 +199,36 @@ bin_pool_fwd.launches = 0
 bin_pool_fwd.routes = {"tiles": 0, "bins": 0}  # launches on tiles, of one block a bin
 
 
+_BWD_TILES: dict = {}  # (bf16, Ds, Do, H, mb, ab) -> the backward on tiles takes it
+
+
+def takes_bwd_tiles(lib, bf16: int, Ds: int, Do: int, H: int, mb: int, ab: int) -> bool:
+    """Whether the backward runs on 64-atom tiles (``bin_pool_bwd_tile_kernel``,
+    a cluster a bin: H <= 8, ab a multiple of 64 up to 512, the tile's rows
+    in one block's shared memory); else on the kernel of one block a bin.
+    Asked of the library once per shape."""
+    key = (bf16, Ds, Do, H, mb, ab)
+    if key not in _BWD_TILES:
+        _BWD_TILES[key] = lib.bin_pool_bwd_tiles_smem_bytes(*key) >= 0
+    return _BWD_TILES[key]
+
+
 def bin_pool_bwd(xs, xo, pm, ks, ko, attn, gps, gpo, gcov):
-    """Launch the backward kernel (one block per bin) and the fixed-order
-    sum of its per-bin weight-gradient partials.  Same arguments and
-    returns as :func:`pool_bwd_plain`."""
+    """Launch the backward kernel -- on 64-atom tiles where the shape fits
+    them (:func:`takes_bwd_tiles`; xs and xo must then start on 16-byte
+    boundaries, for the tiles' bulk copies), else one block per bin; the
+    route chosen by shape and counted in ``bin_pool_bwd.routes`` -- and the
+    fixed-order sum of its per-bin weight-gradient partials.  Same
+    arguments and returns as :func:`pool_bwd_plain`."""
     lib, nb, mb, ab, A, Ds, Do, H, bf16 = _check("bin_pool_bwd", xs, xo, pm, ks, ko)
     dev = xs.device
     gps, gpo, gcov = (g.float().contiguous() for g in (gps, gpo, gcov))
     attn = attn.contiguous()
     cuda_build.check_cuda("bin_pool_bwd", dev, ("attn", attn, 4), ("g_self", gps, 4),
                           ("g_other", gpo, 4), ("g_cov", gcov, 4))
+    tiles = takes_bwd_tiles(lib, bf16, Ds, Do, H, mb, ab)
+    if tiles:
+        cuda_build.check_cuda("bin_pool_bwd", dev, ("x_self", xs, 16), ("x_other", xo, 16))
     dxs = torch.empty_like(xs)
     dxo = torch.empty_like(xo)
     psize = (Ds + Do) * H + H
@@ -211,7 +236,8 @@ def bin_pool_bwd(xs, xo, pm, ks, ko, attn, gps, gpo, gcov):
     red = torch.zeros(psize, dtype=torch.float32, device=dev)
     if nb:
         stream = bin_mp._stream(dev)
-        status = lib.bin_pool_bwd(
+        entry = lib.bin_pool_bwd_tiles if tiles else lib.bin_pool_bwd
+        status = entry(
             xs.data_ptr(), xo.data_ptr(), pm.data_ptr(), _score(ks, ko).data_ptr(), attn.data_ptr(),
             gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr(), dxs.data_ptr(), dxo.data_ptr(),
             part.data_ptr(), bf16, Ds, Do, H, nb, mb, ab, stream)
@@ -220,11 +246,13 @@ def bin_pool_bwd(xs, xo, pm, ks, ko, attn, gps, gpo, gcov):
         if status != 0:
             raise RuntimeError(f"bin_pool_bwd: {lib.bin_pool_error_string(status).decode()}")
         bin_pool_bwd.launches += 1
+        bin_pool_bwd.routes["tiles" if tiles else "bins"] += 1
     return dxs, dxo, (red[: Ds * H].view(Ds, H), red[Ds * H : (Ds + Do) * H].view(Do, H),
                       red[(Ds + Do) * H :])
 
 
 bin_pool_bwd.launches = 0
+bin_pool_bwd.routes = {"tiles": 0, "bins": 0}  # launches on tiles, of one block a bin
 
 
 class _PoolFn(torch.autograd.Function):

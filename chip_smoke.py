@@ -41,6 +41,11 @@ Phases, each of which fails the run when it fails:
    pool's backward kernels split by phase by an instrumented build of
    ``csrc/attnpool.cu`` (``-DATTNPOOL_MARKS``, built beside the kernels in
    phase 2); bf16 must run the tiled kernel with one grouped contraction;
+   the projection fold's backward (kernel 1c, ``mp_stack_bwd_proj``) alone,
+   from a cotangent of x0: against its plain version, rerun bit-equal, timed
+   as 1b's, its route (bf16: the wgmma kernel), and its kernels -- the one
+   of a block a bin and the wgmma kernel -- split by phase by an
+   instrumented build of ``csrc/mp_stack_bwd.cu`` (``-DMP_STACK_BWD_MARKS``);
 6. ``[train]``: train the flagship model (bf16, dropout 0.05, 12 synthetic
    targets from the seed) through the port's CLI at batch 2048 with the
    launch counters reset just before; then 24 steps of the train step on
@@ -106,9 +111,9 @@ Phases, each of which fails the run when it fails:
      multiplicity adjacency; ``index_add_``); then kernel 8's op driven
      once as its caller would, on the batch's edges (it lies on no model
      path, in either package);
-   - ``[flat-serve]``: phase 4 on those SMILES: kernel 7 launches 3 times
-     per batch and no binned kernel launches; card against CPU on 128
-     molecules that hold 2 large ones;
+   - ``[flat-serve]``: phase 4 on the first 2048 of those SMILES (one
+     batch): kernel 7 launches 3 times per batch and no binned kernel
+     launches; card against CPU on 128 molecules that hold 2 large ones;
    - ``[flat-train]``: phase 6 on them: kernel 7 launches 3 times forward
      and 3 times backward per step, no binned kernel launches; the one step
      card against CPU runs with both dropouts off (the flat layers draw
@@ -118,11 +123,13 @@ Phases, each of which fails the run when it fails:
    - ``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``, ``bin_pool_bwd``: the
      binned attention pool of row-major arrays) against its plain version
      at the flagship training shape on the loader's pool matrix, fp32 and
-     bf16, timed with the byte bound; the forward reruns bit-equal, is timed
-     as profiler device time beside a CUDA-graph replay, must run on 64-atom
-     tiles (its route counts), and is split by phase, the kernel of one
-     block a bin and the tiles, by an instrumented build of
+     bf16, timed with the byte bound; each direction reruns bit-equal, is
+     timed as profiler device time beside a CUDA-graph replay, must run on
+     64-atom tiles (the route counts), and is split by phase, the kernel of
+     one block a bin and the tiles, by an instrumented build of
      ``csrc/bin_pool.cu`` (``-DBIN_POOL_MARKS``, built beside the kernels);
+     the kernels of one block a bin are held against their plain versions
+     through the wrappers at ab 768, where the tiles do not go;
    - ``[mh-serve]``: phase 4 for the flagship with per-hop aggregation:
      kernel 6 launches, no stack, layer, inject, attention-pool,
      weighted-pool or edge kernel;
@@ -130,8 +137,8 @@ Phases, each of which fails the run when it fails:
      kernel 6 forward and backward once a step, none of those others;
 11. ``[c3-flat]``: config 3 on the flat layout, on the script's SMILES with
    stereo content, 1 in 100 replaced by a molecule larger than a bin (so
-   every split of the CLI's training holds one and goes flat): phase 4
-   (``[c3-flat-serve]``) and phase 6 with ``--output_partial_charges``
+   every split of the CLI's training holds one and goes flat): phase 4 on
+   the first 2048 (``[c3-flat-serve]``) and phase 6 with ``--output_partial_charges``
    (``[c3-flat-train]``); kernel 7 launches 3 times forward (and 3
    backward per step), no binned kernel;
 12. the embedding fold (``AIMNET_EMBED_FOLD=1``, kernel 1c-vocab), run
@@ -142,8 +149,9 @@ Phases, each of which fails the run when it fails:
      versions at the flagship training shapes on the batch's own codes,
      fp32 and bf16, timed with bounds; each backward twice, bit-equal; the
      stack's forward equal to the emb form's bit for bit and timed as in
-     phase 3; the pool's backward timed as in phase 5 and, in bf16, split
-     by phase;
+     phase 3; the projection's and the pool's backwards timed as in phase 5
+     and, in bf16, split by phase, the projection's on the wgmma kernel
+     (its route counts);
    - ``[fold-train]`` (after phase 6): phase 6 with the switch set in the
      CLI's environment: the folded kernels launch once a step and the
      stack's and pool's emb forms never; then, on one batch, the training
@@ -250,6 +258,7 @@ TRAIN_STEPS = 24
 C3_TRAIN_STEPS = 12
 C1_TRAIN_STEPS = 24
 FLAT_EVERY = 100  # one molecule larger than a bin in every FLAT_EVERY SMILES
+FLAT_SERVE = 2048  # SMILES the flat layout's serving phases run (one batch)
 # Kernels 7 and 8 against their plain versions: fp32 outputs hold the same
 # fp32 values summed in another order; after the cast to bf16 a sum that
 # lands next to a rounding boundary may move by one bf16 step (2**-8).
@@ -458,7 +467,7 @@ BWD_PARTS = (("stack forward", ("stack_fwd_tile_kernel", "mp_stack_kernel")),
              ("inject", ("inject_bwd", "inject_fwd")), ("pool", ("attnpool_bwd", "attnpool_fwd")),
              ("ext forward", ("ext_fwd",)), ("pool6", ("bin_pool",)),
              ("contraction", ("wgrad_group", "wgrad_kernel", "wgrad_vocab")),
-             ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj",)),
+             ("partial sums", ("sum_partials",)), ("fold", ("bwd_proj", "proj_bwd")),
              ("casts and copies", ("copy_kernel",)),
              ("weight stream", ("index", "gather", "CatArray")))
 BWD_RECORD: dict = {}  # [bwd-record]: the backward's device times and splits, by form
@@ -535,7 +544,7 @@ def check_stack_route(tag: str, name: str, names, dt) -> None:
     print(f"[{tag}] {name} {str(dt)[6:]}: "
           f"{'the tile kernel' if tiles else 'the kernel of one block a bin'} ({tiles} + {bins} "
           "launches a call)", flush=True)
-    want = dt == torch.bfloat16 and hasattr(bin_mp, "fwd_weights")
+    want = dt == torch.bfloat16
     if bool(tiles) != want or tiles + bins != 1:
         raise AssertionError(f"{name} {dt}: kernels {names}")
 
@@ -990,6 +999,32 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
                                                          pw32), iters=3))
     del saved32, ref_saved32, got, want
 
+    # --- kernel 1c: the projection fold's backward alone, from the walk's
+    # fp32 cotangent of x0 (the kernel of one block a bin writes dt0 over it)
+    g_src = torch.randn(sw.Dp, A, generator=gen, device=dev) * 0.05
+    g_src[D:] = 0
+    g32 = g_src.clone()
+    got = bin_mp.mp_stack_bwd_proj(emb, g32.copy_(g_src), pw, act, ab)
+    again = bin_mp.mp_stack_bwd_proj(emb, g32.copy_(g_src), pw, act, ab)
+    want = bin_mp._proj_bwd_plain(emb, g_src.clone(), pw, act)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError("mp_stack_bwd_proj: a rerun is not bit-equal")
+    ops = 3 * 2 * n * E * D
+    # the function's own: emb, g32 and the weights read; demb, d_kb and d_bb
+    # written (dtc, the scratch handed to the d_kb contraction, not counted)
+    nbytes = 2 * E * A * isz + 4 * sw.Dp * A + (E * D + D) * isz + 4 * (E * D + D)
+    plain_ms = time_ms(lambda: bin_mp._proj_bwd_plain(emb, g_src.clone(), pw, act), iters=5)
+    run = lambda: bin_mp.mp_stack_bwd_proj(emb, g32, pw, act, ab)  # noqa: E731
+    ms, timing, _ = bwd_record("train-kernel", "mp_stack_bwd_proj", dt, run, plain_ms)
+    check_route("train-kernel", "mp_stack_bwd_proj", run, dt, bin_mp.mp_stack_bwd_proj.routes,
+                new="wgmma")
+    record("mp_stack_bwd_proj", [(a, r, None) for a, r in zip(got, want)], ms, plain_ms, ops,
+           nbytes)
+    res["mp_stack_bwd_proj"]["timing"] = timing
+    proj_bwd_phases(marks_build, "train-kernel", emb, g_src, pw, act, ab)
+    del g32, got, again, want
+
     # --- kernel 3: attention pool, forward and backward
     xo = out
     bin_attnpool.check_one_owner(pm)  # the kernels' precondition, on the loader's matrix
@@ -1006,7 +1041,7 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     run = lambda: bin_attnpool.attnpool_fwd(emb, xo, pm, aw, act)  # noqa: E731
     ms, timing, _ = bwd_record("train-kernel", "attnpool_fwd", dt, run, plain_ms)
     check_route("train-kernel", "attnpool_fwd", run, dt,
-                getattr(bin_attnpool._launch_fwd, "routes", None))
+                bin_attnpool._launch_fwd.routes)
     record("attnpool_fwd", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes)
     res["attnpool_fwd"]["timing"] = timing
     attnpool_fwd_phases(marks_build, "train-kernel", emb, xo, pm, aw, act)
@@ -1025,7 +1060,7 @@ def check_train_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     bwd_record("train-kernel", "attnpool_fwd", torch.float32, run,
                time_ms(lambda: bin_attnpool.attnpool_fwd_plain(emb32, xo32, pm, aw32, act), iters=5))
     check_route("train-kernel", "attnpool_fwd", run, torch.float32,
-                getattr(bin_attnpool._launch_fwd, "routes", None))
+                bin_attnpool._launch_fwd.routes)
     del emb32, xo32
     pool_step_host("train-kernel", emb, xo, pm, act,
                    (W[:Ds].T, b[:Ds], score_k[:Ds], score_k[Ds:], score_b))
@@ -1060,11 +1095,7 @@ def check_route(tag: str, name: str, fn, dt, routes, new: str = "tiles", old: st
     """Print which kernel one call of ``fn`` launched, by a wrapper's route
     counts ``routes`` (set to 0 just before the call); fail unless a bf16
     call launched ``new`` once and ``old`` never, and an fp32 call ``old``
-    once (``new`` once where ``fp32_new``: kernel 6's tiles take fp32 too).
-    A package without the route (routes None) is said, and nothing checked."""
-    if routes is None:
-        print(f"[{tag}] {name} {str(dt)[6:]}: {old} (no {new} route here)", flush=True)
-        return
+    once (``new`` once where ``fp32_new``: kernel 6's tiles take fp32 too)."""
     for k in routes:
         routes[k] = 0
     fn()
@@ -1089,36 +1120,31 @@ def pool_step_host(tag, emb, xo, pm, act, weights, spec=None) -> None:
                                                     *leaves[2:], embed_spec=spec)
         torch.autograd.backward(outs[:3], [torch.ones_like(o) for o in outs[:3]])
 
-    real = getattr(bin_attnpool, "pool_stream", None)
+    real = bin_attnpool.pool_stream
     gathers = []
-    if real is not None:
-        bin_attnpool.pool_stream = lambda w: gathers.append(1) or real(w)
+    bin_attnpool.pool_stream = lambda w: gathers.append(1) or real(w)
     try:
         step()
         torch.cuda.synchronize()
         n = len(gathers)
         hus = host_us(step, calls=20)
     finally:
-        if real is not None:
-            bin_attnpool.pool_stream = real
+        bin_attnpool.pool_stream = real
     print(f"[{tag}] attention pool through autograd (forward + backward): host {hus:.1f} us a "
           f"step; weight-stream gathers a step {n}", flush=True)
 
 
 def check_pool_route(tag: str, name: str, names) -> None:
     """Print which backward kernel and contraction a pool call launched (the
-    profiler's kernel names); where the package has the tiled backward, fail
-    unless a bf16 call launched it once, with one grouped contraction and no
-    split-K ``wgrad``."""
-    from aimnet_x2d_tpu_torch.ops import bin_attnpool
-
+    profiler's kernel names); fail unless a bf16 call launched the tiled
+    backward once, with one grouped contraction and no split-K ``wgrad``."""
     tiled = launches_named(names, "attnpool_bwd_tile_kernel")
     group = launches_named(names, "wgrad_group")
     split = launches_named(names, "wgrad_kernel") + launches_named(names, "wgrad_vocab")
     print(f"[{tag}] {name}: rerun bit-equal=True; "
           f"{'the tiled kernel' if tiled else 'one block a bin'}; wgrad_group x{group:g}, "
           f"split-K wgrad x{split:g}", flush=True)
-    if hasattr(bin_attnpool, "pool_stream") and not (tiled == 1 and group == 1 and split == 0):
+    if not (tiled == 1 and group == 1 and split == 0):
         raise AssertionError(f"{name}: kernels {names}")
 
 
@@ -1249,11 +1275,18 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
         same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
         ops = 3 * 2 * n * E * D
         nbytes = lookup + 4 * D * A + E * D * isz + 4 * (E * SV + E * D + D)
-        record("mp_stack_bwd_vocab", [(a, r, None) for a, r in zip(got, want)],
-               time_ms_reset(run, lambda: g32.copy_(g_src)),
-               time_ms_reset(lambda: bin_mp.mp_stack_bwd_vocab_plain(codes, g32, pw, vt, act),
-                             lambda: g32.copy_(g_src), iters=3),
+        # timed on the cotangent as the last call left it (the kernel of one
+        # block a bin writes dt0 over it: the same work, other values)
+        plain_ms = time_ms_reset(lambda: bin_mp.mp_stack_bwd_vocab_plain(codes, g32, pw, vt, act),
+                                 lambda: g32.copy_(g_src), iters=3)
+        ms, timing, _ = bwd_record("fold-kernel", "mp_stack_bwd_vocab", dt, run, plain_ms)
+        check_route("fold-kernel", "mp_stack_bwd_vocab", run, dt,
+                    bin_mp.mp_stack_bwd_vocab.routes, new="wgmma")
+        record("mp_stack_bwd_vocab", [(a, r, None) for a, r in zip(got, want)], ms, plain_ms,
                ops, nbytes, 1e-4 if f32 else TRAIN_TOL, same)
+        res[("mp_stack_bwd_vocab", dt)]["timing"] = timing
+        if not f32:
+            proj_bwd_phases(marks_build, "fold-kernel", codes, g_src, pw, act, ab, vt=vt)
         # --- the attention pool, forward and backward
         xo = out
         fwd = bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)
@@ -1274,7 +1307,7 @@ def check_fold_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
         run = lambda: bin_attnpool.attnpool_fwd_vocab(codes, xo, pm, aw, act, vt)  # noqa: E731
         ms, timing, _ = bwd_record("fold-kernel", "attnpool_fwd_vocab", dt, run, plain_ms)
         check_route("fold-kernel", "attnpool_fwd_vocab", run, dt,
-                    getattr(bin_attnpool._launch_fwd, "routes", None))
+                    bin_attnpool._launch_fwd.routes)
         record("attnpool_fwd_vocab", list(zip(fwd, fref, [None] * 4)), ms, plain_ms, ops, nbytes,
                1e-5 if f32 else TRAIN_TOL, same)
         res[("attnpool_fwd_vocab", dt)]["timing"] = timing
@@ -1476,20 +1509,22 @@ STACK_PHASES = ("prologue (copy or fold)", "saved inputs and biases", "cluster b
 def start_marks_build():
     """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS``, on
     ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS``, on ``csrc/mp_stack.cu``
-    with ``-DMP_STACK_MARKS``, on ``csrc/mp_ext.cu`` with ``-DMP_EXT_MARKS``
-    and on ``csrc/bin_pool.cu`` with ``-DBIN_POOL_MARKS`` beside the kernels'
-    own build: kernel 4's kernels, the attention pool's kernels, kernel 5's
-    and kernel 6's forwards then record a ``%globaltimer`` mark per block,
-    after a block barrier, at every phase boundary, and the stack forward's
-    kernels each phase's time summed over the layers, as cumulative marks.
-    Returns {source: (the nvcc process, the library's path)}."""
+    with ``-DMP_STACK_MARKS``, on ``csrc/mp_ext.cu`` with ``-DMP_EXT_MARKS``,
+    on ``csrc/bin_pool.cu`` with ``-DBIN_POOL_MARKS`` and on
+    ``csrc/mp_stack_bwd.cu`` with ``-DMP_STACK_BWD_MARKS`` beside the
+    kernels' own build: kernel 4's kernels, the attention pool's kernels,
+    kernel 5's forward and kernel 6's kernels then record a ``%globaltimer``
+    mark per block, after a block barrier, at every phase boundary, and the
+    stack forward's kernels and the projection fold's backward each phase's
+    time summed over the layers or tiles, as cumulative marks.  Returns
+    {source: (the nvcc process, the library's path)}."""
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = {}
     for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS"),
                        ("mp_stack", "-DMP_STACK_MARKS"), ("mp_ext", "-DMP_EXT_MARKS"),
-                       ("bin_pool", "-DBIN_POOL_MARKS")):
+                       ("bin_pool", "-DBIN_POOL_MARKS"), ("mp_stack_bwd", "-DMP_STACK_BWD_MARKS")):
         out = cuda_build.BUILD_DIR / f"{name}_marks.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, flag, "-o", str(out),
                str(cuda_build.CSRC / f"{name}.cu")]
@@ -1550,17 +1585,13 @@ def print_phases(tag: str, what: str, phases: dict, launches: dict, n_marks: int
 
 def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
     """Kernel 4 split by phase (``[c3-kernel]``): the backward and forward
-    kernels of the marked build -- the tiled ones where the source has them
-    -- launched twice on these inputs (``print_phases``)."""
+    kernels of the marked build -- the tiled ones in bf16 -- launched twice
+    on these inputs (``print_phases``)."""
     import ctypes
 
     from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp
 
     lib = bin_inject.type_lib(marks_lib(marks_build, "inject"))
-    if not hasattr(lib, "inject_bwd_marks"):
-        print("[c3-kernel] inject_bwd phases: not measured (this inject.cu has no marks)",
-              flush=True)
-        return
     lib.inject_bwd_marks.argtypes = [ctypes.c_void_p]
     lib.inject_bwd_marks.restype = ctypes.c_int
     dev, dt = x.device, x.dtype
@@ -1578,7 +1609,7 @@ def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
     bwd = {"inject_bwd_kernel (one block a bin)": (nb, lambda: lib.inject_bwd(
         *ptrs, iw.flat_t.data_ptr(), xct.data_ptr(), dpre.data_ptr(), w32.data_ptr(),
         dcct.data_ptr(), ch.data_ptr(), dx.data_ptr(), bf16, D, Dp, A, nb, mb, ab, tc, stream))}
-    if hasattr(lib, "inject_bwd_tiles") and bf16:
+    if bf16:
         kbs = bin_inject.kb_stream(iw)
         bwd["inject_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
             nb * ab // 64, lambda: lib.inject_bwd_tiles(
@@ -1586,10 +1617,6 @@ def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
                 dx.data_ptr(), D, Dp, A, nb, mb, ab, tc, stream))
     print_phases("c3-kernel", "inject_bwd", INJECT_PHASES, bwd, 8, lib.inject_bwd_marks,
                  lib.inject_error_string)
-    if not hasattr(lib, "inject_fwd_tiles"):
-        print("[c3-kernel] inject_fwd phases: not measured (this inject.cu has no forward marks)",
-              flush=True)
-        return
     kbT = bin_inject.kbT_stream(iw)
     fwd = {"inject_fwd_kernel (one block a bin)": (nb, lambda: lib.inject_fwd(
         *ptrs, iw.flat.data_ptr(), pre.data_ptr(), xct2.data_ptr(), ch.data_ptr(), bf16, D, Dp,
@@ -1606,7 +1633,7 @@ def inject_phases(marks_build, x, tables, iw, xct, dpre) -> None:
 def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov, vt=None) -> None:
     """The attention pool's backward split by phase (``[train-kernel]``,
     ``[fold-kernel]`` with ``vt``): both backward kernels of the marked
-    build -- the tiled one where the source has it -- launched twice on these
+    build -- the tiled one in bf16 -- launched twice on these
     inputs (``print_phases``); ``emb`` is the code rows under the fold."""
     import ctypes
 
@@ -1615,11 +1642,7 @@ def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov,
 
     name = "attnpool_bwd" if vt is None else "attnpool_bwd_vocab"
     lib = marks_lib(marks_build, "attnpool")
-    # attnpool_marks, named attnpool_bwd_marks in trees before the tiled forward
-    marks = getattr(lib, "attnpool_marks", None) or getattr(lib, "attnpool_bwd_marks", None)
-    if marks is None:
-        print(f"[{tag}] {name} phases: not measured (this attnpool.cu has no marks)", flush=True)
-        return
+    marks = lib.attnpool_marks
     vp, i = ctypes.c_void_p, ctypes.c_int
     marks.argtypes = [vp]
     marks.restype = i
@@ -1652,7 +1675,7 @@ def attnpool_phases(marks_build, tag, emb, xo, pm, w, act, attn, gps, gpo, gcov,
                                              *dims)
         table = (emb.data_ptr(), vt.bd.data_ptr(), sizes, len(vt.sizes))
     launches = {"attnpool_bwd_kernel (one block a bin)": (nb, old)}
-    if hasattr(lib, "attnpool_bwd_tiles") and bf16:
+    if bf16:
         ws = bin_attnpool.pool_stream(w)
         launches["attnpool_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
             nb * ab // 64, lambda: lib.attnpool_bwd_tiles(
@@ -1675,10 +1698,6 @@ def attnpool_fwd_phases(marks_build, tag, emb, xo, pm, w, act, vt=None) -> None:
 
     name = "attnpool_fwd" if vt is None else "attnpool_fwd_vocab"
     lib = marks_lib(marks_build, "attnpool")
-    if not hasattr(lib, "attnpool_fwd_tiles"):  # the forward kernels carry marks with it
-        print(f"[{tag}] {name} phases: not measured (this attnpool.cu has no forward marks)",
-              flush=True)
-        return
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.attnpool_marks.argtypes = [vp]
     lib.attnpool_marks.restype = i
@@ -1718,8 +1737,8 @@ def attnpool_fwd_phases(marks_build, tag, emb, xo, pm, w, act, vt=None) -> None:
 
 def stack_phases(marks_build, tag, x, adj, sw, spec, pw=None) -> None:
     """The stack forward's training form split by phase (``[train-kernel]``):
-    the kernel of one block a bin and, where the source has it, the tile
-    kernel, of the marked build of ``csrc/mp_stack.cu``, launched twice on
+    the kernel of one block a bin and, in bf16, the tile kernel, of the
+    marked build of ``csrc/mp_stack.cu``, launched twice on
     these inputs (``print_phases``; each phase summed over the layers)."""
     import ctypes
 
@@ -1727,10 +1746,6 @@ def stack_phases(marks_build, tag, x, adj, sw, spec, pw=None) -> None:
     from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
 
     lib = marks_lib(marks_build, "mp_stack")
-    if not hasattr(lib, "mp_stack_marks"):
-        print(f"[{tag}] mp_stack_fwd_train phases: not measured (this mp_stack.cu has no marks)",
-              flush=True)
-        return
     bin_mp.type_lib(lib)
     lib.mp_stack_marks.argtypes = [ctypes.c_void_p]
     lib.mp_stack_marks.restype = ctypes.c_int
@@ -1748,7 +1763,7 @@ def stack_phases(marks_build, tag, x, adj, sw, spec, pw=None) -> None:
         x.data_ptr(), out.data_ptr(), out.data_ptr(), adj.data_ptr(), sw.flat.data_ptr(),
         pw.flat.data_ptr() if pw is not None else None, xs.data_ptr(), bf16, D, Dp, E, A, nb, ab,
         L, sw.n_blocks, act, 0, first, *drop, stream))}
-    if hasattr(lib, "mp_stack_tiles") and bf16:
+    if bf16:
         ws = bin_mp.fwd_weights(sw, pw)
         launches["stack_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"] = (
             nb * ab // 64, lambda: lib.mp_stack_tiles(
@@ -1775,9 +1790,6 @@ def ext_fwd_phases(marks_build, tag, xa, sw, spec) -> None:
     from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
 
     lib = marks_lib(marks_build, "mp_ext")
-    if not hasattr(lib, "mp_ext_marks"):
-        print(f"[{tag}] mp_ext_fwd phases: not measured (this mp_ext.cu has no marks)", flush=True)
-        return
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.mp_ext_marks.argtypes = [vp]
     lib.mp_ext_marks.restype = i
@@ -1800,8 +1812,6 @@ def ext_fwd_phases(marks_build, tag, xa, sw, spec) -> None:
           "epilogue: " + "; ".join(
               f"{p} {100 * c[0] / c.sum():.1f}% products, {100 * c[1] / c.sum():.1f}% epilogue"
               for p, c in zip(products, clk)), flush=True)
-    if not hasattr(lib, "mp_ext_fwd_wg"):
-        return
     # the wgmma kernel: each warpgroup's SM clocks by part, summed over its tiles
     lib.mp_ext_fwd_wg.argtypes = [vp] * 3 + [i] * 6 + [u, u, f, vp]
     lib.mp_ext_fwd_wg.restype = i
@@ -1852,10 +1862,6 @@ def pool6_fwd_phases(marks_build, tag, xs, xo, pm, ks, ko, b) -> None:
     from aimnet_x2d_tpu_torch.ops import bin_mp, bin_pool
 
     lib = marks_lib(marks_build, "bin_pool")
-    if not hasattr(lib, "bin_pool_marks"):
-        print(f"[{tag}] bin_pool_fwd phases: not measured (this bin_pool.cu has no marks)",
-              flush=True)
-        return
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.bin_pool_marks.argtypes = [vp]
     lib.bin_pool_marks.restype = i
@@ -1878,13 +1884,12 @@ def pool6_fwd_phases(marks_build, tag, xs, xo, pm, ks, ko, b) -> None:
     outs, args = outs_args()
     phases, launches = {name: POOL6_PHASES}, {name: (nb, lambda: lib.bin_pool_fwd(*args))}
     got = {name: outs}
-    if hasattr(lib, "bin_pool_fwd_tiles"):
-        lib.bin_pool_fwd_tiles.argtypes = [vp] * 8 + [i] * 7 + [vp]
-        tiles = "bin_pool_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"
-        t_outs, t_args = outs_args()
-        phases[tiles] = POOL6_TILE_PHASES
-        launches[tiles] = (nb * ab // 64, lambda: lib.bin_pool_fwd_tiles(*t_args))
-        got[tiles] = t_outs
+    lib.bin_pool_fwd_tiles.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    tiles = "bin_pool_fwd_tile_kernel (a cluster of 64-atom tiles a bin)"
+    t_outs, t_args = outs_args()
+    phases[tiles] = POOL6_TILE_PHASES
+    launches[tiles] = (nb * ab // 64, lambda: lib.bin_pool_fwd_tiles(*t_args))
+    got[tiles] = t_outs
     print_phases(tag, "bin_pool_fwd", phases, launches, 10, lib.bin_pool_marks,
                  lib.bin_pool_error_string)
     ref = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)
@@ -1897,13 +1902,162 @@ def pool6_fwd_phases(marks_build, tag, xs, xo, pm, ks, ko, b) -> None:
             raise AssertionError(f"{k} (marked build) {xs.dtype}: rel err {rel:.3e} > {tol:g}")
 
 
-def check_pool6_bins(xs, xo, pm, ks, ko, b) -> None:
-    """Kernel 6's forward of one block a bin (``bin_pool_fwd_kernel``), the
-    route of the shapes past the tiles (ab > 512, H > 8), against its plain
-    version: three bins of the batch as one bin of 3 ab atoms, through the
-    wrapper; fails unless the route counts read one launch of that kernel
-    and none on tiles (a package without the route counts has only that
-    kernel), and the error is within ``POOL6_TOL``."""
+POOL6_BWD_PHASES = ("membership (serial)", "attn and the head mean", "dw", "t_mol", "ds and d_b",
+                    "dx and the x_self partials", "dx and the x_other partials")
+POOL6_BWD_TILE_PHASES = ("the tile's rows, molecules, attn and wbar", "dw",
+                         "t_mol over the cluster", "ds and d_b", "the weight partials and dx",
+                         "sums over the cluster, dx's store")
+
+
+def pool6_bwd_phases(marks_build, tag, xs, xo, pm, ks, ko, attn, gps, gpo, gcov) -> None:
+    """Kernel 6's backward split by phase (``[pool6-kernel]``): the kernel of
+    one block a bin and the tile kernel of the marked build, launched twice
+    on these inputs (``print_phases``), each one's outputs then held against
+    ``pool_bwd_plain`` at ``POOL6_TOL``."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_pool
+
+    lib = marks_lib(marks_build, "bin_pool")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.bin_pool_marks.argtypes = [vp]
+    lib.bin_pool_marks.restype = i
+    lib.bin_pool_bwd.argtypes = [vp] * 11 + [i] * 7 + [vp]
+    lib.bin_pool_error_string.argtypes = [i]
+    lib.bin_pool_error_string.restype = ctypes.c_char_p
+    nb, mb, ab = pm.shape
+    (A, Ds), Do, H = xs.shape, xo.shape[1], ks.shape[1]
+    dev = xs.device
+    score = bin_pool._score(ks, ko)
+    psize = (Ds + Do) * H + H
+    gps, gpo, gcov = (g.float().contiguous() for g in (gps, gpo, gcov))
+
+    def outs_args(n_part):
+        outs = (torch.empty_like(xs), torch.empty_like(xo),
+                torch.empty(n_part, psize, device=dev))
+        return outs, (xs.data_ptr(), xo.data_ptr(), pm.data_ptr(), score.data_ptr(),
+                      attn.data_ptr(), gps.data_ptr(), gpo.data_ptr(), gcov.data_ptr(),
+                      *[o.data_ptr() for o in outs], int(xs.dtype == torch.bfloat16), Ds, Do, H,
+                      nb, mb, ab, bin_mp._stream(dev))
+
+    name = "bin_pool_bwd_kernel (one block a bin)"
+    outs, args = outs_args(nb)
+    phases, launches = {name: POOL6_BWD_PHASES}, {name: (nb, lambda: lib.bin_pool_bwd(*args))}
+    got = {name: outs}
+    lib.bin_pool_bwd_tiles.argtypes = [vp] * 11 + [i] * 7 + [vp]
+    tiles = "bin_pool_bwd_tile_kernel (a cluster of 64-atom tiles a bin)"
+    t_outs, t_args = outs_args(nb)
+    phases[tiles] = POOL6_BWD_TILE_PHASES
+    launches[tiles] = (nb * ab // 64, lambda: lib.bin_pool_bwd_tiles(*t_args))
+    got[tiles] = t_outs
+    print_phases(tag, "bin_pool_bwd", phases, launches, 10, lib.bin_pool_marks,
+                 lib.bin_pool_error_string)
+    ref = bin_pool.pool_bwd_plain(xs, xo, pm, ks, ko, attn, gps, gpo, gcov)
+    tol = POOL6_TOL[xs.dtype]
+    for k, (dxs, dxo, part) in got.items():
+        red = part.sum(0)
+        grads = (red[: Ds * H].view(Ds, H), red[Ds * H: (Ds + Do) * H].view(Do, H),
+                 red[(Ds + Do) * H:])
+        dks_scale = float(ref[2][0].abs().max())  # d_b cancels to 0: held to d_ks's scale
+        abs_err, rel = _max_rel([(dxs, ref[0], None), (dxo, ref[1], None)]
+                                + [(a, r, dks_scale if j == 2 else None)
+                                   for j, (a, r) in enumerate(zip(grads, ref[2]))])
+        print(f"[{tag}] bin_pool_bwd phases, {k}: marked build's outputs against the plain "
+              f"version max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{k} (marked build) {xs.dtype}: rel err {rel:.3e} > {tol:g}")
+
+
+PROJ_PHASES = ("start (biases)", "the lookup", "kb^T emb and its epilogue",
+               "kb dtc and its epilogue", "the table accumulation", "the partials' store")
+
+
+def proj_bwd_phases(marks_build, tag, x, g_src, pw, act, ab, vt=None) -> None:
+    """The projection fold's backward split by phase, the emb form
+    (``[train-kernel]``) or, with ``vt``, the embedding fold's
+    (``[fold-kernel]``): the kernel of one block a bin of the marked build of
+    ``csrc/mp_stack_bwd.cu`` and, where the shape takes it, the wgmma kernel,
+    launched twice on these inputs (``print_phases``: each phase summed
+    over a block's tiles); for the old kernel, each product's warp clocks
+    split into the products and their epilogues."""
+    from aimnet_x2d_tpu_torch.ops import bin_mp
+    from aimnet_x2d_tpu_torch.utils.activation import ACTIVATION_CODES
+
+    lib = marks_lib(marks_build, "mp_stack_bwd")
+    bin_mp.type_lib_bwd(lib)
+    dev, dt = g_src.device, pw.kbT.dtype
+    Dp, A = g_src.shape
+    E, nb = pw.E, A // ab
+    g32 = g_src.clone()
+    dtc = torch.empty(Dp, A, dtype=dt, device=dev)
+    bf16, code = int(dt == torch.bfloat16), ACTIVATION_CODES[act.lower()]
+    stream = bin_mp._stream(dev)
+    if vt is None:
+        demb = torch.empty(E, A, dtype=dt, device=dev)
+        name = "bwd_proj_kernel (one block a bin)"
+        launches = {name: (nb, lambda: lib.mp_stack_bwd_proj(
+            x.data_ptr(), g32.copy_(g_src).data_ptr(), pw.flat.data_ptr(), pw.flat_t.data_ptr(),
+            dtc.data_ptr(), demb.data_ptr(), bf16, Dp, E, A, nb, ab, code, stream))}
+    else:
+        part = torch.empty(nb, vt.Df * vt.offsets[-1], device=dev)
+        name = "bwd_proj_vocab_kernel (one block a bin)"
+        launches = {name: (nb, lambda: lib.mp_stack_bwd_proj_vocab(
+            x.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt), g32.copy_(g_src).data_ptr(),
+            len(vt.sizes), pw.flat.data_ptr(), pw.flat_t.data_ptr(), dtc.data_ptr(),
+            part.data_ptr(), bf16, Dp, E, A, nb, ab, code, stream))}
+    marks = print_phases(tag, "mp_stack_bwd_proj", {name: PROJ_PHASES}, launches, 16,
+                         lib.mp_stack_bwd_marks, lib.mp_stack_bwd_error_string)
+    clk = marks[name][:, 8:12].astype(np.float64).mean(0)
+    print(f"[{tag}] mp_stack_bwd_proj clocks, {name}: kb^T emb products "
+          f"{100 * clk[0] / max(clk[0] + clk[1], 1):.1f}% / epilogue "
+          f"{100 * clk[1] / max(clk[0] + clk[1], 1):.1f}%; kb dtc products "
+          f"{100 * clk[2] / max(clk[2] + clk[3], 1):.1f}% / epilogue "
+          f"{100 * clk[3] / max(clk[2] + clk[3], 1):.1f}% (warp clocks, a block's tiles)",
+          flush=True)
+    n_acc = vt.Df * vt.offsets[-1] if vt is not None else -1
+    if not (bf16 and bin_mp._proj_takes_wg(lib, bf16, Dp, E, n_acc)):
+        return
+    # the wgmma kernel: its warpgroups' SM clocks by part, summed over the tiles
+    blocks = min(A // 64, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(blocks, Dp + max(n_acc, 0), device=dev)
+    marks = torch.zeros(blocks, 16, dtype=torch.int64, device=dev)
+    if lib.mp_stack_bwd_marks(marks.data_ptr()) != 0:
+        raise RuntimeError("proj_bwd_wg_kernel: setting the marks failed")
+    ws = bin_mp.proj_wg_weights(pw)
+    table = ((None, x.data_ptr(), vt.bd.data_ptr(), bin_mp._sizes_arg(vt), len(vt.sizes))
+             if vt is not None else (x.data_ptr(), None, None, None, 0))
+    demb = torch.empty(E, A, dtype=dt, device=dev) if vt is None else None
+    for _ in range(2):
+        marks.zero_()
+        status = lib.mp_stack_bwd_proj_wg(
+            *table, g_src.data_ptr(), ws.data_ptr(), dtc.data_ptr(),
+            demb.data_ptr() if demb is not None else None, part.data_ptr(), Dp, E, A, blocks,
+            code, stream)
+        if status != 0:
+            raise RuntimeError(f"proj_bwd_wg_kernel: {lib.mp_stack_bwd_error_string(status).decode()}")
+        torch.cuda.synchronize()
+    m = marks.cpu().numpy().astype(np.float64)
+    c, tiles = m[:, :7].sum(0), m[:, 7].sum()
+    parts = ("waits for emb's and g32's tiles", "kb^T emb", "its epilogue", "kb dtc (both halves)",
+             "their epilogues", "the table accumulation" if vt is not None else "the demb store")
+    print(f"[{tag}] mp_stack_bwd_proj phases, proj_bwd_wg_kernel (warp-specialised wgmma"
+          f"{', the fold' if vt is not None else ''}): {blocks} blocks, {int(tiles)} tiles, "
+          f"{c[6] / max(tiles, 1) / 1e3:.2f} kclocks a tile (the consumer's span over its tiles): "
+          + "; ".join(f"{p} {100 * v / c[6]:.1f}%" for p, v in zip(parts, c[:6])), flush=True)
+    print(f"[{tag}] mp_stack_bwd_proj phases, proj_bwd_wg_kernel producers: the g32 warp waits "
+          f"for a free buffer {100 * m[:, 8].sum() / max(m[:, 9].sum(), 1):.1f}% of its span, the "
+          f"emb warps {100 * m[:, 10].sum() / max(m[:, 11].sum(), 1):.1f}%", flush=True)
+
+
+def check_pool6_bins(xs, xo, pm, ks, ko, b, cot) -> None:
+    """Kernel 6's kernels of one block a bin (``bin_pool_fwd_kernel``,
+    ``bin_pool_bwd_kernel``), the route of the shapes past the tiles
+    (ab > 512, H > 8), against their plain versions: three bins of the
+    batch as one bin of 3 ab atoms, through the wrappers (the backward from
+    the forward's attn and the cotangents ``cot`` of the three bins' slots);
+    fails unless the route counts read one launch of that kernel and none
+    on tiles (a wrapper without the route counts has only that kernel), and
+    the errors are within ``POOL6_TOL``."""
     from aimnet_x2d_tpu_torch.ops import bin_pool
 
     nb, mb, ab = pm.shape
@@ -1912,20 +2066,33 @@ def check_pool6_bins(xs, xo, pm, ks, ko, b) -> None:
     for k in range(3):  # bin 3j + k at rows k mb and columns k ab of bin j
         pm3[:, k * mb:(k + 1) * mb, k * ab:(k + 1) * ab] = pm[k:3 * n3:3]
     args = (xs[:3 * n3 * ab], xo[:3 * n3 * ab], pm3, ks, ko, b)
-    routes = getattr(bin_pool.bin_pool_fwd, "routes", None)
-    for k in routes or ():
-        routes[k] = 0
-    got = bin_pool.bin_pool_fwd(*args)
-    torch.cuda.synchronize()
-    seen = dict(routes) if routes is not None else {"tiles": 0, "bins": 1}
-    abs_err, rel = _max_rel([(o, r, None) for o, r in zip(got, bin_pool.pool_fwd_plain(*args))])
     tol = POOL6_TOL[xs.dtype]
-    print(f"[pool6-kernel] bin_pool_fwd {str(xs.dtype)[6:]} at nb={n3} mb={3 * mb} ab={3 * ab}: "
-          f"routes {seen}, max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
-    if seen != {"tiles": 0, "bins": 1}:
-        raise AssertionError(f"bin_pool_fwd at ab={3 * ab}: routes {seen}")
-    if not rel <= tol:
-        raise AssertionError(f"bin_pool_fwd_kernel {xs.dtype}: rel err {rel:.3e} > {tol:g}")
+    fwd_ref = bin_pool.pool_fwd_plain(*args)
+    # slot k mb + m of bin j is slot m of bin 3j + k: the same rows in order
+    bargs = (*args[:5], fwd_ref[3], *(c[:3 * n3 * mb] for c in cot))
+    dks_scale = None
+    for name, fn, plain, a in (("bin_pool_fwd", bin_pool.bin_pool_fwd, bin_pool.pool_fwd_plain,
+                                args),
+                               ("bin_pool_bwd", bin_pool.bin_pool_bwd, bin_pool.pool_bwd_plain,
+                                bargs)):
+        routes = fn.routes
+        for k in routes:
+            routes[k] = 0
+        got, want = fn(*a), plain(*a)
+        torch.cuda.synchronize()
+        seen = dict(routes)
+        if name == "bin_pool_bwd":  # d_b cancels to 0: held to d_ks's scale
+            dks_scale = float(want[2][0].abs().max())
+            got, want = (got[0], got[1], *got[2]), (want[0], want[1], *want[2])
+        abs_err, rel = _max_rel([(o, r, dks_scale if i == 4 else None)
+                                 for i, (o, r) in enumerate(zip(got, want))])
+        print(f"[pool6-kernel] {name} {str(xs.dtype)[6:]} at nb={n3} mb={3 * mb} ab={3 * ab}: "
+              f"routes {seen}, max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:g})", flush=True)
+        if seen != {"tiles": 0, "bins": 1}:
+            raise AssertionError(f"{name} at ab={3 * ab}: routes {seen}")
+        if not rel <= tol:
+            raise AssertionError(f"{name} (one block a bin) {xs.dtype}: rel err {rel:.3e} > "
+                                 f"{tol:g}")
 
 
 def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
@@ -2001,7 +2168,7 @@ def check_c3_kernels(pkg, cfg, model, batch, seed: int, marks_build) -> dict:
     tiled = bool(launches_named(names, "inject_fwd_tile_kernel"))
     print(f"[c3-kernel] inject_fwd: rerun bit-equal=True; x' rows equal to the plain "
           f"version's={same_xp}; {'the tiled kernel' if tiled else 'one block a bin'}", flush=True)
-    if hasattr(bin_inject, "kbT_stream") and not (tiled and same_xp):
+    if not (tiled and same_xp):
         raise AssertionError(f"inject_fwd: kernels {names}, x' equal {same_xp}")
     record("inject_fwd", [(pre, rpre, None), (xct, rxct, None)], ms, plain_ms, ops, nbytes)
     res["inject_fwd"]["timing"] = timing
@@ -2193,8 +2360,9 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
 
     T = cfg.output_dim
     task = "multitask" if T > 1 else "regression"
-    counters = counters or (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd,
-                            bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd)
+    counters = counters or (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd,  # the flagship's
+                            bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd,
+                            bin_mp.mp_stack_bwd_proj)
     targets = synthetic_targets(ds, T, seed)
     cols = [f"target_{i}" for i in range(T)]
     csv = os.path.join(work, f"{tag}.csv")
@@ -2778,14 +2946,9 @@ def check_pool6_kernel(cfg, model, batch, seed: int, marks_build) -> dict:
             abs_err, rel = _max_rel(pairs)
             tol = POOL6_TOL[dt]
             plain_ms = time_ms(lambda: plain(*args), iters=5)
-            timing = "events"
-            if name == "bin_pool_fwd":
-                run = lambda: fn(*args)  # noqa: E731
-                ms, timing, _ = bwd_record("pool6-kernel", name, dt, run, plain_ms)
-                check_route("pool6-kernel", name, run, dt,
-                            getattr(bin_pool.bin_pool_fwd, "routes", None), fp32_new=True)
-            else:
-                ms = time_ms(lambda: fn(*args))
+            run = lambda: fn(*args)  # noqa: E731
+            ms, timing, _ = bwd_record("pool6-kernel", name, dt, run, plain_ms)
+            check_route("pool6-kernel", name, run, dt, fn.routes, fp32_new=True)
             t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[dt]
             bound_ms = 1e3 * max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -2800,14 +2963,15 @@ def check_pool6_kernel(cfg, model, batch, seed: int, marks_build) -> dict:
         again = bin_pool.bin_pool_fwd(*fwd)
         if not all(torch.equal(a, r) for a, r in zip(got, again)):
             raise AssertionError(f"bin_pool_fwd {dt}: a rerun is not bit-equal")
-        check_pool6_bins(*fwd)
+        again = bin_pool.bin_pool_bwd(*bwd)
+        same = all(torch.equal(a, r) for a, r in zip((bg[0], bg[1], *bg[2]),
+                                                       (again[0], again[1], *again[2])))
+        print(f"[pool6-kernel] bin_pool_bwd {str(dt)[6:]} twice: bit-equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"two runs of bin_pool_bwd {dt} differ")
+        check_pool6_bins(*fwd, cot)
+        pool6_bwd_phases(marks_build, "pool6-kernel", *bwd)
     pool6_fwd_phases(marks_build, "pool6-kernel", *fwd)
-    again = bin_pool.bin_pool_bwd(*bwd)
-    same = all(torch.equal(a, r) for a, r in zip((bg[0], bg[1], *bg[2]),
-                                                   (again[0], again[1], *again[2])))
-    print(f"[pool6-kernel] bin_pool_bwd bf16 twice: bit-equal {same}", flush=True)
-    if not same:
-        raise AssertionError("two runs of bin_pool_bwd differ")
     return res
 
 
@@ -2886,7 +3050,7 @@ def check_halo_kernel(cfg, model, ds, seed: int, marks_build) -> dict:
             plain_ms = time_ms(lambda: bin_mp.mp_ext_plain(xa, sw, spec), iters=5)
             run = lambda: bin_mp.mp_ext_fwd(xa, sw, spec)  # noqa: E731
             ms, timing, _ = bwd_record("halo-kernel", name, dt, run, plain_ms)
-            check_route("halo-kernel", name, run, dt, getattr(bin_mp.mp_ext_fwd, "routes", None),
+            check_route("halo-kernel", name, run, dt, bin_mp.mp_ext_fwd.routes,
                         "wgmma", "tiles")
             if not torch.equal(out, bin_mp.mp_ext_fwd(xa, sw, spec)):
                 raise AssertionError(f"{name} {dt}: a rerun is not bit-equal")
@@ -2918,7 +3082,7 @@ def check_halo_kernel(cfg, model, ds, seed: int, marks_build) -> dict:
                                        lambda: bin_mp.mp_ext_bwd(xa, sw, spec, gy), plain_ms)
         # this tree's routes: bf16 on the stack's walk, fp32 on the slab
         # kernel, each with one grouped contraction and one partial sum
-        if hasattr(bin_mp, "_ext_takes_walk") and names is not None:
+        if names is not None:
             walk = dt == torch.bfloat16
             seen = {k: launches_named(names, k) for k in (
                 "bwd_walk_kernel", "ext_bwd_kernel", "wgrad_group", "wgrad_kernel", "sum_partials")}
@@ -3364,7 +3528,7 @@ def main() -> int:
         fold_launches = train_phase(
             pkg, tcfg, smiles, full, args.seed, work, tag="fold-train", counters=folded,
             forbidden=(bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd,
-                       bin_attnpool.attnpool_bwd),
+                       bin_attnpool.attnpool_bwd, bin_mp.mp_stack_bwd_proj),
             steps=FOLD_TRAIN_STEPS, want_per_step={c.__name__: 1 for c in folded})
     finally:
         os.environ.pop("AIMNET_EMBED_FOLD", None)
@@ -3470,9 +3634,12 @@ def main() -> int:
     res.update(fl_res)
     binned_serving = (bin_mp.mp_stack_fwd, bin_mp.mp_layer_fwd, bin_wpool.wpool_fwd,
                       bin_attnpool.attnpool_fwd, bin_inject.inject_fwd)
-    fl_launches = serve(pkg, cfg, fl_smiles, args.seed, work, fl_batch, tag="flat-serve",
+    # the serving phases of the flat layout run the first batch of SMILES:
+    # their featurization (the large molecules') is most of the script's time
+    fl_launches = serve(pkg, cfg, fl_smiles[:FLAT_SERVE], args.seed, work, fl_batch,
+                        tag="flat-serve",
                         counters=(fused_edge.fused_edge_fwd,), forbidden=binned_serving, n_cpu=128)
-    n_batches = -(-len(fl_smiles) // 2048)
+    n_batches = -(-min(len(fl_smiles), FLAT_SERVE) // 2048)
     if fl_launches["fused_edge_fwd"] != 3 * n_batches:
         raise AssertionError(f"kernel 7 launched {fl_launches['fused_edge_fwd']} times for "
                              f"{n_batches} batches of a 3-layer model")
@@ -3531,10 +3698,11 @@ def main() -> int:
                                                    and c3f_host.trans_mask.any())):
         raise AssertionError("the config-3 flat data lost molecules, went binned or has no "
                              "stereo content")
-    c3f = serve(pkg, c3, c3f_smiles, args.seed, work, c3f_host.to("cuda"), tag="c3-flat-serve",
+    c3f = serve(pkg, c3, c3f_smiles[:FLAT_SERVE], args.seed, work, c3f_host.to("cuda"),
+                tag="c3-flat-serve",
                 counters=(fused_edge.fused_edge_fwd,),
                 forbidden=binned_serving + (bin_pool.bin_pool_fwd,), n_cpu=128)
-    if c3f["fused_edge_fwd"] != 3 * -(-len(c3f_smiles) // 2048):
+    if c3f["fused_edge_fwd"] != 3 * -(-min(len(c3f_smiles), FLAT_SERVE) // 2048):
         raise AssertionError(f"kernel 7 launched {c3f['fused_edge_fwd']} times in config-3 flat "
                              f"serving")
     del c3f_host
@@ -3555,6 +3723,8 @@ def main() -> int:
          "aimnet_x2d_tpu/ops/bin_mp.py:639"),
         ("mp_stack_bwd", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
          "aimnet_x2d_tpu/ops/bin_mp.py:659"),
+        ("mp_stack_bwd_proj", "aimnet_x2d_tpu_torch/csrc/mp_stack_bwd.cu",
+         "aimnet_x2d_tpu/ops/bin_mp.py:726"),
         ("attnpool_fwd", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",
          "aimnet_x2d_tpu/ops/bin_attnpool.py:202"),
         ("attnpool_bwd", "aimnet_x2d_tpu_torch/csrc/attnpool.cu",

@@ -1375,3 +1375,226 @@ def test_bin_pool_autograd_runs_the_tiles(dev, dtype):
         scale = float(grads["cpu"][5].abs().max()) if i == 6 else max(float(r.float().abs().max()),
                                                                        1e-6)
         assert float((a.cpu().float() - r.float()).abs().max()) <= tol * scale
+
+
+# ---- the projection fold's backward on wgmma (kernels 1c and 1c-vocab,
+# proj_bwd_wg_kernel) and kernel 6's backward on 64-atom tiles
+# (bin_pool_bwd_tile_kernel): the routes by dtype and shape, the new
+# kernels against their plain versions (bf16 5e-2; kernel 6 fp32 1e-5),
+# reruns bit-equal, the old kernels on what the new ones do not take, and
+# the autograd paths through the new kernels.
+
+# (D, E, nb, ab): Dp 160 at the flagship's E, Dp 64 and 128 at E 128
+# (D, E, nb, ab); 40 bins of 256 make 160 tiles, more than the card's 132
+# blocks, so that blocks run several tiles (the barriers' later phases, both
+# g32 buffers, the partials summed over a block's tiles)
+PROJ_WG_SHAPES = [(153, 256, 5, 256), (60, 128, 3, 128), (120, 256, 2, 512), (153, 256, 40, 256)]
+
+
+def _proj_case(dev, D, E, nb, ab, seed, vocab):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kb = (torch.rand(E, D, generator=g, device=dev) * 2 - 1) / E**0.5
+    bb = (torch.rand(D, generator=g, device=dev) - 0.5) * 0.4
+    pw = bin_mp.prep_proj(kb, bb, torch.bfloat16, bin_mp.padded_dim(D))
+    g32 = torch.randn(pw.kbT.shape[0], nb * ab, generator=g, device=dev) * 0.1
+    g32[D:] = 0
+    if vocab:
+        codes, vt, _ = _vocab_case(dev, E, nb, ab, torch.bfloat16, seed)
+        return pw, g32, codes, vt
+    return pw, g32, torch.randn(E, nb * ab, generator=g, device=dev).to(torch.bfloat16), None
+
+
+def _proj_run(x, g32, pw, act, ab, vt, dtc=None):
+    if vt is None:
+        return bin_mp.mp_stack_bwd_proj(x, g32, pw, act, ab, dtc)
+    return bin_mp.mp_stack_bwd_vocab(x, g32, pw, vt, act, ab, dtc)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("vocab", [False, True])
+@pytest.mark.parametrize("shape", PROJ_WG_SHAPES)
+def test_proj_bwd_wgmma_matches_plain(dev, shape, vocab, act):
+    D, E, nb, ab = shape
+    pw, g32, x, vt = _proj_case(dev, D, E, nb, ab, D + E + vocab, vocab)
+    fn = bin_mp.mp_stack_bwd_vocab if vocab else bin_mp.mp_stack_bwd_proj
+    before = dict(fn.routes)
+    dtc = torch.empty(g32.shape, dtype=torch.bfloat16, device=dev)
+    got = _proj_run(x, g32.clone(), pw, act, ab, vt, dtc)
+    assert (fn.routes["wgmma"] - before["wgmma"], fn.routes["bins"] - before["bins"]) == (1, 0)
+    again = _proj_run(x, g32.clone(), pw, act, ab, vt)
+    want = (bin_mp.mp_stack_bwd_vocab_plain(x, g32.clone(), pw, vt, act) if vocab
+            else bin_mp._proj_bwd_plain(x, g32.clone(), pw, act))
+    emb = bin_mp.embed_from_codes(x, vt) if vocab else x
+    t0 = bin_mp._dot(pw.kbT, emb, torch.bfloat16) + pw.bb[:, None]
+    dt0 = g32 * bin_mp.activation_grad(act, t0).float()
+    torch.cuda.synchronize()
+    errs = {n: _rel(a, r) for n, a, r in zip(("demb or d_bd", "dkbT", "dbb"), got, want)}
+    # rnd(dt0) as the plain chain rounds it, but where a product's other
+    # order of accumulation puts t0 across a bf16 rounding (about 1e-5 of
+    # the elements on the CPU's two orders, each within 1e-3 of max|dt0|)
+    off = dtc.float() != dt0.to(torch.bfloat16).float()
+    print(f"{shape} vocab={vocab} {act}: {errs}; dtc off rnd(dt0) at {float(off.float().mean()):.2e}"
+          f" of the elements, by {_rel(dtc, dt0):.2e}")
+    assert max(errs.values()) < 5e-2
+    assert float(off.float().mean()) <= 1e-3 and _rel(dtc, dt0) <= 1e-2
+    # the fp32 sums over the atoms (d_bb of dt0; d_kb of dtc; under the fold
+    # d_bd of demb's rows) apart from those elements only by their order
+    assert errs["dbb"] <= 1e-3 and errs["dkbT"] <= 1e-3
+    if vocab:
+        assert errs["demb or d_bd"] <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", ["fp32", "fp32_fold", "E32", "Dp48", "Dp48_fold"])
+def test_proj_bwd_old_kernel_takes_what_the_wgmma_does_not(dev, case):
+    """fp32, E not 128 or 256, Dp not a multiple of 32: the kernel of one
+    block a bin, within its bar of the plain version."""
+    vocab = case.endswith("fold")
+    D, E = {"fp32": (153, 256), "fp32_fold": (153, 256), "E32": (19, 32), "Dp48": (40, 256),
+            "Dp48_fold": (40, 256)}[case]
+    pw, g32, x, vt = _proj_case(dev, D, E, 3, 128, 11, vocab)
+    if case.startswith("fp32"):
+        pw = bin_mp.prep_proj(pw.kbT[:D].T.float(), pw.bb[:D].float(), torch.float32, pw.kbT.shape[0])
+        x = x if vocab else x.float()
+        if vocab:
+            from aimnet_x2d_tpu_torch.ops import embed
+
+            vt = embed.VocabTable(vt.bd.float(), vt.sizes)
+    fn = bin_mp.mp_stack_bwd_vocab if vocab else bin_mp.mp_stack_bwd_proj
+    before = dict(fn.routes)
+    got = _proj_run(x, g32.clone(), pw, "silu", 128, vt)
+    assert (fn.routes["wgmma"] - before["wgmma"], fn.routes["bins"] - before["bins"]) == (0, 1)
+    want = (bin_mp.mp_stack_bwd_vocab_plain(x, g32.clone(), pw, vt, "silu") if vocab
+            else bin_mp._proj_bwd_plain(x, g32.clone(), pw, "silu"))
+    torch.cuda.synchronize()
+    tol = 1e-4 if case.startswith("fp32") else 5e-2
+    assert max(_rel(a, r) for a, r in zip(got, want)) < tol
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_stack_train_autograd_runs_the_wgmma_projection(dev, fold):
+    """The flagship's training backward (and the fold's) through autograd:
+    the projection's backward on wgmma once a call, gradients as the
+    plain versions' on the CPU."""
+    from aimnet_x2d_tpu_torch.ops import embed
+
+    nb, ab, D, E = 3, 256, 153, 256
+    adj, _, _, emb, _, _ = _stack_train_case(dev, D, E, nb, ab, torch.bfloat16, 21, 1)
+    g = torch.Generator(device=dev).manual_seed(22)
+    layers = [[torch.from_numpy(w).to(dev) for w in _init_layer(np.random.default_rng(l), D)]
+              for l in range(2)]
+    kb = (torch.rand(E, D, generator=g, device=dev) * 2 - 1) / E**0.5
+    bb = (torch.rand(D, generator=g, device=dev) - 0.5) * 0.4
+    codes, _, _ = _vocab_case(dev, E, nb, ab, torch.bfloat16, 23)
+    tables = [torch.randn(v, E // 4, generator=g, device=dev) * 0.5 for v in (119, 9, 7, 7)]
+    gout = torch.randn(D, nb * ab, generator=g, device=dev) * 0.1
+    fn = bin_mp.mp_stack_bwd_vocab if fold else bin_mp.mp_stack_bwd_proj
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [kb.detach().to(where).clone().requires_grad_(True),
+                  bb.detach().to(where).clone().requires_grad_(True)]
+        ls = [[w.to(where) for w in lw] for lw in layers]
+        if fold:
+            tt = [t.detach().to(where).clone().requires_grad_(True) for t in tables]
+            spec, x, grad_of = (codes.to(where), embed.blockdiag_table_t(tt),
+                                (119, 9, 7, 7)), None, tt
+        else:
+            x = emb.detach().to(where).float().clone().requires_grad_(True)
+            spec, grad_of = None, [x]
+        before = dict(fn.routes)
+        out = bin_mp.binned_mp_stack_train_t(x, adj.to(where), ls, torch.bfloat16, "silu", 0.0,
+                                             0, proj_weights=tuple(leaves), embed_spec=spec)
+        out.backward(gout.to(where).to(out.dtype))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert fn.routes["wgmma"] == before["wgmma"] + 1
+        grads[where] = [t.grad.float().cpu() for t in grad_of + leaves]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - r).abs().max()) <= 5e-2 * float(r.abs().max())
+
+
+def _pool6_bwd_routes(fn):
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    routes = bin_pool.bin_pool_bwd.routes
+    before = dict(routes)
+    fn()
+    return routes["tiles"] - before["tiles"], routes["bins"] - before["bins"]
+
+
+@pytest.mark.parametrize("mb", [16, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(359, 153), (64, 32)])
+def test_bin_pool_bwd_tiles_match_plain(dev, widths, dtype, mb):
+    """The backward runs on tiles, one launch a call, within POOL6_TOL of
+    the plain version, reruns bit-equal."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    Ds, Do = widths
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, Ds, Do, mb, dtype, Ds + mb + 3)
+    attn = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)[3]
+    args = (xs, xo, pm, ks, ko, attn, *cot)
+    outs = []
+    assert _pool6_bwd_routes(lambda: outs.append(bin_pool.bin_pool_bwd(*args))) == (1, 0)
+    dxs, dxo, grads = outs[0]
+    again = bin_pool.bin_pool_bwd(*args)
+    rdxs, rdxo, rgrads = bin_pool.pool_bwd_plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    assert dxs.dtype == dtype and _rel(dxs, rdxs) < tol and _rel(dxo, rdxo) < tol
+    for i, (a, r) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[0].abs().max()) if i == 2 else float(r.abs().max())
+        assert float((a - r).abs().max()) / scale < tol
+    for a, r in zip((dxs, dxo, *grads), (again[0], again[1], *again[2])):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ab", [64, 128, 512, 768])
+def test_bin_pool_bwd_tiles_take_bins_up_to_512(dev, ab, dtype):
+    """Bins of up to 512 atoms run the backward on tiles, a bin of 768 on
+    the kernel of one block a bin; random owners (molecules in many runs)
+    within POOL6_TOL."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    g = torch.Generator(device=dev).manual_seed(ab + 1)
+    nb, mb, Ds, Do, H = 5, 12, 40, 24, 4
+    pm = rand_pm(nb, mb, ab, g)
+    xs = torch.randn(nb * ab, Ds, generator=g, device=dev).to(dtype)
+    xo = torch.randn(nb * ab, Do, generator=g, device=dev).to(dtype)
+    ks = (torch.randn(Ds, H, generator=g, device=dev) * 0.1).to(dtype)
+    ko = (torch.randn(Do, H, generator=g, device=dev) * 0.1).to(dtype)
+    b = torch.randn(H, generator=g, device=dev)
+    attn = bin_pool.pool_fwd_plain(xs, xo, pm, ks, ko, b)[3]
+    cot = [torch.randn(*s, generator=g, device=dev) for s in ((nb * mb, Ds), (nb * mb, Do), (nb * mb,))]
+    args = (xs, xo, pm, ks, ko, attn, *cot)
+    outs = []
+    routes = _pool6_bwd_routes(lambda: outs.append(bin_pool.bin_pool_bwd(*args)))
+    assert routes == ((1, 0) if ab <= 512 else (0, 1))
+    ref = bin_pool.pool_bwd_plain(*args)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    got, want = outs[0], ref
+    assert _rel(got[0], want[0]) < tol and _rel(got[1], want[1]) < tol
+    for i, (a, r) in enumerate(zip(got[2], want[2])):
+        scale = float(want[2][0].abs().max()) if i == 2 else float(r.abs().max())
+        assert float((a - r).abs().max()) / scale < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bin_pool_autograd_runs_the_backward_tiles(dev, dtype):
+    """binned_attention_pool_fused on CUDA tensors, as per-hop training
+    runs it: forward and backward on tiles, one launch each."""
+    from aimnet_x2d_tpu_torch.ops import bin_pool
+
+    xs, xo, pm, ks, ko, b, cot = _pool6_case(dev, 359, 153, 16, dtype, 9)
+    x = xs.clone().requires_grad_(True)
+    sk = torch.cat([ks, ko]).float().requires_grad_(True)
+    sb = b.clone().requires_grad_(True)
+    f0, b0 = dict(bin_pool.bin_pool_fwd.routes), dict(bin_pool.bin_pool_bwd.routes)
+    out = bin_pool.binned_attention_pool_fused(x, xo, pm, sk, sb)
+    torch.autograd.backward(out[:3], list(cot))
+    torch.cuda.synchronize()
+    assert bin_pool.bin_pool_fwd.routes["tiles"] == f0["tiles"] + 1
+    assert (bin_pool.bin_pool_bwd.routes["tiles"], bin_pool.bin_pool_bwd.routes["bins"]) == \
+        (b0["tiles"] + 1, b0["bins"])
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(sk.grad).all()
