@@ -16,8 +16,9 @@ for the per-atom sums.  The op is forward only, as the JAX op is, and lies
 on no model path of either package.
 
 On a CUDA tensor it launches the hand-written kernel (``csrc/fused_edge.cu``,
-``wseg_sum``: one block per window and 64-column tile, fp32 sums in shared
-memory, slots walked in order); on a CPU tensor it runs
+``wseg_sum``: a block per window and part of its segments sorts the
+window's slots by segment in shared memory, then a warp a segment sums its
+rows in slot order); on a CPU tensor it runs
 :func:`windowed_segment_sum_plain`.
 """
 

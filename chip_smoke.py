@@ -106,16 +106,21 @@ Phases, each of which fails the run when it fails:
    - ``[flat-kernel]``: the edge aggregation (kernel 7, forward on the
      destination-keyed layout and backward on the source-keyed one) and
      the windowed segment sum (kernel 8) against their plain versions on
-     the flat serving batch, D 153 and 359, fp32 and bf16, timed with
-     bounds and the library yardsticks (``torch.sparse.mm`` of the batch's
-     multiplicity adjacency; ``index_add_``); then kernel 8's op driven
-     once as its caller would, on the batch's edges (it lies on no model
-     path, in either package);
+     the flat serving batch, D 153 and 359, fp32 and bf16, each twice
+     (bit-equal), kernel 7's route; each form as profiler device
+     time beside a CUDA-graph replay, the main path's with bounds and the
+     library yardsticks (``torch.sparse.mm`` of the batch's multiplicity
+     adjacency; ``index_add_``); both split by phase by an instrumented
+     build of ``csrc/fused_edge.cu`` (``-DFUSED_EDGE_MARKS``); then kernel
+     8's op driven once as its caller would, on the batch's edges (it lies
+     on no model path, in either package);
    - ``[flat-serve]``: phase 4 on the first 2048 of those SMILES (one
-     batch): kernel 7 launches 3 times per batch and no binned kernel
-     launches; card against CPU on 128 molecules that hold 2 large ones;
+     batch): kernel 7 launches 3 times per batch (its launches by route
+     printed) and no binned kernel launches; card against CPU on 128
+     molecules that hold 2 large ones;
    - ``[flat-train]``: phase 6 on them: kernel 7 launches 3 times forward
-     and 3 times backward per step, no binned kernel launches; the one step
+     and 3 times backward per step (launches by route printed), no binned
+     kernel launches; the one step
      card against CPU runs with both dropouts off (the flat layers draw
      their masks from a generator);
 10. true per-hop aggregation (``--true_multi_hop``, the row-major route on
@@ -1510,13 +1515,15 @@ def start_marks_build():
     """Start nvcc on ``csrc/inject.cu`` with ``-DINJECT_MARKS``, on
     ``csrc/attnpool.cu`` with ``-DATTNPOOL_MARKS``, on ``csrc/mp_stack.cu``
     with ``-DMP_STACK_MARKS``, on ``csrc/mp_ext.cu`` with ``-DMP_EXT_MARKS``,
-    on ``csrc/bin_pool.cu`` with ``-DBIN_POOL_MARKS`` and on
-    ``csrc/mp_stack_bwd.cu`` with ``-DMP_STACK_BWD_MARKS`` beside the
+    on ``csrc/bin_pool.cu`` with ``-DBIN_POOL_MARKS``, on
+    ``csrc/mp_stack_bwd.cu`` with ``-DMP_STACK_BWD_MARKS`` and on
+    ``csrc/fused_edge.cu`` with ``-DFUSED_EDGE_MARKS`` beside the
     kernels' own build: kernel 4's kernels, the attention pool's kernels,
-    kernel 5's forward and kernel 6's kernels then record a ``%globaltimer``
-    mark per block, after a block barrier, at every phase boundary, and the
-    stack forward's kernels and the projection fold's backward each phase's
-    time summed over the layers or tiles, as cumulative marks.  Returns
+    kernel 5's forward, kernel 6's kernels and kernels 7 and 8 then record a
+    ``%globaltimer`` mark per block, after a block barrier, at every phase
+    boundary (7 and 8 with their warps' clocks by phase), and the stack
+    forward's kernels and the projection fold's backward each phase's time
+    summed over the layers or tiles, as cumulative marks.  Returns
     {source: (the nvcc process, the library's path)}."""
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
@@ -1524,7 +1531,8 @@ def start_marks_build():
     builds = {}
     for name, flag in (("inject", "-DINJECT_MARKS"), ("attnpool", "-DATTNPOOL_MARKS"),
                        ("mp_stack", "-DMP_STACK_MARKS"), ("mp_ext", "-DMP_EXT_MARKS"),
-                       ("bin_pool", "-DBIN_POOL_MARKS"), ("mp_stack_bwd", "-DMP_STACK_BWD_MARKS")):
+                       ("bin_pool", "-DBIN_POOL_MARKS"), ("mp_stack_bwd", "-DMP_STACK_BWD_MARKS"),
+                       ("fused_edge", "-DFUSED_EDGE_MARKS")):
         out = cuda_build.BUILD_DIR / f"{name}_marks.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, flag, "-o", str(out),
                str(cuda_build.CSRC / f"{name}.cu")]
@@ -2778,14 +2786,17 @@ def pool_routes(pkg, cfg, ds, seed: int) -> None:
                                  f"{ran}, want {want}")
 
 
-def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
+def check_flat_kernels(cfg, host_batch, batch, seed: int, marks_build) -> tuple:
     """``[flat-kernel]``: kernel 7 (``fused_edge_fwd`` on the batch's
     destination-keyed layout, ``fused_edge_bwd`` on the source-keyed one
     with an fp32 cotangent) and kernel 8 (``wseg_sum`` on the batch's
     windowed layout) against their plain versions, D 153 and 359, fp32 and
-    bf16 (kernel 8: exact, and data rounded to bf16), timed at the main
-    path's shape (D = x_other's 153; kernel 7 in bf16, kernel 8 exact) with
-    bounds and library yardsticks.  Then kernel 8's op driven once, counts
+    bf16 (kernel 8: exact, and data rounded to bf16); each form twice
+    (bit-equal), with kernel 7's route, and timed as profiler
+    device time beside a CUDA-graph replay (``bwd_record``); the main
+    path's forms (D = x_other's 153; kernel 7 in bf16, kernel 8 exact) with
+    bounds and library yardsticks.  Both kernels split by phase in the
+    marked build (``flat_phases``).  Then kernel 8's op driven once, counts
     reset just before, as its caller would.  Returns (numbers per kernel,
     kernel 8's launches in that drive)."""
     from aimnet_x2d_tpu_torch.ops import fused_edge, pallas_segment
@@ -2797,6 +2808,18 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
     deg = torch.diff(fwd.row_ptr)
     print(f"[flat-kernel] shapes A={A} real atoms={int(batch.atom_mask.sum())} edges={E} "
           f"longest row={int(deg.max())} rows without edges={int((deg == 0).sum())}", flush=True)
+    t0 = time.perf_counter()
+    fused_edge.build_layouts(host_batch.edge_src, host_batch.edge_dst, host_batch.edge_mask, A)
+    print(f"[flat-kernel] build_layouts on the host: {1e3 * (time.perf_counter() - t0):.1f} ms "
+          "(both directions; host clock)", flush=True)
+    for name, lay in (("forward", fwd), ("backward", bwd)):
+        img = lay.image_rows
+        plans = {f"{'bf16' if b == 2 else 'fp32'} D={D}": fused_edge.stage_plan(lay, D, b)
+                 for D in (cfg.x_other_dim, cfg.x_self_dim) for b in (2, 4)}
+        print(f"[flat-kernel] kernel 7 {name} tiles: {img.size} of {fused_edge.TILE_ROWS} rows, "
+              f"{lay.iv.shape[0]} intervals, image rows mean {img.mean():.1f} max {img.max()}; "
+              "the route's shared-memory bytes a block (-1: the direct route): "
+              + "; ".join(f"{k} {v}" for k, v in plans.items()), flush=True)
 
     def adjacency(layout):
         # the multiplicity adjacency as one coalesced CSR matrix (library operand)
@@ -2805,27 +2828,36 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
         coo = torch.sparse_coo_tensor(idx, torch.ones(E, device=dev), (A, A)).coalesce()
         return coo.to_sparse_csr()
 
-    def record(name, key, got_ref, ms, plain_ms, library_ms, nbytes, ops):
+    def record(name, key, got_ref, ms, timing, plain_ms, library_ms, nbytes, ops):
         t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[torch.float32]
         res[key] = dict(max_abs_err=got_ref, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=1e3 * max(t_bytes, t_ops),
+                        bound_ms=1e3 * max(t_bytes, t_ops), timing=timing,
                         bound_by="bytes" if t_bytes >= t_ops else "operations")
         r = res[key]
         print(f"[flat-kernel] {name} at the main path's shape: ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; "
               f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
 
-    def compare(name, got, ref, what):
+    def compare(name, got, ref, again, what):
         torch.cuda.synchronize()
         abs_err, rel32 = rel_err(got, ref)
         _, rel16 = rel_err(got.to(torch.bfloat16), ref.to(torch.bfloat16))
-        ok = rel32 <= FLAT_TOL[torch.float32] and rel16 <= FLAT_TOL[torch.bfloat16]
+        same = torch.equal(got, again)
+        ok = rel32 <= FLAT_TOL[torch.float32] and rel16 <= FLAT_TOL[torch.bfloat16] and same
         print(f"[flat-kernel] {name} {what}: max_abs_err={abs_err:.3e} rel={rel32:.3e} (tol "
               f"{FLAT_TOL[torch.float32]:g}), after the cast to bf16 rel={rel16:.3e} (tol "
-              f"{FLAT_TOL[torch.bfloat16]:g})", flush=True)
+              f"{FLAT_TOL[torch.bfloat16]:g}); twice bit-equal {same}", flush=True)
         if not ok:
-            raise AssertionError(f"{name} {what}: rel err {rel32:.3e} / {rel16:.3e}")
+            raise AssertionError(f"{name} {what}: rel err {rel32:.3e} / {rel16:.3e}, rerun "
+                                 f"bit-equal {same}")
         return abs_err
+
+    def routes_of(fn, run):
+        for k in fn.routes:
+            fn.routes[k] = 0
+        run()
+        torch.cuda.synchronize()
+        return dict(fn.routes)
 
     res = {}
     adj = {"fused_edge_fwd": adjacency(fwd), "fused_edge_bwd": adjacency(bwd)}
@@ -2836,16 +2868,24 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
             g = torch.randn(A, D, generator=gen, device=dev)
             for name, fn, lay, inp in (("fused_edge_fwd", fused_edge.fused_edge_fwd, fwd, x),
                                        ("fused_edge_bwd", fused_edge.fused_edge_bwd, bwd, g)):
-                err = compare(name, fn(inp, lay, exact), fused_edge.fused_edge_plain(inp, lay, exact),
-                              f"{str(dt)[6:]} D={D}")
+                what = f"{str(dt)[6:]} D={D}"
+                run = lambda: fn(inp, lay, exact)  # noqa: E731
+                err = compare(name, run(), fused_edge.fused_edge_plain(inp, lay, exact), run(),
+                              what)
+                print(f"[flat-kernel] {name} {what}: launches by route {routes_of(fn, run)}",
+                      flush=True)
+                plain_ms = time_ms(lambda: fused_edge.fused_edge_plain(inp, lay, exact), iters=5)
+                ms, timing, _ = bwd_record("flat-kernel", f"{name} D={D}", dt, run, plain_ms)
                 if D != cfg.x_other_dim or exact:
                     continue
                 x32 = inp.float()
                 nbytes = inp.numel() * inp.element_size() + 4 * A * D + 4 * (A + 1) + 4 * E
-                record(name, (name, torch.bfloat16), err,
-                       time_ms(lambda: fn(inp, lay, exact)),
-                       time_ms(lambda: fused_edge.fused_edge_plain(inp, lay, exact), iters=5),
+                record(name, (name, torch.bfloat16), err, ms, timing, plain_ms,
                        time_ms(lambda: torch.sparse.mm(adj[name], x32)), nbytes, E * D)
+                if name == "fused_edge_fwd":
+                    x_main = inp
+                else:
+                    g_main = inp
 
     # --- kernel 8 on the batch's windowed layout (window 256)
     src_perm, seg_local, W, cap = pallas_segment.windowed_layout(
@@ -2858,10 +2898,14 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
         x = torch.randn(A, D, generator=gen, device=dev)
         data = torch.where((sl < window)[:, None], x[sp.long()], 0.0).contiguous()
         for exact in (True, False):
-            got = pallas_segment.wseg_sum(data, sl, W, cap, window, exact)
+            run = lambda: pallas_segment.wseg_sum(data, sl, W, cap, window, exact)  # noqa: E731
+            what = f"{'exact' if exact else 'data rounded to bf16'} D={D}"
             ref = pallas_segment.windowed_segment_sum_plain(data, sl, W, cap, window, exact)
-            err = compare("wseg_sum", got, ref,
-                          f"{'exact' if exact else 'data rounded to bf16'} D={D}")
+            err = compare("wseg_sum", run(), ref, run(), what)
+            plain_ms = time_ms(lambda: pallas_segment.windowed_segment_sum_plain(
+                data, sl, W, cap, window, exact), iters=5)
+            ms, timing, _ = bwd_record("flat-kernel", f"wseg_sum D={D}",
+                                       torch.float32 if exact else torch.bfloat16, run, plain_ms)
             if D != cfg.x_other_dim or not exact:
                 continue
             ids = torch.where(sl < window, torch.arange(W, device=dev).repeat_interleave(cap)
@@ -2869,12 +2913,13 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
             out = torch.zeros(W * window + 1, D, device=dev)
             # the real slots' rows read, the seg ids read, the output written
             nbytes = 4 * E * D + 4 * W * cap + 4 * W * window * D
-            record("wseg_sum", ("wseg_sum", torch.float32), err,
-                   time_ms(lambda: pallas_segment.wseg_sum(data, sl, W, cap, window, exact)),
-                   time_ms(lambda: pallas_segment.windowed_segment_sum_plain(
-                       data, sl, W, cap, window, exact), iters=5),
+            record("wseg_sum", ("wseg_sum", torch.float32), err, ms, timing, plain_ms,
                    time_ms(lambda: out.index_add_(0, ids, data)), nbytes, E * D)
-        del data
+            data_main = data
+        if D != cfg.x_other_dim:
+            del data
+    flat_phases(marks_build, fwd, bwd, x_main, g_main, data_main, sl, W, cap)
+    del data_main
     # the op as its caller runs it: gather, then the kernel
     pallas_segment.wseg_sum.launches = 0
     x = torch.randn(A, cfg.x_other_dim, generator=gen, device=dev)
@@ -2886,6 +2931,71 @@ def check_flat_kernels(cfg, host_batch, batch, seed: int) -> tuple:
     if launches != 1:
         raise AssertionError(f"kernel 8's op launched its kernel {launches} times, want 1")
     return res, launches
+
+
+def flat_phases(marks_build, fwd, bwd, x, g, data, seg, W: int, cap: int) -> None:
+    """Kernels 7 and 8 split by phase (``[flat-kernel]``): the marked build
+    of ``csrc/fused_edge.cu`` (``-DFUSED_EDGE_MARKS``) launched twice on the
+    main path's inputs (kernel 7: bf16 x on the forward layout, the fp32
+    cotangent rounded on the backward one; kernel 8: exact, D 153), the
+    second launch read.  Kernel 7: a tile block's staging and sums
+    (%globaltimer marks after block barriers) and its warps' clocks in the
+    gathers and adds against the stores; kernel 8: a block's list of slots
+    (the counting sort) and its sums; both with the blocks resident on an
+    SM on average."""
+    import ctypes
+
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    so = fused_edge.type_lib(marks_lib(marks_build, "fused_edge"))
+    so.fused_edge_marks.argtypes = [ctypes.c_void_p]
+    so.fused_edge_marks.restype = ctypes.c_int
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, inp, lay in (("fused_edge_fwd bf16", x, fwd),
+                           ("fused_edge_bwd fp32 cotangent rounded to bf16", g, bwd)):
+        marks = torch.zeros(lay.image_rows.shape[0], 8, dtype=torch.int64, device=dev)
+        if so.fused_edge_marks(marks.data_ptr()) != 0:
+            raise RuntimeError("fused_edge: setting the marks failed")
+        for _ in range(2):  # a warm-up launch, then the one read
+            marks.zero_()
+            fused_edge._launch("marks", inp, lay, False, {"span": 0, "direct": 0}, so=so)
+            torch.cuda.synchronize()
+        m = marks.cpu().numpy().astype(np.float64)
+        m = m[m[:, 0] > 0]  # the tile kernel's blocks (the direct route's rows have no marks)
+        span_ns = m[:, 2].max() - m[:, 0].min()
+        block = (m[:, 2] - m[:, 0]) / 1e3
+        clk = m[:, 3:5].sum(0)
+        print(f"[flat-kernel] edge_agg phases, {name}: span {span_ns / 1e6:.4f} ms (marked build); "
+              f"{len(m)} tile blocks, resident on an SM {block.sum() * 1e3 / span_ns / sms:.2f} on "
+              f"average, a block p50 {np.percentile(block, 50):.2f} p90 "
+              f"{np.percentile(block, 90):.2f} max {block.max():.2f} us, {int(m[:, 5].mean())} "
+              f"edges: staging {(m[:, 1] - m[:, 0]).mean() / 1e3:.2f} us, sums "
+              f"{(m[:, 2] - m[:, 1]).mean() / 1e3:.2f} us; warp clocks gathers and adds "
+              f"{100 * clk[0] / clk.sum():.1f}%, stores {100 * clk[1] / clk.sum():.1f}%", flush=True)
+    D = data.shape[1]
+    marks = torch.zeros(W * 128, 8, dtype=torch.int64, device=dev)  # the blocks, at most
+    out = torch.empty(W * 256, D, device=dev)
+    if so.fused_edge_marks(marks.data_ptr()) != 0:
+        raise RuntimeError("fused_edge: setting the marks failed")
+    for _ in range(2):
+        marks.zero_()
+        status = so.wseg_sum(data.data_ptr(), seg.data_ptr(), out.data_ptr(), W, D, 256, cap, 0,
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"wseg_sum: {so.fused_edge_error_string(status).decode()}")
+        torch.cuda.synchronize()
+    m = marks.cpu().numpy().astype(np.float64)
+    m = m[m[:, 0] > 0]
+    block = (m[:, 2] - m[:, 0]) / 1e3
+    span_ns = m[:, 2].max() - m[:, 0].min()
+    print(f"[flat-kernel] wseg_sum phases, exact D={D}: span {span_ns / 1e6:.4f} ms (marked "
+          f"build); {len(m)} blocks (a window's part of its segments each), resident on an SM "
+          f"{block.sum() * 1e3 / span_ns / sms:.2f} on average, a block p50 "
+          f"{np.percentile(block, 50):.2f} p90 {np.percentile(block, 90):.2f} max "
+          f"{block.max():.2f} us, {m[:, 3].mean():.0f} real slots: the list of slots "
+          f"{(m[:, 1] - m[:, 0]).mean() / 1e3:.2f} us, the sums {(m[:, 2] - m[:, 1]).mean() / 1e3:.2f}"
+          " us", flush=True)
 
 
 def check_pool6_kernel(cfg, model, batch, seed: int, marks_build) -> dict:
@@ -3630,12 +3740,15 @@ def main() -> int:
         raise AssertionError("a loader over molecules larger than a bin stayed binned")
     fl_host = next(iter(fl_loader))
     fl_batch = fl_host.to("cuda")
-    fl_res, wseg_launches = check_flat_kernels(cfg, fl_host, fl_batch, args.seed)
+    fl_res, wseg_launches = check_flat_kernels(cfg, fl_host, fl_batch, args.seed, marks_build)
     res.update(fl_res)
     binned_serving = (bin_mp.mp_stack_fwd, bin_mp.mp_layer_fwd, bin_wpool.wpool_fwd,
                       bin_attnpool.attnpool_fwd, bin_inject.inject_fwd)
     # the serving phases of the flat layout run the first batch of SMILES:
     # their featurization (the large molecules') is most of the script's time
+    edge_routes = [fused_edge.fused_edge_fwd.routes, fused_edge.fused_edge_bwd.routes]
+    for r in edge_routes:
+        r.update({k: 0 for k in r})
     fl_launches = serve(pkg, cfg, fl_smiles[:FLAT_SERVE], args.seed, work, fl_batch,
                         tag="flat-serve",
                         counters=(fused_edge.fused_edge_fwd,), forbidden=binned_serving, n_cpu=128)
@@ -3643,6 +3756,9 @@ def main() -> int:
     if fl_launches["fused_edge_fwd"] != 3 * n_batches:
         raise AssertionError(f"kernel 7 launched {fl_launches['fused_edge_fwd']} times for "
                              f"{n_batches} batches of a 3-layer model")
+    print(f"[flat-serve] kernel 7's launches by route: forward {edge_routes[0]}", flush=True)
+    for r in edge_routes:
+        r.update({k: 0 for k in r})
     del fl_batch
     binned_training = (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_mp.mp_layer_fwd_train,
                        bin_mp.mp_layer_bwd, bin_wpool.wpool_fwd, bin_wpool.wpool_bwd,
@@ -3652,6 +3768,8 @@ def main() -> int:
                            counters=(fused_edge.fused_edge_fwd, fused_edge.fused_edge_bwd),
                            forbidden=binned_training,
                            want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
+    print(f"[flat-train] kernel 7's launches by route: forward {edge_routes[0]}, backward "
+          f"{edge_routes[1]}", flush=True)
     launches["fused_edge_fwd"] = fl_launches["fused_edge_fwd"]  # serving's count
     launches["fused_edge_bwd"] = fl_train["fused_edge_bwd"]
     launches["wseg_sum"] = wseg_launches

@@ -559,8 +559,59 @@ def test_fused_edge_kernels_match_plain(dev, flat_batch, D, dtype):
     assert _rel(out, ref) < 1e-5 and _rel(dx, rdx) < 1e-5
     assert _rel(out.to(dtype), ref.to(dtype)) < 1e-2 and _rel(dx.to(dtype), rdx.to(dtype)) < 1e-2
     assert torch.equal(out, fused_edge.fused_edge_fwd(x, fwd, exact))  # the same bits every run
+    assert torch.equal(dx, fused_edge.fused_edge_bwd(gout, bwd, exact))
     pad = torch.diff(fwd.row_ptr) == 0
     assert out[pad].abs().sum() == 0
+
+
+@pytest.mark.parametrize("D", [153, 359])
+@pytest.mark.parametrize("exact", [True, False])
+def test_fused_edge_kernel_counts_both_routes(dev, flat_batch, D, exact):
+    """Where every tile's image fits the staging budget (D 153 with images
+    of bf16 values) a launch sums from shared memory; at fp32 D 359 the
+    large molecules' images exceed it and the launch gathers directly.  Each
+    launch counts its route as the wrapper's plan says, and both routes give
+    the plain sum."""
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    A = flat_batch.num_atom_slots
+    fwd, bwd = flat_batch.fused_fwd.to(dev), flat_batch.fused_bwd.to(dev)
+    x = torch.randn(A, D, generator=g, device=dev)
+    for fn, lay in ((fused_edge.fused_edge_fwd, fwd), (fused_edge.fused_edge_bwd, bwd)):
+        route = "span" if fused_edge.stage_plan(lay, D, 4 if exact else 2) >= 0 else "direct"
+        if D == 359 and exact:
+            assert route == "direct"
+        if D == 153 and not exact:
+            assert route == "span"
+        before = dict(fn.routes)
+        out = fn(x, lay, exact)
+        assert fn.routes[route] == before[route] + 1 and sum(fn.routes.values()) == \
+            sum(before.values()) + 1
+        ref = fused_edge.fused_edge_plain(x, lay, exact)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) < 1e-5 and _rel(out.bfloat16(), ref.bfloat16()) < 1e-2
+        assert torch.equal(out, fn(x, lay, exact))
+
+
+def test_fused_edge_kernel_takes_unaligned_inputs(dev, flat_batch):
+    """x starting off a 16-byte boundary (a view one row in): the staging
+    copies element by element, the same sums."""
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    A = flat_batch.num_atom_slots
+    fwd = flat_batch.fused_fwd.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn(A + 1, 153, generator=torch.Generator(device=dev).manual_seed(3),
+                           device=dev).to(dtype)
+        x = base[1:]
+        assert x.data_ptr() % 16
+        out = fused_edge.fused_edge_fwd(x, fwd, dtype == torch.float32)
+        ref = fused_edge.fused_edge_plain(x, fwd, dtype == torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_edge.fused_edge_fwd(x.contiguous().clone(), fwd,
+                                                          dtype == torch.float32))
+        assert _rel(out, ref) < 1e-5
 
 
 def test_fused_edge_kernel_runs_on_a_batch_below_the_tpu_source_block(dev):
@@ -605,6 +656,48 @@ def test_windowed_segment_sum_kernel_matches_plain(dev, flat_batch, D, exact):
     assert _rel(out.cpu(), ref) < 1e-5
     assert torch.equal(out, pallas_segment.pallas_windowed_segment_sum(x, sp, sl, A, W, cap,
                                                                        exact=exact))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("order", ["shuffled", "padding inside"])
+@pytest.mark.parametrize("window", [256, 16])
+def test_windowed_segment_sum_kernel_takes_any_slot_order(dev, flat_batch, window, order, exact):
+    """Unsorted ids and padding slots between a window's real slots, with
+    fewer windows than SMs (window 256: 10) and more (window 16: 150):
+    within 1e-5 of the plain version (1e-2 after a cast to bf16), reruns
+    bit-equal, rows no slot names zero."""
+    from aimnet_x2d_tpu_torch.ops import pallas_segment
+
+    A = flat_batch.num_atom_slots
+    src_perm, seg_local, W, cap = pallas_segment.windowed_layout(
+        flat_batch.edge_src, flat_batch.edge_dst, flat_batch.edge_mask, A, window=window,
+        chunk=32)
+    assert (W < 132) == (window == 256)
+    rng = np.random.default_rng(window)
+    for w in range(W):
+        blk = slice(w * cap, (w + 1) * cap)
+        n = int((seg_local[blk] < window).sum())
+        if order == "shuffled":
+            p = rng.permutation(cap)
+        elif 2 < n <= cap - 2:  # two padding slots among the real ones
+            p = np.insert(np.arange(cap - 2), [n // 3, n // 2], [cap - 2, cap - 1])
+        else:
+            continue
+        src_perm[blk], seg_local[blk] = src_perm[blk][p], seg_local[blk][p]
+    sp, sl = torch.from_numpy(src_perm).to(dev), torch.from_numpy(seg_local).to(dev)
+    x = torch.randn(A, 153, generator=torch.Generator(device=dev).manual_seed(window), device=dev)
+    data = torch.where((sl < window)[:, None], x[sp.long()], 0.0).contiguous()
+    before = pallas_segment.wseg_sum.launches
+    out = pallas_segment.wseg_sum(data, sl, W, cap, window, exact)
+    assert pallas_segment.wseg_sum.launches == before + 1
+    ref = pallas_segment.windowed_segment_sum_plain(data, sl, W, cap, window, exact)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 1e-5 and _rel(out.bfloat16(), ref.bfloat16()) < 1e-2
+    assert torch.equal(out, pallas_segment.wseg_sum(data, sl, W, cap, window, exact))
+    named = torch.zeros(W * window, dtype=torch.bool, device=dev)
+    real = sl < window
+    named[(torch.arange(W * cap, device=dev) // cap * window + sl)[real].long()] = True
+    assert out[~named].abs().sum() == 0
 
 
 # ---- kernel 6: the binned attention pool of row-major atom arrays (the
