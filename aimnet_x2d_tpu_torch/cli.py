@@ -5,7 +5,9 @@ CSV of SMILES.
     python -m aimnet_x2d_tpu_torch.cli --data_path train.csv \\
         --multi_target_columns a,b,c --task_type multitask --mixed_precision \\
         --epochs 50 --batch_size 2048 --model_save_path model.npz
-    # serve
+    # serve (add --inference_mode mc_dropout --mc_samples 8, or
+    # --inference_mode evidential for a model trained with --loss_function
+    # evidential, for uncertainty columns)
     python -m aimnet_x2d_tpu_torch.cli --inference_csv mols.csv \\
         --model_save_path model.npz --inference_output preds.csv
     # fine-tune a trained model: new 12-target head, everything else frozen,
@@ -24,12 +26,14 @@ the kernels): every pooling type, partial charges and stereochemistry
 (``--output_partial_charges``), true per-hop aggregation
 (``--true_multi_hop``), transfer learning, freeze and unfreeze patterns,
 layer-wise LR decay, checkpoint/resume, wandb tracking and
-``--experiment_config``, and training over several ranks: ``--num_devices``
+``--experiment_config``, training over several ranks: ``--num_devices``
 data shards per step, each split into ``--graph_shards`` halo graph shards
-(runner.py starts the ranks).  Flags of features that are later slices of
-the port (HDF5 streaming, embedding output, hyperparameter search,
-MC-dropout and evidential serving) are accepted and raise
-NotImplementedError when set.
+(runner.py starts the ranks), and serving in every ``--inference_mode``
+(deterministic, MC-dropout with ``--mc_samples``, evidential).
+``--num_workers`` (and ``--precompute_num_workers`` for training) set the
+native featurizer's threads.  Flags of features that are later slices of
+the port (HDF5 streaming, embedding output, hyperparameter search) are
+accepted and raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence
 # flag -> value that means "not used"; any other value raises
 _LATER = {
     "iterable_dataset": False, "save_embeddings": False,
-    "hyperparameter_file": None, "mc_samples": 0, "inference_hdf5": None,
+    "hyperparameter_file": None, "inference_hdf5": None,
 }
 
 
@@ -125,8 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--inference_csv", type=str, default=None)
     g.add_argument("--inference_hdf5", type=str, default=None)
     g.add_argument("--inference_output", type=str, default="predictions.csv")
-    g.add_argument("--inference_mode", type=str, default="deterministic",
-                   choices=["deterministic", "mc_dropout", "evidential"])
+    g.add_argument("--inference_mode", type=str, default=None,
+                   choices=["deterministic", "mc_dropout", "evidential"],
+                   help="default: mc_dropout when --mc_samples > 0, else deterministic")
     g.add_argument("--mc_samples", type=int, default=0)
     g.add_argument("--stream_chunk_size", type=int, default=1000)
     g.add_argument("--stream_batch_size", type=int, default=None,
@@ -158,8 +163,6 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     for flag, unused in _LATER.items():
         if getattr(args, flag) != unused:
             raise NotImplementedError(f"--{flag} is not ported yet")
-    if args.inference_mode != "deterministic":
-        raise NotImplementedError(f"--inference_mode {args.inference_mode} is not ported yet")
     args.multi_target_list = _csv_list(args.multi_target_columns, str)
     args.sae_subtask_list = _csv_list(args.sae_subtasks, int)
     args.multitask_weight_list = _csv_list(args.multitask_weights, float)
@@ -169,6 +172,8 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.ffn_hidden_dim is None:
         args.ffn_hidden_dim = args.hidden_dim
     args.is_inference = args.inference_csv is not None
+    if args.inference_mode is None:
+        args.inference_mode = "mc_dropout" if args.mc_samples > 0 else "deterministic"
     return args
 
 

@@ -10,16 +10,24 @@ builds one loader per chunk, so there the layout is decided per chunk.  A
 training loader shuffles with ``np.random.default_rng(seed + epoch)`` and
 packs size-descending, as the JAX loader does; evaluation and serving
 loaders keep input order.
+
+Featurization and binned batches are native by default: one call of the
+C++ featurizer fills a columnar cache, and the C++ builder packs each
+binned batch from it (chem/native.py, data/native_batch.py, both equal
+array for array to the Python code).  ``AIMNET_NO_NATIVE=1`` selects the
+pure-Python featurizer and the Python collate + bin-pack.  Flat batches
+and halo shards are always collated in Python.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..chem import native
 from ..chem.featurize import compute_features
 from ..parallel.halo import partition_halo_stack
 from .batching import (
@@ -38,19 +46,25 @@ from .binning import (
     bin_pack_batch,
     plan_bin_counts,
 )
+from .native_batch import ColumnarCache, LazyFeatures, build_binned_batch
 
 
 def featurize_many(
-    smiles: Sequence[str], targets: np.ndarray, max_hops: int
+    smiles: Sequence[str], targets: np.ndarray, max_hops: int, num_workers: int = 1
 ) -> Tuple[List[str], np.ndarray, List[MolFeatures]]:
-    """Featurize SMILES with the pure-Python featurizer; drop failures and
-    their targets.  Kept molecules carry the processed SMILES."""
+    """Featurize SMILES, natively on ``num_workers`` C++ threads
+    (chem/native.py), or with the pure-Python featurizer when
+    ``AIMNET_NO_NATIVE`` is set; drop failures and their targets.  Kept
+    molecules carry the processed SMILES."""
     targets = np.asarray(targets, np.float32)
     if targets.ndim == 1:
         targets = targets[:, None]
+    if native.native_enabled():
+        results = native.compute_features_batch(list(smiles), max_hops, max(num_workers, 1))
+    else:
+        results = [compute_features(s, max_hops) for s in smiles]
     keep_smiles, keep_targets, feats = [], [], []
-    for s, t in zip(smiles, targets):
-        r = compute_features(s, max_hops)
+    for t, r in zip(targets, results):
         if r is not None:
             keep_smiles.append(r.smiles)
             keep_targets.append(t)
@@ -60,12 +74,25 @@ def featurize_many(
 
 @dataclasses.dataclass
 class MoleculeDataset:
-    """Featurized molecules + targets, ready to batch."""
+    """Featurized molecules + targets, ready to batch.
+
+    Built natively (``from_smiles`` without ``AIMNET_NO_NATIVE``),
+    ``features`` is a :class:`LazyFeatures` view of the dataset-wide
+    ``columnar`` cache (data/native_batch.py), made by one native call with
+    no per-molecule objects; otherwise a list of ``MolFeatures`` and
+    ``columnar`` None.  A dataset made from a ``LazyFeatures`` takes its
+    cache as ``columnar``.
+    """
 
     smiles: List[str]
     targets: np.ndarray  # (N, T) float32
-    features: List[MolFeatures]
+    features: Sequence[MolFeatures]  # a list or a LazyFeatures
     max_hops: int
+    columnar: Optional[ColumnarCache] = None
+
+    def __post_init__(self):
+        if self.columnar is None and isinstance(self.features, LazyFeatures):
+            self.columnar = self.features.cache
 
     def __len__(self) -> int:
         return len(self.features)
@@ -74,7 +101,28 @@ class MoleculeDataset:
     def num_tasks(self) -> int:
         return int(self.targets.shape[1])
 
+    def sizes(self) -> Dict[str, np.ndarray]:
+        """Per-molecule counts the loaders size their slots by: ``atoms``,
+        ``edges``, ``tets`` (4-neighbour centres) and ``pairs`` (cis/trans
+        rows after the reversed copies), from the columnar offsets when
+        there is a cache."""
+        c = self.columnar
+        if c is not None:
+            return {"atoms": np.diff(c.mol_atom_off), "edges": np.diff(c.mol_edge_off),
+                    "tets": np.diff(c.mol_tet_off),
+                    "pairs": 2 * np.maximum(np.diff(c.mol_cis_off), np.diff(c.mol_trans_off))}
+        f = self.features
+        return {"atoms": np.array([m.num_atoms for m in f], np.int64),
+                "edges": np.array([m.num_edges for m in f], np.int64),
+                "tets": np.array([m.tet_nbrs.shape[0] for m in f], np.int64),
+                "pairs": np.array([2 * max(m.cis_pairs.shape[0], m.trans_pairs.shape[0])
+                                   for m in f], np.int64)}
+
     def atomic_numbers(self) -> List[np.ndarray]:
+        c = self.columnar
+        if c is not None:
+            off = c.mol_atom_off
+            return [c.atomic_numbers[off[i]: off[i + 1]] for i in range(len(self))]
         return [f.atomic_numbers for f in self.features]
 
     def with_targets(self, targets: np.ndarray) -> "MoleculeDataset":
@@ -87,10 +135,21 @@ class MoleculeDataset:
 
     @classmethod
     def from_smiles(
-        cls, smiles: Sequence[str], targets: np.ndarray, max_hops: int
+        cls, smiles: Sequence[str], targets: np.ndarray, max_hops: int, num_workers: int = 1
     ) -> "MoleculeDataset":
-        s, t, f = featurize_many(smiles, targets, max_hops)
-        return cls(smiles=s, targets=t, features=f, max_hops=max_hops)
+        """Featurize ``smiles`` (natively on ``num_workers`` C++ threads
+        into a columnar cache, or with the pure-Python featurizer under
+        ``AIMNET_NO_NATIVE``); invalid SMILES are dropped with their
+        targets, and kept ones carry the processed SMILES."""
+        if not native.native_enabled():
+            s, t, f = featurize_many(smiles, targets, max_hops)
+            return cls(smiles=s, targets=t, features=f, max_hops=max_hops)
+        targets = np.asarray(targets, np.float32)
+        if targets.ndim == 1:
+            targets = targets[:, None]
+        cache, keep = ColumnarCache.from_smiles(list(smiles), max_hops, max(num_workers, 1))
+        return cls(smiles=list(cache.processed_smiles), targets=targets[keep],
+                   features=LazyFeatures(cache, max_hops), max_hops=max_hops, columnar=cache)
 
 
 class BatchLoader:
@@ -135,23 +194,18 @@ class BatchLoader:
         self._halo_slots: dict = {}
         if (halo_shards > 1 or rank is not None) and stack_devices < 1:
             raise ValueError("halo shards and a rank's shard need stack_devices >= 1")
-        feats = dataset.features
-        atoms = np.array([f.num_atoms for f in feats], np.int64)
+        sizes = dataset.sizes()
+        atoms, edges, tets, pairs = (sizes[k] for k in ("atoms", "edges", "tets", "pairs"))
         # halo shards bin-pack per graph rank inside partition_halo, which
         # chunks larger fragments, so the bin size binds only one device
         self.binned = halo_shards > 1 or not atoms.size or int(atoms.max()) <= bin_ab
-        edges = np.array([f.num_edges for f in feats], np.int64)
-        tets = np.array([f.tet_nbrs.shape[0] for f in feats], np.int64)
-        pairs = np.array(
-            [2 * max(f.cis_pairs.shape[0], f.trans_pairs.shape[0]) for f in feats],
-            np.int64,
-        )
         # Static caps: batch_size molecules of the dataset's largest sizes.
         k = min(batch_size, len(atoms))
         self.atom_slots = bucket_size(int(np.sort(atoms)[-k:].sum()) if len(atoms) else 8)
         self.edge_slots = bucket_size(int(np.sort(edges)[-k:].sum()) if len(edges) else 8)
         self.tet_slots = bucket_size(int(np.sort(tets)[-k:].sum()) + 1 if len(tets) else 8)
         self.pair_slots = bucket_size(int(np.sort(pairs)[-k:].sum()) + 1 if len(pairs) else 8)
+        self._columnar: Optional[ColumnarCache] = None
 
     def pin_slots(self, slots: dict) -> dict:
         """Grow this loader's slot caps to at least ``slots`` and update
@@ -176,10 +230,8 @@ class BatchLoader:
         pins its own slots)."""
         if not self.binned or self.halo_shards > 1:
             return
-        sizes_all = np.array([f.num_atoms for f in self.dataset.features], np.int64)
-        tets_all = np.array(
-            [f.tet_nbrs.shape[0] for f in self.dataset.features], np.int64
-        )
+        sizes = self.dataset.sizes()
+        sizes_all, tets_all = sizes["atoms"], sizes["tets"]
         bins = self._bin_pins.get("bins", 0)
         mb = self._bin_pins.get("mb", 0)
         per = self.batch_size
@@ -222,7 +274,26 @@ class BatchLoader:
             collated, self.halo_shards, binned=True, ab=self.bin_ab, slots=self._halo_slots)
         return parts
 
+    def _native_cache(self) -> ColumnarCache:
+        """The columnar cache the native builder reads: the dataset's own,
+        or one built once from its ``MolFeatures`` list."""
+        if self._columnar is None:
+            self._columnar = self.dataset.columnar or ColumnarCache.from_features(
+                self.dataset.features, self.dataset.max_hops)
+        return self._columnar
+
     def _collate(self, idx: np.ndarray) -> MolBatch:
+        """One batch of molecules ``idx``: binned batches from the native
+        builder (data/native_batch.py; the Python collate + bin-pack under
+        ``AIMNET_NO_NATIVE``), flat batches and halo shards' batches from
+        the Python collate."""
+        native_binned = (self.binned and self.halo_shards == 1 and native.native_enabled()
+                         and len(self.dataset))
+        if native_binned:
+            return build_binned_batch(
+                self._native_cache(), idx, self.dataset.targets[idx], ab=self.bin_ab,
+                mb_cap=self.bin_mb, edge_slots=self.edge_slots, tet_slots=self.tet_slots,
+                pair_slots=self.pair_slots, pins=self._bin_pins, size_sort=self.size_sort)
         batch = collate(
             [self.dataset.features[i] for i in idx],
             self.dataset.targets[idx],

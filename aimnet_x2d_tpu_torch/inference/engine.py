@@ -26,6 +26,9 @@ def inference_main(args: argparse.Namespace) -> Dict[str, Any]:
         chunk_size=chunk,
         batch_size=batch,
         device=device,
+        inference_mode=args.inference_mode or "deterministic",
+        mc_samples=args.mc_samples,
+        num_workers=args.num_workers,
     )
     return pipeline.run_csv(
         args.inference_csv, args.inference_output, smiles_column=args.smiles_column

@@ -1,13 +1,16 @@
-"""Streaming CSV inference, deterministic mode (counterpart of
+"""Streaming CSV inference (counterpart of
 aimnet_x2d_tpu/inference/pipeline.py).
 
 Chunked pandas reads -> featurization in a background thread, one chunk
-ahead -> fixed-shape batches, binned or flat as each chunk's loader
-picks (flat when a molecule exceeds a bin) -> the model on the chosen
-device -> inverse transform -> append to the output CSV.  The artifact is
-self-describing: model config, weights and preprocessing come from one
-file.  MC-dropout, evidential outputs, embedding output, HDF5 input and
-multi-host sharding are later slices of the port.
+ahead (natively on ``num_workers`` C++ threads, which release the GIL, so
+it overlaps the device) -> fixed-shape batches, binned or flat as each
+chunk's loader picks (flat when a molecule exceeds a bin) -> the model on
+the chosen device, deterministic, MC-dropout (``mc_samples`` stochastic
+forwards, mean and std) or evidential (gamma with aleatoric, epistemic and
+total uncertainty) -> inverse transform -> append to the output CSV.  The
+artifact is self-describing: model config, weights and preprocessing come
+from one file.  Embedding output, HDF5 input and multi-host sharding are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import pandas as pd
 import torch
 
 from ..checkpoint import Artifact, load_artifact, params_from_flax
+from ..chem import native
 from ..data.dataset import BatchLoader, MoleculeDataset
 from ..models.gnn import GNN
-from ..training.predictor import predict
+from ..training.predictor import predict, predict_evidential, predict_mc_dropout
 from ..utils.device import resolve_device
 
 
@@ -35,7 +39,17 @@ class StreamingInferencePipeline:
         chunk_size: int = 1000,
         batch_size: int = 64,
         device: "str | torch.device" = "cuda",
+        inference_mode: str = "deterministic",
+        mc_samples: int = 0,
+        num_workers: int = 1,
     ):
+        if inference_mode not in ("deterministic", "mc_dropout", "evidential"):
+            raise ValueError(f"unknown inference mode {inference_mode!r}")
+        if inference_mode == "mc_dropout" and mc_samples <= 0:
+            raise ValueError("mc_dropout needs mc_samples > 0")
+        self.mode = inference_mode
+        self.mc_samples = mc_samples
+        self.num_workers = max(num_workers, 1)
         self.device = resolve_device(device)
         self.artifact: Artifact = load_artifact(artifact_path)
         self.model = GNN(self.artifact.model_config)
@@ -51,12 +65,21 @@ class StreamingInferencePipeline:
         # running slot caps so every chunk shares one batch shape
         self._slots: Dict[str, int] = {}
         self.featurize_seconds = 0.0
+        if self.mode == "evidential" and self.artifact.model_config.loss_function != "evidential":
+            raise ValueError("evidential inference needs a model trained with the evidential loss")
 
     def _predict_dataset(self, ds: MoleculeDataset) -> Dict[str, np.ndarray]:
         loader = BatchLoader(ds, self.batch_size)
         loader.warm_bin_pins()
         loader.pin_slots(self._slots)
-        res = predict(self.model, loader, self.device, pipeline=self.pipeline)
+        if self.mode == "mc_dropout":
+            res = predict_mc_dropout(self.model, loader, self.device, self.mc_samples,
+                                     pipeline=self.pipeline)
+        elif self.mode == "evidential":
+            res = predict_evidential(self.model, loader, self.device, len(self.target_columns),
+                                     pipeline=self.pipeline)
+        else:
+            res = predict(self.model, loader, self.device, pipeline=self.pipeline)
         loader.pin_slots(self._slots)
         return res
 
@@ -69,6 +92,15 @@ class StreamingInferencePipeline:
             preds = preds.reshape(len(preds), T, 4)[:, :, 0]
         for t, col in enumerate(self.target_columns):
             out[col] = preds[:, t]
+        for key, suffix in (
+            ("uncertainty", "_uncertainty"),
+            ("aleatoric_uncertainty", "_aleatoric"),
+            ("epistemic_uncertainty", "_epistemic"),
+            ("total_uncertainty", "_total_uncertainty"),
+        ):
+            if key in res:
+                for t, col in enumerate(self.target_columns):
+                    out[col + suffix] = res[key][:, t]
         return pd.DataFrame(out)
 
     def _featurize_ahead(
@@ -96,8 +128,8 @@ class StreamingInferencePipeline:
                 for smiles in chunks:
                     t0 = time.perf_counter()
                     ds = MoleculeDataset.from_smiles(
-                        smiles, np.zeros((len(smiles), 1), np.float32), self.max_hops
-                    )
+                        smiles, np.zeros((len(smiles), 1), np.float32), self.max_hops,
+                        self.num_workers)
                     self.featurize_seconds += time.perf_counter() - t0
                     if not put((smiles, ds)):
                         return
@@ -159,11 +191,13 @@ class StreamingInferencePipeline:
             "device": str(self.device),
             "seconds": dt,
             "featurize_seconds": self.featurize_seconds,
+            "featurizer": native.describe(self.num_workers),
+            "inference_mode": self.mode,
             "molecules_per_second": n_valid / dt if dt > 0 else 0.0,
         }
         print(
-            f"[inference] {n_valid}/{n_total} molecules -> {output_path} on {self.device} "
-            f"({summary['molecules_per_second']:.0f} mol/s; featurization "
-            f"{self.featurize_seconds:.2f} s of {dt:.2f} s)"
+            f"[inference] {n_valid}/{n_total} molecules -> {output_path} on {self.device}, "
+            f"{self.mode} ({summary['molecules_per_second']:.0f} mol/s; featurization "
+            f"{self.featurize_seconds:.2f} s of {dt:.2f} s, {summary['featurizer']})"
         )
         return summary

@@ -42,7 +42,8 @@ forward) the stack and the attention pool take the atoms' code rows and
 the block-diagonal table instead of the embeddings where JAX folds (its
 feature-major path: the stack route, and the layer routes with charges or
 stereochemistry; kernel 1c-vocab), and the tables get their gradient from
-the kernels.  The step's dropout seed is one int32 (each single-layer call gets
+the kernels; under ``torch.inference_mode()`` (MC-dropout serving, JAX's
+stochastic forward) nothing folds.  The step's dropout seed is one int32 (each single-layer call gets
 ``layer_drop_seed(seed, l)`` on the per-layer routes, as in JAX), and the
 FFN's dropout masks come from a ``torch.Generator``.
 
@@ -638,10 +639,13 @@ class GNN(nn.Module):
         # The embedding fold (AIMNET_EMBED_FOLD) applies where JAX is on its
         # feature-major path (t_path: the stack, or layers with charges or
         # stereochemistry): the stack folds, and the attention pool does.
-        # With both folded no (E, A) embedding array is built.
+        # With both folded no (E, A) embedding array is built.  Under
+        # inference mode (MC-dropout serving) the forward is never
+        # differentiated, and, as JAX's stochastic forward (train_mode
+        # False), it does not fold.
         t_path = self.route == "stack" or (
             self.route in ("inject", "layer") and (cfg.use_partial_charges or cfg.use_stereochemistry))
-        fold = t_path and embed_fold_enabled()
+        fold = t_path and embed_fold_enabled() and not torch.is_inference_mode_enabled()
         fold_stack = fold and self.route == "stack"
         fold_pool = fold and cfg.pooling_type == "attention"
         embed_spec = (code_rows(ids), blockdiag_table_t(tables),

@@ -53,6 +53,7 @@ from .checkpoint import (
     save_artifact,
     transfer_params,
 )
+from .chem import native
 from .config import save_experiment_config, setup_paths, validate_args
 from .data.dataset import BatchLoader, MoleculeDataset
 from .data.io import load_dataset, split_dataset
@@ -132,6 +133,13 @@ def _load_splits(args):
                                                       args.test_data))
 
 
+def featurize_workers(args: argparse.Namespace) -> int:
+    """Featurizer threads: ``--precompute_num_workers``, else
+    ``--num_workers`` (the JAX CLI's fallback)."""
+    w = args.precompute_num_workers
+    return max(args.num_workers if w is None else w, 1)
+
+
 def _parallel_from_args(args: argparse.Namespace) -> Tuple[int, int]:
     """(n_data, n_graph) from --num_devices / --graph_shards."""
     return args.num_devices or 1, args.graph_shards or 1
@@ -148,9 +156,10 @@ def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> 
     (tr_s, tr_t), (va_s, va_t), (te_s, te_t) = _load_splits(args)
     num_tasks = tr_t.shape[1]
     say(f"[data] train {len(tr_s)}  val {len(va_s)}  test {len(te_s)}  tasks {num_tasks}")
-    train_ds = MoleculeDataset.from_smiles(tr_s, tr_t, args.num_shells)
-    val_ds = MoleculeDataset.from_smiles(va_s, va_t, args.num_shells)
-    test_ds = MoleculeDataset.from_smiles(te_s, te_t, args.num_shells)
+    workers = featurize_workers(args)
+    say(f"[featurize] {native.describe(workers)}")
+    train_ds, val_ds, test_ds = (MoleculeDataset.from_smiles(s, t, args.num_shells, workers)
+                                 for s, t in ((tr_s, tr_t), (va_s, va_t), (te_s, te_t)))
     say(f"[featurize] kept train {len(train_ds)}/{len(tr_s)}  val {len(val_ds)}/{len(va_s)}  "
         f"test {len(test_ds)}/{len(te_s)}")
 

@@ -1,17 +1,22 @@
-"""Deterministic prediction and partial-charge extraction (counterpart of
-aimnet_x2d_tpu/training/predictor.py::predict, ::extract_partial_charges).
+"""Prediction: deterministic, MC-dropout and evidential, and partial-charge
+extraction (counterpart of aimnet_x2d_tpu/training/predictor.py).
 
-MC-dropout and evidential uncertainty are later slices of the port.
+MC-dropout runs the model's training forward (dropout on) S times a batch
+under ``torch.inference_mode()``: nothing is kept for a backward, and on
+binned batches the training-form kernels serve.  Evidential prediction is
+one serving forward whose (B, 4T) outputs are split into the
+normal-inverse-gamma parameters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.gnn import GNN
+from ..models.losses import evidential_params
 
 
 def predict(
@@ -47,6 +52,73 @@ def predict(
         result["atom_embeddings"] = np.concatenate(atoms)
         result["atom_mol_index"] = np.concatenate(atom_mols)
     return result
+
+
+def predict_mc_dropout(
+    model: GNN,
+    loader,
+    device: "str | torch.device",
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    pipeline=None,
+) -> Dict[str, np.ndarray]:
+    """MC-dropout: ``num_samples`` stochastic forwards of every batch (the
+    training forward, dropout on, masks from ``generator``: one generator
+    on ``device`` seeded 0 when none is given, as JAX's ``PRNGKey(0)``).
+    Returns the mean over the samples as ``predictions`` and their
+    population std as ``uncertainty``, the mean inverse-transformed and the
+    std scaled by the scaler's stds when ``pipeline`` is given."""
+    device = torch.device(device)
+    gen = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+    means, stds = [], []
+    with torch.inference_mode():
+        for batch in loader:
+            dev_batch = batch.to(device)
+            gm = batch.graph_mask
+            samples = np.stack([
+                model(dev_batch, train=True, generator=gen).predictions.cpu().numpy()[gm]
+                for _ in range(num_samples)])  # (S, B, T)
+            means.append(samples.mean(axis=0))
+            stds.append(samples.std(axis=0))
+    mean, std = np.concatenate(means), np.concatenate(stds)
+    if pipeline is not None and pipeline.standard_scaler is not None:
+        mean = pipeline.inverse_transform(mean)
+        std = std * pipeline.standard_scaler.stds  # a spread scales, it does not shift
+    return {"predictions": mean, "uncertainty": std}
+
+
+def predict_evidential(
+    model: GNN,
+    loader,
+    device: "str | torch.device",
+    num_tasks: int,
+    pipeline=None,
+) -> Dict[str, np.ndarray]:
+    """Evidential prediction: the mean gamma and its aleatoric
+    (beta / (alpha - 1)) and epistemic (beta / (nu (alpha - 1)))
+    uncertainties and their sum, in target units when ``pipeline`` is
+    given (variances scale by the scaler's stds squared, in float64)."""
+    gammas, aleas, epis = [], [], []
+    with torch.inference_mode():
+        for batch in loader:
+            raw = model(batch.to(device)).predictions
+            gamma, nu, alpha, beta = evidential_params(raw, num_tasks)
+            gm = batch.graph_mask
+            gammas.append(gamma.cpu().numpy()[gm])
+            aleas.append((beta / (alpha - 1.0)).cpu().numpy()[gm])
+            epis.append((beta / (nu * (alpha - 1.0))).cpu().numpy()[gm])
+    gamma, alea, epi = np.concatenate(gammas), np.concatenate(aleas), np.concatenate(epis)
+    if pipeline is not None and pipeline.standard_scaler is not None:
+        gamma = pipeline.inverse_transform(gamma)
+        scale2 = pipeline.standard_scaler.stds.astype(np.float64) ** 2
+        alea = alea * scale2
+        epi = epi * scale2
+    return {
+        "predictions": gamma,
+        "aleatoric_uncertainty": alea,
+        "epistemic_uncertainty": epi,
+        "total_uncertainty": alea + epi,
+    }
 
 
 def extract_partial_charges(

@@ -7,7 +7,14 @@ Phases, each of which fails the run when it fails:
 
 1. print the card's name and power limit; turn TF32 off for fp32 products;
 2. build the CUDA kernels from ``aimnet_x2d_tpu_torch/csrc`` (nvcc, sm_90a,
-   one process per source, all at once);
+   one process per source, all at once) and, beside them, the native
+   featurizer and batch builder from ``native/*.cpp`` (g++ into
+   ``build/native/``); ``[native]``: the native featurizer against the
+   pure-Python one, array for array, on the first 512 SMILES, the first
+   512 with stereo content and 8 molecules of 260-600 atoms (host times on
+   1 and FEAT_THREADS threads), and one 2048-molecule binned batch of the
+   native builder against the Python collate + bin-pack (host times); the
+   script's datasets are then featurized natively on FEAT_THREADS threads;
 3. ``[kernel]``: hold each serving kernel against its plain PyTorch version
    at the flagship serving shapes (a batch of 2048 molecules of the
    script's SMILES), in fp32 and bf16, and time kernel, plain version and
@@ -24,6 +31,16 @@ Phases, each of which fails the run when it fails:
    the port's CLI on ``cuda`` with the launch counters reset just before,
    check every row is present and finite and both kernels ran, and compare
    one batch with the same model run on the CPU (plain versions);
+   ``[mc-serve]``: the flagship with dropout 0.05 serves 2048 SMILES
+   through the CLI with ``--mc_samples 8``: kernel 1's training form and
+   kernel 3's forward launch 8 times, no serving or backward kernel, the
+   outputs finite with std > 0; one sample at a fixed drop_seed with
+   ffn_dropout 0 against the CPU plain versions (E2E_TOL); one sample's
+   and one deterministic forward's CUDA-event time on the 2048 batch;
+   ``[evid-serve]``: an evidential flagship artifact through the CLI with
+   ``--inference_mode evidential`` (serving kernels 1 and 2), the four
+   columns per target against the CPU run (E2E_TOL), uncertainties finite
+   and positive;
 5. ``[train-kernel]``: hold each training kernel (stack forward with
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
@@ -189,7 +206,7 @@ Phases, each of which fails the run when it fails:
      (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
-14. print the ``[bwd-record]`` line (the backward forms of kernels 1b, 1d,
+14. print the ``[bwd-record]`` line, the script's total seconds (the backward forms of kernels 1b, 1d,
    3, 1c-vocab's pool, 4 and 5, kernel 4's forward and the stack's forward
    forms -- kernels 1, 1d and 1c-vocab's stack site: device time, split,
    host time; the ``[train]``, ``[c3-train]``, ``[c1-train]``
@@ -218,6 +235,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -275,6 +293,9 @@ FLAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 POOL6_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 MH_TRAIN_STEPS = 12
 FOLD_TRAIN_STEPS = 12
+FEAT_THREADS = 4  # the native featurizer's threads: the CLI's --num_workers default
+MC_SAMPLES = 8  # [mc-serve]'s --mc_samples
+MC_SEED = 1234  # the fixed drop_seed of [mc-serve]'s one-sample card-vs-CPU check
 
 
 def card_line() -> str:
@@ -777,25 +798,18 @@ def profile_forward(model, batch, top: int = 8) -> None:
               f"x{kernels[key][0]:<3d} {key[:90]}", flush=True)
 
 
-def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
-          counters=None, forbidden=(), n_cpu: int = 256) -> dict:
-    """Phase 4 (and ``[c3-serve]``, ``[c1-serve]``, ``[flat-serve]``): the
-    port's CLI on cuda, counters of the path's kernels (default: the
-    flagship's), which must all launch, and of ``forbidden`` kernels, which
-    must not; output checks, CPU comparison of the first ``n_cpu``
-    molecules, model-only throughput."""
-    from aimnet_x2d_tpu_torch import cli
-    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax, save_artifact
-    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+def write_artifact(cfg, smiles, seed: int, work: str, tag: str):
+    """A serving artifact of ``cfg`` (random weights from ``seed``, a
+    scaler fitted on random targets) and a CSV of ``smiles``: returns
+    (artifact, input CSV, output CSV, flax-named weights, pipeline, target
+    columns)."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, save_artifact
     from aimnet_x2d_tpu_torch.data.preprocessing import (
         PreprocessingConfig, PreprocessingPipeline, StandardScaler,
     )
-    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_wpool
-    from aimnet_x2d_tpu_torch.training.predictor import predict
 
     import pandas as pd
 
-    counters = counters or (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd)
     rng = np.random.default_rng(seed)
     T = cfg.output_dim
     scaler = StandardScaler()
@@ -808,6 +822,28 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
     save_artifact(art, flat, cfg, prep, extra={"target_columns": cols, "max_hops": cfg.num_shells})
     csv_in, csv_out = os.path.join(work, f"{tag}-mols.csv"), os.path.join(work, f"{tag}-preds.csv")
     pd.DataFrame({"smiles": smiles}).to_csv(csv_in, index=False)
+    return art, csv_in, csv_out, flat, prep, cols
+
+
+def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
+          counters=None, forbidden=(), n_cpu: int = 256) -> dict:
+    """Phase 4 (and ``[c3-serve]``, ``[c1-serve]``, ``[flat-serve]``): the
+    port's CLI on cuda, counters of the path's kernels (default: the
+    flagship's), which must all launch, and of ``forbidden`` kernels, which
+    must not; output checks, CPU comparison of the first ``n_cpu``
+    molecules, model-only throughput."""
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.training.predictor import predict
+
+    import pandas as pd
+
+    counters = counters or (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd)
+    T = cfg.output_dim
+    art, csv_in, csv_out, flat, prep, cols = write_artifact(cfg, smiles, seed, work, tag)
+    scaler = prep.standard_scaler
 
     for c in (*counters, *forbidden):
         c.launches = 0
@@ -831,7 +867,8 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
     # one batch on the CPU, plain versions, raw (scaled) outputs
     model_cpu = pkg.models.gnn.GNN(cfg)
     model_cpu.load_state_dict(params_from_flax(flat))
-    ds = MoleculeDataset.from_smiles(smiles[:n_cpu], np.zeros((n_cpu, 1), np.float32), cfg.num_shells)
+    ds = MoleculeDataset.from_smiles(smiles[:n_cpu], np.zeros((n_cpu, 1), np.float32), cfg.num_shells,
+                                     FEAT_THREADS)
     t0 = time.perf_counter()
     cpu = predict(model_cpu.eval(), BatchLoader(ds, n_cpu), "cpu")["predictions"]
     cpu_s = time.perf_counter() - t0
@@ -855,10 +892,244 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
     mps = n_mol / (step_ms / 1e3)
     print(f"[{tag}] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
           f"= {summary['molecules_per_second']:.1f} mol/s end to end, of which featurization "
-          f"{summary['featurize_seconds']:.3f} s (host, pure-Python featurizer)", flush=True)
+          f"{summary['featurize_seconds']:.3f} s (host, {summary['featurizer']} featurizer)",
+          flush=True)
     print(f"[{tag}] model forward, batch of {n_mol} molecules (already on the card): "
           f"{step_ms:.3f} ms = {mps:.1f} mol/s", flush=True)
     return launches
+
+
+def _features_equal(a, b) -> bool:
+    if (a is None) or (b is None):
+        return (a is None) and (b is None)
+    same = a.smiles == b.smiles and a.total_charge == b.total_charge
+    for key in ("atom_type", "hydrogen_count", "degree", "hybridization", "atomic_numbers",
+                "tet_nbrs", "cis_pairs", "trans_pairs"):
+        x, y = getattr(a, key), getattr(b, key)
+        same = same and x.shape == y.shape and np.array_equal(x, y)
+    return same and all(x.shape == y.shape and np.array_equal(x, y)
+                        for x, y in zip(a.edge_hops, b.edge_hops))
+
+
+def _batches_equal(a, b) -> list:
+    """Names of the MolBatch fields that differ (arrays by value and shape)."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if not (isinstance(y, np.ndarray) and x.shape == y.shape and np.array_equal(x, y)):
+                bad.append(f.name)
+        elif (x is None) != (y is None) or (isinstance(x, bool) and x != y):
+            bad.append(f.name)
+    return bad
+
+
+def native_phase(smiles, seed: int, build_s: float) -> None:
+    """[native]: the native featurizer against the pure-Python one, array
+    for array, on the script's first 512 SMILES, the first 512 with stereo
+    content and 8 molecules larger than a bin, with both host times; then
+    one 2048-molecule binned batch from the native builder against the
+    Python collate + bin-pack, array for array, with both build times."""
+    from aimnet_x2d_tpu_torch.chem import native
+    from aimnet_x2d_tpu_torch.chem.featurize import compute_features
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+
+    print(f"[native] library built by g++ in {build_s:.1f} s (host clock, beside the kernels' "
+          f"nvcc)", flush=True)
+    rng = np.random.default_rng(seed + 9)
+    sets = (("flagship SMILES", smiles[:512]),
+            ("stereo SMILES", make_smiles(512, seed + 1, stereo=True)),
+            ("large molecules", [large_smiles(rng) for _ in range(8)]))
+    for name, sm in sets:
+        t0 = time.perf_counter()
+        ref = [compute_features(s, 3) for s in sm]
+        t1 = time.perf_counter()
+        got = native.compute_features_batch(sm, 3, num_threads=1)
+        t2 = time.perf_counter()
+        got_t = native.compute_features_batch(sm, 3, num_threads=FEAT_THREADS)
+        t3 = time.perf_counter()
+        bad = [i for i, (a, b, r) in enumerate(zip(got, got_t, ref))
+               if not (_features_equal(a, r) and _features_equal(b, r))]
+        atoms = sum(r.num_atoms for r in ref if r is not None)
+        print(f"[native] {len(sm)} {name} ({atoms} atoms with H): array-exact against the "
+              f"pure-Python featurizer {not bad}; host pure-Python {t1 - t0:.3f} s, native "
+              f"{t2 - t1:.3f} s on 1 thread, {t3 - t2:.3f} s on {FEAT_THREADS} threads "
+              f"(host clock)", flush=True)
+        if bad:
+            raise AssertionError(f"native features differ from the pure-Python ones at {bad[:5]}")
+
+    targets = np.zeros((2048, 1), np.float32)
+    ds = MoleculeDataset.from_smiles(smiles[:2048], targets, 3, FEAT_THREADS)
+    os.environ["AIMNET_NO_NATIVE"] = "1"
+    try:
+        py_ds = MoleculeDataset.from_smiles(smiles[:2048], targets, 3)
+    finally:
+        os.environ.pop("AIMNET_NO_NATIVE", None)
+    times, batches = {}, {}
+    for name, d, env in (("native", ds, None), ("python", py_ds, "1")):
+        loader = BatchLoader(d, 2048)
+        loader.warm_bin_pins()
+        if env:
+            os.environ["AIMNET_NO_NATIVE"] = env
+        try:
+            t0 = time.perf_counter()
+            batches[name] = next(iter(loader))
+            times[name] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("AIMNET_NO_NATIVE", None)
+    bad = _batches_equal(batches["native"], batches["python"])
+    print(f"[native] one binned batch of 2048 molecules: array-exact against the Python collate "
+          f"+ bin-pack {not bad}; host build native {times['native']:.4f} s, Python "
+          f"{times['python']:.4f} s (host clock)", flush=True)
+    if bad:
+        raise AssertionError(f"the native binned batch differs in {bad}")
+
+
+def mc_serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, n_cpu: int = 256) -> dict:
+    """[mc-serve]: the flagship with dropout (``cfg``) serves ``smiles``
+    through the CLI with ``--mc_samples``: kernel 1's training form and
+    kernel 3's forward launch MC_SAMPLES times a batch, no serving form and
+    no backward; outputs finite with std > 0; one sample at a fixed
+    drop_seed with ffn_dropout 0 on the card against the CPU plain versions
+    (E2E_TOL); one sample's time against one deterministic forward."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp, bin_wpool
+
+    import pandas as pd
+
+    tag = "mc-serve"
+    art, csv_in, csv_out, flat, prep, cols = write_artifact(cfg, smiles, seed, work, tag)
+    want = (bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd)
+    never = (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd, bin_mp.mp_stack_fwd_train_vocab,
+             bin_attnpool.attnpool_fwd_vocab, bin_mp.mp_stack_bwd, bin_mp.mp_stack_bwd_proj,
+             bin_attnpool.attnpool_bwd, bin_wpool.wpool_bwd)
+    for c in want + never:
+        c.launches = 0
+    summary = cli.main(["--inference_csv", csv_in, "--model_save_path", art,
+                        "--inference_output", csv_out, "--device", "cuda",
+                        "--mc_samples", str(MC_SAMPLES)])
+    launches = {c.__name__: c.launches for c in want}
+    ran = {c.__name__: c.launches for c in never}
+    n_batches = -(-len(smiles) // 2048)
+    print(f"[{tag}] launches on the main path ({MC_SAMPLES} samples, {n_batches} batches): "
+          f"{launches}; must not launch: {ran}", flush=True)
+    if any(v != MC_SAMPLES * n_batches for v in launches.values()) or any(ran.values()):
+        raise AssertionError(f"MC serving launched {launches}, {ran}")
+    out = pd.read_csv(csv_out)
+    ucols = [c + "_uncertainty" for c in cols]
+    vals, std = out[cols].to_numpy(np.float64), out[ucols].to_numpy(np.float64)
+    if (summary["inference_mode"] != "mc_dropout" or len(out) != len(smiles)
+            or not np.isfinite(vals).all() or not (np.isfinite(std).all() and (std > 0).all())):
+        raise AssertionError("MC outputs missing, not finite, or with a std that is not > 0")
+    print(f"[{tag}] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
+          f"= {summary['molecules_per_second']:.1f} mol/s end to end, featurization "
+          f"{summary['featurize_seconds']:.3f} s ({summary['featurizer']}); std over the samples "
+          f"in target units: median {np.median(std):.4e}, max {std.max():.4e}", flush=True)
+
+    # one sample, card against the CPU plain versions: with ffn_dropout 0
+    # the only mask is the stack's in-kernel hash of drop_seed
+    one = dataclasses.replace(cfg, ffn_dropout=0.0)
+    w = params_from_flax(flat)
+    models = {}
+    for where in ("cuda", "cpu"):
+        models[where] = pkg.models.gnn.GNN(one)
+        models[where].load_state_dict(w)
+        models[where].to(where).eval()
+    ds = MoleculeDataset.from_smiles(smiles[:n_cpu], np.zeros((n_cpu, 1), np.float32),
+                                     cfg.num_shells, FEAT_THREADS)
+    host = next(iter(BatchLoader(ds, n_cpu)))
+    gm = torch.from_numpy(host.graph_mask)
+    with torch.inference_mode():
+        got = models["cuda"](host.to("cuda"), train=True, drop_seed=MC_SEED).predictions.cpu()[gm]
+        ref = models["cpu"](host.to("cpu"), train=True, drop_seed=MC_SEED).predictions[gm]
+        det = models["cpu"](host.to("cpu")).predictions[gm]
+    abs_err, rel = rel_err(got, ref)
+    print(f"[{tag}] one sample (drop_seed {MC_SEED}, ffn_dropout 0) card vs cpu on {n_cpu} "
+          f"molecules: max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {E2E_TOL:g}); the sample "
+          f"differs from the deterministic forward by {float((ref - det).abs().max()):.3e}",
+          flush=True)
+    if not rel <= E2E_TOL or torch.equal(ref, det):
+        raise AssertionError(f"one MC sample: card vs cpu {rel:.3e}, or no unit was dropped")
+
+    # one sample against one deterministic forward on the 2048-molecule batch
+    del models
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mc_model = pkg.models.gnn.GNN(cfg)
+    mc_model.load_state_dict(w)
+    mc_model.to("cuda").eval()
+    with torch.inference_mode():
+        det_ms = time_ms(lambda: mc_model(dev_batch), iters=10)
+        mc_ms = time_ms(lambda: mc_model(dev_batch, train=True, generator=gen), iters=10)
+    n_mol = int(dev_batch.graph_mask.sum())
+    print(f"[{tag}] batch of {n_mol} molecules on the card (CUDA events): one MC sample "
+          f"{mc_ms:.3f} ms, one deterministic forward {det_ms:.3f} ms (x{mc_ms / det_ms:.2f})",
+          flush=True)
+    return launches
+
+
+def evid_serve(pkg, cfg, smiles, seed: int, work: str, n_cpu: int = 256) -> None:
+    """[evid-serve]: an evidential flagship artifact served through the
+    CLI with ``--inference_mode evidential`` (the serving kernels 1 and 2),
+    the four columns per target against the CPU run of the first ``n_cpu``
+    molecules (E2E_TOL), uncertainties finite and positive."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.training.predictor import predict_evidential
+
+    import pandas as pd
+
+    tag = "evid-serve"
+    ecfg = dataclasses.replace(cfg, loss_function="evidential")
+    art, csv_in, csv_out, flat, prep, cols = write_artifact(ecfg, smiles, seed, work, tag)
+    want = (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd)
+    never = (bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd)
+    for c in want + never:
+        c.launches = 0
+    summary = cli.main(["--inference_csv", csv_in, "--model_save_path", art,
+                        "--inference_output", csv_out, "--device", "cuda",
+                        "--inference_mode", "evidential"])
+    launches = {c.__name__: c.launches for c in want}
+    ran = {c.__name__: c.launches for c in never}
+    print(f"[{tag}] launches on the main path: {launches}; must not launch: {ran}", flush=True)
+    if min(launches.values()) <= 0 or any(ran.values()):
+        raise AssertionError(f"evidential serving launched {launches}, {ran}")
+    out = pd.read_csv(csv_out)
+    keys = (("predictions", ""), ("aleatoric_uncertainty", "_aleatoric"),
+            ("epistemic_uncertainty", "_epistemic"), ("total_uncertainty", "_total_uncertainty"))
+    if len(out) != len(smiles):
+        raise AssertionError(f"{len(out)} rows for {len(smiles)} SMILES")
+    for _, suffix in keys[1:]:
+        u = out[[c + suffix for c in cols]].to_numpy(np.float64)
+        if not (np.isfinite(u).all() and (u > 0).all()):
+            raise AssertionError(f"{suffix} uncertainties not finite and positive")
+    model_cpu = pkg.models.gnn.GNN(ecfg)
+    model_cpu.load_state_dict(params_from_flax(flat))
+    ds = MoleculeDataset.from_smiles(smiles[:n_cpu], np.zeros((n_cpu, 1), np.float32),
+                                     cfg.num_shells, FEAT_THREADS)
+    ref = predict_evidential(model_cpu.eval(), BatchLoader(ds, n_cpu), "cpu", len(cols),
+                             pipeline=prep)
+    worst = 0.0
+    for key, suffix in keys:
+        card = out[[c + suffix for c in cols]].to_numpy(np.float64)[:n_cpu]
+        r = np.asarray(ref[key], np.float64)
+        worst = max(worst, float(np.abs(card - r).max()) / max(float(np.abs(r).max()), 1e-30))
+    print(f"[{tag}] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
+          f"= {summary['molecules_per_second']:.1f} mol/s, featurization "
+          f"{summary['featurize_seconds']:.3f} s ({summary['featurizer']}); card vs cpu on "
+          f"{n_cpu} molecules, gamma and the three uncertainties: max rel={worst:.3e} "
+          f"(tol {E2E_TOL:g})", flush=True)
+    if not worst <= E2E_TOL:
+        raise AssertionError(f"evidential outputs differ from the CPU run: {worst:.3e}")
 
 
 def _max_rel(pairs) -> tuple:
@@ -3574,6 +3845,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import aimnet_x2d_tpu_torch as pkg
     import aimnet_x2d_tpu_torch.models.gnn  # noqa: F401
+    from aimnet_x2d_tpu_torch.chem import native
     from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
     from aimnet_x2d_tpu_torch.ops import cuda_build
 
@@ -3587,13 +3859,30 @@ def main() -> int:
 
     t0 = time.perf_counter()
     marks_build = start_marks_build()
+    native_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.build()
+        except Exception as e:  # re-raised below
+            native_build["error"] = e
+        native_build["s"] = time.perf_counter() - t
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()  # g++ beside the nvcc processes
     cuda_build.build_all(verbose=True)
+    native_thread.join()
+    if "error" in native_build:
+        raise native_build["error"]
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = flagship_config(pkg)
     smiles = make_smiles(args.molecules, args.seed)
+    native_phase(smiles, args.seed, native_build["s"])
     t0 = time.perf_counter()
-    ds = MoleculeDataset.from_smiles(smiles[:2048], np.zeros((2048, 1), np.float32), cfg.num_shells)
+    ds = MoleculeDataset.from_smiles(smiles[:2048], np.zeros((2048, 1), np.float32), cfg.num_shells,
+                                     FEAT_THREADS)
     t1 = time.perf_counter()
     loader = BatchLoader(ds, 2048)
     loader.warm_bin_pins()
@@ -3605,8 +3894,9 @@ def main() -> int:
     batch = host_batch.to("cuda")
     torch.cuda.synchronize()
     t4 = time.perf_counter()
-    print(f"[data] 2048 molecules (mean {np.mean([f.num_atoms for f in ds.features]):.1f} atoms "
-          f"with H): featurize {t1 - t0:.3f} s, collate + bin-pack {t2 - t1:.3f} s, "
+    print(f"[data] 2048 molecules (mean {ds.sizes()['atoms'].mean():.1f} atoms "
+          f"with H): featurize {t1 - t0:.3f} s ({native.describe(FEAT_THREADS)}), "
+          f"collate + bin-pack {t2 - t1:.3f} s ({'native' if native.native_enabled() else 'Python'}), "
           f"copy to the card {t4 - t3:.4f} s (first copy {t3 - t2:.3f} s; host clock)", flush=True)
 
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
@@ -3619,11 +3909,14 @@ def main() -> int:
     tmodel.to("cuda")
     res = check_kernels(pkg, cfg, batch, args.seed)
     launches = serve(pkg, cfg, smiles, args.seed, work, batch)
+    mc_serve(pkg, tcfg, smiles[:2048], args.seed, work, batch)
+    evid_serve(pkg, cfg, smiles[:2048], args.seed, work)
+    print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     for name, r in check_train_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build).items():
         res[(name, torch.bfloat16)] = r
     res.update(check_fold_kernels(pkg, tcfg, tmodel, tbatch, args.seed, marks_build))
     full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
-                                       cfg.num_shells)
+                                       cfg.num_shells, FEAT_THREADS)
     launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
     print(f"[time] flagship phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -3655,7 +3948,7 @@ def main() -> int:
     c3 = config3(cfg)
     c3_smiles = make_smiles(args.molecules, args.seed + 1, stereo=True)
     c3_full = MoleculeDataset.from_smiles(c3_smiles, np.zeros((len(c3_smiles), 1), np.float32),
-                                          cfg.num_shells)
+                                          cfg.num_shells, FEAT_THREADS)
     c3_ds = MoleculeDataset(c3_full.smiles[:2048], c3_full.targets[:2048],
                             c3_full.features[:2048], c3_full.max_hops)
     c3_tcfg = train_config(c3)
@@ -3692,7 +3985,7 @@ def main() -> int:
     # featurized for 1 shell
     c1 = config1(cfg)
     c1_full = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
-                                          c1.num_shells)
+                                          c1.num_shells, FEAT_THREADS)
     c1_ds = MoleculeDataset(c1_full.smiles[:2048], c1_full.targets[:2048],
                             c1_full.features[:2048], c1_full.max_hops)
     c1_tcfg = train_config(c1)
@@ -3725,8 +4018,8 @@ def main() -> int:
     fl_smiles = flat_smiles(args.molecules, args.seed)
     t0 = time.perf_counter()
     fl_full = MoleculeDataset.from_smiles(fl_smiles, np.zeros((len(fl_smiles), 1), np.float32),
-                                          cfg.num_shells)
-    sizes = np.array([f.num_atoms for f in fl_full.features])
+                                          cfg.num_shells, FEAT_THREADS)
+    sizes = fl_full.sizes()["atoms"]
     big = sizes > 256
     print(f"[flat-data] {len(fl_full)} molecules, {int(big.sum())} of them larger than a bin "
           f"({int(sizes[big].min())}-{int(sizes[big].max())} atoms with H), {int(big[:128].sum())} "
@@ -3804,9 +4097,9 @@ def main() -> int:
     c3f_smiles = flat_smiles(args.molecules, args.seed + 1, stereo=True)
     t0 = time.perf_counter()
     c3f_full = MoleculeDataset.from_smiles(c3f_smiles, np.zeros((len(c3f_smiles), 1), np.float32),
-                                           cfg.num_shells)
+                                           cfg.num_shells, FEAT_THREADS)
     c3f_host = next(iter(BatchLoader(c3f_full, 2048)))
-    n_big = int(sum(f.num_atoms > 256 for f in c3f_full.features))
+    n_big = int((c3f_full.sizes()["atoms"] > 256).sum())
     print(f"[c3-flat] {len(c3f_full)} molecules, {n_big} larger than a bin; the first batch: "
           f"{int(c3f_host.tet_mask.sum())} tetrahedral centres, "
           f"{int(c3f_host.cis_mask.sum() + c3f_host.trans_mask.sum())} cis/trans rows; featurize "
@@ -3894,6 +4187,7 @@ def main() -> int:
           f"stack site; device ms, split, host us a call) "
           f"{json.dumps(BWD_RECORD)}; train steps' device ms "
           f"{json.dumps(steps)}", flush=True)
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s (host clock)", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1691,3 +1691,104 @@ def test_bin_pool_autograd_runs_the_backward_tiles(dev, dtype):
     assert (bin_pool.bin_pool_bwd.routes["tiles"], bin_pool.bin_pool_bwd.routes["bins"]) == \
         (b0["tiles"] + 1, b0["bins"])
     assert torch.isfinite(x.grad.float()).all() and torch.isfinite(sk.grad).all()
+
+
+# --------------------------------------------------------------------- #
+# MC-dropout and evidential serving at the flagship widths (bf16)
+# --------------------------------------------------------------------- #
+
+
+def _serving_case(cfg, n=96, seed=0):
+    """(model on the card, its CPU twin, a 2-batch serving loader) of
+    ``cfg`` on chip_smoke's SMILES, weights from ``seed``."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.models.gnn import GNN
+    from chip_smoke import make_smiles
+
+    flat = params_from_flax(init_params(cfg, seed))
+    models = []
+    for where in ("cuda", "cpu"):
+        m = GNN(cfg)
+        m.load_state_dict(flat)
+        models.append(m.to(where).eval())
+    ds = MoleculeDataset.from_smiles(make_smiles(n, seed), np.zeros((n, 1), np.float32),
+                                     cfg.num_shells)
+    return models[0], models[1], BatchLoader(ds, n // 2)
+
+
+def test_mc_serving_launches_only_training_forwards(dev):
+    """predict_mc_dropout on the flagship with dropout: kernel 1's training
+    form and kernel 3's forward S times a batch, no serving form and no
+    backward; after a first call (which sets up the libraries' workspaces)
+    nothing stays allocated on the card from one call to the next."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+    from aimnet_x2d_tpu_torch.training.predictor import predict_mc_dropout
+    from chip_smoke import flagship_config, train_config
+    import aimnet_x2d_tpu_torch as pkg
+    import aimnet_x2d_tpu_torch.models.gnn  # noqa: F401
+
+    cfg = train_config(flagship_config(pkg))
+    model, _, loader = _serving_case(cfg)
+    want = (bin_mp.mp_stack_fwd_train, bin_attnpool.attnpool_fwd)
+    never = (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd, bin_mp.mp_stack_bwd,
+             bin_mp.mp_stack_bwd_proj, bin_attnpool.attnpool_bwd, bin_wpool.wpool_bwd,
+             bin_mp.mp_stack_fwd_train_vocab)
+    predict_mc_dropout(model, loader, dev, 1)
+    for c in want + never:
+        c.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    S = 3
+    res = predict_mc_dropout(model, loader, dev, S)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert [c.launches for c in want] == [S * len(loader)] * 2
+    assert [c.launches for c in never] == [0] * len(never)
+    assert np.isfinite(res["predictions"]).all() and (res["uncertainty"] > 0).all()
+
+
+def test_mc_sample_matches_cpu(dev):
+    """One stochastic forward at a fixed drop_seed with ffn_dropout 0: the
+    stack's in-kernel mask is the hash of the seed on both sides, so the
+    card matches the CPU plain versions at the bf16 bar (5e-2)."""
+    import dataclasses
+
+    from chip_smoke import flagship_config, train_config
+    import aimnet_x2d_tpu_torch as pkg
+    import aimnet_x2d_tpu_torch.models.gnn  # noqa: F401
+
+    cfg = dataclasses.replace(train_config(flagship_config(pkg)), ffn_dropout=0.0)
+    model, model_cpu, loader = _serving_case(cfg, seed=2)
+    host = next(iter(loader))
+    with torch.inference_mode():
+        got = model(host.to(dev), train=True, drop_seed=1234).predictions.cpu()
+        again = model(host.to(dev), train=True, drop_seed=1234).predictions.cpu()
+        ref = model_cpu(host.to("cpu"), train=True, drop_seed=1234).predictions
+        det = model_cpu(host.to("cpu")).predictions
+    gm = torch.from_numpy(host.graph_mask)
+    assert torch.equal(got, again)
+    assert _rel(got[gm], ref[gm]) < 5e-2
+    assert not torch.equal(ref[gm], det[gm])  # the mask dropped something
+
+
+def test_evidential_serving_matches_cpu(dev):
+    """predict_evidential on the card against the CPU run of the same
+    evidential flagship at the bf16 bar, uncertainties positive."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.training.predictor import predict_evidential
+    from chip_smoke import flagship_config
+    import aimnet_x2d_tpu_torch as pkg
+    import aimnet_x2d_tpu_torch.models.gnn  # noqa: F401
+
+    cfg = dataclasses.replace(flagship_config(pkg), loss_function="evidential")
+    model, model_cpu, loader = _serving_case(cfg, seed=3)
+    got = predict_evidential(model, loader, dev, cfg.output_dim)
+    ref = predict_evidential(model_cpu, loader, "cpu", cfg.output_dim)
+    for key in ref:
+        g, r = torch.from_numpy(np.asarray(got[key])), torch.from_numpy(np.asarray(ref[key]))
+        assert _rel(g, r) < 5e-2, key
+    assert (got["aleatoric_uncertainty"] > 0).all() and (got["epistemic_uncertainty"] > 0).all()

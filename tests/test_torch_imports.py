@@ -32,7 +32,8 @@ def test_port_has_modules():
                 "training/evaluator.py", "training/schedulers.py", "data/io.py", "runner.py",
                 "ops/fused_edge.py", "ops/pallas_segment.py", "ops/segment.py", "ops/halo.py",
                 "parallel/halo.py", "parallel/mesh.py", "parallel/multihost.py",
-                "parallel/graph_parallel.py"):
+                "parallel/graph_parallel.py", "chem/native.py", "data/native_batch.py",
+                "training/predictor.py", "inference/pipeline.py"):
         assert f"aimnet_x2d_tpu_torch/{mod}" in names
     for src in ("mp_stack.cu", "mp_stack_bwd.cu", "attnpool.cu", "wpool.cu", "common.cuh",
                 "wgrad.cuh", "fused_edge.cu", "mp_ext.cu"):
