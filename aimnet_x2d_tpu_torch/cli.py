@@ -19,6 +19,9 @@ CSV of SMILES.
     # starts the 4 rank processes itself (or run it under torchrun with 4)
     python -m aimnet_x2d_tpu_torch.cli --data_path train.csv ... \\
         --num_devices 2 --graph_shards 2
+    # serve over 2 ranks (each a contiguous part of the CSV; rank 0 merges)
+    python -m torch.distributed.run --nproc_per_node 2 -m aimnet_x2d_tpu_torch.cli \\
+        --inference_csv mols.csv --model_save_path model.npz --inference_output preds.csv
 
 The flags are those of the JAX package's CLI that the port supports, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
@@ -28,8 +31,10 @@ the kernels): every pooling type, partial charges and stereochemistry
 layer-wise LR decay, checkpoint/resume, wandb tracking and
 ``--experiment_config``, training over several ranks: ``--num_devices``
 data shards per step, each split into ``--graph_shards`` halo graph shards
-(runner.py starts the ranks), and serving in every ``--inference_mode``
-(deterministic, MC-dropout with ``--mc_samples``, evidential).
+(runner.py starts the ranks; config 3 included), and
+serving in every ``--inference_mode`` (deterministic, MC-dropout with
+``--mc_samples``, evidential), over the ranks of ``torchrun`` when it runs
+under it.
 ``--num_workers`` (and ``--precompute_num_workers`` for training) set the
 native featurizer's threads.  Flags of features that are later slices of
 the port (HDF5 streaming, embedding output, hyperparameter search) are

@@ -1,11 +1,12 @@
 """Argument validation, output directories and the experiment record
 (counterpart of aimnet_x2d_tpu/config.py).  The rank checks of
 ``--num_devices`` / ``--graph_shards``: JAX counts ``jax.devices()``; here
-each rank is a process, so under ``torchrun`` the world size must be
-``num_devices x graph_shards`` (1 without the flags: torchrun with several
-ranks and no grid would run the single-rank trainer in each, all writing the
-same artifact), and otherwise the CLI starts that many
-ranks itself (several may share one card)."""
+each rank is a process, so for training under ``torchrun`` the world size
+must be ``num_devices x graph_shards`` (1 without the flags: torchrun with
+several ranks and no grid would run the single-rank trainer in each, all
+writing the same artifact), and otherwise the CLI starts that many ranks
+itself (several may share one card).  Serving takes its ranks from
+torchrun whatever the flags say (inference/engine.py)."""
 
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ def validate_args(args: argparse.Namespace) -> List[str]:
                       "semantics (drop --true_multi_hop)")
     world = os.environ.get("WORLD_SIZE")
     need = (args.num_devices or 1) * max(g_shards, 1)
-    if world is not None and "RANK" in os.environ and int(world) != need:
+    if (not args.is_inference and world is not None and "RANK" in os.environ
+            and int(world) != need):
         errors.append(f"--num_devices {args.num_devices or 1} x --graph_shards {g_shards} needs "
                       f"{need} ranks, torchrun started {world}")
 

@@ -124,16 +124,21 @@ class MolBatch:
     def num_graph_slots(self) -> int:
         return self.total_charge.shape[-1]
 
-    def to(self, device: "str | torch.device") -> "MolBatch":
-        """Copy with every array field (and the edge layouts' arrays) as a
-        torch tensor on ``device``."""
+    def to(self, device: "str | torch.device", copy=None) -> "MolBatch":
+        """Copy with every array or tensor field (and the edge layouts'
+        arrays) as a torch tensor on ``device``; ``copy`` (a tensor -> its copy on
+        the device), when given, makes each copy instead of ``.to(device)``
+        (the train loop's prefetch copies on a stream of its own)."""
+        copy = copy or (lambda t: t.to(device))
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, np.ndarray):
-                v = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                v = copy(torch.from_numpy(np.ascontiguousarray(v)))
+            elif isinstance(v, torch.Tensor):
+                v = copy(v)
             elif isinstance(v, EdgeLayout):
-                v = v.to(device)
+                v = v.to(device, copy)
             out[f.name] = v
         return MolBatch(**out)
 

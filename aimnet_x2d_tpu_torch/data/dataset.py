@@ -16,7 +16,10 @@ C++ featurizer fills a columnar cache, and the C++ builder packs each
 binned batch from it (chem/native.py, data/native_batch.py, both equal
 array for array to the Python code).  ``AIMNET_NO_NATIVE=1`` selects the
 pure-Python featurizer and the Python collate + bin-pack.  Flat batches
-and halo shards are always collated in Python.
+and halo shards are always collated in Python.  On the card the train loop
+has the native builder recycle its output buffers through rotating sets of
+pinned scratch (``BatchLoader.rotate_scratch``); elsewhere every batch owns
+fresh arrays.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from .binning import (
     bin_pack_batch,
     plan_bin_counts,
 )
-from .native_batch import ColumnarCache, LazyFeatures, build_binned_batch
+from .native_batch import SCRATCH_SETS, ColumnarCache, LazyFeatures, build_binned_batch
 
 
 def featurize_many(
@@ -206,6 +209,23 @@ class BatchLoader:
         self.tet_slots = bucket_size(int(np.sort(tets)[-k:].sum()) + 1 if len(tets) else 8)
         self.pair_slots = bucket_size(int(np.sort(pairs)[-k:].sum()) + 1 if len(pairs) else 8)
         self._columnar: Optional[ColumnarCache] = None
+        # the native builder's rotating scratch sets (rotate_scratch); None:
+        # every batch owns fresh arrays
+        self._scratches: Optional[List[dict]] = None
+        self._scratch_i = 0
+
+    def rotate_scratch(self) -> None:
+        """Recycle the native builder's output buffers through
+        ``SCRATCH_SETS x max(1, stack_devices)`` scratch sets (the JAX
+        loader's rotation on its accelerator), in pinned host memory where
+        there is a card.  Only for a consumer that copies each batch off the
+        host before that many more are built, as the train loop's prefetch
+        does on the card (data/native_batch.py, ``SCRATCH_SETS``)."""
+        import torch
+
+        n_sets = SCRATCH_SETS * max(1, self.stack_devices)
+        self._scratches = [{"pinned": torch.cuda.is_available()} for _ in range(n_sets)]
+        self._scratch_i = 0
 
     def pin_slots(self, slots: dict) -> dict:
         """Grow this loader's slot caps to at least ``slots`` and update
@@ -290,10 +310,15 @@ class BatchLoader:
         native_binned = (self.binned and self.halo_shards == 1 and native.native_enabled()
                          and len(self.dataset))
         if native_binned:
+            scratch = None
+            if self._scratches is not None:
+                scratch = self._scratches[self._scratch_i]
+                self._scratch_i = (self._scratch_i + 1) % len(self._scratches)
             return build_binned_batch(
                 self._native_cache(), idx, self.dataset.targets[idx], ab=self.bin_ab,
                 mb_cap=self.bin_mb, edge_slots=self.edge_slots, tet_slots=self.tet_slots,
-                pair_slots=self.pair_slots, pins=self._bin_pins, size_sort=self.size_sort)
+                pair_slots=self.pair_slots, pins=self._bin_pins, scratch=scratch,
+                size_sort=self.size_sort)
         batch = collate(
             [self.dataset.features[i] for i in idx],
             self.dataset.targets[idx],

@@ -236,14 +236,32 @@ def _check_cache(cache: ColumnarCache) -> None:
 
 # Scratch sets a loader that recycles the builder's output buffers must
 # rotate through: a batch's host arrays may be rewritten only after its copy
-# to the card.  With the JAX package's two-stage prefetch, 1 batch being
-# built + 2 queued for collate + 1 in transfer + 2 queued on the device + 1
-# in the step are in flight, 8 with a margin.  Rotating fewer sets than the
+# to the card.  The train loop's two-stage prefetch
+# (training/trainer.py::prefetch_batches, size 2) holds 1 batch being built
+# + 2 queued for transfer + 1 in transfer + 2 queued on the device + 1 in
+# the step, 7 in flight; 8 adds a margin.  Rotating fewer sets than the
 # batches in flight lets a later batch overwrite a queued one before its
 # copy, so features no longer match their targets (the JAX package's
-# round-4 training collapse).  The port's loaders pass no scratch until
-# that prefetch is ported.
+# round-4 training collapse); prefetch_batches refuses a depth that needs
+# more.  The loaders rotate them on the card only (BatchLoader.rotate_scratch,
+# which ``train`` calls there), with pinned buffers that the copy stream reads
+# directly; on the CPU the model reads the host arrays themselves, so every
+# batch owns fresh ones.
 SCRATCH_SETS = 8
+
+
+def _scratch_buffer(shape, dt, fill, pinned: bool) -> np.ndarray:
+    """One of the builder's output buffers, filled with ``fill``: a numpy
+    array, or with ``pinned`` a view of a pinned (page-locked) torch host
+    tensor, which a non-blocking copy to the card reads with no staging
+    copy (the array keeps its tensor alive)."""
+    if not pinned:
+        return np.full(shape, fill, dt)
+    import torch
+
+    a = torch.empty(shape, dtype=torch.from_numpy(np.zeros(0, dt)).dtype, pin_memory=True).numpy()
+    a.fill(fill)
+    return a
 
 
 def build_binned_batch(
@@ -268,8 +286,9 @@ def build_binned_batch(
     ``scratch`` (a dict the caller owns) recycles the large output buffers
     across calls of the same shape: the returned batch then aliases them,
     which is safe only when each batch is copied off the host before the
-    same scratch dict builds another (see ``SCRATCH_SETS``).  Without it
-    every batch owns fresh arrays.
+    same scratch dict builds another (see ``SCRATCH_SETS``).  With
+    ``scratch["pinned"]`` true the buffers are pinned host memory.  Without
+    it every batch owns fresh arrays.
     """
     lib = native.load_library()
     _check_cache(cache)
@@ -313,13 +332,13 @@ def build_binned_batch(
         bufs = scratch["bufs"]
         clear = 1  # the C side resets the reused buffers
     else:
-        bufs = (
-            np.zeros(A2, np.int32), np.zeros(A2, np.int32), np.zeros(A2, np.int32),
-            np.zeros(A2, np.int32), np.full(A2, B2, np.int32), np.zeros(A2, np.uint8),
-            np.zeros(edge_slots, np.int32), np.full(edge_slots, A2, np.int32),
-            np.zeros(edge_slots, np.int32), np.zeros(edge_slots, np.uint8),
-            np.zeros((nbins_p, ab, ab), np.int8), np.zeros((nbins_p, mb, ab), np.int8),
-        )
+        pinned = scratch is not None and bool(scratch.get("pinned"))
+        bufs = tuple(_scratch_buffer(shape, dt, fill, pinned) for shape, dt, fill in (
+            (A2, np.int32, 0), (A2, np.int32, 0), (A2, np.int32, 0), (A2, np.int32, 0),
+            (A2, np.int32, B2), (A2, np.uint8, 0),
+            (edge_slots, np.int32, 0), (edge_slots, np.int32, A2), (edge_slots, np.int32, 0),
+            (edge_slots, np.uint8, 0), ((nbins_p, ab, ab), np.int8, 0),
+            ((nbins_p, mb, ab), np.int8, 0)))
         clear = 0
         if scratch is not None:
             scratch["key"], scratch["bufs"] = key, bufs

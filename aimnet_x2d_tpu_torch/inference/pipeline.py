@@ -9,12 +9,18 @@ the chosen device, deterministic, MC-dropout (``mc_samples`` stochastic
 forwards, mean and std) or evidential (gamma with aleatoric, epistemic and
 total uncertainty) -> inverse transform -> append to the output CSV.  The
 artifact is self-describing: model config, weights and preprocessing come
-from one file.  Embedding output, HDF5 input and multi-host sharding are
-later slices of the port.
+from one file.
+
+Over several ranks (one process each, ``torchrun``; parallel/multihost.py)
+``run_csv`` shards the CSV into contiguous line ranges, one per rank, each
+rank writes ``<out>.rank<r>``, and after a barrier rank 0 merges the rank
+files in rank order and removes them (the JAX ``run_csv``).  Embedding
+output and HDF5 input are later slices of the port.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -28,6 +34,7 @@ from ..checkpoint import Artifact, load_artifact, params_from_flax
 from ..chem import native
 from ..data.dataset import BatchLoader, MoleculeDataset
 from ..models.gnn import GNN
+from ..parallel import multihost
 from ..training.predictor import predict, predict_evidential, predict_mc_dropout
 from ..utils.device import resolve_device
 
@@ -169,20 +176,78 @@ class StreamingInferencePipeline:
             )
         return n_total, n_valid
 
+    @staticmethod
+    def _csv_data_rows(csv_path: str) -> int:
+        """Data lines of a CSV: its lines less the header."""
+        with open(csv_path, "rb") as fh:
+            n = sum(1 for _ in fh)
+        return max(n - 1, 0)
+
+    @staticmethod
+    def _merge_rank_files(output_path: str, num_hosts: int) -> None:
+        """Concatenate ``<out>.rank0 .. rank<n-1>`` into ``output_path`` in
+        rank order (their rows are the CSV's line ranges in order), then
+        remove them."""
+        frames = []
+        for h in range(num_hosts):
+            shard = f"{output_path}.rank{h}"
+            if os.path.exists(shard):
+                df = pd.read_csv(shard)
+                if len(df):
+                    frames.append(df)
+        merged = pd.concat(frames, ignore_index=True) if frames else pd.DataFrame()
+        merged.to_csv(output_path, index=False)
+        for h in range(num_hosts):
+            shard = f"{output_path}.rank{h}"
+            if os.path.exists(shard):
+                os.remove(shard)
+
     def run_csv(
-        self, csv_path: str, output_path: str, smiles_column: str = "smiles"
+        self,
+        csv_path: str,
+        output_path: str,
+        smiles_column: str = "smiles",
+        host_id: Optional[int] = None,
+        num_hosts: Optional[int] = None,
     ) -> Dict[str, Any]:
         """Predict every SMILES of ``csv_path`` into ``output_path``;
-        return counts and timings (featurization time shown apart)."""
+        return counts and timings (featurization time shown apart).
+
+        Over several ranks (``num_hosts`` > 1; by default the process
+        group's size and this process's rank) rank ``host_id`` predicts the
+        contiguous line range ``[host_id * per, (host_id + 1) * per)`` of the
+        CSV's ``n`` data lines, ``per = ceil(n / num_hosts)``, into
+        ``<output_path>.rank<host_id>``; the counts are all-gathered, and
+        after a barrier rank 0 merges the rank files in rank order and
+        removes them, then every rank waits for the merge."""
+        if num_hosts is None:
+            num_hosts = multihost.process_count()
+            host_id = multihost.process_index()
         t0 = time.perf_counter()
         self.featurize_seconds = 0.0
-        reader = pd.read_csv(csv_path, chunksize=self.chunk_size)
+        if num_hosts <= 1:
+            my_out = output_path
+            reader = pd.read_csv(csv_path, chunksize=self.chunk_size)
+        else:
+            n_rows = self._csv_data_rows(csv_path)
+            per = -(-n_rows // num_hosts)
+            start, end = host_id * per, min((host_id + 1) * per, n_rows)
+            my_out = f"{output_path}.rank{host_id}"
+            reader = pd.read_csv(csv_path, skiprows=range(1, 1 + start),
+                                 nrows=max(end - start, 0), chunksize=self.chunk_size)
 
         def chunks():
             for chunk in reader:
                 yield chunk[smiles_column].astype(str).tolist()
 
-        n_total, n_valid = self._run_chunks(chunks(), output_path)
+        n_total, n_valid = self._run_chunks(chunks(), my_out)
+        if num_hosts > 1:
+            counts = multihost.allgather_numpy(np.array([[n_total, n_valid]], np.int64))
+            multihost.sync()  # every rank file is complete past this point
+            n_total, n_valid = (int(x) for x in counts.sum(axis=0))
+            if host_id == 0:
+                self._merge_rank_files(output_path, num_hosts)
+            multihost.sync()  # hold the rank files until the merge is done
         dt = time.perf_counter() - t0
         summary = {
             "total_molecules": n_total,
@@ -194,9 +259,11 @@ class StreamingInferencePipeline:
             "featurizer": native.describe(self.num_workers),
             "inference_mode": self.mode,
             "molecules_per_second": n_valid / dt if dt > 0 else 0.0,
+            "ranks": num_hosts,
         }
         print(
-            f"[inference] {n_valid}/{n_total} molecules -> {output_path} on {self.device}, "
+            f"[inference] {n_valid}/{n_total} molecules -> {output_path} on {self.device}"
+            + (f" (rank {host_id} of {num_hosts})" if num_hosts > 1 else "") + ", "
             f"{self.mode} ({summary['molecules_per_second']:.0f} mol/s; featurization "
             f"{self.featurize_seconds:.2f} s of {dt:.2f} s, {summary['featurizer']})"
         )

@@ -65,19 +65,32 @@ models/pooling.py; max over the atom embeddings.  Its dropout masks
 (layers and FFN) come from the ``generator``.
 
 Forward on halo graph shards (a batch with ``halo_send_idx``, from
-parallel/halo.py with ``binned=True``; the JAX ``use_halo_stack`` route):
-the rank's atoms row-major through the embeddings and projections, then per
-layer the halo exchange over the graph axis (``GNNConfig.graph_axis``,
-default ``"graph"``, resolved by parallel/mesh.py), the local per-bin
-aggregation plus the halo rows' contribution (ops/halo.py), kernel 5 on
-``[x ; agg]`` (``binned_mp_layer_ext_t``) and the residual; then the atom
-embeddings and the segment pools with their per-molecule sums psummed over
-the graph axis (models/pooling.py), so molecules split across ranks pool
-exactly.  Dropout: the step's seed plus the graph rank, then
-``layer_drop_seed`` per layer, as JAX draws it.  Flat halo shards, partial
-charges or stereochemistry on halo shards, and graph-axis execution without
-halo shards are later slices of the port (ROADMAP Queue 1 item 8) and raise
-NotImplementedError.
+parallel/halo.py): the rank's atoms row-major through the embeddings and
+projections, then the layers over the graph axis (``GNNConfig.graph_axis``,
+default ``"graph"``, resolved by parallel/mesh.py), by one of two routes:
+
+- binned shards in parity mode (the JAX ``use_halo_stack`` route), per
+  layer: config 3's injections feature-major (:func:`charge_equilibration_t_seg`,
+  whose per-molecule sums are psummed over the graph axis, and
+  :func:`stereochemistry_t` on the shard's pair lists, since chunked
+  fragments may put a pair's ends in different bins), the halo exchange,
+  the local per-bin aggregation plus the halo rows' contribution
+  (ops/halo.py), kernel 5 on ``[x ; agg]`` (``binned_mp_layer_ext_t``) and
+  the residual; kernel 4 does not run there, as in JAX;
+- flat shards, and per-hop models on either layout (the row-major halo
+  route, JAX's layer loop with ``halo_send_idx``): the row-major injections
+  (the charge sums psummed) and ``ShellConvolutionLayer.forward``, whose
+  edges read ``[x ; halo_exchange(x)]`` and sum by ``index_add`` (JAX takes
+  ``segment_sum``, no kernel, with a graph axis).
+
+Then the atom embeddings and the segment pools with their per-molecule sums
+psummed over the graph axis (models/pooling.py), so molecules split across
+ranks pool exactly; with partial charges each rank's charges are row 0 of
+its final x_other.  On every route the stereo context's any-centre flag is
+a pmax over the axis.  Dropout on the halo stack: the step's seed plus the
+graph rank, then ``layer_drop_seed`` per layer, as JAX draws it.
+Graph-axis execution without halo shards (JAX's edge-replicated mode) is a
+later slice of the port and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -205,20 +218,8 @@ class GNNOutput:
 def _unsupported(cfg: GNNConfig) -> Optional[str]:
     if cfg.use_partial_charges and cfg.x_other_dim < 2:
         return "partial charges with fewer than 2 x_other features"
-    if cfg.graph_axis is not None:
-        return _halo_unsupported(cfg)
     if cfg.pooling_type not in POOLING_TYPES:
         return f"{cfg.pooling_type} pooling"
-    return None
-
-
-def _halo_unsupported(cfg: GNNConfig) -> Optional[str]:
-    """Why a model cannot run on halo graph shards, or None."""
-    if cfg.use_partial_charges or cfg.use_stereochemistry:
-        return ("partial charges or stereochemistry on graph shards (ROADMAP Queue 1 item 8: "
-                "JAX gnn.py _charge_equilibration_t_seg, _stereochemistry_t with graph_axis)")
-    if not cfg.parity_mode:
-        return "true per-hop aggregation on graph shards"
     return None
 
 
@@ -247,10 +248,11 @@ class StereoContext:
     """Per-batch stereo tables, built once on the batch's device (the JAX
     ``GNN._stereo_context``): on binned batches the signed int8 per-bin
     cis/trans adjacency (nb, ab, ab) (trans +1, cis -1 per directed pair,
-    duplicates counted; None on flat batches, which sum over the pair
-    lists), the clipped centre rows (C, 4) and their flat scatter index
-    (C*4,) (masked rows point at A), the mask of atoms next to a centre
-    (A,), and whether the batch has any centre (0-d bool)."""
+    duplicates counted; None on flat batches and halo shards, which sum
+    over the pair lists), the clipped centre rows (C, 4) and their flat
+    scatter index (C*4,) (masked rows point at A), the mask of atoms next to
+    a centre (A,), and whether the batch has any centre (0-d bool; on halo
+    shards any rank's, a pmax over the graph axis)."""
 
     stereo_adj: Optional[torch.Tensor]
     tet_nbrs: torch.Tensor
@@ -260,11 +262,14 @@ class StereoContext:
     any_tet: torch.Tensor
 
 
-def stereo_context(batch: MolBatch) -> StereoContext:
+def stereo_context(batch: MolBatch, ax: Optional[mesh.Axis] = None) -> StereoContext:
+    """The batch's stereo tables; ``ax``: the graph axis of a halo shard,
+    whose chunked fragments may put a cis/trans pair's ends in different
+    bins, so it keeps the pair lists (JAX ``_stereo_context``)."""
     A = batch.num_atom_slots
     dev = batch.atom_type.device
     sadj = None
-    if batch.bin_adj is not None:
+    if batch.bin_adj is not None and batch.halo_send_idx is None:
         nb, ab, _ = batch.bin_adj.shape
         idx, vals = [], []
         for pairs, mask, v in ((batch.cis_pairs, batch.cis_mask, -1.0),
@@ -278,13 +283,17 @@ def stereo_context(batch: MolBatch) -> StereoContext:
         sadj = sadj[:-1].reshape(nb, ab, ab).to(torch.int8)
     tet_flat = torch.where(batch.tet_mask[:, None], batch.tet_nbrs.long(),
                            torch.full_like(batch.tet_nbrs, A, dtype=torch.long)).reshape(-1)
+    any_tet = batch.tet_mask.any()
+    if ax is not None:
+        # the reference zeroes every atom off a centre when the BATCH has one
+        any_tet = ax.pmax(any_tet.int().reshape(1))[0] > 0
     return StereoContext(
         stereo_adj=sadj,
         tet_nbrs=batch.tet_nbrs.long().clamp(0, A - 1),
         tet_flat=tet_flat,
         tet_mask=batch.tet_mask,
         tet_nz=torch.bincount(tet_flat, minlength=A + 1)[:A] > 0,
-        any_tet=batch.tet_mask.any(),
+        any_tet=any_tet,
     )
 
 
@@ -319,19 +328,38 @@ def _tet_features(x: torch.Tensor, ctx: StereoContext) -> torch.Tensor:
     return torch.where(ctx.any_tet, torch.where(ctx.tet_nz[:, None], updated, zero), x)
 
 
+def _cis_trans_rows(x: torch.Tensor, batch: MolBatch) -> torch.Tensor:
+    """The cis/trans contribution from the pair lists, row-major x (A, D),
+    in x's dtype: -x[src] of each cis pair and +x[src] of each trans pair
+    summed into their destinations (JAX ``_cis_trans_features``' segment
+    path)."""
+    A = x.shape[0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    src = [torch.where(mask[:, None], x.index_select(0, pairs[:, 0].long().clamp(0, A - 1)), zero)
+           for pairs, mask in ((batch.cis_pairs, batch.cis_mask),
+                               (batch.trans_pairs, batch.trans_mask))]
+    return (segment_sum(-src[0], batch.cis_pairs[:, 1], A)
+            + segment_sum(src[1], batch.trans_pairs[:, 1], A))
+
+
 def stereochemistry_t(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor,
-                      ctx: StereoContext) -> torch.Tensor:
-    """Stereo injection (quirks Q6/Q7; JAX ``_stereochemistry_t``, binned
-    branch), feature-major x (D, A), in x's dtype as JAX runs it:
-    cct = x + (x S^T) per bin; tet = the tetrahedral feature; then
-    kb^T [x; cct; tet] (one fp32 sum, one cast) + b.  ``kb`` (3D, D) and
-    ``b`` (D,) are the stereo projection's fp32 masters."""
+                      ctx: StereoContext, batch: Optional[MolBatch] = None) -> torch.Tensor:
+    """Stereo injection (quirks Q6/Q7; JAX ``_stereochemistry_t``),
+    feature-major x (D, A), in x's dtype as JAX runs it: cct = x + (x S^T)
+    per bin, or, on a halo shard (no ``ctx.stereo_adj``), x plus the pair
+    lists' contribution of ``batch``, whose pairs may cross bins; tet = the
+    tetrahedral feature; then kb^T [x; cct; tet] (one fp32 sum, one cast) +
+    b.  ``kb`` (3D, D) and ``b`` (D,) are the stereo projection's fp32
+    masters."""
     dt = x.dtype
     D, A = x.shape
-    nb, ab, _ = ctx.stereo_adj.shape
-    xb = x.reshape(D, nb, ab).permute(1, 0, 2).float()
-    agg = torch.matmul(xb, ctx.stereo_adj.float().transpose(1, 2)).permute(1, 0, 2)
-    cct = x + agg.reshape(D, A).to(dt)
+    if ctx.stereo_adj is not None:
+        nb, ab, _ = ctx.stereo_adj.shape
+        xb = x.reshape(D, nb, ab).permute(1, 0, 2).float()
+        agg = torch.matmul(xb, ctx.stereo_adj.float().transpose(1, 2)).permute(1, 0, 2)
+        cct = x + agg.reshape(D, A).to(dt)
+    else:
+        cct = x + _cis_trans_rows(x.T, batch).T
     tet = _tet_features(x.T, ctx).T
     y = sum(mm32(kb[i * D : (i + 1) * D].T, p, dt) for i, p in enumerate((x, cct, tet)))
     return y.to(dt) + b.to(dt)[:, None]
@@ -341,10 +369,10 @@ def stereochemistry(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor, ctx: Ste
                     batch: MolBatch) -> torch.Tensor:
     """Row-major stereo injection (JAX ``_stereochemistry``), x (A, D) in its
     dtype: cct = x + the cis/trans contribution (binned: the per-bin signed
-    adjacency times x, fp32 sums cast to x's dtype; flat: -x[src] of cis
-    pairs and +x[src] of trans pairs summed into their destinations in x's
-    dtype); tet = the tetrahedral feature; then [x, cct, tet] kb, each part
-    by its row block of kb rounded to x's dtype (fp32 sums, one cast), + b."""
+    adjacency times x, fp32 sums cast to x's dtype; flat batches and halo
+    shards: :func:`_cis_trans_rows`); tet = the tetrahedral feature; then
+    [x, cct, tet] kb, each part by its row block of kb rounded to x's dtype
+    (fp32 sums, one cast), + b."""
     dt = x.dtype
     A, D = x.shape
     if ctx.stereo_adj is not None:
@@ -352,19 +380,14 @@ def stereochemistry(x: torch.Tensor, kb: torch.Tensor, b: torch.Tensor, ctx: Ste
         contrib = torch.matmul(ctx.stereo_adj.to(dt).float(), x.reshape(nb, ab, D).float())
         cct = x + contrib.reshape(A, D).to(dt)
     else:
-        zero = torch.zeros((), dtype=dt, device=x.device)
-        src = [torch.where(mask[:, None], x.index_select(0, pairs[:, 0].long().clamp(0, A - 1)),
-                           zero)
-               for pairs, mask in ((batch.cis_pairs, batch.cis_mask),
-                                   (batch.trans_pairs, batch.trans_mask))]
-        cct = x + (segment_sum(-src[0], batch.cis_pairs[:, 1], A)
-                   + segment_sum(src[1], batch.trans_pairs[:, 1], A))
+        cct = x + _cis_trans_rows(x, batch)
     y = sum(mm32(p, kb[i * D : (i + 1) * D], dt)
             for i, p in enumerate((x, cct, _tet_features(x, ctx))))
     return y.to(dt) + b.to(dt)
 
 
-def charge_equilibration(x: torch.Tensor, batch: MolBatch) -> torch.Tensor:
+def charge_equilibration(x: torch.Tensor, batch: MolBatch,
+                         ax: Optional[mesh.Axis] = None) -> torch.Tensor:
     """Row-major partial-charge equilibration (quirk Q3; JAX
     ``_charge_equilibration``): channels 0 and 1 of x (A, D) are the charge
     q and an electronegativity f (clipped at 1e-6); per molecule Q and
@@ -372,12 +395,15 @@ def charge_equilibration(x: torch.Tensor, batch: MolBatch) -> torch.Tensor:
     Binned batches sum over the membership matrix in fp32 (atoms of no
     molecule keep q and get f = 0); flat ones sum segments in x's dtype,
     each atom reading its molecule (padding the last one's, as JAX's
-    clamped gather does).  The new q and f are fp32, so a bf16 x comes back
-    fp32, as JAX's concatenate promotes it."""
+    clamped gather does).  On a halo shard (``ax``, the graph axis) the
+    segment sums are this rank's partials, psummed over the axis (autograd's
+    too) so a molecule split across ranks equilibrates whole.  The new q
+    and f are fp32, so a bf16 x comes back fp32, as JAX's concatenate
+    promotes it."""
     q, f, rest = x[:, :1], x[:, 1:2].clamp(min=1e-6), x[:, 2:]
     B = batch.total_charge.shape[0]
     pm = batch.pool_mat
-    if pm is not None:
+    if pm is not None and ax is None:
         nb, mb, ab = pm.shape
         ohf = pm.float()
         QF = torch.einsum("bma,bac->bmc", ohf, torch.cat([q, f], -1).reshape(nb, ab, 2).float())
@@ -396,14 +422,42 @@ def charge_equilibration(x: torch.Tensor, batch: MolBatch) -> torch.Tensor:
         # atoms, at a value that depends on the order of the adds
         zero = torch.zeros((), device=x.device)
         mask = batch.atom_mask[:, None]
-        Q_u = segment_sum(torch.where(mask, q.float(), zero), seg, B).to(x.dtype)
-        F_u = segment_sum(torch.where(mask, f.float(), zero), seg, B).to(x.dtype)
+        QF = segment_sum(torch.where(mask, torch.cat([q, f], -1).float(), zero), seg, B)
+        if ax is not None:
+            QF = ax.psum(QF)
+        Q_u, F_u = QF[:, :1].to(x.dtype), QF[:, 1:].to(x.dtype)
         F_u = (F_u + 1e-6).clamp(min=1e-6)
         dQ = batch.total_charge.float()[:, None] - Q_u
         mol = batch.atom_mol.long().clamp(max=B - 1)
         f_new = f / F_u.float().index_select(0, mol).to(x.dtype)
         q_new = q + f_new * dQ.index_select(0, mol)
     return torch.cat([q_new, f_new, rest], dim=-1)
+
+
+def charge_equilibration_t_seg(x: torch.Tensor, batch: MolBatch,
+                               ax: Optional[mesh.Axis]) -> torch.Tensor:
+    """Feature-major charge equilibration by segment sums (quirk Q3; JAX
+    ``_charge_equilibration_t_seg``), the halo shard's twin of
+    ``bin_inject.charge_rows``: rows 0 and 1 of x (D, A) are q and f; the
+    per-molecule Q and F are fp32 segment sums of this rank's atoms,
+    psummed over the graph axis ``ax`` (autograd's too) so a molecule split
+    across ranks equilibrates whole; the new rows are cast back to x's
+    dtype."""
+    B = batch.total_charge.shape[0]
+    q = x[0:1].float()
+    f = x[1:2].float().clamp(min=1e-6)
+    seg = torch.where(batch.atom_mask, batch.atom_mol.long(),
+                      torch.full_like(batch.atom_mol, B, dtype=torch.long))
+    zero = torch.zeros((), device=x.device)
+    QF = segment_sum(torch.where(batch.atom_mask[:, None], torch.cat([q, f]).T, zero), seg, B)
+    if ax is not None:
+        QF = ax.psum(QF)
+    F_u = (QF[:, 1] + 1e-6).clamp(min=1e-6)
+    dQ = batch.total_charge.float() - QF[:, 0]
+    mol = batch.atom_mol.long().clamp(max=B - 1)
+    f_new = f * (1.0 / F_u).index_select(0, mol)[None]
+    q_new = q + f_new * dQ.index_select(0, mol)[None]
+    return torch.cat([q_new.to(x.dtype), f_new.to(x.dtype), x[2:]])
 
 
 class GNN(nn.Module):
@@ -718,15 +772,8 @@ class GNN(nn.Module):
         x_self = proj_cols(W[:xs], b[:xs])  # (A, xs)
         x_other = proj_cols(W[xs:], b[xs:])  # (A, D)
 
-        # 3. message passing: the injections, each layer, then the residual;
-        # a charge equilibration promotes x_other to fp32 from there on
-        ctx = stereo_context(batch) if cfg.use_stereochemistry else None
-        for layer in self.message_passing_layers:
-            if cfg.use_partial_charges:
-                x_other = charge_equilibration(x_other, batch)
-            if ctx is not None:
-                x_other = stereochemistry(x_other, *self._stereo_proj(), ctx, batch)
-            x_other = layer(x_other, batch, gen) + x_other
+        # 3. message passing
+        x_other = self._rows_message_passing(batch, x_other, gen)
         charges = x_other[:, 0].float() if cfg.use_partial_charges else None
         x_other = x_other.to(x_self.dtype)
 
@@ -764,18 +811,68 @@ class GNN(nn.Module):
         atom_emb = atom_emb.float() if atom_embeddings else None
         return self._head(mol, attention_weights, atom_emb, charges, gen)
 
+    def _rows_message_passing(self, batch: MolBatch, x: torch.Tensor,
+                              generator: Optional[torch.Generator],
+                              ax: Optional[mesh.Axis] = None) -> torch.Tensor:
+        """The row-major layers over x_other (A, D): per layer the
+        injections of config 3, the layer, then the residual; a charge
+        equilibration promotes x to fp32 from there on.  On a halo shard
+        (``ax``, the graph axis) the charge sums are psummed over the axis,
+        the stereo context's any-centre flag too, and each layer reads its
+        remote sources from the halo exchange (``ShellConvolutionLayer``)."""
+        cfg = self.config
+        ctx = stereo_context(batch, ax) if cfg.use_stereochemistry else None
+        for layer in self.message_passing_layers:
+            if cfg.use_partial_charges:
+                x = charge_equilibration(x, batch, ax)
+            if ctx is not None:
+                x = stereochemistry(x, *self._stereo_proj(), ctx, batch)
+            x = layer(x, batch, generator, ax) + x
+        return x
+
+    def _halo_stack(self, batch: MolBatch, x_other: torch.Tensor, ax: mesh.Axis, rate: float,
+                    drop_seed: Optional[int], generator: Optional[torch.Generator]
+                    ) -> torch.Tensor:
+        """The layers on a binned halo shard, feature-major (JAX
+        ``use_halo_stack``): per layer the injections of config 3 (the
+        segment charge equilibration psummed over the graph axis, the stereo
+        injection on the pair lists), the halo exchange, the local per-bin
+        aggregation plus the halo rows' contribution (ops/halo.py), kernel 5
+        on ``[x ; agg]`` and the residual.  Returns x_other row-major (A, D)
+        in its input dtype."""
+        cfg = self.config
+        dt = self.compute_dtype
+        base = None
+        if rate > 0.0:
+            if drop_seed is None:
+                drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
+                                              device=generator.device))
+            # the hash keys on local atom columns: fold the graph rank in
+            base = (int(drop_seed) + ax.index + 2**31) % 2**32 - 2**31
+        ctx = stereo_context(batch, ax) if cfg.use_stereochemistry else None
+        xT = x_other.to(dt).T.contiguous()
+        for l, layer in enumerate(self.message_passing_layers):
+            if cfg.use_partial_charges:
+                xT = charge_equilibration_t_seg(xT, batch, ax)
+            if ctx is not None:
+                xT = stereochemistry_t(xT, *self._stereo_proj(), ctx, batch)
+            haloT = halo_exchange_t(xT, batch.halo_send_idx, ax)
+            agg = binned_local_agg_t(xT, batch.bin_adj, dt)
+            agg = agg + halo_agg_contrib_t(haloT, batch.halo_adj, dt)
+            xa = torch.cat([xT, agg.to(dt)], dim=0)
+            seed = layer_drop_seed(base, l) if base is not None else 0
+            xT = binned_mp_layer_ext_t(xa, layer.stack_weights(), dt, cfg.activation_type,
+                                       rate, seed) + xT
+        return xT.T.to(x_other.dtype)
+
     def _forward_halo(self, batch: MolBatch, atom_embeddings: bool, train: bool,
                       drop_seed: Optional[int],
                       generator: Optional[torch.Generator]) -> GNNOutput:
-        """Serving and training forward on a binned halo shard (the module
-        docstring; JAX ``GNN.__call__`` with ``use_halo_stack``)."""
+        """Serving and training forward on a halo shard (the module
+        docstring): binned shards in parity mode take the halo stack
+        (kernel 5, JAX ``use_halo_stack``), flat shards and per-hop models
+        the row-major halo route (JAX's layer loop with ``halo_send_idx``)."""
         cfg = self.config
-        why = _halo_unsupported(cfg)
-        if why is None and batch.bin_adj is None:
-            why = ("the flat-layout halo route (ROADMAP Queue 1 item 8: JAX layers.py:199-222 "
-                   "with ops/halo.py::halo_exchange)")
-        if why is not None:
-            raise NotImplementedError(f"{why} is not ported yet")
         ax = mesh.axis(cfg.graph_axis or "graph")
         rate = cfg.shell_conv_dropout if train else 0.0
         if train and max(rate, cfg.ffn_dropout) > 0.0 and generator is None:
@@ -797,24 +894,13 @@ class GNN(nn.Module):
         x_self = proj_cols(W[:xs], b[:xs])
         x_other = proj_cols(W[xs:], b[xs:])
 
-        # 3. per layer: exchange, local + halo aggregation, kernel 5, residual
-        base = None
-        if rate > 0.0:
-            if drop_seed is None:
-                drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
-                                              device=generator.device))
-            # the hash keys on local atom columns: fold the graph rank in
-            base = (int(drop_seed) + ax.index + 2**31) % 2**32 - 2**31
-        xT = x_other.to(dt).T.contiguous()
-        for l, layer in enumerate(self.message_passing_layers):
-            haloT = halo_exchange_t(xT, batch.halo_send_idx, ax)
-            agg = binned_local_agg_t(xT, batch.bin_adj, dt)
-            agg = agg + halo_agg_contrib_t(haloT, batch.halo_adj, dt)
-            xa = torch.cat([xT, agg.to(dt)], dim=0)
-            seed = layer_drop_seed(base, l) if base is not None else 0
-            xT = binned_mp_layer_ext_t(xa, layer.stack_weights(), dt, cfg.activation_type,
-                                       rate, seed) + xT
-        x_other = xT.T.to(x_other.dtype)
+        # 3. message passing
+        if cfg.parity_mode and batch.bin_adj is not None and batch.halo_adj is not None:
+            x_other = self._halo_stack(batch, x_other, ax, rate, drop_seed, generator)
+        else:
+            x_other = self._rows_message_passing(batch, x_other, generator if train else None, ax)
+        charges = x_other[:, 0].float() if cfg.use_partial_charges else None
+        x_other = x_other.to(x_self.dtype)
 
         # 4. atom embeddings, then pools psummed over the graph axis
         atom_emb = self._atom_embeddings(x_self, x_other)
@@ -826,5 +912,5 @@ class GNN(nn.Module):
             pool = {"mean": mean_pool, "sum": sum_pool, "max": max_pool}[cfg.pooling_type]
             mol = pool(atom_emb, mol_id, mask, B, ax)
         atom_emb = atom_emb.float() if atom_embeddings else None
-        return self._head(mol, attention_weights, atom_emb, None, generator if train else None)
+        return self._head(mol, attention_weights, atom_emb, charges, generator if train else None)
 

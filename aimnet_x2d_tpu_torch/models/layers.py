@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_edge import fused_edge_aggregate
+from ..ops.halo import halo_exchange
 from ..utils.activation import get_activation_function
 
 
@@ -104,7 +105,8 @@ class MultiLayerPerceptron(nn.Module):
 
 
 def hop_aggregate(x: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                  edge_hop: torch.Tensor, edge_mask: torch.Tensor, num_hops: int) -> torch.Tensor:
+                  edge_hop: torch.Tensor, edge_mask: torch.Tensor, num_hops: int,
+                  num_dst: Optional[int] = None) -> torch.Tensor:
     """True per-hop aggregation (the JAX layer's per-hop branch): x (A, D) ->
     (K, A, D) fp32, where slice h sums, for each atom, the source rows of its
     real edges of hop h + 1.  The source rows are gathered in fp32 (exact
@@ -113,8 +115,10 @@ def hop_aggregate(x: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tenso
     directions are ``index_add`` scatters in fp32: the backward of
     ``index_select`` is one, where that of bf16 advanced indexing is a
     sort-based kernel that took 95% of a flagship training step's device
-    time on an H100."""
-    A, D = x.shape
+    time on an H100.  On a halo shard x is ``[own atoms ; halo rows]`` and
+    ``num_dst`` the own atoms, the only destinations."""
+    A = x.shape[0] if num_dst is None else num_dst
+    D = x.shape[1]
     K = num_hops
     zero = torch.zeros((), device=x.device)
     feat = torch.where(edge_mask[:, None], x.float().index_select(0, edge_src.long()), zero)
@@ -165,17 +169,22 @@ class ShellConvolutionLayer(nn.Module):
             out += [lin1.weight.T, lin1.bias, lin2.weight.T, lin2.bias]
         return out
 
-    def forward(self, x: torch.Tensor, batch, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """The layer row-major (the JAX layer without its halo and graph-axis
-        branches): x (A, D), in the compute dtype or, after a charge
+    def forward(self, x: torch.Tensor, batch, generator: Optional[torch.Generator] = None,
+                ax=None) -> torch.Tensor:
+        """The layer row-major (the JAX layer without its edge-replicated
+        branch): x (A, D), in the compute dtype or, after a charge
         equilibration, fp32; ``batch`` a MolBatch on x's device.
 
         agg: in parity mode the union of hops on a flat batch (kernel 7,
         ops/fused_edge.py, from ``batch.fused_fwd``/``fused_bwd``), else one
         sum per hop (:func:`hop_aggregate` over the batch's edge lists, on
-        either layout); parts = [x, agg... in x's dtype]; the input and skip
-        projections take each part by its row block of the kernel (fp32
+        either layout).  On a halo shard (``batch.halo_send_idx``; ``ax`` the
+        graph axis) the edges read ``x_ext = [x ; halo_exchange(x)]``
+        (ops/halo.py) and every destination is local: the union of hops in
+        parity mode, or one sum per hop, by ``index_add`` in fp32, as JAX's
+        ``segment_sum`` (JAX takes no kernel with a graph axis); parts =
+        [x, agg... in x's dtype]; the input and skip projections take each
+        part by its row block of the kernel (fp32
         products of compute-dtype operands, summed, cast once, then the bias
         in the compute dtype); then the activation, the MLP blocks with
         their inner skip, and ``h + global_skip``.  With a ``generator`` the
@@ -183,11 +192,17 @@ class ShellConvolutionLayer(nn.Module):
         agree with flax's ``nn.Dropout`` in distribution only (the JAX
         package draws them from its threefry stream)."""
         D, cdt = self.dim, self.dtype
-        if self.parity_mode:
+        edges = (batch.edge_src, batch.edge_dst, batch.edge_hop, batch.edge_mask)
+        if batch.halo_send_idx is not None:
+            x_ext = torch.cat([x, halo_exchange(x, batch.halo_send_idx, ax)])
+            if self.parity_mode:  # the union of hops: every real edge as hop 1
+                edges = edges[:2] + (torch.ones_like(batch.edge_hop), batch.edge_mask)
+            aggs = hop_aggregate(x_ext, *edges, 1 if self.parity_mode else self.num_hops,
+                                 num_dst=x.shape[0]).unbind(0)
+        elif self.parity_mode:
             aggs = [fused_edge_aggregate(x, batch.fused_fwd, batch.fused_bwd, exact=cdt is None)]
         else:
-            aggs = hop_aggregate(x, batch.edge_src, batch.edge_dst, batch.edge_hop,
-                                 batch.edge_mask, self.num_hops).unbind(0)
+            aggs = hop_aggregate(x, *edges, self.num_hops).unbind(0)
         parts = (x, *(a.to(x.dtype) for a in aggs))
 
         def proj(lin: Linear) -> torch.Tensor:

@@ -128,23 +128,27 @@ def mean_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
               num_graphs: int, axis: Optional[Axis] = None) -> torch.Tensor:
     """Flat mean pool: x (A, D) -> (B, D) in x's dtype, empty molecules 0.
     With a graph ``axis`` (halo shards) the per-molecule sums and atom
-    counts are psummed over it first."""
+    counts are fp32 partials psummed over it first, the mean rounded once
+    to x's dtype (in bf16 the JAX package sums in bf16, whose running sum
+    and count lose a molecule of hundreds of atoms' low bits; the port sums
+    scatters in fp32 throughout)."""
     seg = _seg_ids(atom_mol, atom_mask, num_graphs)
     x = _masked(x, atom_mask, 0.0)
     if axis is None:
         return segment_mean(x, seg, num_graphs)
-    totals = axis.psum(segment_sum(x, seg, num_graphs))
-    counts = axis.psum(segment_sum(atom_mask.to(x.dtype), seg, num_graphs))
-    return totals / counts.clamp(min=1.0)[:, None]
+    totals = axis.psum(segment_sum(x.float(), seg, num_graphs))
+    counts = axis.psum(segment_sum(atom_mask.float(), seg, num_graphs))
+    return (totals / counts.clamp(min=1.0)[:, None]).to(x.dtype)
 
 
 def sum_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
              num_graphs: int, axis: Optional[Axis] = None) -> torch.Tensor:
-    """Flat sum pool: x (A, D) -> (B, D) in x's dtype (psummed over a graph
-    ``axis``)."""
-    out = segment_sum(_masked(x, atom_mask, 0.0), _seg_ids(atom_mol, atom_mask, num_graphs),
-                      num_graphs)
-    return out if axis is None else axis.psum(out)
+    """Flat sum pool: x (A, D) -> (B, D) in x's dtype (over a graph
+    ``axis``: fp32 partials psummed, rounded once, as :func:`mean_pool`)."""
+    seg = _seg_ids(atom_mol, atom_mask, num_graphs)
+    if axis is None:
+        return segment_sum(_masked(x, atom_mask, 0.0), seg, num_graphs)
+    return axis.psum(segment_sum(_masked(x.float(), atom_mask, 0.0), seg, num_graphs)).to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, atom_mol: torch.Tensor, atom_mask: torch.Tensor,
@@ -315,9 +319,10 @@ class MultiHeadAttentionPooling(nn.Module):
         without the concat fold.  Scores x K_heads (K rounded to x's dtype,
         fp32 sums) + bias over the temperature; a per-molecule softmax
         across the graph axis: the stop-gradient pmax of the segment maxima,
-        then psums of the denominators, of the head-mean weighted pools (in
-        x's dtype) -- the molecules split across ranks are exact.  Returns
-        (mol (B, hidden) in x's dtype, attention weights (H, A_loc) fp32)."""
+        then psums of the denominators, of the head-mean weighted pools
+        (fp32 partials, rounded once to x's dtype, as :func:`mean_pool`) --
+        the molecules split across ranks are exact.  Returns (mol (B,
+        hidden) in x's dtype, attention weights (H, A_loc) fp32)."""
         kernel = torch.cat([h.weight.T for h in self.attention_weights], dim=1)  # (D, H)
         bias = torch.cat([h.bias for h in self.attention_weights])
         scores = (bias + mm32(x, kernel, x.dtype)).T / self.temperature  # (H, A)
@@ -337,6 +342,6 @@ class MultiHeadAttentionPooling(nn.Module):
         denom = torch.cat([denom, denom.new_zeros(denom.shape[0], 1)], dim=1)
         attn = expd / torch.gather(denom, 1, idx).clamp(min=1e-16)
         wbar = attn.mean(dim=0)
-        pooled = axis.psum(segment_sum(x * wbar.to(x.dtype)[:, None], seg, num_graphs))
-        return pooled, attn
+        pooled = axis.psum(segment_sum(x.float() * wbar[:, None], seg, num_graphs))
+        return pooled.to(x.dtype), attn
 

@@ -76,10 +76,14 @@ class EdgeLayout:
     def num_edges(self) -> int:
         return int(self.col.shape[0])
 
-    def to(self, device: "str | torch.device") -> "EdgeLayout":
+    def to(self, device: "str | torch.device", copy=None) -> "EdgeLayout":
+        """The layout with its arrays on ``device``, each copied by ``copy``
+        (a host tensor -> its device copy) when given."""
+        copy = copy or (lambda t: t.to(device))
+
         def move(a):
-            t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
-            return t.to(device)
+            return copy(torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+                        else a)
 
         return EdgeLayout(move(self.row_ptr), move(self.col), move(self.col_local),
                           move(self.tile_iv), move(self.iv), self.image_rows, self.tile_edges)

@@ -25,8 +25,10 @@ this process is one rank (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
 cards}`` (or the CPU with ``--device cpu``), over NCCL when every rank has
 a card of its own and gloo otherwise.  Each rank featurizes the splits,
 takes its (data, graph) shard of every training step (halo-partitioned
-when G > 1), and trains with the grid's step; rank 0 evaluates, prints and
-writes the artifact; every rank leaves the process group at the end.
+when G > 1; config 3 too), and trains with the grid's
+step; rank 0 evaluates, prints and writes the artifact; every rank leaves
+the process group at the end.  Serving spreads over ranks under torchrun
+only (inference/engine.py); without it the flags serve in one process.
 """
 
 from __future__ import annotations
@@ -338,29 +340,12 @@ def _launch_ranks(args: argparse.Namespace, world: int) -> Dict[str, Any]:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def refuse_unported_parallel(args: argparse.Namespace) -> None:
-    """NotImplementedError for rank-grid runs of later slices, before any
-    rank starts."""
-    n_data, n_graph = _parallel_from_args(args)
-    if n_data * n_graph == 1:
-        return
-    if args.is_inference:
-        raise NotImplementedError("serving over several ranks (ROADMAP Queue 1 item 8: JAX "
-                                  "inference/pipeline.py:352-395) is not ported yet")
-    if n_graph > 1 and (args.use_partial_charges or args.use_stereochemistry):
-        raise NotImplementedError("partial charges or stereochemistry with --graph_shards > 1 "
-                                  "(ROADMAP Queue 1 item 8: JAX gnn.py:956 "
-                                  "_charge_equilibration_t_seg, _stereochemistry_t) is not "
-                                  "ported yet")
-
-
 def main_runner(args: argparse.Namespace) -> Dict[str, Any]:
     """Serve or train, as ``args`` (``cli.parse_arguments``) says."""
     primary = int(os.environ.get("RANK", 0)) == 0
     for w in validate_args(args):
         if primary:
             print(f"[warning] {w}")
-    refuse_unported_parallel(args)
     setup_paths(args)
     check_data_consistency(args)
     if args.is_inference:

@@ -20,9 +20,11 @@ optax.scale_by_adam -> scale(-lr)``:
   Adam moments see them as under optax, and only their update is zero.
 
 ``train`` runs the epochs: shuffled training batches (a new order every
-epoch), validation, the LR scheduler, early stopping, a copy of the best
-parameters, restored at the end, an optional tracker, and periodic
-checkpoints that a later run resumes from.
+epoch) fed through :func:`prefetch_batches` (collate and copy in two
+threads, the copies on a stream of their own on the card), validation, the
+LR scheduler, early stopping, a copy of the best parameters, restored at the
+end, an optional tracker, and periodic checkpoints that a later run resumes
+from.
 
 Over a (data, graph) rank grid (``grid``, parallel/mesh.py; the CLI's
 ``--num_devices`` / ``--graph_shards``) each rank runs this loop on its own
@@ -212,6 +214,145 @@ def batch_edges(batch: MolBatch) -> int:
     return int(np.count_nonzero(batch.edge_mask))
 
 
+def prefetch_batches(loader, device: "str | torch.device", size: int = 2,
+                     stats: Optional[Dict[str, float]] = None):
+    """Two-stage background prefetch (the JAX ``prefetch_batches``): one
+    thread collates (iterates ``loader``), a second copies each batch to
+    ``device``, with queues of ``size`` between them and the caller, so a
+    step costs max(collate, copy, step) instead of their sum.  Yields
+    ``(device_batch, real_edges)`` in the loader's order, the edge count
+    (:func:`batch_edges`) taken in the collate thread.  An error in either
+    thread is raised here; the transfer thread drains the collate queue up
+    to its end, so a failed copy cannot leave the collate thread blocked on
+    a full queue.
+
+    On the card the copies are asynchronous: each host array is first put in
+    pinned memory (the native builder's pinned scratch as it is, anything
+    else by a pinned staging copy), then copied with ``non_blocking`` on a
+    CUDA stream of its own; an event recorded after a batch's copies is waited
+    on by the transfer thread before it queues the batch (so the loader may
+    rebuild those host buffers once the batch is queued) and by the
+    consumer's stream before the step reads it; each device tensor is
+    ``record_stream``-ed on the consumer's stream, so the caching allocator
+    does not hand its memory to a later copy while the step still reads it.
+    There is no fallback: a failure to pin or to copy fails the run.  On the
+    CPU the same threads and queues run, with plain copies.
+
+    With ``stats`` (a dict) the consumer's waits on the device queue
+    (``wait_s``, host clock), the copy stream's time from a batch's first
+    copy to its last (``copy_ms``, CUDA events, on the card) and the
+    batches (``batches``) are added to it.
+
+    In flight at once: 1 batch being built, ``size`` queued for transfer, 1
+    in transfer, ``size`` queued here and 1 in the step; a loader that
+    rotates ``SCRATCH_SETS`` scratch sets must cover them, so a deeper
+    pipeline raises ValueError."""
+    import queue
+    import threading
+
+    from ..data.native_batch import SCRATCH_SETS
+
+    if 2 * size + 3 > SCRATCH_SETS:
+        raise ValueError(f"prefetch size={size} can hold {2 * size + 3} batches in flight but "
+                         f"loaders rotate only {SCRATCH_SETS} scratch sets "
+                         "(aimnet_x2d_tpu_torch/data/native_batch.py::SCRATCH_SETS): raise "
+                         "SCRATCH_SETS or lower the prefetch size")
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    stats = {} if stats is None else stats
+    for k in ("wait_s", "copy_ms", "batches"):
+        stats.setdefault(k, 0.0)
+    if cuda:
+        copy_stream = torch.cuda.Stream(device)
+        consumer = torch.cuda.current_stream(device)
+
+        def pin(t: torch.Tensor) -> torch.Tensor:
+            return t if t.is_pinned() else t.pin_memory()
+
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            out = t.to(device, non_blocking=True)
+            out.record_stream(consumer)
+            return out
+
+    q_host: "queue.Queue" = queue.Queue(maxsize=size)
+    q_dev: "queue.Queue" = queue.Queue(maxsize=size)
+    sentinel = object()
+    errors: List[BaseException] = []
+
+    def collate_worker():
+        try:
+            for batch in loader:
+                if errors:  # the transfer failed; its drain keeps q_host moving
+                    break
+                q_host.put((batch, batch_edges(batch)))
+        except BaseException as e:  # raised in the consumer
+            errors.append(e)
+        finally:
+            q_host.put(sentinel)
+
+    def transfer(batch: MolBatch):
+        if not cuda:
+            return batch.to(device), None
+        staged = batch.to("cpu", pin)  # every array in pinned memory first
+        with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+            start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(copy_stream)
+            moved = staged.to(device, copy)
+            done.record(copy_stream)
+        done.synchronize()
+        stats["copy_ms"] += start.elapsed_time(done)
+        return moved, done
+
+    def transfer_worker():
+        saw_sentinel = False
+        try:
+            while True:
+                item = q_host.get()
+                if item is sentinel:
+                    saw_sentinel = True
+                    break
+                if errors:
+                    break
+                batch, edges = item
+                q_dev.put((*transfer(batch), edges))
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            while not saw_sentinel:  # unblock the collate thread, then end
+                if q_host.get() is sentinel:
+                    saw_sentinel = True
+            q_dev.put(sentinel)
+
+    threads = [threading.Thread(target=collate_worker, daemon=True),
+               threading.Thread(target=transfer_worker, daemon=True)]
+    for t in threads:
+        t.start()
+    ended = False
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q_dev.get()
+            stats["wait_s"] += time.perf_counter() - t0
+            if item is sentinel:
+                ended = True
+                break
+            batch, ready, edges = item
+            if ready is not None:
+                consumer.wait_event(ready)
+            stats["batches"] += 1
+            yield batch, edges
+    finally:
+        if not ended:
+            # the consumer stopped early: tell the workers, drain, let them end
+            errors.append(StopIteration())
+            while q_dev.get() is not sentinel:
+                pass
+        for t in threads:
+            t.join()
+    if errors and ended:
+        raise errors[0]
+
+
 def train(
     model: GNN,
     train_loader,
@@ -259,6 +400,10 @@ def train(
     best_val, best_epoch = float("inf"), -1
     best_state = None
     epochs_no_improve = 0
+    if device.type == "cuda" and hasattr(train_loader, "rotate_scratch"):
+        # the prefetch copies each batch off the host before SCRATCH_SETS
+        # more are built, so the native builder may recycle pinned buffers
+        train_loader.rotate_scratch()
     history: List[Dict[str, Any]] = []
     lr = config.learning_rate
     epoch_times: List[float] = []
@@ -289,11 +434,11 @@ def train(
         model.train()
         losses, counts = [], []
         edges = 0
-        for batch in train_loader:
-            edges += batch_edges(batch)
+        feed: Dict[str, float] = {}
+        for batch, batch_e in prefetch_batches(train_loader, device, stats=feed):
+            edges += batch_e
             drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=host_gen))
-            loss, n = train_step(model, optimizer, batch.to(device), lr, loss_fn, drop_seed,
-                                 dev_gen, grid)
+            loss, n = train_step(model, optimizer, batch, lr, loss_fn, drop_seed, dev_gen, grid)
             losses.append(loss)
             counts.append(n)
         # one read per epoch, not one sync per step
@@ -313,6 +458,8 @@ def train(
         epoch_times.append(seconds)
         record = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "lr": lr,
                   "seconds": seconds, "edges_per_sec": edges / max(train_seconds, 1e-9),
+                  "train_seconds": train_seconds, "steps": len(losses),
+                  "input_wait_seconds": feed["wait_s"], "copy_ms": feed["copy_ms"],
                   **{f"val_{k}": v for k, v in val_metrics.items()
                      if k != "loss" and not isinstance(v, dict)}}
         history.append(record)

@@ -40,7 +40,12 @@ Phases, each of which fails the run when it fails:
    ``[evid-serve]``: an evidential flagship artifact through the CLI with
    ``--inference_mode evidential`` (serving kernels 1 and 2), the four
    columns per target against the CPU run (E2E_TOL), uncertainties finite
-   and positive;
+   and positive; ``[rank-serve]``: ``[serve]``'s artifact and CSV served by
+   ``python -m torch.distributed.run --nproc_per_node 2 -m
+   aimnet_x2d_tpu_torch.cli`` (two gloo ranks sharing the card, each a
+   contiguous half of the CSV, rank 0 merging): every rank exits 0, every
+   row in input order, no rank file left, within E2E_TOL of ``[serve]``'s
+   output, mol/s by rank beside ``[serve]``'s;
 5. ``[train-kernel]``: hold each training kernel (stack forward with
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
@@ -70,6 +75,13 @@ Phases, each of which fails the run when it fails:
    a profiler breakdown of one step; then one step on a small batch on the
    card and on the CPU (plain versions) from the same weights, both
    backpropagating the CPU's cotangent of the loss, all gradients compared;
+   ``[prefetch]`` (between the CLI and the timed steps): the train loop's
+   input pipeline (``trainer.prefetch_batches``, pinned copies on a stream
+   of their own, the native builder's scratch rotated in pinned sets): per
+   CLI epoch the main thread's wait on the device queue, the copy stream's
+   time and the host ms a step, beside the parent's; epoch 0's batches
+   through it equal to the serial loader's (batch 2048 and 256); ``train``'s
+   first two epochs' losses bit-equal to a serial loop's;
 7. config 3 (partial charges + stereochemistry, BASELINE.json config 3) at
    the flagship width, on SMILES of which about half carry a tetrahedral
    centre or a cis/trans double bond:
@@ -202,10 +214,21 @@ Phases, each of which fails the run when it fails:
      ``halo_adj`` carries cross-bin rows), bf16 and fp32: loss and
      gradients against the single-rank step on the same molecules, and
      parameters bit-identical across the ranks;
+   - ``[c3-halo-step]``, in the same start of the 4 ranks: config 3 (both
+     features) on binned halo shards of the stereo SMILES and a 197-atom
+     stereo molecule the cut splits, bf16 and fp32, against the
+     single-rank step on the binned layout; kernel 5 (3, 3) a rank, kernel
+     4 never;
    - ``[halo-train]``: the flagship CLI with ``--graph_shards 2`` on 2 ranks
      (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
      launches summed over the ranks, then timed steps per rank (host and
      device ms), then the artifact served by the single-rank ``run_csv``;
+     ``[c3-halo-train]``, in the same start of the 2 ranks: the same for
+     config 3 on ``[c3-train]``'s CSV (a falling loss, kernel 4 never), 4
+     timed steps; ``[rows-halo-step]``, in the first group: one serving
+     forward of 2 flat halo shards (the row-major halo route) of the flat
+     SMILES' largest molecule, which the cut splits, and the molecules
+     after it, against the one-rank forward (kernel 7), E2E_TOL;
 14. print the ``[bwd-record]`` line, the script's total seconds (the backward forms of kernels 1b, 1d,
    3, 1c-vocab's pool, 4 and 5, kernel 4's forward and the stack's forward
    forms -- kernels 1, 1d and 1c-vocab's stack site: device time, split,
@@ -498,6 +521,7 @@ BWD_PARTS = (("stack forward", ("stack_fwd_tile_kernel", "mp_stack_kernel")),
              ("weight stream", ("index", "gather", "CatArray")))
 BWD_RECORD: dict = {}  # [bwd-record]: the backward's device times and splits, by form
 STEP_DEVICE_MS: dict = {}  # profile_step's one-step device time, by phase tag
+SERVE_MPS: dict = {}  # run_csv's molecules/s, by serving phase tag
 
 
 def device_parts(fn, parts=BWD_PARTS, iters: int = 10, warmup: int = 3):
@@ -890,6 +914,7 @@ def serve(pkg, cfg, smiles, seed: int, work: str, dev_batch, tag: str = "serve",
         step_ms = time_ms(lambda: model(tb), iters=10)
         profile_forward(model, tb)
     mps = n_mol / (step_ms / 1e3)
+    SERVE_MPS[tag] = summary["molecules_per_second"]
     print(f"[{tag}] run_csv: {summary['valid_molecules']} molecules in {summary['seconds']:.3f} s "
           f"= {summary['molecules_per_second']:.1f} mol/s end to end, of which featurization "
           f"{summary['featurize_seconds']:.3f} s (host, {summary['featurizer']} featurizer)",
@@ -2703,6 +2728,8 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
     # --- the train step, timed on card-resident batches
     pipe = loaded.pipeline
     tds = ds.with_targets(pipe.transform(ds.atomic_numbers(), targets))
+    if tag == "train":
+        prefetch_phase(pkg, cfg, tds, hist, seed, task)
     loader = BatchLoader(tds, 2048, shuffle=True, seed=seed)
     batches = []
     for epoch in range(steps // len(loader) + 1):
@@ -2750,6 +2777,106 @@ def train_phase(pkg, cfg, smiles, ds, seed: int, work: str, tag: str = "train",
                                                                  small.targets)), 96)))
     grads_card_vs_cpu(pkg, cfg, sb, loss_fn, seed, tag)
     return launches
+
+
+# The flagship's [train] host ms a step that PERF.md section 5 records
+# from before the prefetch (NVIDIA H100 80GB HBM3, 700.00 W, card-resident
+# batches), printed beside this run's readings by [prefetch]
+PARENT_TRAIN_HOST_MS = 25.790
+
+
+def _host_arrays(batch) -> dict:
+    """A device MolBatch's tensors copied back to the host, by field."""
+    return {k: v.cpu() for k, v in vars(batch).items() if isinstance(v, torch.Tensor)}
+
+
+def prefetch_phase(pkg, cfg, tds, hist, seed: int, task: str) -> None:
+    """``[prefetch]``, inside ``[train]``: the train loop's input pipeline
+    (``trainer.prefetch_batches``: a collate thread and a transfer thread,
+    pinned copies on a stream of their own, the native builder's scratch
+    rotated in pinned sets).  Prints the CLI's epochs as the prefetch
+    measured them (the main thread's wait on the device queue, the copy
+    stream's time, the host ms a step) beside the parent's figure; holds
+    the first epoch's batches through the prefetch, rotation on, against
+    the serial loader's, array for array once copied back, at the CLI's
+    batch of 2048 and at 256 (more batches than scratch sets, so the
+    rotation comes round); and ``train``'s first two epochs' losses against
+    a serial loop's with the same seeds, bit for bit."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader
+    from aimnet_x2d_tpu_torch.data.native_batch import SCRATCH_SETS
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    for h in hist:
+        print(f"[prefetch] CLI epoch {h['epoch']}: {h['steps']} steps, main thread waited "
+              f"{1e3 * h['input_wait_seconds']:.1f} ms on the device queue, copy stream "
+              f"{h['copy_ms']:.2f} ms (CUDA events), {1e3 * h['train_seconds'] / h['steps']:.1f} "
+              f"ms a step (host clock, the epoch's train loop / steps)", flush=True)
+    print(f"[prefetch] flagship [train] host ms a step: the CLI's epochs above (fed by the "
+          f"prefetch, input included) and the timed steps below (card-resident batches); the "
+          f"timed steps recorded before the prefetch {PARENT_TRAIN_HOST_MS} ms (PERF.md "
+          f"section 5)", flush=True)
+    for bs in (2048, 256):
+        serial, fed = (BatchLoader(tds, bs, shuffle=True, seed=seed) for _ in range(2))
+        want = list(serial)
+        fed.rotate_scratch()
+        stats: dict = {}
+        got = [(_host_arrays(b), e) for b, e in trainer.prefetch_batches(fed, "cuda",
+                                                                          stats=stats)]
+        bad = [(i, k) for i, ((arrays, e), w) in enumerate(zip(got, want))
+               for k, v in arrays.items()
+               if not torch.equal(v, torch.from_numpy(np.asarray(getattr(w, k))))]
+        bad += [(i, "edges") for i, ((_, e), w) in enumerate(zip(got, want))
+                if e != trainer.batch_edges(w)]
+        pinned = all(torch.from_numpy(sc["bufs"][-1]).is_pinned() for sc in fed._scratches
+                     if "bufs" in sc)
+        print(f"[prefetch] epoch 0 at batch {bs}: {len(got)} batches through the prefetch "
+              f"({SCRATCH_SETS} pinned scratch sets: {pinned}) against the serial loader's: "
+              f"{'equal array for array' if not bad and len(got) == len(want) else bad[:4]}; "
+              f"main thread waited {1e3 * stats['wait_s']:.1f} ms, copy stream "
+              f"{stats['copy_ms']:.2f} ms", flush=True)
+        if bad or len(got) != len(want) or not pinned:
+            raise AssertionError("[prefetch] the prefetched batches differ from the serial ones")
+
+    # train's first two epochs (prefetch) against a serial loop, same seeds
+    tc = trainer.TrainConfig(epochs=2, learning_rate=1e-3, task_type=task)
+    val = BatchLoader(tds, 2048)
+    models = []
+    for _ in range(2):
+        m = pkg.models.gnn.GNN(cfg)
+        m.load_state_dict(params_from_flax(init_params(cfg, seed)))
+        models.append(m.to("cuda"))
+    t0 = time.perf_counter()
+    res = trainer.train(models[0], BatchLoader(tds, 2048, shuffle=True, seed=seed), val, tc,
+                        device="cuda", seed=seed)
+    fed_s = time.perf_counter() - t0
+    opt = trainer.make_optimizer(models[1], tc)
+    loss_fn = trainer.make_loss_fn(tc)
+    host = torch.Generator().manual_seed(seed)
+    dev = torch.Generator(device="cuda").manual_seed(seed)
+    loader = BatchLoader(tds, 2048, shuffle=True, seed=seed)
+    serial = []
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        losses, counts = [], []
+        for b in loader:
+            drop_seed = int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=host))
+            loss, n = trainer.train_step(models[1], opt, b.to("cuda"), 1e-3, loss_fn, drop_seed,
+                                         dev)
+            losses.append(loss)
+            counts.append(n)
+        sl = torch.stack(losses).float().cpu().numpy()
+        sc = torch.stack(counts).float().cpu().numpy()
+        serial.append(float((sl * sc).sum() / max(sc.sum(), 1)))
+    fed_losses = [h["train_loss"] for h in res.history]
+    same = fed_losses == serial
+    print(f"[prefetch] train, 2 epochs through the prefetch: losses {fed_losses} ({fed_s:.2f} s "
+          f"with validation; waits {[round(1e3 * h['input_wait_seconds'], 1) for h in res.history]}"
+          f" ms, copy {[round(h['copy_ms'], 2) for h in res.history]} ms); a serial loop: "
+          f"{serial}; bit-equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("[prefetch] train's losses through the prefetch differ from the "
+                             "serial loop's")
 
 
 def grad_scale(k: str, params: dict, ref: dict, cfg) -> float:
@@ -3368,6 +3495,9 @@ HALO_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # binned halo shards, kernel 5): 1e-3 of each gradient's largest value.
 HALO_STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: TRAIN_TOL}
 HALO_TIMED_STEPS = 8
+# [c3-halo-train]'s CLI learning rate: at the flagship's 1e-3 config 3's
+# CLI loss rises over its 3 epochs of 2 steps on one rank too ([c3-train])
+C3_HALO_LR = "2e-4"
 
 
 def halo_shard(ds, n: int, G: int):
@@ -3497,18 +3627,28 @@ def _digest(named) -> str:
     return h.hexdigest()
 
 
+def _counters() -> dict:
+    """The kernel counters the halo ranks read, by name."""
+    from aimnet_x2d_tpu_torch.ops import bin_inject, bin_mp, fused_edge
+
+    return {"mp_ext_fwd": bin_mp.mp_ext_fwd, "mp_ext_bwd": bin_mp.mp_ext_bwd,
+            "inject_fwd": bin_inject.inject_fwd, "inject_bwd": bin_inject.inject_bwd,
+            "fused_edge_fwd": fused_edge.fused_edge_fwd}
+
+
 def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
-    """One of ``[halo-step]``'s four ranks (data 2 x graph 2, gloo, all on
-    cuda:0): one train step of the grid per dtype, Adam without the clip so
-    the gradients stay the all-reduced ones; writes rank 0's loss and
-    gradients and every rank's digests of its gradients and parameters."""
+    """One of the four ranks (data 2 x graph 2, gloo, all on cuda:0) of
+    ``[halo-step]`` and ``[c3-halo-step]``: for each case of the job one
+    train step of the grid per dtype, Adam without the clip so the
+    gradients stay the all-reduced ones; writes rank 0's loss and gradients,
+    and every rank's kernel launches and digests of its gradients and
+    parameters."""
     import pickle
 
     sys.path.insert(0, ROOT)
     from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
     from aimnet_x2d_tpu_torch.data.batching import index_batch
     from aimnet_x2d_tpu_torch.models.gnn import GNN
-    from aimnet_x2d_tpu_torch.ops import bin_mp
     from aimnet_x2d_tpu_torch.parallel import mesh, multihost
     from aimnet_x2d_tpu_torch.training import trainer
 
@@ -3518,26 +3658,29 @@ def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
     dev = mesh.local_rank_device(rank, "cuda")
     backend = mesh.choose_backend(dev, 4)
     multihost.initialize(f"localhost:{port}", 4, rank, backend, dev)
+    counters = _counters()
     try:
         grid = mesh.make_grid(2, 2, dev, backend)
-        batch = index_batch(job["stacked"], grid.data.index, grid.graph.index).to(dev)
         out = {}
-        for tag, cfg in job["cfgs"].items():
-            model = GNN(cfg)
-            model.load_state_dict(params_from_flax(job["params"]))
-            model.to(dev).train()
-            opt = trainer.Optimizer(model.parameters(), None)
-            loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=cfg.task_type))
-            bin_mp.mp_ext_fwd.launches = bin_mp.mp_ext_bwd.launches = 0
-            loss, n = trainer.train_step(model, opt, batch, 1e-3, loss_fn, grid=grid)
-            torch.cuda.synchronize()
-            grads = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
-            out[tag] = dict(loss=float(loss), n=float(n), grads_digest=_digest(grads),
-                            where=f"{dev} {backend}",
-                            params_digest=_digest(model.named_parameters()),
-                            launches=(bin_mp.mp_ext_fwd.launches, bin_mp.mp_ext_bwd.launches))
-            if rank == 0:
-                out[tag]["grads"] = {k: g.float().cpu() for k, g in grads}
+        for case, c in job.items():
+            batch = index_batch(c["stacked"], grid.data.index, grid.graph.index).to(dev)
+            for tag, cfg in c["cfgs"].items():
+                model = GNN(cfg)
+                model.load_state_dict(params_from_flax(c["params"]))
+                model.to(dev).train()
+                opt = trainer.Optimizer(model.parameters(), None)
+                loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=cfg.task_type))
+                for k in counters.values():
+                    k.launches = 0
+                loss, n = trainer.train_step(model, opt, batch, 1e-3, loss_fn, grid=grid)
+                torch.cuda.synchronize()
+                grads = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
+                r = dict(loss=float(loss), n=float(n), grads_digest=_digest(grads),
+                         where=f"{dev} {backend}", params_digest=_digest(model.named_parameters()),
+                         launches={k: v.launches for k, v in counters.items()})
+                if rank == 0:
+                    r["grads"] = {k: g.float().cpu() for k, g in grads}
+                out[(case, tag)] = r
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
         multihost.sync()
@@ -3545,269 +3688,464 @@ def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
         multihost.shutdown()
 
 
-def halo_step_phase(pkg, cfg, fl_full, seed: int, work: str) -> None:
-    """``[halo-step]``: one train step of the flagship (dropouts off) on 4
-    ranks (data 2 x graph 2) sharing the card over gloo, the data shards
-    1024 molecules of the flat SMILES (so their 262-599-atom molecules are
-    chunked into bin-sized pieces whose cross-bin edges run through
-    ``halo_adj``) and 5 molecules, the first larger than a bin, which the
-    graph cut splits (cut edges cross the ranks), in bf16 and fp32:
-    loss and gradients against the single-rank step on the card over the
-    same molecules (the weighted mean of the two data shards' steps), and
-    gradients and parameters bit-identical across the ranks afterwards."""
+def halo_step_data(tag: str, cfg, full, seed: int):
+    """The data of a grid step on the SMILES of ``full``, each data shard
+    halo-partitioned into 2 binned graph shards.  With molecules larger than
+    a bin (the flat SMILES): data shard 0 the first 1024 molecules as they
+    come, data shard 1 a molecule larger than a bin and the 4 after it, more
+    than half of the shard's atoms, so the graph cut must split it (cut
+    edges cross the ranks); the large molecules are chunked into bin-sized
+    pieces whose cross-bin edges run through ``halo_adj``.  Without them
+    (config 3's stereo SMILES and ``C3_SPLIT_SMILES``): data shard 1 the
+    largest molecule after the first 1024 and the 4 after it, the cut
+    splitting the large one inside a bin.  Returns (the job's case: stacked
+    shards, configs by dtype with the dropouts off, the weights; the
+    collated data shards)."""
     import dataclasses
-    import pickle
 
-    import torch.multiprocessing as mp
+    from aimnet_x2d_tpu_torch.checkpoint import init_params
+    from aimnet_x2d_tpu_torch.data.batching import collate, stack_batches
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo, partition_halo_stack
 
-    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
-    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate, stack_batches
-    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo_stack
-    from aimnet_x2d_tpu_torch.training import trainer
-
-    T = cfg.output_dim
-    targets = synthetic_targets(fl_full, T, seed)
-    sizes = np.array([f.num_atoms for f in fl_full.features])
-    # data shard 0: 1024 molecules as they come; data shard 1: a molecule
-    # larger than a bin and the 4 after it, more than half of the shard's
-    # atoms, so that the graph cut must split it (cut edges cross the ranks)
-    first = int(np.flatnonzero(sizes[1024:] > 256)[0]) + 1024
+    targets = synthetic_targets(full, cfg.output_dim, seed)
+    sizes = np.array([f.num_atoms for f in full.features])
+    if sizes.max() > 256:
+        first = int(np.flatnonzero(sizes[1024:] > 256)[0]) + 1024
+    else:
+        first = int(np.argmax(sizes[1024:])) + 1024
     picks = [np.arange(1024), np.arange(first, first + 5)]
-    shards = [collate([fl_full.features[i] for i in idx], targets[idx], num_hops=fl_full.max_hops)
+    shards = [collate([full.features[i] for i in idx], targets[idx], num_hops=full.max_hops)
               for idx in picks]
     # one graph and stereo slot count for both shards, as a loader pins them
     caps = dict(graph_slots=1024, tet_slots=max(b.tet_nbrs.shape[0] for b in shards),
                 pair_slots=max(max(b.cis_pairs.shape[0], b.trans_pairs.shape[0]) for b in shards))
-    shards = [collate([fl_full.features[i] for i in idx], targets[idx], num_hops=fl_full.max_hops,
+    shards = [collate([full.features[i] for i in idx], targets[idx], num_hops=full.max_hops,
                       **caps) for idx in picks]
     t0 = time.perf_counter()
     parts, slots = partition_halo_stack(shards, 2, binned=True)
     t_part = time.perf_counter() - t0
-    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo
-
     stats = [partition_halo(s, 2, return_stats=True, binned=True, **slots)[1] for s in shards]
     big = [int((sizes[idx] > 256).sum()) for idx in picks]
-    print(f"[halo-step] 2 data shards ({[len(i) for i in picks]} molecules, {big} larger than a "
+    stereo = [int(p.tet_mask.sum()) for p in parts], [int(p.cis_mask.sum() + p.trans_mask.sum())
+                                                      for p in parts]
+    print(f"[{tag}] 2 data shards ({[len(i) for i in picks]} molecules, {big} larger than a "
           f"bin) x 2 graph shards: halo_rows {[s.halo_rows for s in stats]}, cut_edges "
           f"{[s.cut_edges for s in stats]}, split_molecules {[s.split_molecules for s in stats]}, "
-          f"A_loc {stats[0].atom_slots_per_device}, Hp {stats[0].halo_pair_slots}; partition "
+          f"A_loc {stats[0].atom_slots_per_device}, Hp {stats[0].halo_pair_slots}; tetrahedral "
+          f"rows per data shard {stereo[0]}, cis/trans rows {stereo[1]}; partition "
           f"{t_part:.3f} s (host clock)", flush=True)
-    if min(s.halo_rows for s in stats) <= 0 or stats[1].cut_edges <= 0:
-        raise AssertionError("the halo step's partition has no halo rows or no cut edges")
+    # every shard has halo rows where large molecules are chunked; the
+    # split molecule's shard has cut edges
+    chunked = stats if sizes.max() > 256 else stats[1:]
+    if (min(s.halo_rows for s in chunked) <= 0 or stats[1].cut_edges <= 0
+            or stats[1].split_molecules <= 0):
+        raise AssertionError(f"[{tag}] the partition has no halo rows, cut edges or split "
+                             f"molecule")
+    if cfg.use_stereochemistry and not (sum(stereo[0]) and sum(stereo[1])):
+        raise AssertionError(f"[{tag}] the shards hold no stereo rows")
     cfgs = {str(dt)[6:]: dataclasses.replace(cfg, shell_conv_dropout=0.0, ffn_dropout=0.0,
                                              compute_dtype=str(dt)[6:])
             for dt in (torch.bfloat16, torch.float32)}
-    flat = init_params(cfg, seed)
+    case = {"stacked": stack_batches(parts), "cfgs": cfgs, "params": init_params(cfg, seed)}
+    return case, shards
+
+
+# [c3-halo-step]'s molecule that the graph cut splits: 197 atoms with
+# hydrogens (it fits a bin, so the single-rank step runs binned), with a
+# tetrahedral centre and a trans double bond
+C3_SPLIT_SMILES = "C" * 30 + "[C@H](F)C/C=C/C" + "C" * 30
+
+
+def halo_step_phase(pkg, cases: dict, seed: int, work: str) -> None:
+    """``[halo-step]`` and ``[c3-halo-step]``, one start of 4 ranks (data 2 x
+    graph 2) sharing the card over gloo: one train step of each case's
+    model (``cases``: tag -> (config, dataset); the flagship on the flat
+    SMILES, config 3 with both features on the stereo SMILES; dropouts off)
+    on ``halo_step_data``'s shards, in bf16 and fp32: loss and summed
+    gradients against the single-rank step on the card over the same
+    molecules (the weighted mean of the two data shards' steps, binned --
+    config 3 on the inject route, whose injections run in the compute dtype
+    as the halo stack's do -- or, with molecules larger than a bin, flat),
+    gradients and parameters bit-identical across the
+    ranks, kernel 5's forward and backward launched 3 times a rank and
+    kernel 4 never."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts
+    from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
+    from aimnet_x2d_tpu_torch.training import trainer
+
+    job, shards = {}, {}
+    for tag, (cfg, full) in cases.items():
+        job[tag], shards[tag] = halo_step_data(tag, cfg, full, seed)
     out_dir = os.path.join(work, "halo-step")
     os.makedirs(out_dir, exist_ok=True)
     job_path = os.path.join(out_dir, "job.pkl")
     with open(job_path, "wb") as f:
-        pickle.dump({"stacked": stack_batches(parts), "cfgs": cfgs, "params": flat}, f)
+        pickle.dump(job, f)
     t0 = time.perf_counter()
     mp.spawn(_halo_step_rank, args=(job_path, _free_port(), out_dir), nprocs=4, join=True)
-    print(f"[halo-step] 4 ranks ran in {time.perf_counter() - t0:.1f} s (host clock, process "
-          f"start included)", flush=True)
+    print(f"[halo-step] 4 ranks ran {list(cases)} in {time.perf_counter() - t0:.1f} s (host "
+          f"clock, process start included)", flush=True)
     ranks = []
     for r in range(4):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
-    loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
-    for tag, c in cfgs.items():
-        dt = torch.bfloat16 if tag == "bfloat16" else torch.float32
-        r0 = ranks[0][tag]
-        same = all(r[tag]["params_digest"] == r0["params_digest"]
-                   and r[tag]["grads_digest"] == r0["grads_digest"] for r in ranks)
-        launches = [r[tag]["launches"] for r in ranks]
-        # the single-rank step on the card: each data shard whole (flat
-        # layout), gradients weighted by its molecules
-        model = pkg.models.gnn.GNN(c)
-        model.load_state_dict(params_from_flax(flat))
-        model.to("cuda").train()
-        ref, loss_sum, n_sum = {}, 0.0, 0.0
-        for s in shards:
-            b = attach_flat_layouts(s).to("cuda")
-            model.zero_grad(set_to_none=True)
-            n = float(b.graph_mask.sum())
-            loss = loss_fn(model(b, train=True).predictions, b.targets, b.graph_mask)
-            loss.backward()
-            for k, p in model.named_parameters():
-                if p.grad is not None:
-                    ref[k] = ref.get(k, 0.0) + p.grad.float().cpu() * n
-            loss_sum, n_sum = loss_sum + float(loss.detach()) * n, n_sum + n
-        ref = {k: v / n_sum for k, v in ref.items()}
-        params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
-        errs = {k: float((r0["grads"][k] - g).abs().max()) / grad_scale(k, params, ref, c)
-                for k, g in ref.items()}
-        worst = max(errs.items(), key=lambda kv: kv[1])
-        loss_rel = abs(r0["loss"] - loss_sum / n_sum) / abs(loss_sum / n_sum)
-        tol = HALO_STEP_TOL[dt]
-        print(f"[halo-step] {tag}: loss {r0['loss']:.6f} vs single rank {loss_sum / n_sum:.6f} "
-              f"(rel {loss_rel:.2e}); {len(ref)} gradients, worst max|d|/max|ref| {worst[1]:.3e} "
-              f"({worst[0]}; tol {tol:g}); molecules {r0['n']:.0f}; kernel 5 launches per rank "
-              f"(fwd, bwd) {launches}; gradients and parameters bit-identical across ranks: "
-              f"{same}; ranks on {[r[tag]['where'] for r in ranks]}", flush=True)
-        if not (loss_rel <= tol and worst[1] <= tol and same and r0["n"] == n_sum
-                and all(l == (3, 3) for l in launches)):
-            raise AssertionError(f"[halo-step] {tag}: the grid step disagrees with the single "
-                                 f"rank or across ranks")
-        del model
+    for case in cases:
+        flat = job[case]["params"]
+        for tag, c in job[case]["cfgs"].items():
+            dt = torch.bfloat16 if tag == "bfloat16" else torch.float32
+            loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=c.task_type))
+            r0 = ranks[0][(case, tag)]
+            same = all(r[(case, tag)]["params_digest"] == r0["params_digest"]
+                       and r[(case, tag)]["grads_digest"] == r0["grads_digest"] for r in ranks)
+            launches = [r[(case, tag)]["launches"] for r in ranks]
+            # the single-rank step on the card: each data shard whole
+            # (binned when its molecules fit a bin, else flat), gradients
+            # weighted by its molecules
+            model = pkg.models.gnn.GNN(c)
+            model.load_state_dict(params_from_flax(flat))
+            model.to("cuda").train()
+            ref, loss_sum, n_sum = {}, 0.0, 0.0
+            binned = cases[case][1].sizes()["atoms"].max() <= 256
+            for s in shards[case]:
+                b = (bin_pack_batch(s) if binned else attach_flat_layouts(s)).to("cuda")
+                model.zero_grad(set_to_none=True)
+                n = float(b.graph_mask.sum())
+                loss = loss_fn(model(b, train=True).predictions, b.targets, b.graph_mask)
+                loss.backward()
+                for k, p in model.named_parameters():
+                    if p.grad is not None:
+                        ref[k] = ref.get(k, 0.0) + p.grad.float().cpu() * n
+                loss_sum, n_sum = loss_sum + float(loss.detach()) * n, n_sum + n
+            ref = {k: v / n_sum for k, v in ref.items()}
+            params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
+            errs = {k: float((r0["grads"][k] - g).abs().max()) / grad_scale(k, params, ref, c)
+                    for k, g in ref.items()}
+            worst = max(errs.items(), key=lambda kv: kv[1])
+            loss_rel = abs(r0["loss"] - loss_sum / n_sum) / abs(loss_sum / n_sum)
+            tol = HALO_STEP_TOL[dt]
+            ext = [(l["mp_ext_fwd"], l["mp_ext_bwd"]) for l in launches]
+            inject = [(l["inject_fwd"], l["inject_bwd"]) for l in launches]
+            print(f"[{case}] {tag}: loss {r0['loss']:.6f} vs single rank {loss_sum / n_sum:.6f} "
+                  f"(rel {loss_rel:.2e}); {len(ref)} gradients, worst max|d|/max|ref| "
+                  f"{worst[1]:.3e} ({worst[0]}; tol {tol:g}); molecules {r0['n']:.0f}; kernel 5 "
+                  f"launches per rank (fwd, bwd) {ext}, kernel 4 {inject}; gradients and "
+                  f"parameters bit-identical across ranks: {same}; ranks on "
+                  f"{[r[(case, tag)]['where'] for r in ranks]}", flush=True)
+            if not (loss_rel <= tol and worst[1] <= tol and same and r0["n"] == n_sum
+                    and all(e == (3, 3) for e in ext) and all(i == (0, 0) for i in inject)):
+                raise AssertionError(f"[{case}] {tag}: the grid step disagrees with the single "
+                                     f"rank or across ranks, or launched the wrong kernels")
+            del model
 
 
-def _halo_train_rank(rank: int, argv: list, ports: tuple, job_path: str, out_dir: str) -> None:
-    """One of ``[halo-train]``'s two ranks: the flagship CLI as ``torchrun``
-    runs it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), with
-    kernel 5's counters read around it; then, in a second process group,
-    ``HALO_TIMED_STEPS`` train steps of the grid on card-resident halo
-    shards of the same data, timed (host clock around a synchronized step,
-    and one step's device time from the profiler)."""
+def _halo_train_rank(rank: int, job_path: str, out_dir: str) -> None:
+    """One of the two ranks of ``[halo-train]`` and ``[c3-halo-train]``
+    (and ``[rows-halo-step]``): for each case of the job, the CLI as
+    ``torchrun`` runs it (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``), with the kernel counters read around it; then, in a
+    second process group, the case's train steps of the grid on
+    card-resident halo shards of the same data, timed (host clock around a
+    synchronized step, and one step's device time from the profiler) on the
+    targets as the CLI's artifact transforms them, and, where the case has
+    one, the serving forward of flat halo shards."""
     import pickle
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(ports[0]))
     sys.path.insert(0, ROOT)
     from aimnet_x2d_tpu_torch import cli
-    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, load_artifact, params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
     from aimnet_x2d_tpu_torch.data.dataset import BatchLoader
     from aimnet_x2d_tpu_torch.models.gnn import GNN
-    from aimnet_x2d_tpu_torch.ops import bin_mp
     from aimnet_x2d_tpu_torch.parallel import mesh, multihost
     from aimnet_x2d_tpu_torch.training import trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    counters = (bin_mp.mp_ext_fwd, bin_mp.mp_ext_bwd)
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    summary = cli.main(argv)
-    out = {"cli_s": time.perf_counter() - t0, "summary": summary,
-           "launches": {c.__name__: c.launches for c in counters}}
-
     with open(job_path, "rb") as f:
         job = pickle.load(f)
+    counters = _counters()
     dev = mesh.local_rank_device(rank, "cuda")
     backend = mesh.choose_backend(dev, 2)
-    out["where"] = f"{dev} {backend}"
-    multihost.initialize(f"localhost:{ports[1]}", 2, rank, backend, dev)
-    try:
-        grid = mesh.make_grid(1, 2, dev, backend)
-        cfg = job["cfg"]
-        loader = BatchLoader(job["ds"], 2048, shuffle=True, seed=job["seed"], stack_devices=1,
-                             halo_shards=2, rank=(0, rank))
-        batches = []
-        for epoch in range(HALO_TIMED_STEPS // len(loader) + 1):
-            loader.set_epoch(epoch)
-            batches += [b.to(dev) for b in loader]
-        batches = batches[:HALO_TIMED_STEPS]
-        model = GNN(cfg)
-        model.load_state_dict(params_from_flax(init_params(cfg, job["seed"])))
-        model.to(dev).train()
-        opt = trainer.Optimizer(model.parameters(), 1.0)
-        loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type="multitask"))
-        gen = torch.Generator(device=dev).manual_seed(job["seed"])
-
-        def step(b, lr, drop_seed, gen):
-            return trainer.train_step(model, opt, b, lr, loss_fn, drop_seed, gen, grid)
-
-        ms, losses = [], []
-        for c in counters:
+    results = {}
+    for case in job:
+        os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(case["ports"][0]))
+        for c in counters.values():
             c.launches = 0
-        for i, b in enumerate(batches):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, _ = step(b, 5e-4, 1000 + i, gen)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            losses.append(float(loss))
-        out.update(step_ms=ms, losses=losses, a_loc=int(batches[0].atom_type.shape[0]),
-                   per_step={c.__name__: c.launches / len(batches) for c in counters})
-        # one session only: the ranks' steps meet in collectives
-        out["device_ms"] = profile_step(lambda: step(batches[0], 5e-4, 7, gen),
-                                        f"halo-train rank {rank}", top=6, tries=1)
-        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
-        multihost.sync()
-    finally:
-        multihost.shutdown()
+        t0 = time.perf_counter()
+        summary = cli.main(case["argv"])
+        out = {"cli_s": time.perf_counter() - t0, "summary": summary,
+               "launches": {k: c.launches for k, c in counters.items()}, "where": f"{dev} {backend}"}
+        multihost.initialize(f"localhost:{case['ports'][1]}", 2, rank, backend, dev)
+        try:
+            grid = mesh.make_grid(1, 2, dev, backend)
+            cfg, ds = case["cfg"], case["ds"]
+            ds = ds.with_targets(load_artifact(case["art"]).pipeline.transform(
+                ds.atomic_numbers(), ds.targets))
+            loader = BatchLoader(ds, 2048, shuffle=True, seed=case["seed"],
+                                 stack_devices=1, halo_shards=2, rank=(0, rank))
+            batches = []
+            for epoch in range(case["steps"] // len(loader) + 1):
+                loader.set_epoch(epoch)
+                batches += [b.to(dev) for b in loader]
+            batches = batches[:case["steps"]]
+            model = GNN(cfg)
+            model.load_state_dict(params_from_flax(init_params(cfg, case["seed"])))
+            model.to(dev).train()
+            opt = trainer.Optimizer(model.parameters(), 1.0)
+            loss_fn = trainer.make_loss_fn(trainer.TrainConfig(task_type=cfg.task_type))
+            gen = torch.Generator(device=dev).manual_seed(case["seed"])
+
+            def step(b, lr, drop_seed, gen):
+                return trainer.train_step(model, opt, b, lr, loss_fn, drop_seed, gen, grid)
+
+            ms, losses = [], []
+            for c in counters.values():
+                c.launches = 0
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = step(b, 5e-4, 1000 + i, gen)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+            out.update(step_ms=ms, losses=losses, a_loc=int(batches[0].atom_type.shape[0]),
+                       per_step={k: c.launches / len(batches) for k, c in counters.items()})
+            # one session only: the ranks' steps meet in collectives
+            out["device_ms"] = profile_step(lambda: step(batches[0], 5e-4, 7, gen),
+                                            f"{case['tag']} rank {rank}", top=6, tries=1)
+            rows = case.get("rows")
+            if rows is not None:
+                m = GNN(rows["cfg"])
+                m.load_state_dict(params_from_flax(rows["params"]))
+                m.to(dev).eval()
+                shard = index_batch(rows["stacked"], rank).to(dev)
+                for c in counters.values():
+                    c.launches = 0
+                with torch.inference_mode():
+                    pred = m(shard).predictions.float().cpu()
+                torch.cuda.synchronize()
+                out["rows"] = {"pred": pred, "launches": {k: c.launches
+                                                          for k, c in counters.items()}}
+            multihost.sync()
+        finally:
+            multihost.shutdown()
+        results[case["tag"]] = out
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
 
 
-def halo_train_phase(pkg, cfg, full, seed: int, work: str) -> dict:
-    """``[halo-train]``: the flagship CLI with ``--graph_shards 2
-    --mixed_precision``, 3 epochs at batch 2048, on 2 ranks sharing the card
-    (gloo), on the ``[train]`` phase's CSV; kernel 5's launches summed over
-    the ranks; then timed steps per rank (``_halo_train_rank``); then the
-    artifact served by the single-rank ``run_csv`` on the card."""
+def rows_halo_data(cfg, fl_full, seed: int):
+    """``[rows-halo-step]``'s data: the largest molecule of the flat SMILES
+    first, then the smaller ones that follow it up to 80% of its atoms, so
+    it holds more atoms than a rank's share and the graph cut splits it;
+    collated flat and halo-partitioned into 2 flat graph shards (the
+    row-major halo route); returns (the job's entry, the collated batch,
+    HaloStats)."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params
+    from aimnet_x2d_tpu_torch.data.batching import collate
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo
+
+    sizes = np.array([f.num_atoms for f in fl_full.features])
+    big = int(np.argmax(sizes))
+    order = [big]
+    for i in range(len(sizes)):
+        if sizes[i] <= 256 and sizes[order[1:]].sum() + sizes[i] <= 0.8 * sizes[big]:
+            order.append(i)
+    b = collate([fl_full.features[i] for i in order], np.zeros((len(order), cfg.output_dim),
+                                                               np.float32),
+                num_hops=fl_full.max_hops)
+    stacked, stats = partition_halo(b, 2, return_stats=True)
+    scfg = dataclasses.replace(cfg, shell_conv_dropout=0.0, ffn_dropout=0.0)
+    return {"stacked": stacked, "cfg": scfg, "params": init_params(scfg, seed)}, b, stats
+
+
+def halo_train_phase(pkg, cases: list, seed: int, work: str, rows=None) -> dict:
+    """``[halo-train]`` and ``[c3-halo-train]``, one start of 2 ranks
+    sharing the card (gloo): for each case (tag, config, dataset, the
+    ``train_phase`` CSV it trains on, timed steps, the CLI's learning rate)
+    the flagship-width CLI with ``--graph_shards 2 --mixed_precision``, 3
+    epochs of 2 steps at batch 2048, kernel launches summed over the ranks
+    and a falling loss; then timed steps per rank.  ``rows`` (``rows_halo_data``; run in the first
+    case's group): ``[rows-halo-step]``, one serving forward of flat halo
+    shards on the 2 ranks against the one-rank forward of the unsplit batch
+    (bf16 bar).  Then the flagship's artifact served by the single-rank
+    ``run_csv``.  Returns the first case's launches summed over the ranks."""
     import pickle
 
     import pandas as pd
     import torch.multiprocessing as mp
 
-    from aimnet_x2d_tpu_torch.checkpoint import load_artifact
+    from aimnet_x2d_tpu_torch.checkpoint import load_artifact, params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts
     from aimnet_x2d_tpu_torch.data.dataset import MoleculeDataset
     from aimnet_x2d_tpu_torch.inference.pipeline import StreamingInferencePipeline
 
-    csv = os.path.join(work, "train.csv")
-    df = pd.read_csv(csv)
-    cols = [c for c in df.columns if c != "smiles"]
-    art = os.path.join(work, "halo-train-trained.npz")
-    argv = ["--data_path", csv, "--task_type", "multitask", "--mixed_precision", "--epochs", "3",
-            "--batch_size", "2048", "--learning_rate", "1e-3", "--num_shells", str(cfg.num_shells),
-            "--pooling_type", cfg.pooling_type, "--num_message_passing_layers",
-            str(cfg.num_message_passing_layers), "--model_save_path", art, "--seed", str(seed),
-            "--multi_target_columns", ",".join(cols), "--graph_shards", "2"]
     out_dir = os.path.join(work, "halo-train")
     os.makedirs(out_dir, exist_ok=True)
+    job, meta = [], {}
+    for tag, cfg, full, csv_name, steps, lr in cases:
+        csv = os.path.join(work, csv_name)
+        df = pd.read_csv(csv)
+        cols = [c for c in df.columns if c != "smiles"]
+        art = os.path.join(work, f"{tag}-trained.npz")
+        argv = ["--data_path", csv, "--task_type", "multitask", "--mixed_precision", "--epochs",
+                "3", "--batch_size", "2048", "--learning_rate", lr, "--num_shells",
+                str(cfg.num_shells), "--pooling_type", cfg.pooling_type,
+                "--num_message_passing_layers", str(cfg.num_message_passing_layers),
+                "--model_save_path", art, "--seed", str(seed), "--multi_target_columns",
+                ",".join(cols), "--graph_shards", "2"]
+        argv += ["--use_partial_charges"] if cfg.use_partial_charges else []
+        argv += ["--use_stereochemistry"] if cfg.use_stereochemistry else []
+        ds = MoleculeDataset(full.smiles, df[cols].to_numpy(np.float32), full.features,
+                             full.max_hops)
+        job.append({"tag": tag, "argv": argv, "ports": (_free_port(), _free_port()), "ds": ds,
+                    "cfg": cfg, "seed": seed, "steps": steps, "art": art,
+                    "rows": rows[0] if rows is not None and not job else None})
+        meta[tag] = (cfg, art, cols, full)
     job_path = os.path.join(out_dir, "job.pkl")
-    loaded = None
-    ds = MoleculeDataset(full.smiles, df[cols].to_numpy(np.float32), full.features, full.max_hops)
     with open(job_path, "wb") as f:
-        pickle.dump({"ds": ds, "cfg": cfg, "seed": seed}, f)
+        pickle.dump(job, f)
     t0 = time.perf_counter()
-    mp.spawn(_halo_train_rank, args=(argv, (_free_port(), _free_port()), job_path, out_dir),
-             nprocs=2, join=True)
+    mp.spawn(_halo_train_rank, args=(job_path, out_dir), nprocs=2, join=True)
     wall = time.perf_counter() - t0
     ranks = []
     for r in range(2):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    hist = ranks[0]["summary"]["history"]
-    print(f"[halo-train] CLI --graph_shards 2 on 2 ranks: {wall:.1f} s with "
-          f"process start (host clock); epochs train loss "
-          f"{[round(h['train_loss'], 5) for h in hist]}, val loss "
-          f"{[round(h['val_loss'], 5) for h in hist]}, edges/s "
-          f"{[round(h['edges_per_sec']) for h in hist]}; kernel 5 launches summed over the ranks "
-          f"{launches}", flush=True)
-    for r, res in enumerate(ranks):
-        med = float(np.median(res["step_ms"][2:]))
-        print(f"[halo-train] rank {r} ({res['where']}): {len(res['step_ms'])} steps on A_loc "
-              f"{res['a_loc']}: "
-              f"median {med:.3f} ms/step (host clock around a synchronized step), device "
-              f"{res['device_ms'] if res['device_ms'] is None else round(res['device_ms'], 3)} "
-              f"ms (one step, profiler); loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}; "
-              f"kernel 5 launches per step {res['per_step']}; step ms "
-              f"{[round(x, 3) for x in res['step_ms']]}", flush=True)
-    losses = [h["train_loss"] for h in hist] + [h["val_loss"] for h in hist]
-    if (min(launches.values()) <= 0 or not np.isfinite(losses).all()
-            or any(v != 3 for r in ranks for v in r["per_step"].values())
-            or ranks[0]["summary"]["best_val_loss"] != ranks[1]["summary"]["best_val_loss"]):
-        raise AssertionError(f"[halo-train] kernel 5 did not run on every layer of every step, "
-                             f"or the ranks disagree: {launches}")
-    # the artifact, served by one rank
-    loaded = load_artifact(art)
-    if loaded.model_config.graph_axis is not None or loaded.model_config.compute_dtype != "bfloat16":
-        raise AssertionError(f"the halo run saved another config: {loaded.model_config}")
+    print(f"[halo-train] 2 ranks ran {[c[0] for c in cases]} in {wall:.1f} s with process start "
+          f"(host clock)", flush=True)
+    first = None
+    for tag, (cfg, art, cols, full) in meta.items():
+        res = [r[tag] for r in ranks]
+        launches = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+        hist = res[0]["summary"]["history"]
+        print(f"[{tag}] CLI --graph_shards 2 on 2 ranks: {res[0]['cli_s']:.1f} s (host clock); "
+              f"epochs train loss {[round(h['train_loss'], 5) for h in hist]}, val loss "
+              f"{[round(h['val_loss'], 5) for h in hist]}, edges/s "
+              f"{[round(h['edges_per_sec']) for h in hist]}, input wait "
+              f"{[round(1e3 * h['input_wait_seconds'], 1) for h in hist]} ms; kernel launches "
+              f"summed over the ranks {launches}", flush=True)
+        for r, x in enumerate(res):
+            med = float(np.median(x["step_ms"][2:])) if len(x["step_ms"]) > 2 else float(
+                np.median(x["step_ms"]))
+            print(f"[{tag}] rank {r} ({x['where']}): {len(x['step_ms'])} steps on A_loc "
+                  f"{x['a_loc']}: median {med:.3f} ms/step (host clock around a synchronized "
+                  f"step), device "
+                  f"{x['device_ms'] if x['device_ms'] is None else round(x['device_ms'], 3)} "
+                  f"ms (one step, profiler); loss {x['losses'][0]:.5f} -> {x['losses'][-1]:.5f}; "
+                  f"kernel launches per step {x['per_step']}; step ms "
+                  f"{[round(v, 3) for v in x['step_ms']]}", flush=True)
+        losses = [h["train_loss"] for h in hist] + [h["val_loss"] for h in hist]
+        ext = ("mp_ext_fwd", "mp_ext_bwd")
+        # kernel 4's forward serves the CLI's validation and test on whole
+        # (unsharded) batches; no step on the shards runs kernel 4
+        if (min(launches[k] for k in ext) <= 0 or launches["inject_bwd"]
+                or not np.isfinite(losses).all() or not hist[-1]["train_loss"] < hist[0]["train_loss"]
+                or any(x["per_step"][k] != 3 for x in res for k in ext)
+                or any(x["per_step"]["inject_fwd"] or x["per_step"]["inject_bwd"] for x in res)
+                or any(not x["losses"][-1] < x["losses"][0] for x in res)
+                or res[0]["summary"]["best_val_loss"] != res[1]["summary"]["best_val_loss"]):
+            raise AssertionError(f"[{tag}] kernel 5 did not run on every layer of every step, "
+                                 f"kernel 4 ran in a step, the loss did not fall, or the ranks "
+                                 f"disagree: {launches}")
+        loaded = load_artifact(art)
+        mc = loaded.model_config
+        if (mc.graph_axis is not None or mc.compute_dtype != "bfloat16"
+                or mc.use_partial_charges != cfg.use_partial_charges
+                or mc.use_stereochemistry != cfg.use_stereochemistry):
+            raise AssertionError(f"the halo run saved another config: {mc}")
+        first = first or launches
+    if rows is not None:
+        entry, host, stats = rows
+        tag = cases[0][0]
+        got = [r[tag]["rows"] for r in ranks]
+        model = pkg.models.gnn.GNN(entry["cfg"])
+        model.load_state_dict(params_from_flax(entry["params"]))
+        model.to("cuda").eval()
+        with torch.inference_mode():
+            ref = model(attach_flat_layouts(host).to("cuda")).predictions.float().cpu()
+        abs_err, rel = rel_err(got[0]["pred"], ref)
+        same = torch.equal(got[0]["pred"], got[1]["pred"])
+        print(f"[rows-halo-step] serving forward of 2 flat halo shards ({int(host.graph_mask.sum())} "
+              f"molecules, {stats.split_molecules} split, cut edges {stats.cut_edges}, halo rows "
+              f"{stats.halo_rows}, A_loc {stats.atom_slots_per_device}) against the one-rank "
+              f"forward (kernel 7): max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {E2E_TOL:g}); "
+              f"ranks equal: {same}; launches per rank {[g['launches'] for g in got]}", flush=True)
+        if (not rel <= E2E_TOL or not same or stats.split_molecules < 1 or stats.cut_edges <= 0
+                or any(v for g in got for v in g["launches"].values())):
+            raise AssertionError("[rows-halo-step] the flat halo forward disagrees with one rank, "
+                                 "split nothing or launched a kernel")
+    # the flagship's artifact, served by one rank
+    tag = cases[0][0]
+    art, full = meta[tag][1], meta[tag][3]
+    cols = meta[tag][2]
     mols, preds = os.path.join(out_dir, "mols.csv"), os.path.join(out_dir, "preds.csv")
     pd.DataFrame({"smiles": full.smiles[:512]}).to_csv(mols, index=False)
     t0 = time.perf_counter()
     StreamingInferencePipeline(art, batch_size=512, device="cuda").run_csv(mols, preds)
     got = pd.read_csv(preds)
     vals = got[cols].to_numpy(np.float64)
-    print(f"[halo-train] the artifact served by run_csv on one rank: {len(got)} rows in "
+    print(f"[{tag}] the artifact served by run_csv on one rank: {len(got)} rows in "
           f"{time.perf_counter() - t0:.2f} s, predictions in [{vals.min():.3f}, {vals.max():.3f}]",
           flush=True)
     if len(got) != 512 or not np.isfinite(vals).all():
         raise AssertionError("serving the halo-trained artifact lost rows or gave non-finite values")
-    return launches
+    return first
+
+
+def rank_serve_phase(work: str, n_rows: int) -> None:
+    """``[rank-serve]``: the ``[serve]`` phase's flagship artifact and CSV
+    served by ``python -m torch.distributed.run --nproc_per_node 2 -m
+    aimnet_x2d_tpu_torch.cli`` (two gloo ranks sharing the card, each a
+    contiguous half of the CSV; rank 0 merges): every rank exits 0, the
+    merged CSV holds every row in input order and no rank file is left, its
+    values within E2E_TOL (max|d| / max|ref|) of the one-rank output."""
+    import re
+
+    import pandas as pd
+
+    art = os.path.join(work, "serve.npz")
+    csv_in, one = os.path.join(work, "serve-mols.csv"), os.path.join(work, "serve-preds.csv")
+    out = os.path.join(work, "rank-serve-preds.csv")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", "2",
+           "--master_addr", "localhost", "--master_port", str(_free_port()), "-m",
+           "aimnet_x2d_tpu_torch.cli", "--inference_csv", csv_in, "--model_save_path", art,
+           "--inference_output", out, "--device", "cuda"]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    # the two ranks' "[inference]" lines (their prints may share a line)
+    found = re.findall(r"\(rank (\d+) of 2\), \w+ \(([\d.]+) mol/s", p.stdout)
+    for line in p.stdout.splitlines():
+        if "[inference]" in line:
+            print(f"[rank-serve] {line}", flush=True)
+    if p.returncode != 0:
+        print(p.stdout[-4000:] + p.stderr[-4000:], flush=True)
+        raise AssertionError(f"[rank-serve] a rank exited {p.returncode}")
+    got, ref = pd.read_csv(out), pd.read_csv(one)
+    cols = [c for c in ref.columns if c != "smiles"]
+    left = [f for f in (out + ".rank0", out + ".rank1") if os.path.exists(f)]
+    in_order = got["smiles"].tolist() == ref["smiles"].tolist() and len(got) == n_rows
+    a, b = got[cols].to_numpy(np.float64), ref[cols].to_numpy(np.float64)
+    rel = float(np.abs(a - b).max() / np.abs(b).max()) if in_order else float("inf")
+    mps = {int(r): float(m) for r, m in found}
+    print(f"[rank-serve] 2 ranks on the card: {len(got)} rows of {n_rows}, in input order: "
+          f"{in_order}; rank files left: {left}; against the one-rank [serve] output max|d| / "
+          f"max|ref| {rel:.3e} (tol {E2E_TOL:g}); mol/s by rank {mps} (merged count over each "
+          f"rank's own clock, process start excluded) against [serve]'s "
+          f"{SERVE_MPS.get('serve', float('nan')):.1f}; {wall:.1f} s with process start (host "
+          f"clock)", flush=True)
+    if not in_order or left or not rel <= E2E_TOL or sorted(mps) != [0, 1]:
+        raise AssertionError("[rank-serve] the merged output lost or reordered rows, left a rank "
+                             "file or disagrees with one rank")
 
 
 def _free_port() -> int:
@@ -3819,10 +4157,12 @@ def _free_port() -> int:
 
 
 def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
-                launches: dict, marks_build) -> None:
-    """Halo graph-partitioned training (``--graph_shards``): kernel 5 alone,
-    one step of a 2 x 2 rank grid, and the CLI on 2 ranks; on one card the
-    ranks share it over gloo, on several each has its own (NCCL)."""
+                launches: dict, marks_build, c3_tcfg, c3_full) -> None:
+    """Halo graph-partitioned training (``--graph_shards``): kernel 5 alone;
+    one step of a 2 x 2 rank grid for the flagship and for config 3 (one
+    start of 4 ranks); the CLI on 2 ranks for both, with the flat halo
+    shards' serving forward (one start of 2 ranks); on one card the ranks
+    share it over gloo, on several each has its own (NCCL)."""
     from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
 
     hmodel = pkg.models.gnn.GNN(tcfg)
@@ -3830,8 +4170,19 @@ def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
     hmodel.to("cuda")
     res.update(check_halo_kernel(tcfg, hmodel, ds, seed, marks_build))
     del hmodel
-    halo_step_phase(pkg, tcfg, fl_full, seed, work)
-    launches.update(halo_train_phase(pkg, tcfg, full, seed, work))
+    from aimnet_x2d_tpu_torch.data.dataset import MoleculeDataset
+
+    c3_smiles = c3_full.smiles[:1024] + [C3_SPLIT_SMILES] + c3_full.smiles[1024:1028]
+    c3_step = MoleculeDataset.from_smiles(c3_smiles, np.zeros((len(c3_smiles), 1), np.float32),
+                                          c3_full.max_hops, FEAT_THREADS)
+    halo_step_phase(pkg, {"halo-step": (tcfg, fl_full), "c3-halo-step": (c3_tcfg, c3_step)},
+                    seed, work)
+    rows = rows_halo_data(tcfg, fl_full, seed)
+    first = halo_train_phase(
+        pkg, [("halo-train", tcfg, full, "train.csv", HALO_TIMED_STEPS, "1e-3"),
+              ("c3-halo-train", c3_tcfg, c3_full, "c3-train.csv", HALO_TIMED_STEPS, C3_HALO_LR)],
+        seed, work, rows=rows)
+    launches.update({k: v for k, v in first.items() if k.startswith("mp_ext")})
 
 
 def main() -> int:
@@ -3909,6 +4260,7 @@ def main() -> int:
     tmodel.to("cuda")
     res = check_kernels(pkg, cfg, batch, args.seed)
     launches = serve(pkg, cfg, smiles, args.seed, work, batch)
+    rank_serve_phase(work, len(smiles))
     mc_serve(pkg, tcfg, smiles[:2048], args.seed, work, batch)
     evid_serve(pkg, cfg, smiles[:2048], args.seed, work)
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4123,7 +4475,8 @@ def main() -> int:
                 steps=C3_TRAIN_STEPS, want_per_step={"fused_edge_fwd": 3, "fused_edge_bwd": 3})
     print(f"[time] config-3 flat phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    halo_phases(pkg, tcfg, ds, full, fl_full, args.seed, work, res, launches, marks_build)
+    halo_phases(pkg, tcfg, ds, full, fl_full, args.seed, work, res, launches, marks_build,
+                c3_tcfg, c3_full)
     print(f"[time] halo phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

@@ -1792,3 +1792,116 @@ def test_evidential_serving_matches_cpu(dev):
         g, r = torch.from_numpy(np.asarray(got[key])), torch.from_numpy(np.asarray(ref[key]))
         assert _rel(g, r) < 5e-2, key
     assert (got["aleatoric_uncertainty"] > 0).all() and (got["epistemic_uncertainty"] > 0).all()
+
+
+def test_prefetch_on_the_card_with_pinned_rotated_scratch_gives_the_serial_batches(dev):
+    """The train loop's prefetch on the card: the native builder's scratch
+    rotated and pinned, copies on the copy stream; every batch equal to the
+    serial loader's, array for array, once copied back."""
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.data.native_batch import SCRATCH_SETS
+    from aimnet_x2d_tpu_torch.training.trainer import batch_edges, prefetch_batches
+    from chip_smoke import make_smiles
+
+    smiles = make_smiles(600, 3, stereo=True)
+    ds = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32), 3)
+    serial, loader = (BatchLoader(ds, 32, shuffle=True, seed=1) for _ in range(2))
+    for lo in (serial, loader):
+        lo.warm_bin_pins()
+    want = list(serial)
+    loader.rotate_scratch()
+    stats = {}
+    got = []
+    for b, edges in prefetch_batches(loader, dev, stats=stats):
+        assert b.bin_adj.is_cuda
+        got.append(({k: v.cpu() for k, v in vars(b).items() if isinstance(v, torch.Tensor)},
+                    edges))
+    assert len(got) == len(want) > SCRATCH_SETS and stats["copy_ms"] > 0
+    assert torch.from_numpy(loader._scratches[0]["bufs"][-1]).is_pinned()
+    for (arrays, edges), w in zip(got, want):
+        assert edges == batch_edges(w)
+        for k, v in arrays.items():
+            assert torch.equal(v, torch.from_numpy(np.asarray(getattr(w, k)))), k
+
+
+def _c3_halo_rank(rank, job, out_dir):
+    """One of two ranks on the one card (gloo): the config-3 serving forward
+    of its binned halo shard; writes its predictions."""
+    import os
+    import pickle
+
+    from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
+    from aimnet_x2d_tpu_torch.models.gnn import GNN
+    from aimnet_x2d_tpu_torch.parallel import mesh, multihost
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(job["address"], 2, rank, "gloo", dev)
+    try:
+        mesh.make_grid(1, 2, dev, "gloo")
+        model = GNN(job["cfg"])
+        model.load_state_dict(params_from_flax(job["params"]))
+        model.to(dev).eval()
+        with torch.no_grad():
+            out = model(index_batch(job["stacked"], 0, rank).to(dev)).predictions.float().cpu()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        multihost.sync()
+    finally:
+        multihost.shutdown()
+
+
+def test_config3_halo_forward_on_two_ranks_sharing_the_card(dev, tmp_path):
+    """Config 3 (bf16) on binned halo shards of stereo molecules, one split
+    across the two ranks: the 2-rank forward (the injections, kernel 5)
+    agrees with the one-rank forward of the unsplit batch on the card (the
+    binned inject route, kernel 4; its injections run in bf16 as the halo
+    stack's do) at the bf16 bar (5e-2 of the largest prediction)."""
+    import os
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import collate, stack_batches
+    from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
+    from aimnet_x2d_tpu_torch.data.dataset import MoleculeDataset
+    from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
+    from aimnet_x2d_tpu_torch.parallel.halo import partition_halo
+    from chip_smoke import C3_SPLIT_SMILES, make_smiles
+
+    # the large molecule (197 atoms: it fits a bin) first, with more atoms
+    # than a rank's share: the cut must split it
+    smiles = [C3_SPLIT_SMILES] + make_smiles(5, 5, stereo=True)
+    ds = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32), 3)
+    host = collate(list(ds.features), ds.targets, num_hops=3)
+    stacked, stats = partition_halo(host, 2, return_stats=True, binned=True)
+    assert stats.split_molecules >= 1 and stats.cut_edges > 0
+    cfg = GNNConfig(hidden_dim=128, embedding_dim=32, use_partial_charges=True,
+                    use_stereochemistry=True, compute_dtype="bfloat16")
+    flat = init_params(cfg, 3)
+    job = {"address": f"localhost:{_free_port()}", "cfg": cfg, "params": flat,
+           "stacked": stack_batches([stacked])}
+    mp.spawn(_c3_halo_rank, args=(job, str(tmp_path)), nprocs=2, join=True)
+    outs = []
+    for r in range(2):
+        with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    assert torch.equal(outs[0], outs[1])
+    model = GNN(cfg)
+    model.load_state_dict(params_from_flax(flat))
+    model.to(dev).eval()
+    binned = bin_pack_batch(host)
+    with torch.no_grad():
+        ref = model(binned.to(dev)).predictions.float().cpu()
+    # each side's real molecules in input order
+    got = outs[0][torch.from_numpy(host.graph_mask)]
+    assert _rel(got, ref[torch.from_numpy(binned.graph_mask)]) < 5e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]

@@ -5,10 +5,12 @@ an artifact that the JAX package loads and serves; with both dropouts off
 and one epoch its best validation loss is within 5e-3 of a single-device run
 with the same seed that takes the same molecules per step (batch 32 = 2 data
 shards of 16), JAX's own bar (tests/test_graph_shards_cli.py).  And the
-checks that start no rank: ``--graph_shards 0``, ``--true_multi_hop`` with
-G > 1, config 3 with G > 1, serving over several ranks, a flat halo shard in
-the model, and a torchrun world size other than num_devices x graph_shards
-(also with neither flag)."""
+checks that start no rank: ``--graph_shards 0`` and ``--true_multi_hop``
+with G > 1 raise; config 3 with G > 1 reaches the rank launch; serving with
+``--num_devices 2`` serves in one process; a flat halo shard and config 3
+with a graph axis run in the model (one graph rank, equal to the unsplit
+batch); a torchrun world size other than num_devices x graph_shards raises
+for training (also with neither flag)."""
 
 import dataclasses
 
@@ -71,30 +73,57 @@ def test_cli_graph_shards_trains_and_matches_single_device(tmp_path, small_csv):
 
 
 def test_graph_shards_checks_start_no_rank(tmp_path, small_csv, monkeypatch):
+    from aimnet_x2d_tpu_torch import runner
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax, save_artifact
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts
+    from aimnet_x2d_tpu_torch.data.preprocessing import PreprocessingConfig, PreprocessingPipeline
+    from aimnet_x2d_tpu_torch.parallel import mesh
+
     out = str(tmp_path / "m.npz")
     with pytest.raises(ValidationError, match="graph_shards"):
         cli.main(_argv(small_csv, out, "--graph_shards", "0"))
     with pytest.raises(ValidationError, match="hop"):
         cli.main(_argv(small_csv, out, "--graph_shards", "2", "--true_multi_hop"))
+    # config 3 with --graph_shards 2 reaches the rank launch (here recorded,
+    # not run; tests/test_torch_halo_config3.py trains it on two ranks)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    launched = []
+    monkeypatch.setattr(runner, "_launch_ranks", lambda args, world: launched.append(
+        (world, args.use_partial_charges, args.use_stereochemistry)) or {})
+    monkeypatch.setattr(runner, "print_final_summary", lambda summary, args: None)
     for feature in ("--use_partial_charges", "--use_stereochemistry"):
-        with pytest.raises(NotImplementedError, match="graph_shards"):
-            cli.main(_argv(small_csv, out, "--graph_shards", "2", feature))
-    with pytest.raises(NotImplementedError, match="serving over several ranks"):
-        cli.main(["--inference_csv", small_csv, "--model_save_path", out, "--num_devices", "2",
-                  "--device", "cpu"])
-    # a flat (unbinned) halo shard: the row-major halo route is not ported
-    port_b, _ = _batches(np.random.default_rng(1), n=6, big=30)
-    flat = port_halo.partition_halo(port_b, 2)
+        cli.main(_argv(small_csv, out, "--graph_shards", "2", feature))
+    assert launched == [(2, True, False), (2, False, True)]
+    # serving with --num_devices 2 serves in one process, as JAX's CLI does
+    cfg = GNNConfig(hidden_dim=32, embedding_dim=8, num_shells=2, num_message_passing_layers=2)
+    pipe = PreprocessingPipeline(PreprocessingConfig())
+    pipe.fit([np.array([6, 1])] * 4, np.arange(4.0)[:, None])
+    save_artifact(out, init_params(cfg, 0), cfg, pipe, extra={"target_columns": ["gap"],
+                                                              "max_hops": 2})
+    preds = str(tmp_path / "p.csv")
+    served = cli.main(["--inference_csv", small_csv, "--model_save_path", out, "--num_devices",
+                       "2", "--device", "cpu", "--inference_output", preds])
+    assert served["ranks"] == 1 and served["valid_molecules"] == len(pd.read_csv(small_csv))
+    assert np.isfinite(pd.read_csv(preds)["gap"]).all()
+    # a flat (unbinned) halo shard and config 3 with a graph axis run the
+    # row-major halo route; on one graph rank they equal the unsplit batch
+    port_b, _ = _batches(np.random.default_rng(1), n=6, big=30, with_stereo=True)
+    flat = port_halo.partition_halo(port_b, 1)
     shard = dataclasses.replace(flat, **{f.name: getattr(flat, f.name)[0]
                                          for f in dataclasses.fields(flat)
                                          if isinstance(getattr(flat, f.name), np.ndarray)})
-    model = GNN(GNNConfig(hidden_dim=32, embedding_dim=8, num_shells=2,
-                          num_message_passing_layers=2))
-    with pytest.raises(NotImplementedError, match="flat-layout halo route"):
-        model(shard.to("cpu"))
-    with pytest.raises(NotImplementedError, match="charges or stereochemistry on graph shards"):
-        GNN(GNNConfig(hidden_dim=32, embedding_dim=8, use_stereochemistry=True,
-                      graph_axis="graph"))
+    monkeypatch.setitem(mesh._AXES, "graph", mesh.Axis("graph", 1, 0, None))
+    for kw in ({}, dict(use_stereochemistry=True, use_partial_charges=True, graph_axis="graph")):
+        model = GNN(GNNConfig(hidden_dim=32, embedding_dim=8, num_shells=2,
+                              num_message_passing_layers=2, **kw))
+        model.load_state_dict(params_from_flax(init_params(model.config, 1)))
+        with torch.no_grad():
+            got = model(shard.to("cpu")).predictions
+            ref = GNN(dataclasses.replace(model.config, graph_axis=None))
+            ref.load_state_dict(model.state_dict())
+            want = ref(attach_flat_layouts(port_b).to("cpu")).predictions
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
     # under torchrun the world size must be the grid's, 1 without the flags
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "2")

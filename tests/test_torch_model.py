@@ -102,10 +102,10 @@ def test_atom_embeddings_only_on_request():
     dict(graph_axis="g", parity_mode=False),
 ])
 def test_unported_paths_raise(kw):
-    """Graph-partitioned execution raises when the model is built, alone,
-    with config 3 and with true per-hop aggregation (both of which now run
-    on a flat batch: tests/test_torch_flat_config3.py,
-    tests/test_torch_multihop.py)."""
+    """A model with a graph axis on a batch that is no halo shard (the
+    edge-replicated mode, not ported) raises, alone, with config 3 and with
+    true per-hop aggregation (all of which run on halo shards:
+    tests/test_torch_halo_config3.py)."""
     cfg = GNNConfig(hidden_dim=32, embedding_dim=4, **kw)
     flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
                                        np.zeros((3, 1)), num_hops=3)).to("cpu")

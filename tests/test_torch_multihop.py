@@ -281,6 +281,13 @@ def test_true_multi_hop_cli_trains_and_serves_both_layouts(tmp_path):
 
 
 def test_graph_axis_still_raises():
+    """A per-hop model with a graph axis builds (it runs on halo shards:
+    tests/test_torch_halo_config3.py); on a batch that is no halo shard it
+    would be the edge-replicated mode, which still raises."""
     cfg = dataclasses.replace(GNNConfig(**_kw()), graph_axis="g")
-    with pytest.raises(NotImplementedError):
-        GNN(cfg)
+    model = GNN(cfg)
+    model.load_state_dict(params_from_flax(init_params(cfg, seed=0)))
+    flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
+                                       np.zeros((3, 1)), num_hops=3)).to("cpu")
+    with pytest.raises(NotImplementedError, match="without halo shards"):
+        model(flat)

@@ -6,8 +6,10 @@ Imports the port only (never JAX).  Joins a gloo process group at
 ``localhost:PORT``, builds the (data, graph) grid of the job and runs it on
 this rank's shard of the job's stacked host batches:
 
-- ``forward``: the serving forward of each (config, flax parameters) pair,
-  predictions saved;
+- ``forward``: the serving forward of each (config, flax parameters[,
+  batch key]) entry, predictions saved, and partial charges (this rank's
+  atoms) under ``<name>/charges`` where the model has them; ``stacked`` is
+  one stacked batch or a dict of them, which the batch key picks from;
 - ``step``: one train step of the grid (parallel/graph_parallel.py) with
   Adam at the job's learning rate; the loss, the molecule count and the
   updated parameters (flax names) saved.
@@ -41,13 +43,22 @@ def main() -> None:
     out = {}
     try:
         grid = mesh.make_grid(n_data, n_graph, cpu, "gloo")
-        batch = index_batch(job["stacked"], grid.data.index, grid.graph.index).to(cpu)
+        stacked = job["stacked"]
+        if not isinstance(stacked, dict):
+            stacked = {None: stacked}
+        batches = {k: index_batch(v, grid.data.index, grid.graph.index).to(cpu)
+                   for k, v in stacked.items()}
+        batch = next(iter(batches.values()))
         if job["kind"] == "forward":
-            for name, (cfg, flat) in job["cfgs"].items():
+            for name, spec in job["cfgs"].items():
+                cfg, flat, key = (*spec, None)[:3]
                 model = GNN(cfg)
                 model.load_state_dict(params_from_flax(flat))
                 with torch.no_grad():
-                    out[name] = model(batch).predictions.numpy()
+                    o = model(batches[key])
+                out[name] = o.predictions.numpy()
+                if o.partial_charges is not None:
+                    out[f"{name}/charges"] = o.partial_charges.numpy()
         else:
             cfg = job["cfg"]
             model = GNN(cfg)
