@@ -22,8 +22,19 @@ CSV of SMILES.
     # serve over 2 ranks (each a contiguous part of the CSV; rank 0 merges)
     python -m torch.distributed.run --nproc_per_node 2 -m aimnet_x2d_tpu_torch.cli \\
         --inference_csv mols.csv --model_save_path model.npz --inference_output preds.csv
+    # stream training from columnar HDF5 files (built from the CSV when
+    # missing, preprocessing fit on train), then serve from an HDF5 file
+    python -m aimnet_x2d_tpu_torch.cli --data_path train.csv ... --iterable_dataset \\
+        --train_hdf5 tr.h5 --val_hdf5 va.h5 --test_hdf5 te.h5
+    python -m aimnet_x2d_tpu_torch.cli --inference_hdf5 te.h5 --model_save_path model.npz
+    # molecule (and atom) embeddings beside the predictions, or per split
+    # after training: --save_embeddings [--include_atom_embeddings]
+    #     --embeddings_output_path emb.h5
+    # random search over a YAML space, 8 trials, best artifact kept
+    python -m aimnet_x2d_tpu_torch.cli --data_path train.csv ... \\
+        --hyperparameter_file example_hyperparams.yaml --num_trials 8
 
-The flags are those of the JAX package's CLI that the port supports, plus
+The flags are those of the JAX package's CLI, every one of them, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
 the kernels): every pooling type, partial charges and stereochemistry
 (``--output_partial_charges``), true per-hop aggregation
@@ -34,11 +45,14 @@ data shards per step, each split into ``--graph_shards`` halo graph shards
 (runner.py starts the ranks; config 3 included), and
 serving in every ``--inference_mode`` (deterministic, MC-dropout with
 ``--mc_samples``, evidential), over the ranks of ``torchrun`` when it runs
-under it.
+under it, HDF5 streaming (``--iterable_dataset``, ``--inference_hdf5``),
+embedding output (``--save_embeddings``), hyperparameter search
+(``--hyperparameter_file`` with ``--num_trials``) and
+``--gradient_checkpointing``.  The HDF5 and embedding flags need ``h5py``,
+which only they import; ``--shuffle_buffer_size`` is accepted and read
+nowhere, as in the JAX package (its HDF5 loader shuffles blocks).
 ``--num_workers`` (and ``--precompute_num_workers`` for training) set the
-native featurizer's threads.  Flags of features that are later slices of
-the port (HDF5 streaming, embedding output, hyperparameter search) are
-accepted and raise NotImplementedError when set.
+native featurizer's threads.
 """
 
 from __future__ import annotations
@@ -46,13 +60,6 @@ from __future__ import annotations
 import argparse
 import sys
 from typing import Any, Dict, List, Optional, Sequence
-
-# flag -> value that means "not used"; any other value raises
-_LATER = {
-    "iterable_dataset": False, "save_embeddings": False,
-    "hyperparameter_file": None, "inference_hdf5": None,
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -68,7 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--target_column", type=str, default="target")
     g.add_argument("--multi_target_columns", type=str, default=None,
                    help="comma-separated target column names for multitask")
-    g.add_argument("--iterable_dataset", action="store_true")
+    g.add_argument("--iterable_dataset", action="store_true",
+                   help="stream batches from columnar HDF5 files instead of memory")
+    g.add_argument("--shuffle_buffer_size", type=int, default=1000)
+    g.add_argument("--train_hdf5", type=str, default=None)
+    g.add_argument("--val_hdf5", type=str, default=None)
+    g.add_argument("--test_hdf5", type=str, default="test.h5")
 
     g = p.add_argument_group("Model")
     g.add_argument("--hidden_dim", type=int, default=512)
@@ -124,9 +136,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--checkpoint_dir", type=str, default=None,
                    help="periodic training checkpoints; a run resumes from the newest")
     g.add_argument("--checkpoint_every", type=int, default=10)
-    for flag in ("hyperparameter_file", "output_partial_charges"):
-        g.add_argument(f"--{flag}", type=str, default=None)
-    g.add_argument("--save_embeddings", action="store_true")
+    g.add_argument("--output_partial_charges", type=str, default=None)
     g.add_argument("--num_devices", type=int, default=None)
     g.add_argument("--graph_shards", type=int, default=1)
 
@@ -141,11 +151,21 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--stream_chunk_size", type=int, default=1000)
     g.add_argument("--stream_batch_size", type=int, default=None,
                    help="molecules per batch (default: 2048 on cuda, 64 on cpu)")
+    g.add_argument("--save_embeddings", action="store_true")
+    g.add_argument("--embeddings_output_path", type=str, default="embeddings.h5")
+    g.add_argument("--include_atom_embeddings", action="store_true")
 
     g = p.add_argument_group("System")
     g.add_argument("--device", type=str, default="cuda")
     g.add_argument("--precompute_num_workers", type=int, default=None)
     g.add_argument("--num_workers", type=int, default=4)
+    g.add_argument("--gradient_checkpointing", action="store_true",
+                   help="recompute the message-passing layers in the backward pass")
+
+    g = p.add_argument_group("Hyperparameter Optimization")
+    g.add_argument("--hyperparameter_file", type=str, default=None,
+                   help="YAML search space (with --num_trials > 1)")
+    g.add_argument("--num_trials", type=int, default=1)
 
     g = p.add_argument_group("Logging & Tracking")
     g.add_argument("--enable_wandb", action="store_true")
@@ -163,11 +183,13 @@ def _csv_list(value: Optional[str], cast) -> Optional[List]:
     return [cast(x) for x in value.split(",") if x.strip() != ""]
 
 
-def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    args = build_parser().parse_args(argv)
-    for flag, unused in _LATER.items():
-        if getattr(args, flag) != unused:
-            raise NotImplementedError(f"--{flag} is not ported yet")
+def postprocess_arguments(args: argparse.Namespace) -> argparse.Namespace:
+    """The derived fields (the JAX ``postprocess_arguments``): the list
+    forms of the comma-separated flags, ``ffn_hidden_dim`` and
+    ``precompute_num_workers`` from their sources when unset, and, when
+    serving (``--inference_csv`` or ``--inference_hdf5``), the inference
+    mode: MC-dropout with ``--mc_samples`` > 0, else deterministic.  A
+    hyperparameter trial calls it again on its sampled arguments."""
     args.multi_target_list = _csv_list(args.multi_target_columns, str)
     args.sae_subtask_list = _csv_list(args.sae_subtasks, int)
     args.multitask_weight_list = _csv_list(args.multitask_weights, float)
@@ -176,16 +198,25 @@ def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args.wandb_tag_list = _csv_list(args.wandb_tags, str)
     if args.ffn_hidden_dim is None:
         args.ffn_hidden_dim = args.hidden_dim
-    args.is_inference = args.inference_csv is not None
-    if args.inference_mode is None:
+    if args.precompute_num_workers is None:
+        args.precompute_num_workers = args.num_workers
+    args.is_inference = args.inference_csv is not None or args.inference_hdf5 is not None
+    if args.is_inference and args.inference_mode is None:
         args.inference_mode = "mc_dropout" if args.mc_samples > 0 else "deterministic"
     return args
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    from .runner import main_runner
+def parse_arguments(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    return postprocess_arguments(build_parser().parse_args(argv))
 
-    return main_runner(parse_arguments(argv))
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Run the command line: a hyperparameter search with
+    ``--hyperparameter_file`` and ``--num_trials`` > 1 (hyperopt.py), else
+    one run (runner.main_runner); returns its summary."""
+    from .runner import main
+
+    return main(parse_arguments(argv))
 
 
 if __name__ == "__main__":

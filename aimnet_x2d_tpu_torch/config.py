@@ -47,6 +47,10 @@ def validate_args(args: argparse.Namespace) -> List[str]:
     elif args.sae_subtask_list is not None:
         warnings.append("--sae_subtasks ignored for single-task regression")
 
+    if args.iterable_dataset and not args.is_inference:
+        if not (args.train_hdf5 and args.val_hdf5 and args.test_hdf5):
+            errors.append("--iterable_dataset requires train/val/test HDF5 paths")
+
     for name in ("learning_rate", "lr_reduce_factor", "lr_step_gamma", "lr_exp_gamma"):
         v = getattr(args, name)
         if not (0 < v <= (1.0 if name != "learning_rate" else 10.0)):
@@ -87,8 +91,12 @@ def validate_args(args: argparse.Namespace) -> List[str]:
 def setup_paths(args: argparse.Namespace) -> None:
     """Create the directory of every output location."""
     paths = [args.model_save_path, args.inference_output, args.output_partial_charges]
+    if args.save_embeddings:
+        paths.append(args.embeddings_output_path)
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
+    if args.train_hdf5:
+        paths += [args.train_hdf5, args.val_hdf5, args.test_hdf5]
     for p in paths:
         if p:
             os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)

@@ -345,17 +345,19 @@ class BatchLoader:
         rank's shard (data shard d alone is collated and partitioned; its G
         graph ranks compute the same partition)."""
         for idx in self._batch_indices():
-            if not self.stack_devices:
-                yield self._collate(idx)
-                continue
-            per = self.batch_size
-            ds = range(self.stack_devices) if self.rank is None else [self.rank[0]]
-            shards = [self._collate(idx[d * per : (d + 1) * per]) for d in ds]
-            if self.halo_shards > 1:
-                shards = self._partition_halo_shards(shards)
-            if self.rank is None:
-                yield stack_batches(shards)
-            elif self.halo_shards > 1:
-                yield index_batch(shards[0], self.rank[1])
-            else:
-                yield shards[0]
+            yield self._step(idx)
+
+    def _step(self, idx: np.ndarray) -> MolBatch:
+        """The batch of one step's molecules ``idx`` (``__iter__``)."""
+        if not self.stack_devices:
+            return self._collate(idx)
+        per = self.batch_size
+        ds = range(self.stack_devices) if self.rank is None else [self.rank[0]]
+        shards = [self._collate(idx[d * per : (d + 1) * per]) for d in ds]
+        if self.halo_shards > 1:
+            shards = self._partition_halo_shards(shards)
+        if self.rank is None:
+            return stack_batches(shards)
+        if self.halo_shards > 1:
+            return index_batch(shards[0], self.rank[1])
+        return shards[0]

@@ -5,10 +5,11 @@ Under ``torchrun`` / ``python -m torch.distributed.run`` with several ranks
 joins the process group (gloo: serving exchanges only host objects), takes
 its card (``cuda:{local rank % cards}``, so ranks share a card when there
 are fewer cards than ranks) and serves its line range of the CSV
-(``StreamingInferencePipeline.run_csv``); rank 0 merges.  Otherwise serving
-runs in this one process: ``--num_devices`` and ``--graph_shards`` are
-accepted, as the JAX CLI serves before it builds a mesh, with a note that
-serving spreads over ranks only under torchrun.
+(``StreamingInferencePipeline.run_csv``, or ``run_hdf5`` for
+``--inference_hdf5``: its range of the file's molecules); rank 0 merges.
+Otherwise serving runs in this one process: ``--num_devices`` and
+``--graph_shards`` are accepted, as the JAX CLI serves before it builds a
+mesh, with a note that serving spreads over ranks only under torchrun.
 """
 
 from __future__ import annotations
@@ -62,10 +63,17 @@ def inference_main(args: argparse.Namespace) -> Dict[str, Any]:
             inference_mode=args.inference_mode or "deterministic",
             mc_samples=args.mc_samples,
             num_workers=args.num_workers,
+            save_embeddings=args.save_embeddings,
+            embeddings_output_path=args.embeddings_output_path,
+            include_atom_embeddings=args.include_atom_embeddings,
         )
-        return pipeline.run_csv(
-            args.inference_csv, args.inference_output, smiles_column=args.smiles_column
-        )
+        if args.inference_csv:
+            return pipeline.run_csv(
+                args.inference_csv, args.inference_output, smiles_column=args.smiles_column
+            )
+        if args.inference_hdf5:
+            return pipeline.run_hdf5(args.inference_hdf5, args.inference_output)
+        raise ValueError("inference requires --inference_csv or --inference_hdf5")
     finally:
         if joined:
             multihost.shutdown()

@@ -14,8 +14,17 @@ from one file.
 Over several ranks (one process each, ``torchrun``; parallel/multihost.py)
 ``run_csv`` shards the CSV into contiguous line ranges, one per rank, each
 rank writes ``<out>.rank<r>``, and after a barrier rank 0 merges the rank
-files in rank order and removes them (the JAX ``run_csv``).  Embedding
-output and HDF5 input are later slices of the port.
+files in rank order and removes them (the JAX ``run_csv``).
+
+``run_hdf5`` serves a columnar HDF5 file (data/hdf5.py) a chunk of
+``chunk_size`` molecules at a time, each chunk one block read, through the
+same loop.  With ``save_embeddings`` deterministic serving also writes each
+molecule's embedding and SMILES (and with ``include_atom_embeddings`` its
+atoms' embeddings and offsets) to an HDF5 file as it goes
+(:class:`StreamingEmbeddingWriter`); over ranks each rank writes
+``<emb>.rank<r>`` and rank 0 merges them after the barrier.  MC-dropout and
+evidential serving write none, as in the JAX package.  Only the HDF5 parts
+import ``h5py``.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -39,6 +48,68 @@ from ..training.predictor import predict, predict_evidential, predict_mc_dropout
 from ..utils.device import resolve_device
 
 
+class StreamingEmbeddingWriter:
+    """Embeddings appended to an HDF5 file a chunk at a time, flushed every
+    ``flush_every`` appends (the JAX ``StreamingEmbeddingWriter``, same
+    schema): ``mol_embeddings`` (N, D) float32 and ``smiles`` in resizable
+    datasets (gzip level 1, chunks of 4096 rows), and with
+    ``include_atoms`` ``atom_embeddings`` (sum A, D) (chunks of 16384 rows)
+    with ``atom_offsets`` (N+1,) written at ``close``."""
+
+    def __init__(self, path: str, include_atoms: bool = False, flush_every: int = 100):
+        import h5py
+
+        self._h5py = h5py
+        self.file = h5py.File(path, "w")
+        self.include_atoms = include_atoms
+        self.flush_every = flush_every
+        self._appends = 0
+        self._made = False
+        self._atom_counts: List[np.ndarray] = []
+
+    def _ensure(self, mol_dim: int, atom_dim: Optional[int]) -> None:
+        if self._made:
+            return
+        f, h5py = self.file, self._h5py
+        opts = dict(compression="gzip", compression_opts=1)
+        f.create_dataset("mol_embeddings", shape=(0, mol_dim), maxshape=(None, mol_dim),
+                         dtype=np.float32, chunks=(4096, mol_dim), **opts)
+        f.create_dataset("smiles", shape=(0,), maxshape=(None,),
+                         dtype=h5py.special_dtype(vlen=str), chunks=(4096,))
+        if self.include_atoms and atom_dim is not None:
+            f.create_dataset("atom_embeddings", shape=(0, atom_dim), maxshape=(None, atom_dim),
+                             dtype=np.float32, chunks=(16384, atom_dim), **opts)
+        self._made = True
+
+    @staticmethod
+    def _extend(ds, data) -> None:
+        n0 = ds.shape[0]
+        ds.resize(n0 + len(data), axis=0)
+        ds[n0:] = data
+
+    def append(self, mol_embeddings: np.ndarray, smiles: Sequence[str],
+               atom_embeddings: Optional[np.ndarray] = None,
+               atom_mol_index: Optional[np.ndarray] = None) -> None:
+        self._ensure(mol_embeddings.shape[1],
+                     atom_embeddings.shape[1] if atom_embeddings is not None else None)
+        f = self.file
+        self._extend(f["mol_embeddings"], np.asarray(mol_embeddings, np.float32))
+        self._extend(f["smiles"], np.array(list(smiles), dtype=self._h5py.special_dtype(vlen=str)))
+        if self.include_atoms and atom_embeddings is not None:
+            self._extend(f["atom_embeddings"], np.asarray(atom_embeddings, np.float32))
+            self._atom_counts.append(np.bincount(np.asarray(atom_mol_index),
+                                                 minlength=len(mol_embeddings)).astype(np.int64))
+        self._appends += 1
+        if self._appends % self.flush_every == 0:
+            f.flush()
+
+    def close(self) -> None:
+        if self.include_atoms and self._atom_counts:
+            counts = np.concatenate(self._atom_counts)
+            self.file.create_dataset("atom_offsets", data=np.concatenate([[0], np.cumsum(counts)]))
+        self.file.close()
+
+
 class StreamingInferencePipeline:
     def __init__(
         self,
@@ -49,6 +120,9 @@ class StreamingInferencePipeline:
         inference_mode: str = "deterministic",
         mc_samples: int = 0,
         num_workers: int = 1,
+        save_embeddings: bool = False,
+        embeddings_output_path: Optional[str] = None,
+        include_atom_embeddings: bool = False,
     ):
         if inference_mode not in ("deterministic", "mc_dropout", "evidential"):
             raise ValueError(f"unknown inference mode {inference_mode!r}")
@@ -57,6 +131,9 @@ class StreamingInferencePipeline:
         self.mode = inference_mode
         self.mc_samples = mc_samples
         self.num_workers = max(num_workers, 1)
+        self.save_embeddings = save_embeddings
+        self.embeddings_output_path = embeddings_output_path
+        self.include_atom_embeddings = include_atom_embeddings
         self.device = resolve_device(device)
         self.artifact: Artifact = load_artifact(artifact_path)
         self.model = GNN(self.artifact.model_config)
@@ -86,7 +163,8 @@ class StreamingInferencePipeline:
             res = predict_evidential(self.model, loader, self.device, len(self.target_columns),
                                      pipeline=self.pipeline)
         else:
-            res = predict(self.model, loader, self.device, pipeline=self.pipeline)
+            res = predict(self.model, loader, self.device, pipeline=self.pipeline,
+                          return_embeddings=self.save_embeddings)
         loader.pin_slots(self._slots)
         return res
 
@@ -111,10 +189,12 @@ class StreamingInferencePipeline:
         return pd.DataFrame(out)
 
     def _featurize_ahead(
-        self, chunks: Iterable[List[str]], depth: int = 2
+        self, chunks: Iterable[Tuple[List[str], Optional[MoleculeDataset]]], depth: int = 2
     ) -> Iterator[Tuple[List[str], MoleculeDataset]]:
         """Featurize chunk N+1 in a background thread while the device
-        predicts chunk N.  Adds the featurization time to
+        predicts chunk N: each ``(smiles, dataset)`` item whose dataset is
+        None is featurized there (a chunk read from an HDF5 file comes
+        featurized, its read made there).  Adds that time to
         ``featurize_seconds``; re-raises a worker error in the caller."""
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         done = object()
@@ -132,14 +212,16 @@ class StreamingInferencePipeline:
 
         def worker():
             try:
-                for smiles in chunks:
-                    t0 = time.perf_counter()
-                    ds = MoleculeDataset.from_smiles(
-                        smiles, np.zeros((len(smiles), 1), np.float32), self.max_hops,
-                        self.num_workers)
+                t0 = time.perf_counter()
+                for smiles, ds in chunks:
+                    if ds is None:
+                        ds = MoleculeDataset.from_smiles(
+                            smiles, np.zeros((len(smiles), 1), np.float32), self.max_hops,
+                            self.num_workers)
                     self.featurize_seconds += time.perf_counter() - t0
                     if not put((smiles, ds)):
                         return
+                    t0 = time.perf_counter()
             except Exception as e:  # surfaced in the consumer thread
                 errors.append(e)
             finally:
@@ -159,17 +241,34 @@ class StreamingInferencePipeline:
         if errors:
             raise errors[0]
 
-    def _run_chunks(self, chunks: Iterable[List[str]], output_path: str) -> Tuple[int, int]:
+    def _run_chunks(self, chunks: Iterable[Tuple[List[str], Optional[MoleculeDataset]]],
+                    output_path: str, embeddings_path: Optional[str] = None) -> Tuple[int, int]:
+        """Predict every chunk, append its rows to ``output_path`` and, with
+        ``save_embeddings`` in deterministic mode, its embeddings to a
+        :class:`StreamingEmbeddingWriter` on ``embeddings_path``.  Returns
+        (molecules read, molecules predicted)."""
         n_total = n_valid = 0
         first = True
-        for smiles, ds in self._featurize_ahead(chunks):
-            n_total += len(smiles)
-            if len(ds) == 0:
-                continue
-            n_valid += len(ds)
-            frame = self._result_frame(ds, self._predict_dataset(ds))
-            frame.to_csv(output_path, mode="w" if first else "a", header=first, index=False)
-            first = False
+        writer = None
+        if self.save_embeddings and embeddings_path:
+            writer = StreamingEmbeddingWriter(embeddings_path,
+                                              include_atoms=self.include_atom_embeddings)
+        try:
+            for smiles, ds in self._featurize_ahead(chunks):
+                n_total += len(smiles)
+                if len(ds) == 0:
+                    continue
+                n_valid += len(ds)
+                res = self._predict_dataset(ds)
+                frame = self._result_frame(ds, res)
+                frame.to_csv(output_path, mode="w" if first else "a", header=first, index=False)
+                first = False
+                if writer is not None and "mol_embeddings" in res:
+                    writer.append(res["mol_embeddings"], ds.smiles, res.get("atom_embeddings"),
+                                  res.get("atom_mol_index"))
+        finally:
+            if writer is not None:
+                writer.close()
         if first:  # no valid molecules: still write an (empty) output file
             pd.DataFrame(columns=["smiles"] + list(self.target_columns)).to_csv(
                 output_path, index=False
@@ -202,6 +301,35 @@ class StreamingInferencePipeline:
             if os.path.exists(shard):
                 os.remove(shard)
 
+    @staticmethod
+    def _merge_rank_embeddings(path: str, num_hosts: int) -> None:
+        """Concatenate the rank files ``<path>.rank<r>`` of the embedding
+        writer into ``path`` in rank order (atom offsets rebuilt from each
+        rank's counts), then remove them (the JAX ``_merge_rank_embeddings``)."""
+        import h5py
+
+        shards = [s for s in (f"{path}.rank{h}" for h in range(num_hosts)) if os.path.exists(s)]
+        with h5py.File(path, "w") as out:
+            mols, smiles, atoms, counts = [], [], [], []
+            for s in shards:
+                with h5py.File(s, "r") as f:
+                    if "mol_embeddings" not in f:
+                        continue
+                    mols.append(f["mol_embeddings"][:])
+                    smiles.append(f["smiles"][:])
+                    if "atom_embeddings" in f:
+                        atoms.append(f["atom_embeddings"][:])
+                        counts.append(np.diff(f["atom_offsets"][:]))
+            if mols:
+                out.create_dataset("mol_embeddings", data=np.concatenate(mols))
+                out.create_dataset("smiles", data=np.concatenate(smiles))
+            if atoms:
+                out.create_dataset("atom_embeddings", data=np.concatenate(atoms))
+                c = np.concatenate(counts)
+                out.create_dataset("atom_offsets", data=np.concatenate([[0], np.cumsum(c)]))
+        for s in shards:
+            os.remove(s)
+
     def run_csv(
         self,
         csv_path: str,
@@ -217,37 +345,75 @@ class StreamingInferencePipeline:
         group's size and this process's rank) rank ``host_id`` predicts the
         contiguous line range ``[host_id * per, (host_id + 1) * per)`` of the
         CSV's ``n`` data lines, ``per = ceil(n / num_hosts)``, into
-        ``<output_path>.rank<host_id>``; the counts are all-gathered, and
-        after a barrier rank 0 merges the rank files in rank order and
-        removes them, then every rank waits for the merge."""
+        ``<output_path>.rank<host_id>`` (and its embeddings into
+        ``<embeddings_output_path>.rank<host_id>``); the counts are
+        all-gathered, and after a barrier rank 0 merges the rank files in
+        rank order and removes them, then every rank waits for the merge."""
+
+        def chunks(start, end):
+            kw = {} if start is None else dict(skiprows=range(1, 1 + start),
+                                               nrows=max(end - start, 0))
+            for chunk in pd.read_csv(csv_path, chunksize=self.chunk_size, **kw):
+                yield chunk[smiles_column].astype(str).tolist(), None
+
+        return self._run_ranked(chunks, lambda: self._csv_data_rows(csv_path), output_path,
+                                host_id, num_hosts)
+
+    def run_hdf5(self, hdf5_path: str, output_path: str, host_id: Optional[int] = None,
+                 num_hosts: Optional[int] = None) -> Dict[str, Any]:
+        """Predict every molecule of a columnar HDF5 file (data/hdf5.py)
+        into ``output_path`` (and its embeddings, with ``save_embeddings``),
+        a block read of ``chunk_size`` molecules at a time (the JAX
+        ``run_hdf5``; ``featurize_seconds`` holds the reads); over ranks as
+        ``run_csv``, each rank a contiguous range of the file's molecules."""
+        from ..data.hdf5 import HDF5MoleculeDataset
+
+        h5 = HDF5MoleculeDataset(hdf5_path)
+
+        def chunks(start, end):
+            start, end = (0, len(h5)) if start is None else (start, end)
+            for s in range(start, end, self.chunk_size):
+                ds = h5.block_dataset(s, min(s + self.chunk_size, end))
+                yield ds.smiles, ds
+
+        try:
+            return self._run_ranked(chunks, lambda: len(h5), output_path, host_id, num_hosts)
+        finally:
+            h5.close()
+
+    def _run_ranked(self, chunks, count, output_path: str, host_id: Optional[int],
+                    num_hosts: Optional[int]) -> Dict[str, Any]:
+        """``_run_chunks`` over this rank's range of ``count()`` inputs
+        (``chunks(start, end)``; all of them, ``chunks(None, None)``, on one
+        rank), then the rank files' merge (``run_csv``)."""
         if num_hosts is None:
             num_hosts = multihost.process_count()
             host_id = multihost.process_index()
         t0 = time.perf_counter()
         self.featurize_seconds = 0.0
+        emb = self.embeddings_output_path if self.save_embeddings else None
         if num_hosts <= 1:
-            my_out = output_path
-            reader = pd.read_csv(csv_path, chunksize=self.chunk_size)
+            my_out, my_emb, items = output_path, emb, chunks(None, None)
         else:
-            n_rows = self._csv_data_rows(csv_path)
-            per = -(-n_rows // num_hosts)
-            start, end = host_id * per, min((host_id + 1) * per, n_rows)
+            n = count()
+            per = -(-n // num_hosts)
             my_out = f"{output_path}.rank{host_id}"
-            reader = pd.read_csv(csv_path, skiprows=range(1, 1 + start),
-                                 nrows=max(end - start, 0), chunksize=self.chunk_size)
-
-        def chunks():
-            for chunk in reader:
-                yield chunk[smiles_column].astype(str).tolist()
-
-        n_total, n_valid = self._run_chunks(chunks(), my_out)
+            my_emb = f"{emb}.rank{host_id}" if emb else None
+            items = chunks(host_id * per, min((host_id + 1) * per, n))
+        n_total, n_valid = self._run_chunks(items, my_out, my_emb)
         if num_hosts > 1:
             counts = multihost.allgather_numpy(np.array([[n_total, n_valid]], np.int64))
             multihost.sync()  # every rank file is complete past this point
             n_total, n_valid = (int(x) for x in counts.sum(axis=0))
             if host_id == 0:
                 self._merge_rank_files(output_path, num_hosts)
+                if emb:
+                    self._merge_rank_embeddings(emb, num_hosts)
             multihost.sync()  # hold the rank files until the merge is done
+        return self._summary(output_path, t0, n_total, n_valid, num_hosts, host_id)
+
+    def _summary(self, output_path: str, t0: float, n_total: int, n_valid: int,
+                 num_hosts: int = 1, host_id: Optional[int] = 0) -> Dict[str, Any]:
         dt = time.perf_counter() - t0
         summary = {
             "total_molecules": n_total,

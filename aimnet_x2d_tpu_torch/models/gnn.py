@@ -91,10 +91,22 @@ a pmax over the axis.  Dropout on the halo stack: the step's seed plus the
 graph rank, then ``layer_drop_seed`` per layer, as JAX draws it.
 Graph-axis execution without halo shards (JAX's edge-replicated mode) is a
 later slice of the port and raises NotImplementedError.
+
+With ``remat`` (the CLI's ``--gradient_checkpointing``) the training
+forward recomputes each layer in the backward pass instead of keeping its
+activations (``torch.utils.checkpoint``; JAX ``nn.remat``) on the per-layer
+routes: the inject and layer routes' kernel call, the row-major
+``ShellConvolutionLayer`` call (the halo exchange with it on halo shards)
+and the halo stack's kernel-5 call.  The recomputation draws the same
+dropout: the kernels take the same seed, and the generator of the plain
+dropout is put back to its state at the layer's forward for the
+recomputation, then to where it was (:func:`_remat`).  The fused stack saves
+only its input anyway (JAX remats nothing there).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -221,6 +233,34 @@ def _unsupported(cfg: GNNConfig) -> Optional[str]:
     if cfg.pooling_type not in POOLING_TYPES:
         return f"{cfg.pooling_type} pooling"
     return None
+
+
+def _remat(on: bool, fn, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    """``fn(x)``; with ``on``, under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped after the forward and recomputed when the
+    backward needs them, so ``fn`` must bind what a loop changes (the
+    recomputation runs after the loop).  Checkpoint restores only the
+    default generators, so ``generator``'s state at the forward is replayed
+    for the recomputation, and its later state put back after it."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(x)
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        return checkpoint(fn, x, use_reentrant=False)
+    state = generator.get_state()
+
+    @contextlib.contextmanager
+    def replay():
+        later = generator.get_state()
+        generator.set_state(state)
+        try:
+            yield
+        finally:
+            generator.set_state(later)
+
+    return checkpoint(fn, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay()))
 
 
 def mp_route(cfg: GNNConfig) -> str:
@@ -561,8 +601,9 @@ class GNN(nn.Module):
             if self.route == "inject":
                 if train:
                     kb, b = self._stereo_proj()
-                    x = bin_inject.binned_inject_mp_layer_train_t(
-                        x, *tables, kb, b, layer.stack_weights(), dt, act, rate, seed)
+                    x = _remat(cfg.remat, lambda x_, w=layer.stack_weights(), seed=seed:
+                               bin_inject.binned_inject_mp_layer_train_t(
+                                   x_, *tables, kb, b, w, dt, act, rate, seed), x)
                 else:
                     x = bin_inject.binned_inject_mp_layer_t(x.contiguous(), *tables, prepped[l], act)
                 continue
@@ -571,8 +612,8 @@ class GNN(nn.Module):
             if cfg.use_stereochemistry:
                 x = stereochemistry_t(x, *self._stereo_proj(), ctx)
             if train:
-                x = binned_mp_layer_train_t(x, batch.bin_adj, layer.stack_weights(), dt, act,
-                                            rate, seed)
+                x = _remat(cfg.remat, lambda x_, w=layer.stack_weights(), seed=seed:
+                           binned_mp_layer_train_t(x_, batch.bin_adj, w, dt, act, rate, seed), x)
             else:
                 x = binned_mp_layer_t(x.contiguous(), batch.bin_adj, prepped[l], act)
         return x
@@ -827,7 +868,8 @@ class GNN(nn.Module):
                 x = charge_equilibration(x, batch, ax)
             if ctx is not None:
                 x = stereochemistry(x, *self._stereo_proj(), ctx, batch)
-            x = layer(x, batch, generator, ax) + x
+            x = _remat(cfg.remat, lambda x_, layer=layer: layer(x_, batch, generator, ax), x,
+                       generator) + x
         return x
 
     def _halo_stack(self, batch: MolBatch, x_other: torch.Tensor, ax: mesh.Axis, rate: float,
@@ -861,8 +903,9 @@ class GNN(nn.Module):
             agg = agg + halo_agg_contrib_t(haloT, batch.halo_adj, dt)
             xa = torch.cat([xT, agg.to(dt)], dim=0)
             seed = layer_drop_seed(base, l) if base is not None else 0
-            xT = binned_mp_layer_ext_t(xa, layer.stack_weights(), dt, cfg.activation_type,
-                                       rate, seed) + xT
+            xT = _remat(cfg.remat, lambda xa_, w=layer.stack_weights(), seed=seed:
+                        binned_mp_layer_ext_t(xa_, w, dt, cfg.activation_type, rate, seed),
+                        xa) + xT
         return xT.T.to(x_other.dtype)
 
     def _forward_halo(self, batch: MolBatch, atom_embeddings: bool, train: bool,

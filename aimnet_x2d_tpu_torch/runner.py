@@ -63,7 +63,7 @@ from .data.preprocessing import PreprocessingConfig, PreprocessingPipeline
 from .models.gnn import GNN, GNNConfig
 from .parallel import mesh, multihost
 from .training.evaluator import evaluate
-from .training.predictor import extract_partial_charges
+from .training.predictor import extract_partial_charges, predict
 from .training.trainer import TrainConfig, train
 from .utils.device import resolve_device
 from .utils.optimization import count_parameters, train_mask
@@ -92,6 +92,7 @@ def gnn_config_from_args(args: argparse.Namespace, output_dim: int) -> GNNConfig
         loss_function=args.loss_function,
         parity_mode=not args.true_multi_hop,
         compute_dtype="bfloat16" if args.mixed_precision else "float32",
+        remat=args.gradient_checkpointing,
     )
 
 
@@ -147,28 +148,48 @@ def _parallel_from_args(args: argparse.Namespace) -> Tuple[int, int]:
     return args.num_devices or 1, args.graph_shards or 1
 
 
-def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> Dict[str, Any]:
-    """Train, test and save; with ``grid``, this rank's part of a run over
-    the rank grid (module docstring)."""
-    t_start = time.time()
-    device = grid.device if grid is not None else resolve_device(args.device)
-    primary = grid is None or grid.rank == 0
-    say = print if primary else (lambda *a, **k: None)
+def _preprocessing_config(args: argparse.Namespace) -> PreprocessingConfig:
+    return PreprocessingConfig(apply_sae=args.calculate_sae, sae_subtasks=args.sae_subtask_list,
+                               apply_standard_scaling=True, task_type=args.task_type)
+
+
+def _hdf5_paths(args: argparse.Namespace):
+    return [args.train_hdf5, args.val_hdf5, args.test_hdf5]
+
+
+def build_hdf5(args: argparse.Namespace) -> None:
+    """The ``--iterable_dataset`` files: kept when all three exist, else
+    built out of core from the CSV input (a chunk in memory at a time), the
+    preprocessing fit on the train file and applied to all three in place."""
+    from .data.hdf5 import (fit_pipeline_streaming, transform_targets_streaming,
+                            write_hdf5_streaming)
+
+    paths = _hdf5_paths(args)
+    if all(os.path.exists(p) for p in paths):
+        return
+    (tr_s, tr_t), (va_s, va_t), (te_s, te_t) = _load_splits(args)
+    cols = args.multi_target_list or [args.target_column]
+    for (s, t), path in zip(((tr_s, tr_t), (va_s, va_t), (te_s, te_t)), paths):
+        kept = write_hdf5_streaming(path, s, t, args.num_shells,
+                                    num_workers=featurize_workers(args), target_columns=cols)
+        print(f"[hdf5] wrote {kept}/{len(s)} molecules -> {path}")
+    pipe = fit_pipeline_streaming(args.train_hdf5, _preprocessing_config(args))
+    for path in paths:
+        transform_targets_streaming(path, pipe)
+
+
+def _in_memory_data(args: argparse.Namespace, grid: Optional[mesh.Grid], say) -> Dict[str, Any]:
+    """Load, split, featurize and preprocess the CSV input; the loaders."""
     n_data, n_graph = (grid.n_data, grid.n_graph) if grid is not None else (1, 1)
     (tr_s, tr_t), (va_s, va_t), (te_s, te_t) = _load_splits(args)
-    num_tasks = tr_t.shape[1]
-    say(f"[data] train {len(tr_s)}  val {len(va_s)}  test {len(te_s)}  tasks {num_tasks}")
+    say(f"[data] train {len(tr_s)}  val {len(va_s)}  test {len(te_s)}  tasks {tr_t.shape[1]}")
     workers = featurize_workers(args)
     say(f"[featurize] {native.describe(workers)}")
     train_ds, val_ds, test_ds = (MoleculeDataset.from_smiles(s, t, args.num_shells, workers)
                                  for s, t in ((tr_s, tr_t), (va_s, va_t), (te_s, te_t)))
     say(f"[featurize] kept train {len(train_ds)}/{len(tr_s)}  val {len(val_ds)}/{len(va_s)}  "
         f"test {len(test_ds)}/{len(te_s)}")
-
-    pipe = PreprocessingPipeline(PreprocessingConfig(
-        apply_sae=args.calculate_sae, sae_subtasks=args.sae_subtask_list,
-        apply_standard_scaling=True, task_type=args.task_type,
-    ))
+    pipe = PreprocessingPipeline(_preprocessing_config(args))
     pipe.fit(train_ds.atomic_numbers(), train_ds.targets)
     train_ds, val_ds, test_ds = (
         ds.with_targets(pipe.transform(ds.atomic_numbers(), ds.targets))
@@ -181,8 +202,51 @@ def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> 
         train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                                    stack_devices=n_data, halo_shards=n_graph,
                                    rank=(grid.data.index, grid.graph.index))
-    val_loader = BatchLoader(val_ds, args.batch_size * n_data)
-    test_loader = BatchLoader(test_ds, args.batch_size * n_data)
+    return {"train": train_loader, "val": BatchLoader(val_ds, args.batch_size * n_data),
+            "test": BatchLoader(test_ds, args.batch_size * n_data), "pipe": pipe,
+            "num_tasks": train_ds.num_tasks,
+            "target_columns": args.multi_target_list or [args.target_column],
+            "splits": [("train", train_ds), ("val", val_ds), ("test", test_ds)], "files": []}
+
+
+def _streaming_data(args: argparse.Namespace, grid: Optional[mesh.Grid], say) -> Dict[str, Any]:
+    """The ``--iterable_dataset`` files (built by :func:`build_hdf5`) and
+    their streaming loaders."""
+    from .data.hdf5 import HDF5BatchLoader, HDF5MoleculeDataset
+
+    n_data, n_graph = (grid.n_data, grid.n_graph) if grid is not None else (1, 1)
+    files = [HDF5MoleculeDataset(p) for p in _hdf5_paths(args)]
+    train_h5, val_h5, test_h5 = files
+    if train_h5.preprocessing_state is None:
+        raise ValueError(f"{args.train_hdf5} lacks preprocessing metadata; rebuild it with "
+                         "this framework (silent dummy-stat fallbacks are not supported)")
+    say(f"[hdf5] train {len(train_h5)}  val {len(val_h5)}  test {len(test_h5)}  "
+        f"tasks {train_h5.num_tasks}")
+    if grid is None:
+        train_loader = HDF5BatchLoader(train_h5, args.batch_size, shuffle=True, seed=args.seed)
+    else:
+        train_loader = HDF5BatchLoader(train_h5, args.batch_size, shuffle=True, seed=args.seed,
+                                       stack_devices=n_data, halo_shards=n_graph,
+                                       rank=(grid.data.index, grid.graph.index))
+    return {"train": train_loader, "val": HDF5BatchLoader(val_h5, args.batch_size * n_data),
+            "test": HDF5BatchLoader(test_h5, args.batch_size * n_data),
+            "pipe": PreprocessingPipeline.from_state_dict(train_h5.preprocessing_state),
+            "num_tasks": train_h5.num_tasks,
+            "target_columns": (train_h5.target_columns or args.multi_target_list
+                               or [args.target_column]),
+            "splits": None, "files": files}
+
+
+def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> Dict[str, Any]:
+    """Train, test and save; with ``grid``, this rank's part of a run over
+    the rank grid (module docstring)."""
+    t_start = time.time()
+    device = grid.device if grid is not None else resolve_device(args.device)
+    primary = grid is None or grid.rank == 0
+    say = print if primary else (lambda *a, **k: None)
+    data = (_streaming_data if args.iterable_dataset else _in_memory_data)(args, grid, say)
+    pipe, num_tasks = data["pipe"], data["num_tasks"]
+    train_loader, val_loader, test_loader = data["train"], data["val"], data["test"]
 
     cfg = gnn_config_from_args(args, num_tasks)
     model = GNN(cfg)
@@ -213,13 +277,15 @@ def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> 
         "avg_epoch_seconds": result.avg_epoch_seconds,
     }
     if not primary:
+        for h5 in data["files"]:
+            h5.close()
         summary["total_seconds"] = time.time() - t_start
         return summary
     save_artifact(
         args.model_save_path, params_to_flax(result.state_dict, cfg), cfg, pipe,
         extra={
             "task_type": args.task_type,
-            "target_columns": args.multi_target_list or [args.target_column],
+            "target_columns": data["target_columns"],
             "best_val_loss": result.best_val_loss,
             "best_epoch": result.best_epoch,
             "test_metrics": {k: v for k, v in test_metrics.items() if not isinstance(v, dict)},
@@ -229,10 +295,18 @@ def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> 
     print(f"[artifact] saved to {args.model_save_path}")
     if args.experiment_config:
         save_experiment_config(args, args.experiment_config)
+    if args.save_embeddings:
+        if data["splits"] is None:
+            print("[embeddings] not written: --iterable_dataset training writes none "
+                  "(as the JAX runner); serve the HDF5 files with --save_embeddings")
+        else:
+            extract_embeddings(args, model, device, data["splits"])
     if args.output_partial_charges and args.use_partial_charges:
         charges, mol_idx = extract_partial_charges(model, test_loader, device)
         np.savez(args.output_partial_charges, charges=charges, molecule_index=mol_idx)
         print(f"[charges] saved to {args.output_partial_charges}")
+    for h5 in data["files"]:
+        h5.close()
     summary["total_seconds"] = time.time() - t_start
     with open(args.model_save_path + ".summary.json", "w") as f:
         json.dump(summary, f, indent=2, default=str)
@@ -242,11 +316,34 @@ def run_training(args: argparse.Namespace, grid: Optional[mesh.Grid] = None) -> 
     return summary
 
 
+def extract_embeddings(args: argparse.Namespace, model: GNN, device: torch.device,
+                       named_datasets) -> None:
+    """Each split's molecule embeddings (and with
+    ``--include_atom_embeddings`` its atoms' and their molecule index) and
+    SMILES, one HDF5 group per split, in ``--embeddings_output_path`` (the
+    JAX ``_extract_embeddings``)."""
+    import h5py
+
+    with h5py.File(args.embeddings_output_path, "w") as f:
+        for name, ds in named_datasets:
+            res = predict(model, BatchLoader(ds, args.batch_size), device, return_embeddings=True)
+            grp = f.create_group(name)
+            grp.create_dataset("mol_embeddings", data=res["mol_embeddings"])
+            grp.create_dataset("smiles", data=np.array(ds.smiles,
+                                                       dtype=h5py.special_dtype(vlen=str)))
+            if args.include_atom_embeddings:
+                grp.create_dataset("atom_embeddings", data=res["atom_embeddings"])
+                grp.create_dataset("atom_mol_index", data=res["atom_mol_index"])
+    print(f"[embeddings] saved to {args.embeddings_output_path}")
+
+
 def check_data_consistency(args: argparse.Namespace) -> None:
     """Raise before any work starts when an input the run needs is missing."""
     if args.is_inference:
-        if not os.path.exists(args.inference_csv):
-            raise ValueError(f"inference CSV not found: {args.inference_csv}")
+        for p, what in ((args.inference_csv, "inference CSV"),
+                        (args.inference_hdf5, "inference HDF5")):
+            if p and not os.path.exists(p):
+                raise ValueError(f"{what} not found: {p}")
         # save_artifact appends .npz to a path without it
         if not (os.path.exists(args.model_save_path)
                 or os.path.exists(args.model_save_path + ".npz")):
@@ -304,6 +401,11 @@ def _rank_main(rank: int, args: argparse.Namespace, address: str, world: int,
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
     multihost.initialize(address, world, rank, backend, device)
     try:
+        if args.iterable_dataset and out_dir is None:
+            # under torchrun every rank runs the CLI: rank 0 builds the files
+            if rank == 0:
+                build_hdf5(args)
+            multihost.sync()
         grid = mesh.make_grid(n_data, n_graph, device, backend)
         if rank == 0:
             where = f"{per_card} rank(s) per card" if per_card else "on the CPU"
@@ -353,6 +455,9 @@ def main_runner(args: argparse.Namespace) -> Dict[str, Any]:
 
         return inference_main(args)
     n_data, n_graph = _parallel_from_args(args)
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.iterable_dataset and not (torchrun and n_data * n_graph > 1):
+        build_hdf5(args)  # before the ranks start (under torchrun: _rank_main)
     if n_data * n_graph > 1:
         summary = _launch_ranks(args, n_data * n_graph)
     else:
@@ -360,3 +465,14 @@ def main_runner(args: argparse.Namespace) -> Dict[str, Any]:
     if primary:
         print_final_summary(summary, args)
     return summary
+
+
+def main(args: argparse.Namespace) -> Dict[str, Any]:
+    """The command line's run (the JAX ``runner.main``): a hyperparameter
+    search with ``--hyperparameter_file`` and ``--num_trials`` > 1, else
+    :func:`main_runner`."""
+    if args.hyperparameter_file and args.num_trials > 1:
+        from .hyperopt import run_hyperparameter_optimization
+
+        return run_hyperparameter_optimization(args)
+    return main_runner(args)

@@ -5,7 +5,9 @@
 
 Phases, each of which fails the run when it fails:
 
-1. print the card's name and power limit; turn TF32 off for fp32 products;
+1. print the card's name and power limit, and ``[deps]``: whether ``h5py``
+   and ``yaml`` import (the HDF5 phases run only where ``h5py`` does; a
+   skipped phase prints why); turn TF32 off for fp32 products;
 2. build the CUDA kernels from ``aimnet_x2d_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once) and, beside them, the native
    featurizer and batch builder from ``native/*.cpp`` (g++ into
@@ -45,7 +47,13 @@ Phases, each of which fails the run when it fails:
    aimnet_x2d_tpu_torch.cli`` (two gloo ranks sharing the card, each a
    contiguous half of the CSV, rank 0 merging): every rank exits 0, every
    row in input order, no rank file left, within E2E_TOL of ``[serve]``'s
-   output, mol/s by rank beside ``[serve]``'s;
+   output, mol/s by rank beside ``[serve]``'s; ``[embed-serve]``:
+   ``predict(..., return_embeddings=True)`` with ``[serve]``'s artifact over
+   its SMILES on the card, the predictions bit-equal to the call without
+   embeddings, molecule and atom embeddings of the first 256 within
+   E2E_TOL of the CPU's plain run and their molecule index equal, mol/s with
+   and without; where ``h5py`` imports also the CLI's ``--save_embeddings
+   --include_atom_embeddings`` file, read back;
 5. ``[train-kernel]``: hold each training kernel (stack forward with
    dropout and the projection fold, stack backward, attention pool forward
    and backward) against its plain version at the flagship training shapes
@@ -82,6 +90,16 @@ Phases, each of which fails the run when it fails:
    time and the host ms a step, beside the parent's; epoch 0's batches
    through it equal to the serial loader's (batch 2048 and 256); ``train``'s
    first two epochs' losses bit-equal to a serial loop's;
+   ``[hyperopt]``: the CLI's search (``--hyperparameter_file
+   example_hyperparams.yaml --num_trials 3 --epochs 2 --mixed_precision``,
+   seed HYPEROPT_SEED: hidden 256 and 384, both pooling types) on
+   ``[train]``'s CSV, every trial ok with finite losses, each trial's
+   configuration, seconds and kernel launches printed, the best artifact
+   reloaded and served on the card within E2E_TOL of the CPU;
+   ``[hdf5-train]`` (``--iterable_dataset`` on the same CSV, 2 epochs, a
+   falling loss) and ``[hdf5-serve]`` (``--inference_hdf5`` on its test
+   file equal to ``--inference_csv`` on the same molecules), where ``h5py``
+   imports;
 7. config 3 (partial charges + stereochemistry, BASELINE.json config 3) at
    the flagship width, on SMILES of which about half carry a tetrahedral
    centre or a cis/trans double bond:
@@ -4185,6 +4203,277 @@ def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
     launches.update({k: v for k, v in first.items() if k.startswith("mp_ext")})
 
 
+# ---- the rest of the CLI: hyperparameter search, embedding output, HDF5 ---- #
+
+# The search seed of [hyperopt]: chosen on the CPU beforehand
+# (hyperopt.sample_trials over example_hyperparams.yaml) so that its three
+# trials sample hidden 384 (mean pooling, 4 shells, 2 heads), 256 (attention,
+# 8 heads, 3 shells) and 256 (attention, 4 heads, 2 shells): x_other 115 and
+# 76, x_self 269 and 180, both pooling types, next to the flagship's widths.
+HYPEROPT_SEED = 16
+HYPEROPT_BATCH = 512  # the trials' --batch_size: 7 steps an epoch of [train]'s CSV
+HDF5_BATCH = 256  # [hdf5-train]'s --batch_size: 13 steps an epoch, so the loss falls in 2
+EMBED_CPU = 256  # molecules of [embed-serve]'s and [hyperopt]'s card-vs-CPU checks
+
+
+def deps_line() -> bool:
+    """Print whether ``h5py`` and ``yaml`` import here; returns whether
+    ``h5py`` does (the HDF5 phases run only then)."""
+    import importlib.util
+
+    has = {m: importlib.util.find_spec(m) is not None for m in ("h5py", "yaml")}
+    print(f"[deps] h5py imports: {'yes' if has['h5py'] else 'no'}; yaml imports: "
+          f"{'yes' if has['yaml'] else 'no'}", flush=True)
+    return has["h5py"]
+
+
+def _training_kernels():
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool, bin_mp, bin_wpool
+
+    return (bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_mp.mp_stack_bwd_proj,
+            bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd, bin_wpool.wpool_fwd,
+            bin_wpool.wpool_bwd, bin_mp.mp_stack_fwd)
+
+
+def _card_vs_cpu(pkg, art_path: str, smiles, tag: str) -> float:
+    """Serve ``smiles`` with the artifact through the CLI on the card, and
+    the first EMBED_CPU of them with the plain versions on the CPU; returns
+    max|d| / max|cpu| of the scaled outputs (fails past E2E_TOL)."""
+    import pandas as pd
+
+    from aimnet_x2d_tpu_torch import cli
+    from aimnet_x2d_tpu_torch.checkpoint import load_artifact, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.training.predictor import predict
+
+    art = load_artifact(art_path)
+    work = os.path.dirname(art_path)
+    csv_in, csv_out = (os.path.join(work, f"{tag}-{s}.csv") for s in ("mols", "preds"))
+    pd.DataFrame({"smiles": smiles[:EMBED_CPU]}).to_csv(csv_in, index=False)
+    cli.main(["--inference_csv", csv_in, "--model_save_path", art_path, "--inference_output",
+              csv_out, "--device", "cuda"])
+    cols = art.extra["target_columns"]
+    vals = pd.read_csv(csv_out)[cols].to_numpy(np.float64)
+    model = pkg.models.gnn.GNN(art.model_config)
+    model.load_state_dict(params_from_flax(art.params))
+    ds = MoleculeDataset.from_smiles(smiles[:EMBED_CPU], np.zeros((EMBED_CPU, 1), np.float32),
+                                     art.model_config.num_shells, FEAT_THREADS)
+    cpu = predict(model.eval(), BatchLoader(ds, EMBED_CPU), "cpu")["predictions"]
+    sc = art.pipeline.standard_scaler
+    card = (vals - sc.means) / sc.stds
+    if vals.shape != cpu.shape or not np.isfinite(vals).all():
+        raise AssertionError(f"[{tag}] {vals.shape} predictions, not all finite")
+    return float(np.abs(card - cpu).max()) / max(float(np.abs(cpu).max()), 1e-30)
+
+
+def hyperopt_phase(pkg, work: str, csv: str, cols, smiles) -> dict:
+    """``[hyperopt]``: the CLI's search over the committed
+    example_hyperparams.yaml, 3 trials of 2 epochs (bf16), on [train]'s CSV;
+    every trial must be ok with finite losses; each trial's sampled
+    configuration, seconds and kernel launches by name are printed (the
+    counts set to 0 as a trial starts, read as it ends); the best artifact
+    reloads and serves EMBED_CPU SMILES on the card within E2E_TOL of its
+    plain run on the CPU."""
+    import yaml
+
+    from aimnet_x2d_tpu_torch import cli, hyperopt, runner
+
+    path = os.path.join(ROOT, "example_hyperparams.yaml")
+    with open(path) as f:
+        trials = hyperopt.sample_trials(yaml.safe_load(f), HYPEROPT_SEED, 3)
+    hidden = {t["hidden_dim"] for t in trials}
+    if not ({256, 384} <= hidden and {t["pooling_type"] for t in trials} == {"attention", "mean"}):
+        raise AssertionError(f"seed {HYPEROPT_SEED} samples {trials}, not hidden 256 and 384 "
+                             f"with both pooling types")
+    counters = _training_kernels()
+    per_trial = []
+    inner = runner.main_runner
+
+    def counted(args):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            return inner(args)
+        finally:
+            per_trial.append(({c.__name__: c.launches for c in counters if c.launches},
+                              time.perf_counter() - t0))
+
+    art = os.path.join(work, "hyperopt.npz")
+    t0 = time.perf_counter()
+    runner.main_runner = counted
+    try:
+        out = cli.main(["--data_path", csv, "--multi_target_columns", ",".join(cols),
+                        "--task_type", "multitask", "--hyperparameter_file", path,
+                        "--num_trials", "3", "--epochs", "2", "--mixed_precision",
+                        "--batch_size", str(HYPEROPT_BATCH), "--seed", str(HYPEROPT_SEED),
+                        "--model_save_path", art])
+    finally:
+        runner.main_runner = inner
+    total = time.perf_counter() - t0
+    failed = []
+    for r, (launched, secs) in zip(out["results"], per_trial):
+        c = r["config"]
+        widths = f"x_self {c['hidden_dim'] - int(0.3 * c['hidden_dim'])} / x_other " \
+                 f"{int(0.3 * c['hidden_dim'])}"
+        print(f"[hyperopt] trial {r['trial']} ({widths}) {c}: status {r['status']}, "
+              f"{secs:.1f} s, val loss {r.get('val_loss')}, test "
+              f"{r.get('test_metrics', {}).get('loss')}; launches {launched}"
+              + (f"; error {r['error']}" if r["status"] != "ok" else ""), flush=True)
+        if r["status"] != "ok" or not np.isfinite(r["val_loss"]) or not np.isfinite(
+                r["test_metrics"]["loss"]):
+            failed.append(r["trial"])
+    if failed or len(out["results"]) != 3:
+        raise AssertionError(f"hyperopt trials failed or lost: {failed}")
+    best = out["best"]
+    rel = _card_vs_cpu(pkg, art, smiles, "hyperopt-best")
+    print(f"[hyperopt] best trial {best['trial']} ({best['config']['hidden_dim']} hidden, "
+          f"{best['config']['pooling_type']} pooling) reloaded from {os.path.basename(art)}: "
+          f"card vs cpu on {EMBED_CPU} molecules rel {rel:.3e} (tol {E2E_TOL:g}); search "
+          f"{total:.1f} s", flush=True)
+    if not rel <= E2E_TOL:
+        raise AssertionError(f"the best artifact's card predictions differ from the CPU: {rel}")
+    return out
+
+
+def embed_serve_phase(pkg, work: str, smiles, has_h5: bool) -> None:
+    """``[embed-serve]``: ``predict(..., return_embeddings=True)`` with
+    [serve]'s flagship artifact over [serve]'s SMILES on the card: its
+    predictions bit-equal to the call without embeddings, the molecule and
+    atom embeddings of the first EMBED_CPU molecules within E2E_TOL of the
+    plain run on the CPU and their atoms' molecule index equal; mol/s with
+    and without embeddings (featurization apart).  Where h5py imports, the
+    CLI's --save_embeddings --include_atom_embeddings file is read back."""
+    from aimnet_x2d_tpu_torch.checkpoint import load_artifact, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.ops import bin_mp, bin_wpool
+    from aimnet_x2d_tpu_torch.training.predictor import predict
+
+    art_path = os.path.join(work, "serve.npz")
+    art = load_artifact(art_path)
+    cfg = art.model_config
+    model = pkg.models.gnn.GNN(cfg)
+    model.load_state_dict(params_from_flax(art.params))
+    model.to("cuda").eval()
+    ds = MoleculeDataset.from_smiles(smiles, np.zeros((len(smiles), 1), np.float32),
+                                     cfg.num_shells, FEAT_THREADS)
+    loader = BatchLoader(ds, 2048)
+    loader.warm_bin_pins()
+    predict(model, loader, "cuda", return_embeddings=True)  # warm-up
+    counters = (bin_mp.mp_stack_fwd, bin_wpool.wpool_fwd)
+    runs, secs = {}, {}
+    for emb in (True, False):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[emb] = predict(model, loader, "cuda", pipeline=art.pipeline, return_embeddings=emb)
+        torch.cuda.synchronize()
+        secs[emb] = time.perf_counter() - t0
+        if emb:
+            launched = {c.__name__: c.launches for c in counters}
+    if min(launched.values()) <= 0:
+        raise AssertionError(f"[embed-serve] a serving kernel never launched: {launched}")
+    got, plain = runs[True], runs[False]
+    same = np.array_equal(got["predictions"], plain["predictions"])
+    model_cpu = pkg.models.gnn.GNN(cfg)
+    model_cpu.load_state_dict(params_from_flax(art.params))
+    small = MoleculeDataset(ds.smiles[:EMBED_CPU], ds.targets[:EMBED_CPU],
+                            ds.features[:EMBED_CPU], ds.max_hops)
+    cpu = predict(model_cpu.eval(), BatchLoader(small, EMBED_CPU), "cpu", return_embeddings=True)
+    keep = got["atom_mol_index"] < EMBED_CPU
+    errs = {}
+    for k, card in (("mol_embeddings", got["mol_embeddings"][:EMBED_CPU]),
+                    ("atom_embeddings", got["atom_embeddings"][keep])):
+        ref = cpu[k]
+        if card.shape != ref.shape or not np.isfinite(card).all():
+            raise AssertionError(f"[embed-serve] {k}: {card.shape} against {ref.shape}")
+        errs[k] = float(np.abs(card - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+    index_same = np.array_equal(got["atom_mol_index"][keep], cpu["atom_mol_index"])
+    n = len(ds)
+    print(f"[embed-serve] {n} molecules on the card, launches {launched}: predictions "
+          f"{'bit-equal' if same else 'NOT equal'} to serving without embeddings; card vs cpu "
+          f"on {EMBED_CPU} molecules: mol_embeddings rel {errs['mol_embeddings']:.3e}, "
+          f"atom_embeddings rel {errs['atom_embeddings']:.3e} (tol {E2E_TOL:g}), atom_mol_index "
+          f"{'equal' if index_same else 'NOT equal'}; {n / secs[True]:.1f} mol/s with embeddings, "
+          f"{n / secs[False]:.1f} without (featurized batches, host clock; [serve] run_csv "
+          f"{SERVE_MPS.get('serve', float('nan')):.1f})", flush=True)
+    if not same or not index_same or max(errs.values()) > E2E_TOL:
+        raise AssertionError("[embed-serve] embeddings or predictions disagree")
+    if not has_h5:
+        print("[embed-serve] --save_embeddings skipped: h5py does not import here", flush=True)
+        return
+    import h5py
+
+    from aimnet_x2d_tpu_torch import cli
+
+    emb_path = os.path.join(work, "embed-serve.h5")
+    cli.main(["--inference_csv", os.path.join(work, "serve-mols.csv"), "--model_save_path",
+              art_path, "--inference_output", os.path.join(work, "embed-serve-preds.csv"),
+              "--save_embeddings", "--include_atom_embeddings", "--embeddings_output_path",
+              emb_path, "--device", "cuda"])
+    with h5py.File(emb_path, "r") as f:
+        mol, atoms, offs = f["mol_embeddings"][:], f["atom_embeddings"][:], f["atom_offsets"][:]
+    ok = (mol.shape == got["mol_embeddings"].shape and offs[-1] == len(atoms) == len(keep)
+          and np.allclose(mol, got["mol_embeddings"], rtol=0, atol=0))
+    print(f"[embed-serve] --save_embeddings file: mol_embeddings {mol.shape}, atom_embeddings "
+          f"{atoms.shape}, {'equal to' if ok else 'NOT equal to'} predict's", flush=True)
+    if not ok:
+        raise AssertionError("[embed-serve] the embedding file disagrees with predict")
+
+
+def hdf5_phases(work: str, csv: str, cols, has_h5: bool) -> None:
+    """``[hdf5-train]``: the CLI with --iterable_dataset on [train]'s CSV
+    (the three HDF5 files built out of core), 2 epochs of HDF5_BATCH at lr
+    5e-4, bf16; the loss must fall, kernel launches printed.  ``[hdf5-serve]``: --inference_hdf5 on its
+    test file equals --inference_csv on the test split's SMILES.  Skipped,
+    with a line saying so, where h5py does not import."""
+    if not has_h5:
+        print("[hdf5-train] skipped: h5py does not import here", flush=True)
+        print("[hdf5-serve] skipped: h5py does not import here", flush=True)
+        return
+    import pandas as pd
+
+    from aimnet_x2d_tpu_torch import cli, runner
+
+    files = [os.path.join(work, f"hdf5-{s}.h5") for s in ("train", "val", "test")]
+    for p in files:
+        if os.path.exists(p):
+            os.remove(p)
+    art = os.path.join(work, "hdf5-train.npz")
+    argv = ["--data_path", csv, "--multi_target_columns", ",".join(cols), "--task_type",
+            "multitask", "--epochs", "2", "--mixed_precision", "--batch_size",
+            str(HDF5_BATCH), "--learning_rate", "5e-4", "--iterable_dataset",
+            "--train_hdf5", files[0], "--val_hdf5", files[1], "--test_hdf5", files[2]]
+    counters = _training_kernels()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    summary = cli.main(argv + ["--model_save_path", art])
+    launched = {c.__name__: c.launches for c in counters}
+    hist = [h["train_loss"] for h in summary["history"]]
+    print(f"[hdf5-train] {time.perf_counter() - t0:.1f} s, train loss {hist}, launches "
+          f"{launched}", flush=True)
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]) or min(launched.values()) <= 0:
+        raise AssertionError("[hdf5-train] the loss did not fall, or a kernel never launched")
+    _, _, (te_s, _) = runner._load_splits(cli.parse_arguments(argv))
+    te_csv = os.path.join(work, "hdf5-test.csv")
+    pd.DataFrame({"smiles": te_s}).to_csv(te_csv, index=False)
+    outs = []
+    for flag, path in (("--inference_hdf5", files[2]), ("--inference_csv", te_csv)):
+        out = os.path.join(work, f"hdf5-serve{flag[11:]}.csv")
+        res = cli.main([flag, path, "--model_save_path", art, "--inference_output", out])
+        outs.append((pd.read_csv(out), res))
+    (a, ra), (b, rb) = outs
+    same = a.equals(b)
+    print(f"[hdf5-serve] {len(a)} molecules: --inference_hdf5 "
+          f"{'equal to' if same else 'NOT equal to'} --inference_csv; "
+          f"{ra['molecules_per_second']:.1f} against {rb['molecules_per_second']:.1f} mol/s",
+          flush=True)
+    if not same:
+        raise AssertionError("[hdf5-serve] HDF5 serving differs from CSV serving")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -4203,6 +4492,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}", flush=True)
+    has_h5 = deps_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     work = os.path.join(ROOT, "build", "smoke")
@@ -4261,6 +4551,9 @@ def main() -> int:
     res = check_kernels(pkg, cfg, batch, args.seed)
     launches = serve(pkg, cfg, smiles, args.seed, work, batch)
     rank_serve_phase(work, len(smiles))
+    t0 = time.perf_counter()
+    embed_serve_phase(pkg, work, smiles, has_h5)
+    print(f"[time] [embed-serve] {time.perf_counter() - t0:.1f} s", flush=True)
     mc_serve(pkg, tcfg, smiles[:2048], args.seed, work, batch)
     evid_serve(pkg, cfg, smiles[:2048], args.seed, work)
     print(f"[time] serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4271,6 +4564,15 @@ def main() -> int:
                                        cfg.num_shells, FEAT_THREADS)
     launches.update(train_phase(pkg, tcfg, smiles, full, args.seed, work))
     print(f"[time] flagship phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    train_csv = os.path.join(work, "train.csv")
+    train_cols = [f"target_{i}" for i in range(tcfg.output_dim)]
+    t0 = time.perf_counter()
+    hyperopt_phase(pkg, work, train_csv, train_cols, smiles)
+    t1 = time.perf_counter()
+    hdf5_phases(work, train_csv, train_cols, has_h5)
+    print(f"[time] [hyperopt] {t1 - t0:.1f} s, [hdf5-train] and [hdf5-serve] "
+          f"{time.perf_counter() - t1:.1f} s; done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     # --- the embedding fold (AIMNET_EMBED_FOLD=1): the flagship's CLI and
     # train step with the switch set in the environment they run in

@@ -1905,3 +1905,180 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# The widths the hyperparameter search of example_hyperparams.yaml samples
+# beside the flagship's: hidden 256 and 384 (x_self 180 / 269, x_other 76 /
+# 115), embeddings 32 and 64 wide (E 128 / 256), 8 heads, 4 shells
+TRIAL_WIDTHS = [(256, 128), (384, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", TRIAL_WIDTHS, ids=["hidden256", "hidden384"])
+def test_trial_width_train_kernels_match_plain(dev, widths, dtype):
+    """Kernels 1 (training form, with the projection fold 1c), 1b and 1c's
+    backward, and kernel 3 with 8 heads, at the searched widths, against
+    their plain versions; reruns of the backwards bit-equal."""
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+
+    hidden, E = widths
+    D, Ds = int(0.3 * hidden), hidden - int(0.3 * hidden)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    adj, sw, pw, emb, x, gout = _stack_train_case(dev, D, E, 5, 256, dtype, hidden, 2)
+    spec = bin_mp.StackSpec("silu", 0.05, 0x5EED)
+    out, saved = bin_mp.mp_stack_fwd_train(emb, adj, sw, spec, pw)
+    ref, ref_saved = bin_mp.mp_stack_train_plain(emb, adj, sw, spec, pw)
+    assert _rel(out, ref) < tol and all(_rel(s, r) < tol for s, r in zip(saved, ref_saved))
+    dx, lg, pg = bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, gout, pw)
+    rdx, rlg, rpg = bin_mp.mp_stack_bwd_plain(emb, adj, sw, spec, ref_saved, gout, pw)
+    again = bin_mp.mp_stack_bwd(emb, adj, sw, spec, saved, gout, pw)
+    errs = {"dx": _rel(dx, rdx)}
+    errs.update({f"layer {l} grad {k}": _rel(a, b) for l, (gl, rl) in enumerate(zip(lg, rlg))
+                 for k, (a, b) in enumerate(zip(gl, rl))})
+    errs.update({f"proj grad {k}": _rel(a, b) for k, (a, b) in enumerate(zip(pg, rpg))})
+    print(f"hidden {hidden} {dtype} stack: worst {max(errs.values()):.2e}")
+    assert max(errs.values()) < tol
+    assert torch.equal(dx, again[0]) and all(torch.equal(a, b) for a, b in zip(pg, again[2]))
+
+    nb, ab, mb, H = 6, 256, 16, 8
+    g = torch.Generator(device=dev).manual_seed(hidden + 1)
+    owner = torch.randint(-1, mb - 1, (nb, ab), generator=g, device=dev)
+    pm = (owner[:, None, :] == torch.arange(mb, device=dev)[None, :, None]).to(torch.int8)
+    emb = torch.randn(E, nb * ab, generator=g, device=dev).to(dtype)
+    xo = torch.randn(D, nb * ab, generator=g, device=dev).to(dtype)
+    r = lambda *s: (torch.rand(*s, generator=g, device=dev) - 0.5) * 0.4  # noqa: E731
+    w = bin_attnpool.prep_weights(r(E, Ds), r(Ds), r(Ds, H), r(D, H), r(H), dtype)
+    got = bin_attnpool.attnpool_fwd(emb, xo, pm, w, "silu")
+    ref = bin_attnpool.attnpool_fwd_plain(emb, xo, pm, w, "silu")
+    assert all(_rel(a, b) < tol for a, b in zip(got, ref))
+    args = (emb, xo, pm, w, "silu", ref[3], torch.randn(Ds, nb * mb, generator=g, device=dev),
+            torch.randn(D, nb * mb, generator=g, device=dev),
+            torch.randn(nb * mb, generator=g, device=dev))
+    demb, dxo, grads = bin_attnpool.attnpool_bwd(*args)
+    rdemb, rdxo, rgrads = bin_attnpool.attnpool_bwd_plain(*args)
+    again = bin_attnpool.attnpool_bwd(*args)
+    assert _rel(demb, rdemb) < tol and _rel(dxo, rdxo) < tol
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        scale = float(rgrads[2].abs().max()) if i == 4 else float(b.abs().max())
+        assert float((a - b).abs().max()) / scale < tol
+    assert torch.equal(demb, again[0]) and torch.equal(dxo, again[1])
+
+
+@pytest.mark.parametrize("pooling", ["attention", "mean"])
+@pytest.mark.parametrize("hidden", [256, 384])
+def test_trial_width_model_step_matches_the_cpu(dev, hidden, pooling):
+    """A bf16 training step of a model at a searched width (8 heads, 4
+    shells, 64-wide embeddings) on the card against the plain versions on
+    the CPU: the loss and every gradient within 5e-2 of its tensor's scale,
+    each kernel of the route launched (the heads' score biases, whose exact
+    gradient is 0, held to their kernels' scale: chip_smoke.grad_scale)."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
+    from aimnet_x2d_tpu_torch.ops import bin_attnpool
+    from chip_smoke import grad_scale, make_smiles
+
+    cfg = GNNConfig(hidden_dim=hidden, output_dim=3, num_shells=4, num_message_passing_layers=3,
+                    embedding_dim=64, pooling_type=pooling, attention_num_heads=8,
+                    task_type="multitask", shell_conv_dropout=0.0, ffn_dropout=0.0,
+                    compute_dtype="bfloat16")
+    smiles = make_smiles(200, hidden)
+    targets = np.random.default_rng(0).normal(size=(200, 3)).astype(np.float32)
+    batch = next(iter(BatchLoader(MoleculeDataset.from_smiles(smiles, targets, 4), 200)))
+    flat = init_params(cfg, seed=hidden)
+    kernels = [bin_mp.mp_stack_fwd_train, bin_mp.mp_stack_bwd, bin_mp.mp_stack_bwd_proj]
+    kernels += ([bin_attnpool.attnpool_fwd, bin_attnpool.attnpool_bwd] if pooling == "attention"
+                else [bin_wpool.wpool_fwd, bin_wpool.wpool_bwd])
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = GNN(cfg)
+        model.load_state_dict(params_from_flax(flat))
+        model.to(device)
+        for k in kernels:
+            k.launches = 0
+        out = model(batch.to(device), train=True, drop_seed=7)
+        t = torch.from_numpy(batch.targets).to(device)
+        m = torch.from_numpy(batch.graph_mask).to(device)
+        loss = ((out.predictions - t).abs().sum(-1) * m).sum() / m.sum()
+        loss.backward()
+        results[device] = (float(loss), {n: p.grad.float().cpu() for n, p in
+                                         model.named_parameters() if p.grad is not None})
+        params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        if device == "cuda":
+            launched = {k.__name__: k.launches for k in kernels}
+            assert min(launched.values()) > 0, launched
+    (cl, cg), (gl, gg) = results["cpu"], results["cuda"]
+    assert abs(gl - cl) / abs(cl) < 5e-2
+    worst = max(float((gg[n] - v).abs().max()) / grad_scale(n, params, cg, cfg)
+                for n, v in cg.items())
+    print(f"hidden {hidden} {pooling}: loss card {gl:.5f} cpu {cl:.5f}, worst gradient {worst:.2e}")
+    assert worst < 5e-2
+
+
+@pytest.mark.parametrize("route", ["inject", "rows"])
+def test_remat_on_the_card_equals_the_plain_step(dev, route):
+    """``GNNConfig.remat`` on the card, with dropout: the loss and the
+    gradients of a step equal those without it, within 1e-5 of each
+    gradient's scale (chip_smoke.grad_scale): the embedding tables'
+    gradients and the row-major route's aggregations are ``index_add``
+    scatters, whose atomics sum in any order; the dropout generator ends
+    where it ends without remat."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+    from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
+    from chip_smoke import grad_scale, make_smiles
+
+    cfg = GNNConfig(hidden_dim=128, output_dim=2, num_shells=3, num_message_passing_layers=3,
+                    task_type="multitask", use_partial_charges=True, use_stereochemistry=True,
+                    parity_mode=route == "inject", shell_conv_dropout=0.1, ffn_dropout=0.1)
+    smiles = make_smiles(160, 5, stereo=True)
+    ds = MoleculeDataset.from_smiles(smiles, np.zeros((160, 2), np.float32), 3)
+    batch = next(iter(BatchLoader(ds, 160))).to(dev)
+    flat = init_params(cfg, seed=2)
+    runs = []
+    for remat in (False, True):
+        model = GNN(dataclasses.replace(cfg, remat=remat))
+        model.load_state_dict(params_from_flax(flat))
+        model.to(dev)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        loss = (model(batch, train=True, drop_seed=9, generator=gen).predictions ** 2).mean()
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                     if p.grad is not None}, torch.rand(3, generator=gen,
+                                                                        device=dev)))
+    (l0, g0, r0), (l1, g1, r1) = runs
+    assert torch.equal(r0, r1)
+    assert float((l1 - l0).abs()) <= 1e-5 * float(l0.abs())
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    for n, g in g0.items():
+        assert float((g1[n] - g).abs().max()) <= 1e-5 * grad_scale(n, params, g0, cfg), n
+
+
+def test_hdf5_loader_through_the_prefetch(dev, tmp_path):
+    """The HDF5 loader's batches through the train loop's prefetch on the
+    card (rotated pinned scratch): equal to its serial batches."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is None:
+        pytest.skip("h5py is not installed")
+    from aimnet_x2d_tpu_torch.data import hdf5
+    from aimnet_x2d_tpu_torch.training.trainer import prefetch_batches
+    from chip_smoke import make_smiles
+
+    smiles = make_smiles(600, 4, stereo=True)
+    path = str(tmp_path / "d.h5")
+    hdf5.write_hdf5_streaming(path, smiles, np.zeros((600, 1), np.float32), 3)
+    h5 = hdf5.HDF5MoleculeDataset(path)
+    serial, loader = (hdf5.HDF5BatchLoader(h5, 32, shuffle=True, seed=1, block_batches=4)
+                      for _ in range(2))
+    want = list(serial)
+    loader.rotate_scratch()
+    got = [{k: v.cpu() for k, v in vars(b).items() if isinstance(v, torch.Tensor)}
+           for b, _ in prefetch_batches(loader, dev)]
+    assert len(got) == len(want) > 8
+    for arrays, w in zip(got, want):
+        for k, v in arrays.items():
+            assert torch.equal(v, torch.from_numpy(np.asarray(getattr(w, k)))), k
+    h5.close()

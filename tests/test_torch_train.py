@@ -13,6 +13,8 @@
   the port's ``run_csv``.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -313,6 +315,79 @@ def test_cli_trains_on_cpu_and_jax_serves_the_artifact(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--save_embeddings"], ["--inference_hdf5", "x.h5"],
                                   ["--iterable_dataset"], ["--hyperparameter_file", "hp.yaml"]])
-def test_cli_later_slices_raise(flag):
-    with pytest.raises(NotImplementedError):
-        cli.parse_arguments(["--data_path", "x.csv", *flag])
+def test_cli_later_slices_raise(flag, tmp_path, monkeypatch):
+    """The four flags that raised NotImplementedError until the port took
+    them: each now parses to the JAX CLI's postprocessed namespace (the
+    port's extra ``--device`` aside) and reaches its branch --
+    ``--save_embeddings`` writes each split's embeddings after training,
+    ``--inference_hdf5`` serves through ``run_hdf5``, ``--iterable_dataset``
+    builds the HDF5 files and trains from them, and
+    ``--hyperparameter_file`` with ``--num_trials`` > 1 runs the search."""
+    from aimnet_x2d_tpu.cli import parse_arguments as jax_parse
+    from aimnet_x2d_tpu_torch import hyperopt, runner
+    from aimnet_x2d_tpu_torch.inference import engine
+
+    argv = ["--data_path", "x.csv", *flag]
+    got = vars(cli.parse_arguments(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(jax_parse(argv))
+
+    csv, out = str(tmp_path / "t.csv"), str(tmp_path / "m.npz")
+    smiles = SMILES * 2
+    pd.DataFrame({"smiles": smiles, "y": np.arange(len(smiles), dtype=np.float32)}).to_csv(
+        csv, index=False)
+    small = ["--data_path", csv, "--target_column", "y", "--epochs", "1", "--batch_size", "8",
+             "--hidden_dim", "16", "--embedding_dim", "4", "--num_message_passing_layers", "1",
+             "--ffn_num_layers", "1", "--model_save_path", out, "--device", "cpu"]
+    reached = []
+    if flag[0] == "--save_embeddings":
+        emb = str(tmp_path / "emb.h5")
+        cli.main(small + ["--save_embeddings", "--embeddings_output_path", emb])
+        import h5py
+
+        with h5py.File(emb) as f:
+            assert sorted(f) == ["test", "train", "val"]
+            assert sorted(f["train"]) == ["mol_embeddings", "smiles"]
+            assert f["train/mol_embeddings"].shape[1] == 16
+        return
+    if flag[0] == "--inference_hdf5":
+        for p in (out, str(tmp_path / "x.h5")):
+            open(p, "w").close()
+
+        class Pipe:
+            def __init__(self, **kw):
+                assert kw["save_embeddings"] is False and kw["device"].type == "cpu"
+
+            def run_hdf5(self, path, output):
+                reached.append(path)
+                return {}
+
+        monkeypatch.setattr(engine, "StreamingInferencePipeline", Pipe)
+        cli.main(["--inference_hdf5", str(tmp_path / "x.h5"), "--model_save_path", out,
+                  "--device", "cpu"])
+        assert reached == [str(tmp_path / "x.h5")]
+        return
+    if flag[0] == "--iterable_dataset":
+        h5 = [str(tmp_path / f"{s}.h5") for s in ("tr", "va", "te")]
+        summary = cli.main(small + ["--iterable_dataset", "--train_hdf5", h5[0], "--val_hdf5",
+                                    h5[1], "--test_hdf5", h5[2]])
+        assert all(os.path.exists(p) for p in h5) and np.isfinite(summary["best_val_loss"])
+        return
+    monkeypatch.setattr(hyperopt, "run_hyperparameter_optimization",
+                        lambda a: reached.append(a.num_trials) or {"results": []})
+    monkeypatch.setattr(runner, "main_runner", lambda a: reached.append("one run"))
+    cli.main(small + ["--hyperparameter_file", "hp.yaml", "--num_trials", "2"])
+    cli.main(small + ["--hyperparameter_file", "hp.yaml"])  # one trial: a plain run, as JAX
+    assert reached == [2, "one run"]
+
+
+def test_cli_takes_every_flag_of_the_jax_cli():
+    """The port's parser has every option string of the JAX parser, and one
+    more: ``--device``."""
+    from aimnet_x2d_tpu.cli import build_parser as jax_parser
+
+    def options(p):
+        return {o for a in p._actions for o in a.option_strings}
+
+    port, jax_opts = options(cli.build_parser()), options(jax_parser())
+    assert port - jax_opts == {"--device"} and not jax_opts - port
