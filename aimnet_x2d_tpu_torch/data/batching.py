@@ -10,7 +10,8 @@ A batch has one of two layouts: binned (data/binning.py: ``bin_adj``,
 ``pool_mat`` and ``tet_bin`` set) or flat, whose edge layouts for the
 aggregation kernel (ops/fused_edge.py: ``fused_fwd`` keyed by destination,
 ``fused_bwd`` keyed by source) :func:`attach_flat_layouts` builds on the
-host.  The fields of the other layout are None.
+host.  The fields of the other layout are None.  :func:`shard_edges` cuts a
+batch into edge shards for the edge-replicated graph mode.
 
 Padding convention: padded edges point at atom slot ``A`` and padded atoms
 at graph slot ``B`` (one past the end); boolean masks mark real entries.
@@ -145,10 +146,15 @@ class MolBatch:
 
 def stack_batches(batches: Sequence[MolBatch]) -> MolBatch:
     """Stack equal-shape host batches on a new leading axis (the graph- or
-    data-rank axis); fields that are not arrays come from the first."""
+    data-rank axis); fields that are not arrays come from the first.
+    Kernel-7 layouts differ from batch to batch and do not stack: batches
+    that carry them raise (a stacked shard would read the first's)."""
     out = {}
     for f in dataclasses.fields(MolBatch):
         vals = [getattr(b, f.name) for b in batches]
+        if any(isinstance(v, EdgeLayout) for v in vals):
+            raise ValueError("flat batches with kernel-7 layouts do not stack; attach the "
+                             "layouts to each shard after indexing (attach_flat_layouts)")
         out[f.name] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals[0]
     return MolBatch(**out)
 
@@ -354,6 +360,37 @@ def collate(
         trans_mask=trans_mask,
         edges_dst_sorted=bool(sort_edges),
     )
+
+
+def shard_edges(batch: MolBatch, num_shards: int) -> list:
+    """Split a batch's edges into ``num_shards`` contiguous slices of
+    ``ceil(E / num_shards)`` for edge-replicated execution (the JAX
+    package's ``shard_edges``): every atom, graph and stereo array is
+    replicated on each shard, the edge count is padded to a multiple of
+    ``num_shards`` (sources 0, destinations A, hop 0, mask False), and each
+    layer sums its shard's partial aggregate over the graph axis
+    (models/layers.py).  The shards carry no kernel-7 layouts: those
+    describe every edge of the batch, so a shard reading them would count
+    each edge ``num_shards`` times after the sum."""
+    E = batch.edge_src.shape[0]
+    A = batch.num_atom_slots
+    per = -(-E // num_shards)
+    pad = per * num_shards - E
+
+    def _pad_edge(arr, fill):
+        return np.pad(arr, (0, pad), constant_values=fill) if pad else arr
+
+    src = _pad_edge(batch.edge_src, 0)
+    dst = _pad_edge(batch.edge_dst, A)
+    hop = _pad_edge(batch.edge_hop, 0)
+    mask = _pad_edge(batch.edge_mask, False)
+    shards = []
+    for s in range(num_shards):
+        sl = slice(s * per, (s + 1) * per)
+        shards.append(dataclasses.replace(batch, edge_src=src[sl], edge_dst=dst[sl],
+                                          edge_hop=hop[sl], edge_mask=mask[sl],
+                                          fused_fwd=None, fused_bwd=None))
+    return shards
 
 
 def attach_flat_layouts(batch: MolBatch) -> MolBatch:

@@ -278,6 +278,9 @@ def bin_pack_batch(
         real = np.nonzero(mask)[0]
         if real.size == 0:
             return out, msk
+        if real.size % blocks:
+            raise BinningError(f"{real.size} real stereo rows do not split into {blocks} equal "
+                               f"blocks [originals | reversed]")
         per = real.size // blocks
         pos = 0
         for b in range(blocks):

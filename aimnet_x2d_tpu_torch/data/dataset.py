@@ -9,7 +9,9 @@ aggregation kernel attached, ``attach_flat_layouts``).  Streaming serving
 builds one loader per chunk, so there the layout is decided per chunk.  A
 training loader shuffles with ``np.random.default_rng(seed + epoch)`` and
 packs size-descending, as the JAX loader does; evaluation and serving
-loaders keep input order.
+loaders keep input order.  Over a rank grid a loader yields each data
+shard's halo partition (``halo_shards``) or its edge shards
+(``edge_shards``, always flat, as in JAX).
 
 Featurization and binned batches are native by default: one call of the
 C++ featurizer fills a columnar cache, and the C++ builder packs each
@@ -40,6 +42,7 @@ from .batching import (
     bucket_size,
     collate,
     index_batch,
+    shard_edges,
     stack_batches,
 )
 from .binning import (
@@ -181,7 +184,10 @@ class BatchLoader:
         stack_devices: int = 0,
         halo_shards: int = 1,
         rank: Optional[Tuple[int, int]] = None,
+        edge_shards: int = 1,
     ):
+        if edge_shards > 1 and halo_shards > 1:
+            raise ValueError("edge_shards and halo_shards are exclusive graph-axis modes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -193,15 +199,18 @@ class BatchLoader:
         self._bin_pins: dict = {}
         self.stack_devices = stack_devices
         self.halo_shards = halo_shards
+        self.edge_shards = edge_shards
         self.rank = rank
         self._halo_slots: dict = {}
-        if (halo_shards > 1 or rank is not None) and stack_devices < 1:
-            raise ValueError("halo shards and a rank's shard need stack_devices >= 1")
+        if (halo_shards > 1 or edge_shards > 1 or rank is not None) and stack_devices < 1:
+            raise ValueError("graph shards and a rank's shard need stack_devices >= 1")
         sizes = dataset.sizes()
         atoms, edges, tets, pairs = (sizes[k] for k in ("atoms", "edges", "tets", "pairs"))
         # halo shards bin-pack per graph rank inside partition_halo, which
-        # chunks larger fragments, so the bin size binds only one device
-        self.binned = halo_shards > 1 or not atoms.size or int(atoms.max()) <= bin_ab
+        # chunks larger fragments, so the bin size binds only one device;
+        # edge shards are flat
+        self.binned = halo_shards > 1 or (edge_shards == 1 and (
+            not atoms.size or int(atoms.max()) <= bin_ab))
         # Static caps: batch_size molecules of the dataset's largest sizes.
         k = min(batch_size, len(atoms))
         self.atom_slots = bucket_size(int(np.sort(atoms)[-k:].sum()) if len(atoms) else 8)
@@ -329,8 +338,10 @@ class BatchLoader:
             tet_slots=self.tet_slots,
             pair_slots=self.pair_slots,
         )
-        if self.halo_shards > 1:
-            return batch  # partition_halo bin-packs each graph rank's atoms
+        if self.halo_shards > 1 or self.edge_shards > 1:
+            # partition_halo bin-packs each graph rank's atoms; edge shards
+            # carry no kernel-7 layouts (shard_edges)
+            return batch
         if not self.binned:
             return attach_flat_layouts(batch)
         return bin_pack_batch(batch, ab=self.bin_ab, mb=self.bin_mb, pins=self._bin_pins,
@@ -340,7 +351,9 @@ class BatchLoader:
         """Batches; with ``stack_devices`` N each step's molecules are split
         into N data shards of ``batch_size`` (a short last step leaves later
         shards empty), with ``halo_shards`` G each data shard is
-        halo-partitioned into G graph shards, and the loader yields the
+        halo-partitioned into G graph shards, with ``edge_shards`` G its
+        edges are cut into G contiguous slices, every atom, graph and stereo
+        array replicated (``shard_edges``), and the loader yields the
         stacked (N[, G], ...) batch, or with ``rank=(d, g)`` only that
         rank's shard (data shard d alone is collated and partitioned; its G
         graph ranks compute the same partition)."""
@@ -356,8 +369,10 @@ class BatchLoader:
         shards = [self._collate(idx[d * per : (d + 1) * per]) for d in ds]
         if self.halo_shards > 1:
             shards = self._partition_halo_shards(shards)
+        elif self.edge_shards > 1:
+            shards = [stack_batches(shard_edges(s, self.edge_shards)) for s in shards]
         if self.rank is None:
             return stack_batches(shards)
-        if self.halo_shards > 1:
+        if self.halo_shards > 1 or self.edge_shards > 1:
             return index_batch(shards[0], self.rank[1])
         return shards[0]

@@ -89,8 +89,17 @@ ranks pool exactly; with partial charges each rank's charges are row 0 of
 its final x_other.  On every route the stereo context's any-centre flag is
 a pmax over the axis.  Dropout on the halo stack: the step's seed plus the
 graph rank, then ``layer_drop_seed`` per layer, as JAX draws it.
-Graph-axis execution without halo shards (JAX's edge-replicated mode) is a
-later slice of the port and raises NotImplementedError.
+
+Forward on edge shards (JAX's edge-replicated mode: ``GNNConfig.graph_axis``
+set and a batch without ``halo_send_idx``, from data/batching.py
+``shard_edges``): every rank holds all the atoms and a slice of the edges.
+The row-major route runs as on one rank, except that each layer psums its
+fp32 partial aggregate over the graph axis (``ShellConvolutionLayer``;
+kernel 7 does not run, as JAX takes no kernel with a graph axis).  Charge
+equilibration, the stereo context and the pools take no axis: the atoms are
+replicated, so their sums are already whole (JAX's ``pool_axis`` is None
+without halo).  Dropout masks are drawn as on one rank from the
+``generator``, which the graph ranks of one data rank seed alike.
 
 With ``remat`` (the CLI's ``--gradient_checkpointing``) the training
 forward recomputes each layer in the backward pass instead of keeping its
@@ -320,7 +329,13 @@ def stereo_context(batch: MolBatch, ax: Optional[mesh.Axis] = None) -> StereoCon
             vals.append(torch.full(flat.shape, v, device=dev))
         sadj = torch.zeros(nb * ab * ab + 1, device=dev).index_add_(0, torch.cat(idx),
                                                                     torch.cat(vals))
-        sadj = sadj[:-1].reshape(nb, ab, ab).to(torch.int8)
+        sadj = sadj[:-1].reshape(nb, ab, ab)
+        # a few directed pairs a stereo bond land in one entry; a sum past
+        # int8's range would wrap silently in the cast (one read on the host)
+        if bool(sadj.abs().amax() > 127):
+            raise ValueError("a signed cis/trans adjacency entry sums past +-127 and does not "
+                             "fit int8: the batch repeats one cis/trans pair over 127 times")
+        sadj = sadj.to(torch.int8)
     tet_flat = torch.where(batch.tet_mask[:, None], batch.tet_nbrs.long(),
                            torch.full_like(batch.tet_nbrs, A, dtype=torch.long)).reshape(-1)
     any_tet = batch.tet_mask.any()
@@ -637,9 +652,7 @@ class GNN(nn.Module):
         cfg = self.config
         if batch.halo_send_idx is not None:
             return self._forward_halo(batch, atom_embeddings, train, drop_seed, generator)
-        if cfg.graph_axis is not None:
-            raise NotImplementedError("graph-axis execution without halo shards is not ported")
-        if batch.pool_mat is None or self.route == "rows":
+        if batch.pool_mat is None or self.route == "rows" or cfg.graph_axis is not None:
             return self._forward_rows(batch, atom_embeddings, train, generator)
         if train:
             return self._forward_train(batch, drop_seed, generator)
@@ -787,10 +800,12 @@ class GNN(nn.Module):
                       generator: Optional[torch.Generator]) -> GNNOutput:
         """Serving and training forward on the row-major route, flat or
         binned (the module docstring; JAX ``GNN.__call__`` without
-        ``t_path``)."""
+        ``t_path``), and on edge shards when the config has a graph axis."""
         cfg = self.config
         binned = batch.pool_mat is not None
-        if cfg.parity_mode and (batch.fused_fwd is None or batch.fused_bwd is None):
+        ax = mesh.axis(cfg.graph_axis) if cfg.graph_axis is not None else None
+        if (ax is None and cfg.parity_mode
+                and (batch.fused_fwd is None or batch.fused_bwd is None)):
             raise ValueError("a flat batch needs its edge layouts (data.batching.attach_flat_layouts)")
         layer_rate = cfg.shell_conv_dropout if cfg.num_message_passing_layers else 0.0
         if train and generator is None and max(layer_rate, cfg.ffn_dropout) > 0.0:
@@ -814,7 +829,7 @@ class GNN(nn.Module):
         x_other = proj_cols(W[xs:], b[xs:])  # (A, D)
 
         # 3. message passing
-        x_other = self._rows_message_passing(batch, x_other, gen)
+        x_other = self._rows_message_passing(batch, x_other, gen, ax)
         charges = x_other[:, 0].float() if cfg.use_partial_charges else None
         x_other = x_other.to(x_self.dtype)
 
@@ -854,18 +869,23 @@ class GNN(nn.Module):
 
     def _rows_message_passing(self, batch: MolBatch, x: torch.Tensor,
                               generator: Optional[torch.Generator],
-                              ax: Optional[mesh.Axis] = None) -> torch.Tensor:
+                              ax: Optional[mesh.Axis] = None,
+                              pool_ax: Optional[mesh.Axis] = None) -> torch.Tensor:
         """The row-major layers over x_other (A, D): per layer the
         injections of config 3, the layer, then the residual; a charge
-        equilibration promotes x to fp32 from there on.  On a halo shard
-        (``ax``, the graph axis) the charge sums are psummed over the axis,
-        the stereo context's any-centre flag too, and each layer reads its
-        remote sources from the halo exchange (``ShellConvolutionLayer``)."""
+        equilibration promotes x to fp32 from there on.  ``ax``, the graph
+        axis, goes to the layers (``ShellConvolutionLayer``: on a halo shard
+        each reads its remote sources from the halo exchange, on an edge
+        shard it psums its partial aggregate); ``pool_ax``, the axis of the
+        per-molecule sums (JAX's ``pool_axis``, set on halo shards only,
+        whose atoms are split over the ranks), psums the charge sums and the
+        stereo context's any-centre flag.  On edge shards the atoms are
+        replicated, so a psum there would count every molecule G times."""
         cfg = self.config
-        ctx = stereo_context(batch, ax) if cfg.use_stereochemistry else None
+        ctx = stereo_context(batch, pool_ax) if cfg.use_stereochemistry else None
         for layer in self.message_passing_layers:
             if cfg.use_partial_charges:
-                x = charge_equilibration(x, batch, ax)
+                x = charge_equilibration(x, batch, pool_ax)
             if ctx is not None:
                 x = stereochemistry(x, *self._stereo_proj(), ctx, batch)
             x = _remat(cfg.remat, lambda x_, layer=layer: layer(x_, batch, generator, ax), x,
@@ -941,7 +961,8 @@ class GNN(nn.Module):
         if cfg.parity_mode and batch.bin_adj is not None and batch.halo_adj is not None:
             x_other = self._halo_stack(batch, x_other, ax, rate, drop_seed, generator)
         else:
-            x_other = self._rows_message_passing(batch, x_other, generator if train else None, ax)
+            x_other = self._rows_message_passing(batch, x_other, generator if train else None,
+                                                 ax, pool_ax=ax)
         charges = x_other[:, 0].float() if cfg.use_partial_charges else None
         x_other = x_other.to(x_self.dtype)
 

@@ -171,18 +171,22 @@ class ShellConvolutionLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, batch, generator: Optional[torch.Generator] = None,
                 ax=None) -> torch.Tensor:
-        """The layer row-major (the JAX layer without its edge-replicated
-        branch): x (A, D), in the compute dtype or, after a charge
-        equilibration, fp32; ``batch`` a MolBatch on x's device.
+        """The layer row-major: x (A, D), in the compute dtype or, after a
+        charge equilibration, fp32; ``batch`` a MolBatch on x's device.
 
         agg: in parity mode the union of hops on a flat batch (kernel 7,
         ops/fused_edge.py, from ``batch.fused_fwd``/``fused_bwd``), else one
         sum per hop (:func:`hop_aggregate` over the batch's edge lists, on
-        either layout).  On a halo shard (``batch.halo_send_idx``; ``ax`` the
-        graph axis) the edges read ``x_ext = [x ; halo_exchange(x)]``
-        (ops/halo.py) and every destination is local: the union of hops in
-        parity mode, or one sum per hop, by ``index_add`` in fp32, as JAX's
-        ``segment_sum`` (JAX takes no kernel with a graph axis); parts =
+        either layout).  With a graph axis ``ax`` the edges are summed by
+        ``index_add`` in fp32, as JAX's ``segment_sum`` (JAX takes no kernel
+        with a graph axis): the union of hops in parity mode (every real
+        edge as hop 1), or one sum per hop.  On a halo shard
+        (``batch.halo_send_idx``) the edges read ``[x ; halo_exchange(x)]``
+        (ops/halo.py) and every destination is local, so the sum is whole.
+        Otherwise the batch is an edge shard (data/batching.py
+        ``shard_edges``: every atom replicated, a slice of the edges), and
+        the fp32 partial sum is psummed over ``ax`` before the cast, as the
+        JAX layer's edge-replicated branch does; parts =
         [x, agg... in x's dtype]; the input and skip projections take each
         part by its row block of the kernel (fp32
         products of compute-dtype operands, summed, cast once, then the bias
@@ -193,12 +197,14 @@ class ShellConvolutionLayer(nn.Module):
         package draws them from its threefry stream)."""
         D, cdt = self.dim, self.dtype
         edges = (batch.edge_src, batch.edge_dst, batch.edge_hop, batch.edge_mask)
-        if batch.halo_send_idx is not None:
-            x_ext = torch.cat([x, halo_exchange(x, batch.halo_send_idx, ax)])
+        if ax is not None:
+            halo = batch.halo_send_idx is not None
+            x_src = torch.cat([x, halo_exchange(x, batch.halo_send_idx, ax)]) if halo else x
             if self.parity_mode:  # the union of hops: every real edge as hop 1
                 edges = edges[:2] + (torch.ones_like(batch.edge_hop), batch.edge_mask)
-            aggs = hop_aggregate(x_ext, *edges, 1 if self.parity_mode else self.num_hops,
-                                 num_dst=x.shape[0]).unbind(0)
+            agg = hop_aggregate(x_src, *edges, 1 if self.parity_mode else self.num_hops,
+                                num_dst=x.shape[0])
+            aggs = (agg if halo else ax.psum(agg)).unbind(0)
         elif self.parity_mode:
             aggs = [fused_edge_aggregate(x, batch.fused_fwd, batch.fused_bwd, exact=cdt is None)]
         else:

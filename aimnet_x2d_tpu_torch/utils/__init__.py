@@ -1,4 +1,5 @@
 from .activation import get_activation_function
 from .device import resolve_device
+from .random import set_seed
 
-__all__ = ["get_activation_function", "resolve_device"]
+__all__ = ["get_activation_function", "resolve_device", "set_seed"]

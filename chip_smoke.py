@@ -170,6 +170,10 @@ Phases, each of which fails the run when it fails:
      kernel launches; the one step
      card against CPU runs with both dropouts off (the flat layers draw
      their masks from a generator);
+   - ``[synthetic]``: ``data/synthetic.make_synthetic_batch`` (2048 ring
+     molecules with stereo rows) with kernel 7's layouts, served at the
+     flagship's widths on the card (kernel 7 three times) against the same
+     forward on the CPU, E2E_TOL;
 10. true per-hop aggregation (``--true_multi_hop``, the row-major route on
    binned batches):
    - ``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``, ``bin_pool_bwd``: the
@@ -237,6 +241,14 @@ Phases, each of which fails the run when it fails:
      stereo molecule the cut splits, bf16 and fp32, against the
      single-rank step on the binned layout; kernel 5 (3, 3) a rank, kernel
      4 never;
+   - ``[edge-step]``, in the same start of the 4 ranks: the flagship on
+     edge shards (``BatchLoader(stack_devices=2, edge_shards=2)``, JAX's
+     edge-replicated mode: every atom on both graph ranks, half the edges
+     on each, each layer's partial aggregate psummed) of 512 flat SMILES a
+     data rank, bf16 and fp32, against the single-rank flat step (kernel
+     7); no kernel on the ranks, kernel 7 never; then each rank's host ms
+     a step (``utils/profiling.StepTimer``) and one step's device ms from
+     the ``utils/profiling.trace`` file it writes (missing or empty fails);
    - ``[halo-train]``: the flagship CLI with ``--graph_shards 2`` on 2 ranks
      (as ``torchrun`` runs it), 3 epochs at batch 2048: kernel 5's
      launches summed over the ranks, then timed steps per rank (host and
@@ -3414,6 +3426,53 @@ def flat_phases(marks_build, fwd, bwd, x, g, data, seg, W: int, cap: int) -> Non
           " us", flush=True)
 
 
+SYNTHETIC_GRAPHS = 2048  # [synthetic]'s molecules (one serving batch)
+
+
+def synthetic_phase(pkg, cfg, seed: int) -> None:
+    """``[synthetic]``: ``data/synthetic.make_synthetic_batch`` (2048 ring
+    molecules with stereo rows, from ``seed``) with kernel 7's layouts,
+    served at the flagship's widths on the card (kernel 7 once a layer) and
+    held against the same forward on the CPU (plain versions), E2E_TOL."""
+    from aimnet_x2d_tpu_torch.checkpoint import init_params, params_from_flax
+    from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts
+    from aimnet_x2d_tpu_torch.data.synthetic import make_synthetic_batch
+    from aimnet_x2d_tpu_torch.ops import fused_edge
+
+    t0 = time.perf_counter()
+    host = attach_flat_layouts(make_synthetic_batch(num_graphs=SYNTHETIC_GRAPHS, seed=seed,
+                                                    num_tasks=cfg.output_dim, with_stereo=True))
+    t_make = time.perf_counter() - t0
+    weights = params_from_flax(init_params(cfg, seed))
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        model = pkg.models.gnn.GNN(cfg)
+        model.load_state_dict(weights)
+        model.to(dev).eval()
+        fused_edge.fused_edge_fwd.launches = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            preds[dev] = model(host.to(dev)).predictions.float().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = fused_edge.fused_edge_fwd.launches
+        preds[dev + "_s"] = time.perf_counter() - t0
+        del model
+    got, ref = preds["cuda"], preds["cpu"]
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    print(f"[synthetic] {SYNTHETIC_GRAPHS} synthetic molecules ({int(host.atom_mask.sum())} atoms, "
+          f"{int(host.edge_mask.sum())} edges, {int(host.tet_mask.sum())} tetrahedral and "
+          f"{int(host.cis_mask.sum() + host.trans_mask.sum())} cis/trans rows; made in "
+          f"{t_make:.3f} s) served at the flagship's widths: card vs CPU max|d|/max|cpu| "
+          f"{rel:.3e} (tol {E2E_TOL:g}); kernel 7 launches {launches}; forward "
+          f"{preds['cuda_s']:.3f} s on the card (first call), {preds['cpu_s']:.3f} s on the CPU "
+          f"(host clock)", flush=True)
+    if not (torch.isfinite(got).all() and got.shape == (SYNTHETIC_GRAPHS, cfg.output_dim)
+            and rel <= E2E_TOL and launches == cfg.num_message_passing_layers):
+        raise AssertionError("[synthetic] the card's forward disagrees with the CPU or skipped "
+                             "kernel 7")
+
+
 def check_pool6_kernel(cfg, model, batch, seed: int, marks_build) -> dict:
     """``[pool6-kernel]``: kernel 6 (``bin_pool_fwd``; ``bin_pool_bwd`` from
     the forward's attention weights, with its fixed-order sum of the per-bin
@@ -3651,17 +3710,34 @@ def _counters() -> dict:
 
     return {"mp_ext_fwd": bin_mp.mp_ext_fwd, "mp_ext_bwd": bin_mp.mp_ext_bwd,
             "inject_fwd": bin_inject.inject_fwd, "inject_bwd": bin_inject.inject_bwd,
-            "fused_edge_fwd": fused_edge.fused_edge_fwd}
+            "fused_edge_fwd": fused_edge.fused_edge_fwd,
+            "fused_edge_bwd": fused_edge.fused_edge_bwd}
+
+
+def trace_kernels(path: str) -> dict:
+    """The kernel events of a ``utils/profiling.trace`` file by name:
+    {name: (launches, device ms summed)}."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("cat") == "kernel"]
+    out = {}
+    for e in events:
+        n, ms = out.get(e.get("name", ""), (0, 0.0))
+        out[e.get("name", "")] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return out
 
 
 def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
     """One of the four ranks (data 2 x graph 2, gloo, all on cuda:0) of
-    ``[halo-step]`` and ``[c3-halo-step]``: for each case of the job one
-    train step of the grid per dtype, Adam without the clip so the
-    gradients stay the all-reduced ones; writes rank 0's loss and gradients,
-    and every rank's kernel launches and digests of its gradients and
-    parameters."""
+    ``[halo-step]``, ``[c3-halo-step]`` and ``[edge-step]``: for each case
+    of the job one train step of the grid per dtype, Adam without the clip
+    so the gradients stay the all-reduced ones; writes rank 0's loss and
+    gradients, and every rank's kernel launches and digests of its gradients
+    and parameters.  A case with ``timed`` N then takes N more bf16 steps
+    timed by ``utils/profiling.StepTimer`` (host clock, the card
+    synchronized) and one step inside ``utils/profiling.trace``, whose file
+    gives the step's device ms (its kernel events summed)."""
     import pickle
+    import shutil
 
     sys.path.insert(0, ROOT)
     from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
@@ -3669,6 +3745,7 @@ def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
     from aimnet_x2d_tpu_torch.models.gnn import GNN
     from aimnet_x2d_tpu_torch.parallel import mesh, multihost
     from aimnet_x2d_tpu_torch.training import trainer
+    from aimnet_x2d_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     with open(job_path, "rb") as f:
@@ -3698,6 +3775,28 @@ def _halo_step_rank(rank: int, job_path: str, port: int, out_dir: str) -> None:
                          launches={k: v.launches for k, v in counters.items()})
                 if rank == 0:
                     r["grads"] = {k: g.float().cpu() for k, g in grads}
+                if c.get("timed") and tag == "bfloat16":
+                    edges = int(batch.edge_mask.sum())
+                    timer = profiling.StepTimer()
+                    for _ in range(c["timed"]):
+                        timer.start()
+                        loss, _ = trainer.train_step(model, opt, batch, 1e-3, loss_fn, grid=grid)
+                        timer.stop(loss, num_real_edges=edges)
+                    trace_dir = os.path.join(out_dir, f"{case}-trace-rank{rank}")
+                    shutil.rmtree(trace_dir, ignore_errors=True)  # this run's file alone
+                    with profiling.trace(trace_dir):
+                        loss, _ = trainer.train_step(model, opt, batch, 1e-3, loss_fn, grid=grid)
+                        torch.cuda.synchronize()
+                    files = os.listdir(trace_dir)
+                    path = os.path.join(trace_dir, files[0]) if files else None
+                    kernels = trace_kernels(path) if path else {}
+                    r.update(timer=timer.summary(), trace=path,
+                             trace_bytes=os.path.getsize(path) if path else 0,
+                             device_ms=sum(ms for _, ms in kernels.values()),
+                             trace_kernels=sum(n for n, _ in kernels.values()),
+                             trace_edge_agg=sum(n for k, (n, _) in kernels.items()
+                                                if "edge_agg" in k),
+                             trace_top=sorted(kernels.items(), key=lambda kv: -kv[1][1])[:4])
                 out[(case, tag)] = r
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -3768,25 +3867,95 @@ def halo_step_data(tag: str, cfg, full, seed: int):
     return case, shards
 
 
+EDGE_MOLECULES = 512  # [edge-step]'s molecules a data rank
+EDGE_TIMED_STEPS = 4  # [edge-step]'s steps a rank timed by StepTimer (the first a warm-up)
+
+
+def unshard_edges(stacked, d: int, G: int):
+    """Data shard ``d`` of a stacked (N, G, ...) edge-sharded host batch with
+    its edges put back together (the padding edges stay masked)."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.data.batching import index_batch
+
+    parts = [index_batch(stacked, d, g) for g in range(G)]
+    return dataclasses.replace(parts[0], **{
+        k: np.concatenate([getattr(p, k) for p in parts])
+        for k in ("edge_src", "edge_dst", "edge_hop", "edge_mask")})
+
+
+def edge_step_data(cfg, full, seed: int):
+    """``[edge-step]``'s data: the first 2 x EDGE_MOLECULES molecules of the
+    flat SMILES (each data shard holds molecules larger than a bin, so it is
+    flat) through ``BatchLoader(stack_devices=2, edge_shards=2)``: the
+    stacked (2, 2, ...) edge shards, every atom on both graph ranks of a
+    data shard and half its edges on each.  Returns (the job's case: stacked
+    shards, configs by dtype with the graph axis set and the dropouts off,
+    the weights, the timed steps; the data shards with their edges put back
+    together)."""
+    import dataclasses
+
+    from aimnet_x2d_tpu_torch.checkpoint import init_params
+    from aimnet_x2d_tpu_torch.data.dataset import BatchLoader, MoleculeDataset
+
+    n = 2 * EDGE_MOLECULES
+    ds = MoleculeDataset(full.smiles[:n], synthetic_targets(full, cfg.output_dim, seed)[:n],
+                         full.features[:n], full.max_hops)
+    t0 = time.perf_counter()
+    loader = BatchLoader(ds, EDGE_MOLECULES, stack_devices=2, edge_shards=2)
+    stacked = next(iter(loader))
+    t_load = time.perf_counter() - t0
+    sizes = ds.sizes()["atoms"]
+    big = [int((sizes[d * EDGE_MOLECULES:(d + 1) * EDGE_MOLECULES] > 256).sum()) for d in range(2)]
+    real = stacked.edge_mask.sum(axis=2).tolist()
+    print(f"[edge-step] 2 data shards of {EDGE_MOLECULES} molecules ({big} larger than a bin; "
+          f"binned {loader.binned}) x 2 edge shards: A {stacked.atom_type.shape[2]} atom slots, "
+          f"{stacked.edge_src.shape[2]} edge slots a rank, real edges by rank {real}; loader "
+          f"{t_load:.3f} s (host clock)", flush=True)
+    if loader.binned or min(big) < 1 or stacked.fused_fwd is not None:
+        raise AssertionError("[edge-step] the edge shards are not flat, hold no large molecule "
+                             "or carry kernel-7 layouts")
+    cfgs = {str(dt)[6:]: dataclasses.replace(cfg, shell_conv_dropout=0.0, ffn_dropout=0.0,
+                                             compute_dtype=str(dt)[6:], graph_axis="graph")
+            for dt in (torch.bfloat16, torch.float32)}
+    case = {"stacked": stacked, "cfgs": cfgs, "params": init_params(cfg, seed),
+            "timed": EDGE_TIMED_STEPS}
+    return case, [unshard_edges(stacked, d, 2) for d in range(2)]
+
+
 # [c3-halo-step]'s molecule that the graph cut splits: 197 atoms with
 # hydrogens (it fits a bin, so the single-rank step runs binned), with a
 # tetrahedral centre and a trans double bond
 C3_SPLIT_SMILES = "C" * 30 + "[C@H](F)C/C=C/C" + "C" * 30
 
 
-def halo_step_phase(pkg, cases: dict, seed: int, work: str) -> None:
-    """``[halo-step]`` and ``[c3-halo-step]``, one start of 4 ranks (data 2 x
-    graph 2) sharing the card over gloo: one train step of each case's
-    model (``cases``: tag -> (config, dataset); the flagship on the flat
-    SMILES, config 3 with both features on the stereo SMILES; dropouts off)
-    on ``halo_step_data``'s shards, in bf16 and fp32: loss and summed
-    gradients against the single-rank step on the card over the same
-    molecules (the weighted mean of the two data shards' steps, binned --
-    config 3 on the inject route, whose injections run in the compute dtype
-    as the halo stack's do -- or, with molecules larger than a bin, flat),
-    gradients and parameters bit-identical across the
-    ranks, kernel 5's forward and backward launched 3 times a rank and
-    kernel 4 never."""
+# each grid-step case's kernel launches on every rank: kernel 5 forward and
+# backward once a layer on halo shards; on edge shards no kernel (the layers
+# sum their edges by index_add and psum, as JAX's segment_sum), kernel 7 never
+STEP_LAUNCHES = {
+    "halo-step": {"mp_ext_fwd": 3, "mp_ext_bwd": 3, "inject_fwd": 0, "inject_bwd": 0},
+    "c3-halo-step": {"mp_ext_fwd": 3, "mp_ext_bwd": 3, "inject_fwd": 0, "inject_bwd": 0},
+    "edge-step": {"mp_ext_fwd": 0, "mp_ext_bwd": 0, "inject_fwd": 0, "inject_bwd": 0,
+                  "fused_edge_fwd": 0, "fused_edge_bwd": 0},
+}
+
+
+def halo_step_phase(pkg, cases: dict, seed: int, work: str, edge=None) -> None:
+    """``[halo-step]``, ``[c3-halo-step]`` and ``[edge-step]``, one start of
+    4 ranks (data 2 x graph 2) sharing the card over gloo: one train step of
+    each case's model (``cases``: tag -> (config, dataset); the flagship on
+    the flat SMILES, config 3 with both features on the stereo SMILES;
+    dropouts off) on ``halo_step_data``'s shards, and of the flagship on
+    ``edge_step_data``'s edge shards of the flat SMILES (``edge``: (config,
+    dataset)), in bf16 and fp32: loss and summed gradients against the
+    single-rank step on the card over the same molecules (the weighted mean
+    of the two data shards' steps, binned -- config 3 on the inject route,
+    whose injections run in the compute dtype as the halo stack's do -- or,
+    with molecules larger than a bin, flat, through kernel 7), gradients and
+    parameters bit-identical across the ranks, each rank's launches as
+    ``STEP_LAUNCHES`` has them; ``[edge-step]`` also prints each rank's
+    StepTimer host ms and its traced step's device ms and trace file."""
+    import dataclasses
     import pickle
 
     import torch.multiprocessing as mp
@@ -3794,11 +3963,15 @@ def halo_step_phase(pkg, cases: dict, seed: int, work: str) -> None:
     from aimnet_x2d_tpu_torch.checkpoint import params_from_flax
     from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts
     from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
+    from aimnet_x2d_tpu_torch.ops import fused_edge
     from aimnet_x2d_tpu_torch.training import trainer
 
     job, shards = {}, {}
     for tag, (cfg, full) in cases.items():
         job[tag], shards[tag] = halo_step_data(tag, cfg, full, seed)
+    if edge is not None:
+        job["edge-step"], shards["edge-step"] = edge_step_data(*edge, seed)
+        cases = dict(cases, **{"edge-step": edge})
     out_dir = os.path.join(work, "halo-step")
     os.makedirs(out_dir, exist_ok=True)
     job_path = os.path.join(out_dir, "job.pkl")
@@ -3820,15 +3993,19 @@ def halo_step_phase(pkg, cases: dict, seed: int, work: str) -> None:
             r0 = ranks[0][(case, tag)]
             same = all(r[(case, tag)]["params_digest"] == r0["params_digest"]
                        and r[(case, tag)]["grads_digest"] == r0["grads_digest"] for r in ranks)
-            launches = [r[(case, tag)]["launches"] for r in ranks]
+            want = STEP_LAUNCHES[case]
+            launches = [{k: r[(case, tag)]["launches"][k] for k in want} for r in ranks]
             # the single-rank step on the card: each data shard whole
             # (binned when its molecules fit a bin, else flat), gradients
             # weighted by its molecules
-            model = pkg.models.gnn.GNN(c)
+            model = pkg.models.gnn.GNN(dataclasses.replace(c, graph_axis=None))
             model.load_state_dict(params_from_flax(flat))
             model.to("cuda").train()
             ref, loss_sum, n_sum = {}, 0.0, 0.0
             binned = cases[case][1].sizes()["atoms"].max() <= 256
+            edge_kernels = (fused_edge.fused_edge_fwd, fused_edge.fused_edge_bwd)
+            for k in edge_kernels:
+                k.launches = 0
             for s in shards[case]:
                 b = (bin_pack_batch(s) if binned else attach_flat_layouts(s)).to("cuda")
                 model.zero_grad(set_to_none=True)
@@ -3840,24 +4017,46 @@ def halo_step_phase(pkg, cases: dict, seed: int, work: str) -> None:
                         ref[k] = ref.get(k, 0.0) + p.grad.float().cpu() * n
                 loss_sum, n_sum = loss_sum + float(loss.detach()) * n, n_sum + n
             ref = {k: v / n_sum for k, v in ref.items()}
+            ref_edge = [k.launches for k in edge_kernels]
             params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
             errs = {k: float((r0["grads"][k] - g).abs().max()) / grad_scale(k, params, ref, c)
                     for k, g in ref.items()}
             worst = max(errs.items(), key=lambda kv: kv[1])
             loss_rel = abs(r0["loss"] - loss_sum / n_sum) / abs(loss_sum / n_sum)
             tol = HALO_STEP_TOL[dt]
-            ext = [(l["mp_ext_fwd"], l["mp_ext_bwd"]) for l in launches]
-            inject = [(l["inject_fwd"], l["inject_bwd"]) for l in launches]
+            shown = (f"on every rank {launches[0]}" if launches.count(launches[0]) == len(launches)
+                     else f"by rank {launches}")
             print(f"[{case}] {tag}: loss {r0['loss']:.6f} vs single rank {loss_sum / n_sum:.6f} "
                   f"(rel {loss_rel:.2e}); {len(ref)} gradients, worst max|d|/max|ref| "
-                  f"{worst[1]:.3e} ({worst[0]}; tol {tol:g}); molecules {r0['n']:.0f}; kernel 5 "
-                  f"launches per rank (fwd, bwd) {ext}, kernel 4 {inject}; gradients and "
-                  f"parameters bit-identical across ranks: {same}; ranks on "
-                  f"{[r[(case, tag)]['where'] for r in ranks]}", flush=True)
+                  f"{worst[1]:.3e} ({worst[0]}; tol {tol:g}); molecules {r0['n']:.0f}; launches "
+                  f"{shown} (want {want}); the single rank's kernel 7 (fwd, bwd) "
+                  f"{ref_edge}; gradients and parameters bit-identical across ranks: {same}; "
+                  f"ranks on {[r[(case, tag)]['where'] for r in ranks]}", flush=True)
+            # the single rank's flat step runs kernel 7 once a layer, forward
+            # and backward, on each data shard
+            ref_ok = binned or ref_edge == [3 * len(shards[case])] * 2
             if not (loss_rel <= tol and worst[1] <= tol and same and r0["n"] == n_sum
-                    and all(e == (3, 3) for e in ext) and all(i == (0, 0) for i in inject)):
+                    and all(l == want for l in launches) and ref_ok):
                 raise AssertionError(f"[{case}] {tag}: the grid step disagrees with the single "
                                      f"rank or across ranks, or launched the wrong kernels")
+            timed = [r[(case, tag)] for r in ranks if "timer" in r[(case, tag)]]
+            card = card_line() if timed else ""
+            for rank, t in enumerate(timed):
+                device = "not measured" if not t["device_ms"] else f"{t['device_ms']:.3f}"
+                print(f"[{case}] {tag} rank {rank} ({card}): StepTimer "
+                      f"{t['timer']['steps']} steps after a warm-up, host mean "
+                      f"{t['timer']['mean_step_ms']:.3f} ms, p50 {t['timer']['p50_step_ms']:.3f} "
+                      f"ms, {t['timer']['edges_per_sec']:.0f} edges/s (this rank's); one traced "
+                      f"step's device ms {device} ({t['trace_kernels']} kernel events, "
+                      f"{t['trace_edge_agg']} of kernel 7); trace file {t['trace']} "
+                      f"({t['trace_bytes']} bytes); its largest kernels (ms, launches): "
+                      + "; ".join(f"{ms:.3f} x{n} {k[:70]}" for k, (n, ms) in t["trace_top"]),
+                      flush=True)
+                if not t["trace_bytes"] or t["trace_edge_agg"]:
+                    raise AssertionError(f"[{case}] rank {rank}: the trace file is missing or "
+                                         f"empty, or shows kernel 7")
+            if job[case].get("timed") and tag == "bfloat16" and len(timed) != 4:
+                raise AssertionError(f"[{case}] the ranks returned no timing")
             del model
 
 
@@ -4194,7 +4393,7 @@ def halo_phases(pkg, tcfg, ds, full, fl_full, seed: int, work: str, res: dict,
     c3_step = MoleculeDataset.from_smiles(c3_smiles, np.zeros((len(c3_smiles), 1), np.float32),
                                           c3_full.max_hops, FEAT_THREADS)
     halo_step_phase(pkg, {"halo-step": (tcfg, fl_full), "c3-halo-step": (c3_tcfg, c3_step)},
-                    seed, work)
+                    seed, work, edge=(tcfg, fl_full))
     rows = rows_halo_data(tcfg, fl_full, seed)
     first = halo_train_phase(
         pkg, [("halo-train", tcfg, full, "train.csv", HALO_TIMED_STEPS, "1e-3"),
@@ -4720,6 +4919,7 @@ def main() -> int:
     launches["fused_edge_fwd"] = fl_launches["fused_edge_fwd"]  # serving's count
     launches["fused_edge_bwd"] = fl_train["fused_edge_bwd"]
     launches["wseg_sum"] = wseg_launches
+    synthetic_phase(pkg, cfg, args.seed)
     print(f"[time] flat-layout phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # --- true per-hop aggregation: the flagship on the row-major binned

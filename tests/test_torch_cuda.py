@@ -2082,3 +2082,40 @@ def test_hdf5_loader_through_the_prefetch(dev, tmp_path):
         for k, v in arrays.items():
             assert torch.equal(v, torch.from_numpy(np.asarray(getattr(w, k)))), k
     h5.close()
+
+
+def test_set_seed_step_timer_and_trace_on_the_card(dev, tmp_path):
+    """utils/random.set_seed returns a generator on the card, seeded as a
+    fresh one; StepTimer waits for the card's work on its result; trace
+    writes the card's kernels into its file.  The trace is taken in a
+    process of its own: after other profiler sessions in one process the
+    profiler may record no device events (PERF.md, open questions)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from aimnet_x2d_tpu_torch.utils import profiling, set_seed
+
+    gen = set_seed(5)
+    assert gen.device.type == "cuda"
+    x = torch.randn(2048, 2048, generator=gen, device=dev)
+    assert torch.equal(x, torch.randn(2048, 2048, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(5)))
+    timer = profiling.StepTimer()
+    timer.start()
+    y = x @ x
+    dt = timer.stop({"out": [y]}, num_real_edges=10)
+    assert dt > 0 and timer.steps == 1 and timer.summary()["edges_per_sec"] > 0
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (f"import sys, torch; sys.path.insert(0, {root!r})\n"
+            "from aimnet_x2d_tpu_torch.utils import profiling\n"
+            "x = torch.randn(2048, 2048, device='cuda')\n"
+            f"with profiling.trace({str(tmp_path)!r}):\n"
+            "    (x @ x).sum().item()\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+    files = os.listdir(tmp_path)
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

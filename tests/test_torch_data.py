@@ -89,3 +89,18 @@ def test_loader_refuses_molecules_larger_than_a_bin():
     raw = collate(ds.features, ds.targets, num_hops=3)
     with pytest.raises(BinningError, match="272 atoms"):
         bin_pack_batch(raw, ab=loader.bin_ab, mb=loader.bin_mb)
+
+
+def test_size_sorted_bin_pack_refuses_stereo_rows_not_in_halves():
+    """Cis/trans rows come as [originals | reversed] (quirk Q7); the
+    size-sorted packer regroups each half, so an odd count of real rows
+    raises instead of dropping the remainder row; the even count packs."""
+    port = [f for f in _feats(compute_features) if f is not None]
+    raw = collate(port, np.zeros((len(port), 1), np.float32), num_hops=3, graph_slots=20)
+    n = int(raw.trans_mask.sum())
+    assert n >= 2 and n % 2 == 0
+    bin_pack_batch(raw, ab=64, mb=16, size_sort=True)
+    mask = raw.trans_mask.copy()
+    mask[n - 1] = False
+    with pytest.raises(BinningError, match=f"{n - 1} real stereo rows do not split into 2"):
+        bin_pack_batch(dataclasses.replace(raw, trans_mask=mask), ab=64, mb=16, size_sort=True)

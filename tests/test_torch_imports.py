@@ -40,6 +40,17 @@ def test_port_has_modules():
         assert (ROOT / "aimnet_x2d_tpu_torch/csrc" / src).exists()
 
 
+def test_port_has_a_counterpart_of_every_jax_module():
+    """Every module of the JAX package has its namesake in the port; the
+    port's only modules of its own build the kernels and pick the device."""
+    def modules(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix() for p in (ROOT / pkg).rglob("*.py")}
+
+    jax_mods, port_mods = modules("aimnet_x2d_tpu"), modules("aimnet_x2d_tpu_torch")
+    assert jax_mods - port_mods == set()
+    assert port_mods - jax_mods == {"ops/cuda_build.py", "utils/device.py"}
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)

@@ -196,3 +196,22 @@ def test_single_layer_matches_jax(dtype):
         _check(tx.grad, dx_ref, dtype, f"layer {l} dx")
         for k, (w, r) in enumerate(zip(tl, dl_ref)):
             _check(w.grad, r, dtype, f"layer {l} weight {k}")
+
+
+def test_stereo_context_refuses_an_adjacency_entry_past_int8():
+    """One directed cis pair repeated 127 times fills an int8 entry (-127);
+    repeated 128 times (or 128 trans pairs) the entry would wrap in the
+    cast, and the stereo context raises instead."""
+    _, pb = _batches(True)
+    for reps, kind in ((127, "cis"), (128, "cis"), (128, "trans")):
+        pair = getattr(pb, f"{kind}_pairs")[:1]  # a real row; the other list misses its entry
+        rows = pair.repeat(reps, 1)
+        fields = {f"{kind}_pairs": rows, f"{kind}_mask": torch.ones(reps, dtype=torch.bool)}
+        bad = dataclasses.replace(pb, **fields)
+        if reps == 127:
+            src, dst = int(pair[0, 0]), int(pair[0, 1])
+            ab = pb.bin_adj.shape[1]
+            assert int(stereo_context(bad).stereo_adj[dst // ab, dst % ab, src % ab]) == -127
+            continue
+        with pytest.raises(ValueError, match="does not fit int8"):
+            stereo_context(bad)

@@ -10,6 +10,8 @@ in fp32 and differ only in summation order; bf16 max|d|/max|ref| < 5e-2
 activations at the same points but sum in other orders.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from aimnet_x2d_tpu_torch.chem import compute_features
 from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate
 from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
 from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
+from aimnet_x2d_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
 
@@ -101,15 +104,24 @@ def test_atom_embeddings_only_on_request():
     dict(graph_axis="g"), dict(graph_axis="g", use_partial_charges=True, use_stereochemistry=True),
     dict(graph_axis="g", parity_mode=False),
 ])
-def test_unported_paths_raise(kw):
-    """A model with a graph axis on a batch that is no halo shard (the
-    edge-replicated mode, not ported) raises, alone, with config 3 and with
-    true per-hop aggregation (all of which run on halo shards:
-    tests/test_torch_halo_config3.py)."""
+def test_unported_paths_raise(kw, monkeypatch):
+    """A model with a graph axis on a batch that is no halo shard runs the
+    edge-replicated mode, alone, with config 3 and with true per-hop
+    aggregation: outside a rank grid it raises (it never runs quietly as
+    one device); on a one-rank graph axis (the whole batch its one edge
+    shard) it equals the model without the axis.  The ranks' own tests are
+    tests/test_torch_edge_shards.py."""
     cfg = GNNConfig(hidden_dim=32, embedding_dim=4, **kw)
     flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
                                        np.zeros((3, 1)), num_hops=3)).to("cpu")
-    with pytest.raises(NotImplementedError):
-        model = GNN(cfg)
-        model.load_state_dict(params_from_flax(init_params(cfg, seed=0)))
+    weights = params_from_flax(init_params(cfg, seed=0))
+    model = GNN(cfg)
+    model.load_state_dict(weights)
+    with pytest.raises(RuntimeError, match="make_grid has not run"):
         model(flat)
+    monkeypatch.setitem(mesh._AXES, "g", mesh.Axis("g", 1, 0, None))
+    plain = GNN(dataclasses.replace(cfg, graph_axis=None))
+    plain.load_state_dict(weights)
+    with torch.no_grad():
+        np.testing.assert_allclose(model(flat).predictions.numpy(),
+                                   plain(flat).predictions.numpy(), rtol=2e-5, atol=1e-6)

@@ -45,6 +45,7 @@ from aimnet_x2d_tpu_torch.chem import compute_features
 from aimnet_x2d_tpu_torch.data.batching import attach_flat_layouts, collate
 from aimnet_x2d_tpu_torch.data.binning import bin_pack_batch
 from aimnet_x2d_tpu_torch.models.gnn import GNN, GNNConfig
+from aimnet_x2d_tpu_torch.parallel import mesh
 from aimnet_x2d_tpu_torch.training import trainer
 
 torch.set_num_threads(1)
@@ -280,14 +281,23 @@ def test_true_multi_hop_cli_trains_and_serves_both_layouts(tmp_path):
         np.testing.assert_allclose(g["y"].to_numpy(), r["y"].to_numpy(), rtol=5e-4, atol=5e-5)
 
 
-def test_graph_axis_still_raises():
+def test_graph_axis_still_raises(monkeypatch):
     """A per-hop model with a graph axis builds (it runs on halo shards:
     tests/test_torch_halo_config3.py); on a batch that is no halo shard it
-    would be the edge-replicated mode, which still raises."""
+    is the edge-replicated mode, which raises outside a rank grid and on a
+    one-rank graph axis equals the per-hop model without it (the same
+    per-hop sums)."""
     cfg = dataclasses.replace(GNNConfig(**_kw()), graph_axis="g")
+    weights = params_from_flax(init_params(cfg, seed=0))
     model = GNN(cfg)
-    model.load_state_dict(params_from_flax(init_params(cfg, seed=0)))
+    model.load_state_dict(weights)
     flat = attach_flat_layouts(collate([compute_features(s, 3) for s in SMILES[:3]],
                                        np.zeros((3, 1)), num_hops=3)).to("cpu")
-    with pytest.raises(NotImplementedError, match="without halo shards"):
+    with pytest.raises(RuntimeError, match="no grid axis 'g'"):
         model(flat)
+    monkeypatch.setitem(mesh._AXES, "g", mesh.Axis("g", 1, 0, None))
+    plain = GNN(dataclasses.replace(cfg, graph_axis=None))
+    plain.load_state_dict(weights)
+    with torch.no_grad():
+        np.testing.assert_array_equal(model(flat).predictions.numpy(),
+                                      plain(flat).predictions.numpy())

@@ -1,4 +1,5 @@
-"""One rank of the port's multi-rank halo tests (tests/test_torch_halo_ranks.py).
+"""One rank of the port's multi-rank graph-axis tests (tests/test_torch_halo_ranks.py,
+tests/test_torch_halo_config3.py, tests/test_torch_edge_shards.py).
 
     python tests/torch_halo_worker.py RANK WORLD PORT JOB.pkl OUT_DIR
 
@@ -12,7 +13,15 @@ this rank's shard of the job's stacked host batches:
   one stacked batch or a dict of them, which the batch key picks from;
 - ``step``: one train step of the grid (parallel/graph_parallel.py) with
   Adam at the job's learning rate; the loss, the molecule count and the
-  updated parameters (flax names) saved.
+  updated parameters (flax names) saved;
+- ``edge_step``: for each entry of ``steps`` (config, flax parameters,
+  learning rate, dropout seed or None) one train step of the grid from
+  those parameters, the dropout generator seeded ``seed +
+  trainer.DATA_SEED_STRIDE * data index`` as ``trainer.train`` seeds it;
+  the list of (loss, molecule count, updated parameters) saved.
+
+A configuration with ``graph_axis`` set runs edge-replicated on batches
+without halo arrays (data/batching.py ``shard_edges``).
 
 Writes ``OUT_DIR/rank{RANK}.pkl``.
 """
@@ -60,15 +69,24 @@ def main() -> None:
                 if o.partial_charges is not None:
                     out[f"{name}/charges"] = o.partial_charges.numpy()
         else:
-            cfg = job["cfg"]
-            model = GNN(cfg)
-            model.load_state_dict(params_from_flax(job["params"]))
-            tc = trainer.TrainConfig(learning_rate=job["lr"], task_type=cfg.task_type)
-            opt = trainer.make_optimizer(model, tc)
-            loss, n = trainer.train_step(model, opt, batch, job["lr"], trainer.make_loss_fn(tc),
-                                         grid=grid)
-            out = {"loss": float(loss), "n": float(n),
-                   "params": params_to_flax(model.state_dict(), cfg)}
+            def step(cfg, flat, lr, seed=None):
+                model = GNN(cfg)
+                model.load_state_dict(params_from_flax(flat))
+                tc = trainer.TrainConfig(learning_rate=lr, task_type=cfg.task_type)
+                opt = trainer.make_optimizer(model, tc)
+                gen = None
+                if seed is not None:
+                    gen = torch.Generator().manual_seed(
+                        seed + trainer.DATA_SEED_STRIDE * grid.data.index)
+                loss, n = trainer.train_step(model, opt, batch, lr, trainer.make_loss_fn(tc),
+                                             generator=gen, grid=grid)
+                return {"loss": float(loss), "n": float(n),
+                        "params": params_to_flax(model.state_dict(), cfg)}
+
+            if job["kind"] == "edge_step":
+                out = [step(*spec) for spec in job["steps"]]
+            else:
+                out = step(job["cfg"], job["params"], job["lr"])
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
         multihost.sync()
